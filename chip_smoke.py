@@ -1,0 +1,477 @@
+#!/usr/bin/env python3
+"""End-to-end check of the PyTorch/CUDA port (vacnic_tpu_torch) on one GPU.
+
+    python3 chip_smoke.py                     # every phase, one card
+    python3 chip_smoke.py --phases build,kernels
+
+Phases:
+  build    compile kernels/csrc/*.cu (one nvcc per source, in parallel).
+  kernels  each CUDA kernel against its plain PyTorch twin on the card at
+           the main path's shapes: max error against a stated tolerance,
+           its time, the plain twin's time, its bound (bytes or operations
+           over the H100's peak rate) and, where one PyTorch call computes
+           the same function, that call's time (timed here only; the port
+           never calls it).
+  stacks   full-width fused encoder and decode step (random weights) against
+           the layer-by-layer references on a small batch.
+  slice    VacnicConfig.full_train(), random bf16 weights from seed 0,
+           synthetic_batch(32): generate_mm on cuda, beam 5 x max_length 50
+           x length penalty 2.0 with min_length 49. Launch counts are zeroed
+           just before this run and read just after; every kernel must have
+           launched. Checks finite scores and a mean caption length >= 45.
+  profile  the fused encoder alone, then one more slice run under
+           torch.profiler: device time by kernel family, busy/idle share.
+
+Prints the card's name and power limit (nvidia-smi), a JSON line with every
+kernel, and last `{"ok": true, "device": {...}}`. Exits non-zero, printing
+no result, when a phase fails or there is no CUDA device. Long logs go to
+chiprun_out/chip_smoke/.
+
+Tolerances: bf16 outputs are held to |err| <= 2e-2 + 2e-2 * |plain| (one
+bf16 rounding of values up to a few units, plus f32 sum-order noise);
+f32 outputs of the GEMM and LayerNorm to |err| <= 2e-3 + 2e-3 * |plain|.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+import time
+
+PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
+PEAK_F32_FLOPS = 67e12    # outside the tensor cores
+PEAK_BYTES = 3.35e12      # HBM3
+OUT_DIR = os.path.join("chiprun_out", "chip_smoke")
+
+SOURCES = {
+    "gemm_bf16": "vacnic_tpu_torch/kernels/csrc/gemm_bf16.cu",
+    "layernorm": "vacnic_tpu_torch/kernels/csrc/layernorm.cu",
+    "enc_self_attention": "vacnic_tpu_torch/kernels/csrc/enc_attention.cu",
+    "enc_cross_attention": "vacnic_tpu_torch/kernels/csrc/enc_attention.cu",
+    "dec_self_attention": "vacnic_tpu_torch/kernels/csrc/dec_attention.cu",
+    "dec_cross_attention": "vacnic_tpu_torch/kernels/csrc/dec_attention.cu",
+}
+REPLACES = {
+    "gemm_bf16": "vacnic_tpu/kernels/encoder_stack.py:103 (_kernel matmuls); "
+                 "vacnic_tpu/kernels/decode_layer.py:136 (_kernel matmuls)",
+    "layernorm": "vacnic_tpu/kernels/encoder_stack.py:139 (ln); "
+                 "vacnic_tpu/kernels/decode_layer.py:235 (ln)",
+    "enc_self_attention": "vacnic_tpu/kernels/encoder_stack.py:160 (self-attention)",
+    "enc_cross_attention": "vacnic_tpu/kernels/encoder_stack.py:197 (cross-attention)",
+    "dec_self_attention": "vacnic_tpu/kernels/decode_layer.py:314 (_self_attn)",
+    "dec_cross_attention": "vacnic_tpu/kernels/decode_layer.py:499 (_cross_attn)",
+}
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def gpu_line() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], stdout=subprocess.PIPE,
+                         stderr=subprocess.STDOUT, text=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, reps: int, warmup: int = 2) -> float:
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound(byts: float, ops: float, peak_ops: float = PEAK_BF16_FLOPS):
+    t_bytes, t_ops = byts / PEAK_BYTES, ops / peak_ops
+    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
+
+
+# ---------------------------------------------------------------------------
+# kernels phase
+# ---------------------------------------------------------------------------
+
+def kernel_cases():
+    """(name, kernel, call, plain call, bytes, ops, peak, library call or None,
+    bf16 output?) at the main path's shapes."""
+    import torch
+    import torch.nn.functional as Fn
+
+    from vacnic_tpu_torch.kernels import primitives as K
+
+    dev = "cuda"
+    g = torch.Generator(device=dev)
+    g.manual_seed(1234)
+    bf = torch.bfloat16
+
+    def rn(*shape, std=1.0, dtype=torch.float32):
+        return (torch.randn(shape, generator=g, device=dev) * std).to(dtype)
+
+    cases = []
+    d, F = 1024, 4096
+    for tag, m in (("enc", 32 * 512), ("dec", 160)):
+        for sub, k, n, act, res, out in (("qkv", d, 3 * d, None, False, bf),
+                                         ("fc1", d, F, K.GELU, False, bf),
+                                         ("fc2", F, d, None, True, torch.float32)):
+            a, w, b = rn(m, k, dtype=bf), rn(k, n, std=0.02, dtype=bf), rn(n, std=0.02)
+            r = rn(m, n) if res else None
+            byts = (m * k + k * n) * 2 + n * 4 + (m * n * 4 if res else 0) + m * n * out.itemsize
+            lib = (lambda a=a, w=w, b=b: torch.addmm(b.to(bf), a, w)) if sub == "qkv" else None
+            cases.append((f"gemm_bf16 {tag} {sub} M={m} K={k} N={n}", "gemm_bf16",
+                          lambda a=a, w=w, b=b, r=r, act=act, out=out: K.gemm(a, w, b, r, act, out),
+                          lambda a=a, w=w, b=b, r=r, act=act, out=out:
+                          K.gemm_plain(a, w, b, r, act, out),
+                          byts, 2.0 * m * n * k, PEAK_BF16_FLOPS, lib, out == bf))
+    for rows in (32 * 512, 160):
+        x = rn(rows, d)
+        gb = torch.stack([1 + rn(d, std=0.1), rn(d, std=0.1)]).contiguous()
+        cases.append((f"layernorm rows={rows} d={d}", "layernorm",
+                      lambda x=x, gb=gb: K.layernorm(x, gb, bf)[0],
+                      lambda x=x, gb=gb: K.layernorm_plain(x, gb, bf)[0],
+                      rows * d * (4 + 4 + 2) + 2 * d * 4, 8.0 * rows * d, PEAK_F32_FLOPS,
+                      lambda x=x, gb=gb: Fn.layer_norm(x, (d,), gb[0], gb[1]), False))
+
+    H, B, S, KV = 16, 8, 512, 40
+    qkv = rn(B * S, 3 * d, dtype=bf)
+    keep = torch.arange(S, device=dev)[None, :] < torch.randint(S // 2, S + 1, (B, 1), device=dev,
+                                                                generator=g)
+    sbias = torch.where(keep, 0.0, torch.finfo(torch.float32).min).float().contiguous()
+    clamped = sbias.clamp(min=float(torch.finfo(bf).min))
+    q4 = qkv.view(B, S, 3, H, 64)
+    mask = keep[:, None, None, :]
+    cases.append((f"enc_self_attention B={B} S={S} H={H}", "enc_self_attention",
+                  lambda: K.enc_self_attention(qkv, clamped, B, S, H),
+                  lambda: K.enc_self_attention_plain(qkv, clamped, B, S, H),
+                  B * S * 4 * d * 2 + B * S * 4, 4.0 * B * H * S * S * 64, PEAK_BF16_FLOPS,
+                  lambda: Fn.scaled_dot_product_attention(
+                      q4[:, :, 0].transpose(1, 2), q4[:, :, 1].transpose(1, 2),
+                      q4[:, :, 2].transpose(1, 2), attn_mask=mask), True))
+    q = rn(B * S, d, dtype=bf)
+    ck, cv = rn(B, d, KV, dtype=bf), rn(B, KV, d, dtype=bf)
+    cases.append((f"enc_cross_attention B={B} S={S} KV={KV}", "enc_cross_attention",
+                  lambda: K.enc_cross_attention(q, ck, cv, B, S, H),
+                  lambda: K.enc_cross_attention_plain(q, ck, cv, B, S, H),
+                  (2 * B * S * d + 2 * B * KV * d) * 2, 4.0 * B * S * KV * d, PEAK_BF16_FLOPS,
+                  lambda: Fn.scaled_dot_product_attention(
+                      q.view(B, S, H, 64).transpose(1, 2),
+                      ck.view(B, H, 64, KV).transpose(2, 3), cv.view(B, KV, H, 64).transpose(1, 2)),
+                  True))
+
+    BK, T, B2, beams = 160, 64, 32, 5
+    ck_cache, cv_cache = rn(T, BK, d, dtype=bf), rn(T, BK, d, dtype=bf)
+    qkv_d = rn(BK, 3 * d, dtype=bf)
+    item = torch.arange(BK, device=dev) // beams
+    anc = (item[None, :] * beams + torch.randint(0, beams, (T, BK), device=dev, generator=g)
+           ).to(torch.int32).contiguous()
+    for pos in (0, 31, 49):
+        n_rows = int(torch.unique(torch.arange(pos, device=dev)[:, None] * BK
+                                  + anc[:pos].long()).numel()) if pos else 0
+        byts = BK * 3 * d * 2 + 2 * n_rows * d * 2 + pos * BK * 4 + BK * d * 2
+        cases.append((f"dec_self_attention BK={BK} T={T} pos={pos}", "dec_self_attention",
+                      lambda pos=pos: K.dec_self_attention(qkv_d, ck_cache, cv_cache, anc, pos, H),
+                      lambda pos=pos: K.dec_self_attention_plain(qkv_d, ck_cache, cv_cache, anc,
+                                                                 pos, H),
+                      byts, 4.0 * BK * d * (pos + 1), PEAK_BF16_FLOPS, None, True))
+    qd = rn(BK, d, dtype=bf)
+    ebias = torch.where(torch.arange(S, device=dev)[None, :] < torch.randint(
+        S // 2, S + 1, (B2, 1), device=dev, generator=g), 0.0,
+        torch.finfo(torch.float32).min).float().contiguous()
+    for kind in ("int8", "bf16"):
+        if kind == "int8":
+            kk = torch.randint(-127, 128, (B2, H, 64, S), device=dev, generator=g).to(torch.int8)
+            vv = torch.randint(-127, 128, (B2, H, 64, S), device=dev, generator=g).to(torch.int8)
+            ks, vs = rn(B2, H, 64, std=0.01).abs() + 1e-3, rn(B2, H, 64, std=0.01).abs() + 1e-3
+            lib = None
+        else:
+            kk, vv = rn(B2, H, 64, S, dtype=bf), rn(B2, H, 64, S, dtype=bf)
+            ks = vs = None
+            emask = (ebias > -1)[:, None, None, :]
+            lib = (lambda kk=kk, vv=vv, emask=emask: Fn.scaled_dot_product_attention(
+                qd.view(B2, beams, H, 64).transpose(1, 2), kk.transpose(2, 3),
+                vv.transpose(2, 3), attn_mask=emask))
+        byts = BK * d * 2 * 2 + 2 * kk.numel() * kk.element_size() + B2 * S * 4 + (
+            2 * B2 * H * 64 * 4 if ks is not None else 0)
+        cases.append((f"dec_cross_attention {kind} B={B2} beams={beams} S={S}",
+                      "dec_cross_attention",
+                      lambda kk=kk, vv=vv, ks=ks, vs=vs: K.dec_cross_attention(
+                          qd, kk, vv, ks, vs, ebias, H),
+                      lambda kk=kk, vv=vv, ks=ks, vs=vs: K.dec_cross_attention_plain(
+                          qd, kk, vv, ks, vs, ebias, H),
+                      byts, 4.0 * BK * S * d, PEAK_BF16_FLOPS, lib, True))
+    return cases
+
+
+def run_kernels_phase():
+    import torch
+
+    rows = []
+    failures = []
+    for name, kern, call, plain, byts, ops, peak, lib, bf16_out in kernel_cases():
+        out = call()
+        torch.cuda.synchronize()
+        ref = plain()
+        err = (out.float() - ref.float()).abs()
+        tol_a, tol_r = (2e-2, 2e-2) if bf16_out else (2e-3, 2e-3)
+        ok = bool(torch.isfinite(out.float()).all()) and bool(
+            (err <= tol_a + tol_r * ref.float().abs()).all())
+        reps = 20
+        ms = time_ms(call, reps)
+        plain_ms = time_ms(plain, 5, warmup=1)
+        lib_ms = time_ms(lib, reps) if lib is not None else None
+        b_ms, b_by = bound(byts, ops, peak)
+        row = {"name": name, "kernel": kern, "route": "cuda", "source": SOURCES[kern],
+               "replaces": REPLACES[kern], "launches": None,
+               "max_abs_err": float(err.max()), "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+        rows.append(row)
+        log(f"kernel {name}: max_abs_err {row['max_abs_err']:.3e} "
+            f"(tol {tol_a}+{tol_r}*|plain|) {'ok' if ok else 'FAIL'}; ms {ms:.4f} "
+            f"plain_ms {plain_ms:.4f} bound_ms {b_ms:.4f} ({b_by}) library_ms {lib_ms}")
+        if not ok:
+            failures.append(name)
+    if failures:
+        raise RuntimeError(f"kernels disagree with their plain twins: {failures}")
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# stacks + slice phases
+# ---------------------------------------------------------------------------
+
+def full_model(seed: int = 0):
+    import torch
+
+    from vacnic_tpu_torch.core.config import VacnicConfig
+    from vacnic_tpu_torch.core.rng import make_generator
+    from vacnic_tpu_torch.models.fusion import multimodal_bart_init
+    from vacnic_tpu_torch.models.weights_io import tree_to
+
+    cfg = VacnicConfig.full_train()
+    cfg = dataclasses.replace(cfg, decode=dataclasses.replace(
+        cfg.decode, min_length=cfg.decode.max_length - 1))
+    params = multimodal_bart_init(make_generator(seed, "cuda"), cfg.bart, cfg.fusion,
+                                  device="cuda")
+    return cfg, tree_to(params, dtype=torch.bfloat16)
+
+
+def batch_inputs(cfg, batch_size: int):
+    from vacnic_tpu_torch.data.synthetic import synthetic_batch
+    from vacnic_tpu_torch.train.train_step import create_mask, face_mask_from_emb
+
+    b = {k: v.cuda() for k, v in synthetic_batch(cfg, batch_size=batch_size, seed=0).items()}
+    return dict(input_ids=b["article_ids"], attention_mask=create_mask(b["article_ids"]),
+                image_features=b["image_cls"], face_features=b["face_emb"],
+                face_mask=face_mask_from_emb(b["face_emb"]), name_ids=b["names_art_ids"],
+                name_mask=create_mask(b["names_art_ids"]))
+
+
+def rel_err(a, b) -> float:
+    return float((a.float() - b.float()).abs().max() / b.float().abs().max().clamp(min=1e-6))
+
+
+def run_stacks_phase(cfg, params):
+    """Full width, batch 2: the fused encoder (CUDA text stack) against the
+    layer-by-layer encoder, and three kernel decode steps against the
+    reference decode step, both in bf16 on the card. Tolerance: max error
+    <= 5% of the reference's max magnitude (a bf16 model run two ways)."""
+    import torch
+
+    from vacnic_tpu_torch.infer import decode_fast as DF
+    from vacnic_tpu_torch.models import fusion as F
+    from vacnic_tpu_torch.models.layers import expand_mask
+
+    bf = torch.bfloat16
+    x = batch_inputs(cfg, 2)
+    kw = {k: x[k] for k in ("face_features", "face_mask", "name_ids", "name_mask")}
+    args = (params, x["input_ids"], x["attention_mask"], x["image_features"], cfg.bart,
+            cfg.fusion)
+    with torch.no_grad():
+        fused = F.mm_encoder_fwd_fused(*args, dtype=bf, **kw)["last_hidden"]
+        ref = F.mm_encoder_fwd(*args, dtype=bf, **kw)["last_hidden"]
+        e_enc = rel_err(fused, ref)
+        enc = ref
+        dp = DF.build_decode_params(params, bf)
+        c_ref = DF.build_decode_cache(params, enc, 5, 50, cfg.bart, bf, pad_to=16)
+        c_ker = DF.build_decode_cache(params, enc, 5, 50, cfg.bart, bf, pad_to=16,
+                                      time_major=True)
+        bias = expand_mask(x["attention_mask"], 1)
+        tok = torch.full((10, 1), cfg.bart.decoder_start_token_id, device="cuda")
+        e_dec, agree = 0.0, 1.0
+        for pos in range(3):
+            lr, c_ref = DF.decode_step(dp, params, c_ref, tok, pos, bias, cfg.bart, bf)
+            lk, c_ker = DF.decode_step_kernel(dp, params, c_ker, tok, pos, bias, cfg.bart, bf)
+            e_dec = max(e_dec, rel_err(lk, lr))
+            agree = min(agree, float((lk.argmax(-1) == lr.argmax(-1)).float().mean()))
+            tok = lr.argmax(-1, keepdim=True)
+    log(f"stacks: fused encoder vs layer-by-layer rel err {e_enc:.3e}; kernel decode step vs "
+        f"reference rel err {e_dec:.3e}, argmax agreement {agree:.3f} (tol rel 5e-2)")
+    if not (e_enc <= 5e-2 and e_dec <= 5e-2):
+        raise RuntimeError("full-width stacks disagree with their references")
+
+
+def run_slice_phase(cfg, params, batch_size: int):
+    import torch
+
+    from vacnic_tpu_torch.infer.generate import generate_mm
+    from vacnic_tpu_torch.kernels import primitives as K
+
+    x = batch_inputs(cfg, batch_size)
+
+    def run():
+        seqs, scores = generate_mm(params, cfg=cfg.bart, fcfg=cfg.fusion, dcfg=cfg.decode,
+                                   dtype=torch.bfloat16, device="cuda", **x)
+        torch.cuda.synchronize()
+        return seqs, scores
+
+    run()  # warm-up: allocator, cuBLAS handles
+    K.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    seqs, scores = run()
+    dt = time.perf_counter() - t0
+    counts = K.launch_counts()
+    nonpad = float((seqs != cfg.bart.pad_token_id).sum(dim=1).float().mean())
+    log(f"slice: full_train beam {cfg.decode.num_beams} x {cfg.decode.max_length} x lp "
+        f"{cfg.decode.length_penalty}, batch {batch_size}: {dt:.3f} s, "
+        f"{batch_size / dt:.2f} captions/s, mean non-pad length {nonpad:.1f}, "
+        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {counts}")
+    if tuple(seqs.shape) != (batch_size, cfg.decode.max_length):
+        raise RuntimeError(f"sequences of shape {tuple(seqs.shape)}")
+    if not bool(torch.isfinite(scores).all()):
+        raise RuntimeError("non-finite scores")
+    if nonpad < 0.9 * cfg.decode.max_length:
+        raise RuntimeError(f"mean non-pad length {nonpad:.1f} < 45")
+    missing = [k for k, n in counts.items() if n == 0]
+    if missing:
+        raise RuntimeError(f"kernels never launched on the main path: {missing}")
+    return counts, dt
+
+
+KERNEL_FAMILIES = (("gemm_kernel", "gemm_bf16"), ("layernorm_kernel", "layernorm"),
+                   ("enc_self_attn", "enc_self_attention"),
+                   ("enc_cross_attn", "enc_cross_attention"),
+                   ("dec_self_attn", "dec_self_attention"),
+                   ("dec_cross_attn", "dec_cross_attention"))
+
+
+def run_profile_phase(cfg, params, batch_size: int) -> None:
+    """Where the time of one slice run goes: the fused encoder alone (CUDA
+    events), then one generate_mm under torch.profiler -- device time by
+    kernel family (the port's kernels vs PyTorch's own), the device's busy
+    and idle share of the wall time. Full table: chiprun_out/chip_smoke/
+    profile.txt."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from vacnic_tpu_torch.infer.generate import generate_mm
+    from vacnic_tpu_torch.models import fusion as F
+
+    x = batch_inputs(cfg, batch_size)
+    kw = {k: x[k] for k in ("face_features", "face_mask", "name_ids", "name_mask")}
+    with torch.no_grad():
+        enc_ms = time_ms(lambda: F.mm_encoder_fwd_fused(
+            params, x["input_ids"], x["attention_mask"], x["image_features"], cfg.bart,
+            cfg.fusion, dtype=torch.bfloat16, **kw), reps=3, warmup=1)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        generate_mm(params, cfg=cfg.bart, fcfg=cfg.fusion, dcfg=cfg.decode,
+                    dtype=torch.bfloat16, device="cuda", **x)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name: dict[str, list[float]] = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name.setdefault(e.name, []).append(e.time_range.elapsed_us() / 1e3)
+    busy_ms = sum(sum(v) for v in by_name.values())
+    fam: dict[str, float] = {}
+    for name, times in by_name.items():
+        key = next((f for pat, f in KERNEL_FAMILIES if pat in name), "pytorch (other)")
+        fam[key] = fam.get(key, 0.0) + sum(times)
+    rows = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))
+    with open(os.path.join(OUT_DIR, "profile.txt"), "w") as f:
+        f.write(f"wall_ms {wall_ms:.3f} device_busy_ms {busy_ms:.3f} encoder_ms {enc_ms:.3f}\n")
+        for name, times in rows:
+            f.write(f"{sum(times):10.3f} ms {len(times):7d} x  {name[:160]}\n")
+    fams = ", ".join(f"{k} {v:.1f} ms" for k, v in sorted(fam.items(), key=lambda kv: -kv[1]))
+    if busy_ms == 0:
+        log(f"profile: wall {wall_ms:.1f} ms, encoder {enc_ms:.1f} ms; the profiler saw no "
+            "device activity (device time not measured)")
+        return
+    log(f"profile: batch {batch_size} wall {wall_ms:.1f} ms, fused encoder alone {enc_ms:.1f} "
+        f"ms; device busy {busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}% of wall, idle "
+        f"{100 * (1 - busy_ms / wall_ms):.1f}%); by family: {fams}")
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--phases", default="build,kernels,stacks,slice,profile")
+    ap.add_argument("--batch", type=int, default=32)
+    args = ap.parse_args()
+    phases = set(args.phases.split(","))
+
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: torch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; the port's kernels run only on the GPU",
+              file=sys.stderr)
+        return 2
+    try:
+        from vacnic_tpu_torch.kernels import _build
+    except ImportError as e:
+        print(f"chip_smoke: the vacnic_tpu_torch package is missing ({e})", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.makedirs(OUT_DIR, exist_ok=True)
+    gpu = gpu_line()
+    log(f"gpu: {gpu}; torch {torch.__version__} cuda {torch.version.cuda}; "
+        f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
+
+    t0 = time.perf_counter()
+    _build.lib()
+    log(f"build: {time.perf_counter() - t0:.1f} s -> {_build.library_path().name}")
+    with open(os.path.join(OUT_DIR, "build.log"), "w") as f:
+        f.write("\n".join(_build.BUILD_LOG))
+
+    rows = run_kernels_phase() if "kernels" in phases else []
+    counts = {}
+    if phases & {"stacks", "slice", "profile"}:
+        cfg, params = full_model()
+        if "stacks" in phases:
+            run_stacks_phase(cfg, params)
+        if "slice" in phases:
+            counts, _ = run_slice_phase(cfg, params, args.batch)
+        if "profile" in phases:
+            run_profile_phase(cfg, params, args.batch)
+    for row in rows:
+        row["launches"] = counts.get(row.pop("kernel"))
+    if not rows:
+        rows = [{"name": k, "route": "cuda", "source": SOURCES[k], "replaces": REPLACES[k],
+                 "launches": n} for k, n in counts.items()]
+    with open(os.path.join(OUT_DIR, "kernels.json"), "w") as f:
+        json.dump(rows, f, indent=1)
+    print(json.dumps({"kernels": rows}))
+    print(gpu_line())
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,90 @@
+"""Contract of the port: it imports neither jax nor vacnic_tpu, its entry
+point refuses to run silently on the CPU, and chip_smoke.py fails where
+there is no GPU or no package beside it."""
+
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parents[1]
+
+IMPORT_ALL = r"""
+import importlib, pkgutil, runpy, sys
+import vacnic_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(vacnic_tpu_torch.__path__, "vacnic_tpu_torch.")]
+for n in names:
+    importlib.import_module(n)
+runpy.run_path("chip_smoke.py", run_name="chip_smoke_imported")
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "vacnic_tpu"
+             or m.startswith("vacnic_tpu."))
+print("MODULES", len(names))
+print("BAD", bad)
+"""
+
+
+def _env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(REPO)
+    return env
+
+
+def test_port_imports_no_jax():
+    out = subprocess.run([sys.executable, "-c", IMPORT_ALL], cwd=REPO, env=_env(),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "BAD []" in out.stdout, out.stdout
+    n = int(out.stdout.split("MODULES")[1].split()[0])
+    assert n >= 20  # every subpackage's modules were walked
+
+
+def test_generate_mm_needs_explicit_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid here")
+    from vacnic_tpu_torch.core.config import VacnicConfig
+    from vacnic_tpu_torch.infer.generate import generate_mm, resolve_device
+
+    cfg = VacnicConfig.tiny()
+    ids = torch.ones(1, 4, dtype=torch.int64)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        generate_mm({}, ids, ids, torch.zeros(1, 32), cfg.bart, cfg.fusion, cfg.decode)
+    with pytest.raises(RuntimeError):
+        resolve_device("cuda")
+    assert resolve_device("cpu").type == "cpu"
+
+
+def test_chip_smoke_fails_without_gpu(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=REPO, env=_env(),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout
+
+
+def test_chip_smoke_fails_alone(tmp_path):
+    """In a directory holding chip_smoke.py and nothing else of the repo."""
+    shutil.copy(REPO / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout
+
+
+def test_kernel_build_refuses_without_nvcc(monkeypatch, tmp_path):
+    """Without a CUDA toolkit the build raises instead of falling back."""
+    from vacnic_tpu_torch.kernels import _build
+
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(_build, "NVCC_FALLBACKS", ())
+    monkeypatch.setattr(_build, "library_path", lambda: tmp_path / "missing.so")
+    with pytest.raises(RuntimeError, match="nvcc"):
+        _build.build()
+    names = {p.name for p in _build._sources()}
+    assert names == {"gemm_bf16.cu", "layernorm.cu", "enc_attention.cu", "dec_attention.cu"}

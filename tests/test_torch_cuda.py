@@ -1,0 +1,101 @@
+"""The port's CUDA kernels against their plain twins on the card, at small
+shapes the kernels accept (head_dim 64). Marked `cuda`: they skip where
+torch sees no CUDA device; on a GPU machine run
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
+
+(`--noconftest`: the suite's conftest imports jax, which a GPU machine
+need not have).
+
+Tolerance: bf16 outputs within 2e-2 + 2e-2 * |plain| (one bf16 rounding),
+f32 outputs within 2e-3 + 2e-3 * |plain| (sum order)."""
+
+import pytest
+import torch
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(scope="module")
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def close(out, ref, bf16: bool):
+    a, r = (2e-2, 2e-2) if bf16 else (2e-3, 2e-3)
+    err = (out.float() - ref.float()).abs()
+    assert bool((err <= a + r * ref.float().abs()).all()), float(err.max())
+
+
+def rn(g, *shape, std=1.0, dtype=torch.float32):
+    return (torch.randn(shape, generator=g, device="cuda") * std).to(dtype)
+
+
+def test_gemm_and_layernorm(dev):
+    from vacnic_tpu_torch.kernels import primitives as K
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    for m in (37, 2048):
+        a, w, b = rn(g, m, 256, dtype=torch.bfloat16), rn(g, 256, 384, std=0.05,
+                                                         dtype=torch.bfloat16), rn(g, 384)
+        r = rn(g, m, 384)
+        close(K.gemm(a, w, b, act=K.GELU, out_dtype=torch.bfloat16),
+              K.gemm_plain(a, w, b, act=K.GELU, out_dtype=torch.bfloat16), True)
+        close(K.gemm(a, w, b, residual=r), K.gemm_plain(a, w, b, residual=r), False)
+        gb = torch.stack([rn(g, 384), rn(g, 384)]).contiguous()
+        y32, y16 = K.layernorm(r, gb, torch.bfloat16)
+        p32, p16 = K.layernorm_plain(r, gb, torch.bfloat16)
+        close(y32, p32, False)
+        close(y16, p16, True)
+
+
+def test_attention_kernels(dev):
+    from vacnic_tpu_torch.kernels import primitives as K
+
+    g = torch.Generator(device=dev).manual_seed(1)
+    bf = torch.bfloat16
+    B, S, H, KV = 2, 128, 4, 24
+    d = H * 64
+    qkv = rn(g, B * S, 3 * d, dtype=bf)
+    bias = torch.zeros(B, S, device=dev)
+    bias[1, 100:] = torch.finfo(bf).min
+    close(K.enc_self_attention(qkv, bias, B, S, H),
+          K.enc_self_attention_plain(qkv, bias, B, S, H), True)
+    q, ck, cv = rn(g, B * S, d, dtype=bf), rn(g, B, d, KV, dtype=bf), rn(g, B, KV, d, dtype=bf)
+    close(K.enc_cross_attention(q, ck, cv, B, S, H),
+          K.enc_cross_attention_plain(q, ck, cv, B, S, H), True)
+
+    beams, T = 3, 16
+    bk = B * beams
+    cache_k, cache_v = rn(g, T, bk, d, dtype=bf), rn(g, T, bk, d, dtype=bf)
+    group = torch.arange(bk, device=dev) // beams * beams
+    anc = (group[None] + torch.randint(0, beams, (T, bk), device=dev, generator=g)).int()
+    qkv_d = rn(g, bk, 3 * d, dtype=bf)
+    for pos in (0, 5, T - 1):
+        close(K.dec_self_attention(qkv_d, cache_k, cache_v, anc, pos, H),
+              K.dec_self_attention_plain(qkv_d, cache_k, cache_v, anc, pos, H), True)
+    qd = rn(g, bk, d, dtype=bf)
+    ebias = torch.zeros(B, S, device=dev)
+    ebias[0, 90:] = torch.finfo(torch.float32).min
+    kb, vb = rn(g, B, H, 64, S, dtype=bf), rn(g, B, H, 64, S, dtype=bf)
+    close(K.dec_cross_attention(qd, kb, vb, None, None, ebias, H),
+          K.dec_cross_attention_plain(qd, kb, vb, None, None, ebias, H), True)
+    k8 = torch.randint(-127, 128, (B, H, 64, S), device=dev, generator=g).to(torch.int8)
+    v8 = torch.randint(-127, 128, (B, H, 64, S), device=dev, generator=g).to(torch.int8)
+    ks, vs = rn(g, B, H, 64).abs() * 0.01 + 1e-3, rn(g, B, H, 64).abs() * 0.01 + 1e-3
+    close(K.dec_cross_attention(qd, k8, v8, ks, vs, ebias, H),
+          K.dec_cross_attention_plain(qd, k8, v8, ks, vs, ebias, H), True)
+
+
+def test_launch_counts_move(dev):
+    from vacnic_tpu_torch.kernels import primitives as K
+
+    K.reset_launch_counts()
+    a = torch.zeros(64, 64, device=dev, dtype=torch.bfloat16)
+    K.gemm(a, a)
+    K.gemm_plain(a, a)
+    assert K.launch_counts()["gemm_bf16"] == 1

@@ -1,0 +1,295 @@
+"""The CUDA kernels' Python wrappers and their plain-PyTorch twins.
+
+Every wrapper dispatches on the device of its tensors: CPU tensors take the
+`*_plain` twin; CUDA tensors are checked (device, dtype, shape, contiguity),
+outputs are allocated with torch.empty, the kernel is launched on the
+current stream and its launch count goes up by one; any other tensor
+raises. There is no fallback from a CUDA tensor to the plain twin.
+
+The plain twins define the semantics the kernels are held to: the dtype of
+the inputs is the matmul dtype (bf16 on the card, f32 in the CPU tests),
+products accumulate in f32, q is rounded to that dtype after scaling and
+probabilities before the value product. In f32 every rounding is a no-op.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+KERNELS = ("gemm_bf16", "layernorm", "enc_self_attention", "enc_cross_attention",
+           "dec_self_attention", "dec_cross_attention")
+LAUNCHES: dict[str, int] = {k: 0 for k in KERNELS}
+
+GELU = "gelu"
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def launch_counts() -> dict[str, int]:
+    return dict(LAUNCHES)
+
+
+# ---------------------------------------------------------------------------
+# launch plumbing
+# ---------------------------------------------------------------------------
+
+def _on_cpu(t: torch.Tensor) -> bool:
+    if t.device.type == "cpu":
+        return True
+    if t.device.type == "cuda":
+        return False
+    raise RuntimeError(f"unsupported device {t.device}: the kernels take cuda tensors, "
+                       "their plain twins cpu tensors")
+
+
+def _req(t: torch.Tensor, name: str, dtype, shape=None, device=None) -> None:
+    if not t.is_cuda:
+        raise ValueError(f"{name}: expected a cuda tensor, got {t.device}")
+    if device is not None and t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
+def _p(t: torch.Tensor | None) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr() if t is not None else None)
+
+
+def _stream() -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+
+def _launch(name: str, fn: str, *args) -> None:
+    from vacnic_tpu_torch.kernels._build import lib
+
+    rc = getattr(lib(), fn)(*args, _stream())
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError {rc}")
+    LAUNCHES[name] += 1
+
+
+# ---------------------------------------------------------------------------
+# GEMM with fused epilogue
+# ---------------------------------------------------------------------------
+
+def gemm_plain(a, w, bias=None, residual=None, act=None, out_dtype=torch.float32):
+    y = torch.matmul(a.float(), w.float())
+    if bias is not None:
+        y = y + bias.float()
+    if act == GELU:
+        y = torch.nn.functional.gelu(y, approximate="none")
+    if residual is not None:
+        y = y + residual.float()
+    return y.to(out_dtype)
+
+
+def gemm(a, w, bias=None, residual=None, act=None, out_dtype=torch.float32):
+    """epilogue(a [M, K] @ w [K, N]): + bias [N] f32, exact gelu if
+    act == "gelu", + residual [M, N] f32; out_dtype f32 or bf16."""
+    if _on_cpu(a):
+        return gemm_plain(a, w, bias, residual, act, out_dtype)
+    m, k = a.shape
+    n = w.shape[1]
+    _req(a, "gemm a", torch.bfloat16)
+    _req(w, "gemm w", torch.bfloat16, (k, n), a.device)
+    if bias is not None:
+        _req(bias, "gemm bias", torch.float32, (n,), a.device)
+    if residual is not None:
+        _req(residual, "gemm residual", torch.float32, (m, n), a.device)
+    if act not in (None, GELU) or out_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"gemm: act {act!r}, out_dtype {out_dtype} not supported")
+    if k % 32 or n % 64:
+        raise ValueError(f"gemm: needs K % 32 == 0 and N % 64 == 0, got K={k} N={n}")
+    out = torch.empty(m, n, dtype=out_dtype, device=a.device)
+    _launch("gemm_bf16", "vt_gemm_bf16", _p(a), _p(w), _p(bias), _p(residual), _p(out),
+            m, n, k, int(act == GELU), int(out_dtype == torch.bfloat16))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# LayerNorm
+# ---------------------------------------------------------------------------
+
+def layernorm_plain(x, gb, mm_dtype, eps: float = 1e-5):
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = (xf - mu).square().mean(-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps) * gb[0].float() + gb[1].float()
+    return y, y.to(mm_dtype)
+
+
+def layernorm(x, gb, mm_dtype, eps: float = 1e-5):
+    """Row LayerNorm of x [R, d] f32 with gb [2, d] = (scale, bias) ->
+    (y f32, y in mm_dtype)."""
+    if _on_cpu(x):
+        return layernorm_plain(x, gb, mm_dtype, eps)
+    r, d = x.shape
+    _req(x, "layernorm x", torch.float32)
+    _req(gb, "layernorm gb", torch.float32, (2, d), x.device)
+    if mm_dtype != torch.bfloat16:
+        raise ValueError("layernorm: the kernel writes a bf16 copy")
+    y32 = torch.empty_like(x)
+    y16 = torch.empty(r, d, dtype=torch.bfloat16, device=x.device)
+    _launch("layernorm", "vt_layernorm", _p(x), _p(gb), _p(y32), _p(y16), r, d,
+            ctypes.c_float(eps))
+    return y32, y16
+
+
+# ---------------------------------------------------------------------------
+# Encoder attention
+# ---------------------------------------------------------------------------
+
+def enc_self_attention_plain(qkv, bias, batch: int, seq: int, heads: int):
+    dt = qkv.dtype
+    d = qkv.shape[1] // 3
+    hd = d // heads
+    x = qkv.reshape(batch, seq, 3, heads, hd).permute(2, 0, 3, 1, 4)  # [3, B, H, S, hd]
+    q = (x[0].float() * hd ** -0.5).to(dt)
+    s = torch.einsum("bhtd,bhsd->bhts", q.float(), x[1].float()) + bias.float()[:, None, None, :]
+    p = torch.softmax(s, dim=-1).to(dt)
+    o = torch.einsum("bhts,bhsd->bhtd", p.float(), x[2].float()).to(dt)
+    return o.permute(0, 2, 1, 3).reshape(batch * seq, d)
+
+
+def enc_self_attention(qkv, bias, batch: int, seq: int, heads: int):
+    """qkv [B*S, 3d] (q | k | v), additive pad bias [B, S] f32 -> [B*S, d]."""
+    if _on_cpu(qkv):
+        return enc_self_attention_plain(qkv, bias, batch, seq, heads)
+    d = qkv.shape[1] // 3
+    _req(qkv, "enc_self qkv", torch.bfloat16, (batch * seq, 3 * d))
+    _req(bias, "enc_self bias", torch.float32, (batch, seq), qkv.device)
+    if d != heads * 64 or seq % 64 or seq > 512:
+        raise ValueError(f"enc_self_attention: needs head_dim 64 and S % 64 == 0, S <= 512 "
+                         f"(d={d}, heads={heads}, S={seq})")
+    out = torch.empty(batch * seq, d, dtype=torch.bfloat16, device=qkv.device)
+    _launch("enc_self_attention", "vt_enc_self_attention", _p(qkv), _p(bias), _p(out),
+            batch, seq, heads, ctypes.c_float(64 ** -0.5))
+    return out
+
+
+def enc_cross_attention_plain(q, ck, cv, batch: int, seq: int, heads: int):
+    dt = q.dtype
+    d = q.shape[1]
+    hd = d // heads
+    kv = cv.shape[1]
+    qh = (q.reshape(batch, seq, heads, hd).float() * hd ** -0.5).to(dt)
+    k = ck.reshape(batch, heads, hd, kv)
+    v = cv.reshape(batch, kv, heads, hd)
+    s = torch.einsum("bshd,bhdk->bhsk", qh.float(), k.float())
+    p = torch.softmax(s, dim=-1).to(dt)
+    o = torch.einsum("bhsk,bkhd->bshd", p.float(), v.float()).to(dt)
+    return o.reshape(batch * seq, d)
+
+
+def enc_cross_attention(q, ck, cv, batch: int, seq: int, heads: int):
+    """q [B*S, d], ck [B, d, KV] (pre-transposed keys), cv [B, KV, d] -> [B*S, d]."""
+    if _on_cpu(q):
+        return enc_cross_attention_plain(q, ck, cv, batch, seq, heads)
+    d = q.shape[1]
+    kv = cv.shape[1]
+    _req(q, "enc_cross q", torch.bfloat16, (batch * seq, d))
+    _req(ck, "enc_cross k", torch.bfloat16, (batch, d, kv), q.device)
+    _req(cv, "enc_cross v", torch.bfloat16, (batch, kv, d), q.device)
+    if d != heads * 64 or kv > 64:
+        raise ValueError(f"enc_cross_attention: needs head_dim 64 and KV <= 64 (d={d}, KV={kv})")
+    out = torch.empty_like(q)
+    _launch("enc_cross_attention", "vt_enc_cross_attention", _p(q), _p(ck), _p(cv), _p(out),
+            batch, seq, kv, heads, ctypes.c_float(64 ** -0.5))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Decoder attention
+# ---------------------------------------------------------------------------
+
+def dec_self_attention_plain(qkv, cache_k, cache_v, anc, pos: int, heads: int):
+    dt = qkv.dtype
+    bk = qkv.shape[0]
+    d = qkv.shape[1] // 3
+    hd = d // heads
+    rows = anc[:pos].long()  # [pos, BK] physical row of each beam row's step t
+    t_ids = torch.arange(pos, device=qkv.device)[:, None]
+    kg = torch.cat([cache_k[t_ids, rows], qkv[None, :, d:2 * d]], dim=0)  # [pos+1, BK, d]
+    vg = torch.cat([cache_v[t_ids, rows], qkv[None, :, 2 * d:]], dim=0)
+    q = (qkv[:, :d].float() * hd ** -0.5).to(dt).reshape(bk, heads, hd)
+    s = torch.einsum("bhd,tbhd->bht", q.float(), kg.reshape(pos + 1, bk, heads, hd).float())
+    p = torch.softmax(s, dim=-1).to(dt)
+    o = torch.einsum("bht,tbhd->bhd", p.float(), vg.reshape(pos + 1, bk, heads, hd).float())
+    return o.to(dt).reshape(bk, d)
+
+
+def dec_self_attention(qkv, cache_k, cache_v, anc, pos: int, heads: int):
+    """One step of self-attention: qkv [BK, 3d] of this step, the layer's
+    write-once cache [T, BK, d], ancestry anc [T, BK] int32. Rows t < pos
+    are read from row anc[t, c]; the step's own K/V (t == pos) from qkv."""
+    if _on_cpu(qkv):
+        return dec_self_attention_plain(qkv, cache_k, cache_v, anc, pos, heads)
+    bk = qkv.shape[0]
+    d = qkv.shape[1] // 3
+    t_len = cache_k.shape[0]
+    _req(qkv, "dec_self qkv", torch.bfloat16, (bk, 3 * d))
+    _req(cache_k, "dec_self cache_k", torch.bfloat16, (t_len, bk, d), qkv.device)
+    _req(cache_v, "dec_self cache_v", torch.bfloat16, (t_len, bk, d), qkv.device)
+    _req(anc, "dec_self anc", torch.int32, (t_len, bk), qkv.device)
+    if d != heads * 64 or heads % 4 or not 0 <= pos < t_len:
+        raise ValueError(f"dec_self_attention: needs head_dim 64, heads % 4 == 0, "
+                         f"0 <= pos < T (d={d}, heads={heads}, pos={pos}, T={t_len})")
+    out = torch.empty(bk, d, dtype=torch.bfloat16, device=qkv.device)
+    _launch("dec_self_attention", "vt_dec_self_attention", _p(qkv), _p(cache_k), _p(cache_v),
+            _p(anc), _p(out), bk, t_len, heads, int(pos), ctypes.c_float(64 ** -0.5))
+    return out
+
+
+def dec_cross_attention_plain(q, ck, cv, ck_scale, cv_scale, enc_bias, heads: int):
+    dt = q.dtype
+    bk, d = q.shape
+    b, _, hd, s_len = ck.shape
+    beams = bk // b
+    qh = (q.float() * hd ** -0.5).to(dt).reshape(b, beams, heads, hd)
+    if ck_scale is not None:
+        qh = (qh.float() * ck_scale.float()[:, None]).to(dt)
+    s = torch.einsum("bkhd,bhds->bkhs", qh.float(), ck.float())
+    s = s + enc_bias.float()[:, None, None, :]
+    p = torch.softmax(s, dim=-1).to(dt)
+    o = torch.einsum("bkhs,bhds->bkhd", p.float(), cv.float())
+    if cv_scale is not None:
+        o = o * cv_scale.float()[:, None]
+    return o.to(dt).reshape(bk, d)
+
+
+def dec_cross_attention(q, ck, cv, ck_scale, cv_scale, enc_bias, heads: int):
+    """q [BK, d] (beams of item b are rows b*K..b*K+K-1), K/V [B, H, hd, S]
+    bf16 or int8 (with scales [B, H, hd] f32), pad bias [B, S] f32 -> [BK, d]."""
+    if _on_cpu(q):
+        return dec_cross_attention_plain(q, ck, cv, ck_scale, cv_scale, enc_bias, heads)
+    bk, d = q.shape
+    b, h, hd, s_len = ck.shape
+    is_int8 = ck.dtype == torch.int8
+    _req(q, "dec_cross q", torch.bfloat16)
+    _req(ck, "dec_cross k", ck.dtype, (b, heads, 64, s_len), q.device)
+    _req(cv, "dec_cross v", ck.dtype, (b, heads, 64, s_len), q.device)
+    if ck.dtype not in (torch.int8, torch.bfloat16):
+        raise ValueError(f"dec_cross_attention: K/V dtype {ck.dtype}")
+    if is_int8 != (ck_scale is not None) or is_int8 != (cv_scale is not None):
+        raise ValueError("dec_cross_attention: int8 K/V and their scales travel together")
+    if is_int8:
+        _req(ck_scale, "dec_cross k scale", torch.float32, (b, heads, 64), q.device)
+        _req(cv_scale, "dec_cross v scale", torch.float32, (b, heads, 64), q.device)
+    _req(enc_bias, "dec_cross bias", torch.float32, (b, s_len), q.device)
+    if d != heads * 64 or bk % b or bk // b > 8:
+        raise ValueError(f"dec_cross_attention: needs head_dim 64 and <= 8 beams (d={d}, "
+                         f"rows={bk}, items={b})")
+    out = torch.empty(bk, d, dtype=torch.bfloat16, device=q.device)
+    _launch("dec_cross_attention", "vt_dec_cross_attention", _p(q), _p(ck), _p(cv),
+            _p(ck_scale), _p(cv_scale), _p(enc_bias), _p(out), b, bk // b, heads, s_len,
+            int(is_int8), ctypes.c_float(64 ** -0.5))
+    return out
