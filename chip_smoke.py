@@ -17,10 +17,23 @@ Phases:
   slice    VacnicConfig.full_train(), random bf16 weights from seed 0,
            synthetic_batch(32): generate_mm on cuda, beam 5 x max_length 50
            x length penalty 2.0 with min_length 49. Launch counts are zeroed
-           just before this run and read just after; every kernel must have
-           launched. Checks finite scores and a mean caption length >= 45.
-  profile  the fused encoder alone, then one more slice run under
-           torch.profiler: device time by kernel family, busy/idle share.
+           just before this run and read just after; the six kernels of the
+           fused encoder and the decode stack must have launched. Checks
+           finite scores and a mean caption length >= 45.
+  stats    the same run with lm_stats=True (the fused LM-stats head):
+           lm_stats must launch once per decode step; at one step its
+           stage 2 must be exact on the kernel's own logits (top-C equal to
+           top_k over logits[:, :V], lse within 1e-5 of torch.logsumexp);
+           finite scores, mean length >= 45; token agreement with the slice.
+  layerwise  generate_mm(add_ner_ffn=False): the layer-by-layer encoder,
+           whose 512-token self-attention is flash_attention (12 launches a
+           pass), then the decode kernels; get_prob at batch 8 x S 512
+           (flash again in its text encoder); and the layer-by-layer encoder
+           at batch 2 on the card (bf16) against the same encoder in f32 on
+           the CPU (relative error <= 5e-2).
+  profile  the fused encoder alone, then one more run of each of the slice,
+           stats and layerwise paths under torch.profiler: device time by
+           kernel family, busy/idle share.
 
 Prints the card's name and power limit (nvidia-smi), a JSON line with every
 kernel, and last `{"ok": true, "device": {...}}`. Exits non-zero, printing
@@ -29,7 +42,8 @@ chiprun_out/chip_smoke/.
 
 Tolerances: bf16 outputs are held to |err| <= 2e-2 + 2e-2 * |plain| (one
 bf16 rounding of values up to a few units, plus f32 sum-order noise);
-f32 outputs of the GEMM and LayerNorm to |err| <= 2e-3 + 2e-3 * |plain|.
+f32 outputs of the GEMM, LayerNorm and LM-stats head to
+|err| <= 2e-3 + 2e-3 * |plain|.
 """
 
 from __future__ import annotations
@@ -54,6 +68,8 @@ SOURCES = {
     "enc_cross_attention": "vacnic_tpu_torch/kernels/csrc/enc_attention.cu",
     "dec_self_attention": "vacnic_tpu_torch/kernels/csrc/dec_attention.cu",
     "dec_cross_attention": "vacnic_tpu_torch/kernels/csrc/dec_attention.cu",
+    "lm_stats": "vacnic_tpu_torch/kernels/csrc/lm_stats.cu",
+    "flash_attention": "vacnic_tpu_torch/kernels/csrc/flash_attn.cu",
 }
 REPLACES = {
     "gemm_bf16": "vacnic_tpu/kernels/encoder_stack.py:103 (_kernel matmuls); "
@@ -64,7 +80,12 @@ REPLACES = {
     "enc_cross_attention": "vacnic_tpu/kernels/encoder_stack.py:197 (cross-attention)",
     "dec_self_attention": "vacnic_tpu/kernels/decode_layer.py:314 (_self_attn)",
     "dec_cross_attention": "vacnic_tpu/kernels/decode_layer.py:499 (_cross_attn)",
+    "lm_stats": "vacnic_tpu/kernels/lm_stats.py:76 (lm_stats; _kernel :44)",
+    "flash_attention": "vacnic_tpu/kernels/flash_attn.py:65 (flash_attention; _flash_kernel :28)",
 }
+SLICE_KERNELS = ("gemm_bf16", "layernorm", "enc_self_attention", "enc_cross_attention",
+                 "dec_self_attention", "dec_cross_attention")
+DECODE_KERNELS = ("gemm_bf16", "layernorm", "dec_self_attention", "dec_cross_attention")
 
 
 def log(msg: str) -> None:
@@ -209,6 +230,41 @@ def kernel_cases():
                       lambda kk=kk, vv=vv, ks=ks, vs=vs: K.dec_cross_attention_plain(
                           qd, kk, vv, ks, vs, ebias, H),
                       byts, 4.0 * BK * S * d, PEAK_BF16_FLOPS, lib, True))
+
+    from vacnic_tpu_torch.kernels import flash_attn as FA
+    from vacnic_tpu_torch.kernels import lm_stats as LS
+
+    V, Vp = 50267, 53248
+    x_lm = rn(BK, d, dtype=bf)
+    w_lm = torch.zeros(Vp, d, device=dev, dtype=bf)
+    w_lm[:V] = rn(V, d, std=0.02, dtype=bf)
+    b_lm = torch.full((Vp,), -1e9, device=dev)
+    b_lm[:V] = rn(V, std=0.02)
+    nvb = Vp // LS.VBLOCK
+    cases.append((f"lm_stats BK={BK} d={d} Vp={Vp}", "lm_stats",
+                  lambda: LS.lm_stats(x_lm, w_lm, b_lm),
+                  lambda: LS.lm_stats_plain(x_lm, w_lm, b_lm),
+                  BK * d * 2 + Vp * d * 2 + Vp * 4 + BK * Vp * 4 + 2 * BK * nvb * 4,
+                  2.0 * BK * Vp * d, PEAK_BF16_FLOPS, None, False))
+
+    B3, T3 = 32, 512
+
+    def heads():  # head-split views of [B, T, H*64] projections, as attention_core gets them
+        return rn(B3, T3, d, dtype=bf).view(B3, T3, H, 64).permute(0, 2, 1, 3)
+
+    fq = (heads().float() * 64 ** -0.5).to(bf)
+    fk, fv = heads(), heads()
+    fkeep = torch.arange(T3, device=dev)[None, :] < torch.randint(T3 // 2, T3 + 1, (B3, 1),
+                                                                  device=dev, generator=g)
+    fbias = torch.where(fkeep, 0.0, torch.finfo(bf).min).to(bf)[:, None, None, :].expand(
+        B3, 1, T3, T3).contiguous()
+    cases.append((f"flash_attention B={B3} H={H} T=S={T3} D=64 bias [B,1,T,S] bf16",
+                  "flash_attention", lambda: FA.flash_attention(fq, fk, fv, fbias),
+                  lambda: FA.flash_attention_plain(fq, fk, fv, fbias),
+                  4 * B3 * H * T3 * 64 * 2 + fbias.numel() * 2, 4.0 * B3 * H * T3 * T3 * 64,
+                  PEAK_BF16_FLOPS,
+                  lambda: Fn.scaled_dot_product_attention(fq, fk, fv, attn_mask=fbias, scale=1.0),
+                  True))
     return cases
 
 
@@ -218,13 +274,18 @@ def run_kernels_phase():
     rows = []
     failures = []
     for name, kern, call, plain, byts, ops, peak, lib, bf16_out in kernel_cases():
-        out = call()
+        outs = call()
         torch.cuda.synchronize()
-        ref = plain()
-        err = (out.float() - ref.float()).abs()
+        refs = plain()
+        if isinstance(outs, torch.Tensor):
+            outs, refs = (outs,), (refs,)
         tol_a, tol_r = (2e-2, 2e-2) if bf16_out else (2e-3, 2e-3)
-        ok = bool(torch.isfinite(out.float()).all()) and bool(
-            (err <= tol_a + tol_r * ref.float().abs()).all())
+        ok, max_err = True, 0.0
+        for out, ref in zip(outs, refs):  # every output of the kernel
+            e = (out.float() - ref.float()).abs()
+            ok = ok and bool(torch.isfinite(out.float()).all()) and bool(
+                (e <= tol_a + tol_r * ref.float().abs()).all())
+            max_err = max(max_err, float(e.max()))
         reps = 20
         ms = time_ms(call, reps)
         plain_ms = time_ms(plain, 5, warmup=1)
@@ -232,7 +293,7 @@ def run_kernels_phase():
         b_ms, b_by = bound(byts, ops, peak)
         row = {"name": name, "kernel": kern, "route": "cuda", "source": SOURCES[kern],
                "replaces": REPLACES[kern], "launches": None,
-               "max_abs_err": float(err.max()), "ms": ms, "plain_ms": plain_ms,
+               "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
                "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
         rows.append(row)
         log(f"kernel {name}: max_abs_err {row['max_abs_err']:.3e} "
@@ -320,6 +381,26 @@ def run_stacks_phase(cfg, params):
         raise RuntimeError("full-width stacks disagree with their references")
 
 
+def check_captions(tag: str, cfg, seqs, scores, batch_size: int) -> float:
+    """Shape, finite scores, mean non-pad length >= 45 -> that length."""
+    import torch
+
+    nonpad = float((seqs != cfg.bart.pad_token_id).sum(dim=1).float().mean())
+    if tuple(seqs.shape) != (batch_size, cfg.decode.max_length):
+        raise RuntimeError(f"{tag}: sequences of shape {tuple(seqs.shape)}")
+    if not bool(torch.isfinite(scores).all()):
+        raise RuntimeError(f"{tag}: non-finite scores")
+    if nonpad < 0.9 * cfg.decode.max_length:
+        raise RuntimeError(f"{tag}: mean non-pad length {nonpad:.1f} < 45")
+    return nonpad
+
+
+def check_launched(tag: str, counts: dict, names) -> None:
+    missing = [k for k in names if counts[k] == 0]
+    if missing:
+        raise RuntimeError(f"{tag}: kernels of this path never launched: {missing}")
+
+
 def run_slice_phase(cfg, params, batch_size: int):
     import torch
 
@@ -341,36 +422,163 @@ def run_slice_phase(cfg, params, batch_size: int):
     seqs, scores = run()
     dt = time.perf_counter() - t0
     counts = K.launch_counts()
-    nonpad = float((seqs != cfg.bart.pad_token_id).sum(dim=1).float().mean())
+    nonpad = check_captions("slice", cfg, seqs, scores, batch_size)
     log(f"slice: full_train beam {cfg.decode.num_beams} x {cfg.decode.max_length} x lp "
         f"{cfg.decode.length_penalty}, batch {batch_size}: {dt:.3f} s, "
         f"{batch_size / dt:.2f} captions/s, mean non-pad length {nonpad:.1f}, "
         f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {counts}")
-    if tuple(seqs.shape) != (batch_size, cfg.decode.max_length):
-        raise RuntimeError(f"sequences of shape {tuple(seqs.shape)}")
-    if not bool(torch.isfinite(scores).all()):
-        raise RuntimeError("non-finite scores")
-    if nonpad < 0.9 * cfg.decode.max_length:
-        raise RuntimeError(f"mean non-pad length {nonpad:.1f} < 45")
-    missing = [k for k, n in counts.items() if n == 0]
-    if missing:
-        raise RuntimeError(f"kernels never launched on the main path: {missing}")
-    return counts, dt
+    check_launched("slice", counts, SLICE_KERNELS)
+    return counts, seqs
+
+
+def run_stats_phase(cfg, params, batch_size: int, ref_seqs):
+    """generate_mm(lm_stats=True): the fused LM-stats head replaces the LM
+    head and the shortlist's full-width passes. One step's stage 2 is held
+    exact against the kernel's own logits."""
+    import torch
+
+    from vacnic_tpu_torch.infer import decode_fast as DF
+    from vacnic_tpu_torch.infer.beam_search import top_k
+    from vacnic_tpu_torch.infer.generate import generate_mm
+    from vacnic_tpu_torch.kernels import primitives as K
+
+    x = batch_inputs(cfg, batch_size)
+    vocab = params["shared"]["weight"].shape[0]
+    real = DF.decode_step_kernel_stats
+    steps, seen = [], {}
+
+    def spy(*a, **kw):  # counts the steps, keeps one step's outputs
+        out = real(*a, **kw)
+        steps.append(1)
+        if len(steps) == 4:
+            seen["out"] = out
+        return out
+
+    def run():
+        seqs, scores = generate_mm(params, cfg=cfg.bart, fcfg=cfg.fusion, dcfg=cfg.decode,
+                                   dtype=torch.bfloat16, device="cuda", lm_stats=True, **x)
+        torch.cuda.synchronize()
+        return seqs, scores
+
+    DF.decode_step_kernel_stats = spy
+    try:
+        run()  # warm-up
+        steps.clear()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        seqs, scores = run()
+        dt = time.perf_counter() - t0
+        counts = K.launch_counts()
+    finally:
+        DF.decode_step_kernel_stats = real
+    nonpad = check_captions("stats", cfg, seqs, scores, batch_size)
+    agree = float((seqs == ref_seqs).float().mean())
+    logits, cv, ci, lse, _ = seen["out"]
+    tv, ti = top_k(logits[:, :vocab], cv.shape[1])
+    lse_err = float((lse - torch.logsumexp(logits[:, :vocab], dim=-1)).abs().max())
+    log(f"stats: lm_stats=True, batch {batch_size}: {dt:.3f} s, {batch_size / dt:.2f} "
+        f"captions/s, mean non-pad length {nonpad:.1f}, {len(steps)} decode steps, token "
+        f"agreement with the slice {agree:.4f}; step-4 stage 2: top-{cv.shape[1]} exact "
+        f"{bool(torch.equal(cv, tv) and torch.equal(ci, ti))}, lse max err {lse_err:.2e} "
+        f"(tol 1e-5); launches {counts}")
+    check_launched("stats", counts, SLICE_KERNELS + ("lm_stats",))
+    if counts["lm_stats"] != len(steps):
+        raise RuntimeError(f"stats: lm_stats launched {counts['lm_stats']} times over "
+                           f"{len(steps)} decode steps")
+    if not (torch.equal(cv, tv) and torch.equal(ci, ti)) or lse_err > 1e-5:
+        raise RuntimeError("stats: stage 2 is not exact on the kernel's logits")
+    return counts
+
+
+def run_layerwise_phase(cfg, params, batch_size: int):
+    """The layer-by-layer encoder paths, whose 512-token self-attention is
+    flash_attention: generate_mm(add_ner_ffn=False), get_prob, and the
+    encoder on the card against the CPU in f32."""
+    import torch
+
+    from vacnic_tpu_torch.infer.generate import generate_mm, get_prob
+    from vacnic_tpu_torch.kernels import primitives as K
+    from vacnic_tpu_torch.models import fusion as F
+    from vacnic_tpu_torch.models.bart import shift_tokens_right
+    from vacnic_tpu_torch.models.weights_io import tree_to
+
+    n_layers = cfg.bart.encoder_layers
+    x = batch_inputs(cfg, batch_size)
+
+    def run():
+        seqs, scores = generate_mm(params, cfg=cfg.bart, fcfg=cfg.fusion, dcfg=cfg.decode,
+                                   dtype=torch.bfloat16, device="cuda", add_ner_ffn=False, **x)
+        torch.cuda.synchronize()
+        return seqs, scores
+
+    run()  # warm-up
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    seqs, scores = run()
+    dt = time.perf_counter() - t0
+    counts = K.launch_counts()
+    nonpad = check_captions("layerwise", cfg, seqs, scores, batch_size)
+    log(f"layerwise: add_ner_ffn=False, batch {batch_size}: {dt:.3f} s, "
+        f"{batch_size / dt:.2f} captions/s, mean non-pad length {nonpad:.1f}; launches {counts}")
+    check_launched("layerwise", counts, DECODE_KERNELS + ("flash_attention",))
+    if counts["flash_attention"] != n_layers:
+        raise RuntimeError(f"layerwise: flash_attention launched {counts['flash_attention']} "
+                           f"times in one {n_layers}-layer encoder pass")
+
+    from vacnic_tpu_torch.data.synthetic import synthetic_batch
+    from vacnic_tpu_torch.train.train_step import create_mask
+
+    b8 = {k: v.cuda() for k, v in synthetic_batch(cfg, batch_size=8, seed=1).items()}
+    labels = b8["caption_ids"].long()
+    dec_in = shift_tokens_right(labels, cfg.bart.pad_token_id, cfg.bart.decoder_start_token_id)
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    lp = get_prob(params, b8["article_ids"], create_mask(b8["article_ids"]), dec_in, labels,
+                  cfg.bart, torch.bfloat16, device="cuda")
+    torch.cuda.synchronize()
+    dt_p = time.perf_counter() - t0
+    n_flash = K.launch_counts()["flash_attention"]
+    log(f"layerwise: get_prob batch 8 x S {b8['article_ids'].shape[1]} x T {labels.shape[1]}: "
+        f"{dt_p:.3f} s, flash_attention launches {n_flash}, log-probs {lp.tolist()}")
+    if tuple(lp.shape) != (8,) or not bool(torch.isfinite(lp).all()) or n_flash != n_layers:
+        raise RuntimeError("layerwise: get_prob gave non-finite values or skipped the kernel")
+
+    x2 = batch_inputs(cfg, 2)
+    kw = {k: x2[k] for k in ("face_features", "face_mask", "name_ids", "name_mask")}
+    args = (x2["input_ids"], x2["attention_mask"], x2["image_features"], cfg.bart, cfg.fusion)
+    with torch.no_grad():
+        card = F.mm_encoder_fwd(params, *args, add_ner_ffn=False, dtype=torch.bfloat16,
+                                **kw)["last_hidden"]
+        cpu_params = tree_to(params, "cpu", torch.float32)
+        cpu_args = tuple(a.cpu() if isinstance(a, torch.Tensor) else a for a in args)
+        ref = F.mm_encoder_fwd(cpu_params, *cpu_args, add_ner_ffn=False, dtype=torch.float32,
+                               **{k: v.cpu() for k, v in kw.items()})["last_hidden"]
+    e = rel_err(card.cpu(), ref)
+    log(f"layerwise: encoder batch 2 on the card (bf16) vs the CPU (f32): rel err {e:.3e} "
+        "(tol 5e-2)")
+    if not e <= 5e-2:
+        raise RuntimeError("layerwise: the card's layer-by-layer encoder disagrees with the CPU")
+    return counts
 
 
 KERNEL_FAMILIES = (("gemm_kernel", "gemm_bf16"), ("layernorm_kernel", "layernorm"),
                    ("enc_self_attn", "enc_self_attention"),
                    ("enc_cross_attn", "enc_cross_attention"),
                    ("dec_self_attn", "dec_self_attention"),
-                   ("dec_cross_attn", "dec_cross_attention"))
+                   ("dec_cross_attn", "dec_cross_attention"), ("lm_stats_kernel", "lm_stats"),
+                   ("flash_attn_kernel", "flash_attention"))
+
+
+PROFILED_RUNS = (("slice", "profile.txt", {}), ("stats", "profile_stats.txt", {"lm_stats": True}),
+                 ("layerwise", "profile_layerwise.txt", {"add_ner_ffn": False}))
 
 
 def run_profile_phase(cfg, params, batch_size: int) -> None:
-    """Where the time of one slice run goes: the fused encoder alone (CUDA
-    events), then one generate_mm under torch.profiler -- device time by
-    kernel family (the port's kernels vs PyTorch's own), the device's busy
-    and idle share of the wall time. Full table: chiprun_out/chip_smoke/
-    profile.txt."""
+    """Where the time goes: the fused encoder alone (CUDA events), then one
+    generate_mm of each path (slice, stats, layerwise) under torch.profiler
+    -- device time by kernel family (the port's kernels vs PyTorch's own),
+    the device's busy and idle share of the wall time. Full tables:
+    chiprun_out/chip_smoke/profile*.txt."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -384,39 +592,42 @@ def run_profile_phase(cfg, params, batch_size: int) -> None:
         enc_ms = time_ms(lambda: F.mm_encoder_fwd_fused(
             params, x["input_ids"], x["attention_mask"], x["image_features"], cfg.bart,
             cfg.fusion, dtype=torch.bfloat16, **kw), reps=3, warmup=1)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        generate_mm(params, cfg=cfg.bart, fcfg=cfg.fusion, dcfg=cfg.decode,
-                    dtype=torch.bfloat16, device="cuda", **x)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    by_name: dict[str, list[float]] = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_name.setdefault(e.name, []).append(e.time_range.elapsed_us() / 1e3)
-    busy_ms = sum(sum(v) for v in by_name.values())
-    fam: dict[str, float] = {}
-    for name, times in by_name.items():
-        key = next((f for pat, f in KERNEL_FAMILIES if pat in name), "pytorch (other)")
-        fam[key] = fam.get(key, 0.0) + sum(times)
-    rows = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))
-    with open(os.path.join(OUT_DIR, "profile.txt"), "w") as f:
-        f.write(f"wall_ms {wall_ms:.3f} device_busy_ms {busy_ms:.3f} encoder_ms {enc_ms:.3f}\n")
-        for name, times in rows:
-            f.write(f"{sum(times):10.3f} ms {len(times):7d} x  {name[:160]}\n")
-    fams = ", ".join(f"{k} {v:.1f} ms" for k, v in sorted(fam.items(), key=lambda kv: -kv[1]))
-    if busy_ms == 0:
-        log(f"profile: wall {wall_ms:.1f} ms, encoder {enc_ms:.1f} ms; the profiler saw no "
-            "device activity (device time not measured)")
-        return
-    log(f"profile: batch {batch_size} wall {wall_ms:.1f} ms, fused encoder alone {enc_ms:.1f} "
-        f"ms; device busy {busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}% of wall, idle "
-        f"{100 * (1 - busy_ms / wall_ms):.1f}%); by family: {fams}")
+    log(f"profile: fused encoder alone, batch {batch_size}: {enc_ms:.1f} ms")
+    for tag, fname, extra in PROFILED_RUNS:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            generate_mm(params, cfg=cfg.bart, fcfg=cfg.fusion, dcfg=cfg.decode,
+                        dtype=torch.bfloat16, device="cuda", **extra, **x)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        by_name: dict[str, list[float]] = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                by_name.setdefault(e.name, []).append(e.time_range.elapsed_us() / 1e3)
+        busy_ms = sum(sum(v) for v in by_name.values())
+        fam: dict[str, float] = {}
+        for name, times in by_name.items():
+            key = next((f for pat, f in KERNEL_FAMILIES if pat in name), "pytorch (other)")
+            fam[key] = fam.get(key, 0.0) + sum(times)
+        rows = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))
+        with open(os.path.join(OUT_DIR, fname), "w") as f:
+            f.write(f"{tag} wall_ms {wall_ms:.3f} device_busy_ms {busy_ms:.3f} "
+                    f"fused_encoder_ms {enc_ms:.3f}\n")
+            for name, times in rows:
+                f.write(f"{sum(times):10.3f} ms {len(times):7d} x  {name[:160]}\n")
+        if busy_ms == 0:
+            log(f"profile {tag}: wall {wall_ms:.1f} ms; the profiler saw no device activity "
+                "(device time not measured)")
+            continue
+        fams = ", ".join(f"{k} {v:.1f} ms" for k, v in sorted(fam.items(), key=lambda kv: -kv[1]))
+        log(f"profile {tag}: batch {batch_size} wall {wall_ms:.1f} ms; device busy {busy_ms:.1f} "
+            f"ms ({100 * busy_ms / wall_ms:.1f}% of wall, idle "
+            f"{100 * (1 - busy_ms / wall_ms):.1f}%); by family: {fams}")
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="build,kernels,stacks,slice,profile")
+    ap.add_argument("--phases", default="build,kernels,stacks,slice,stats,layerwise,profile")
     ap.add_argument("--batch", type=int, default=32)
     args = ap.parse_args()
     phases = set(args.phases.split(","))
@@ -449,20 +660,30 @@ def main() -> int:
         f.write("\n".join(_build.BUILD_LOG))
 
     rows = run_kernels_phase() if "kernels" in phases else []
-    counts = {}
-    if phases & {"stacks", "slice", "profile"}:
+    launches = {}  # kernel -> launches in the run of the path that names it
+    if phases & {"stacks", "slice", "stats", "layerwise", "profile"}:
         cfg, params = full_model()
         if "stacks" in phases:
             run_stacks_phase(cfg, params)
+        slice_seqs = None
         if "slice" in phases:
-            counts, _ = run_slice_phase(cfg, params, args.batch)
+            counts, slice_seqs = run_slice_phase(cfg, params, args.batch)
+            launches.update({k: counts[k] for k in SLICE_KERNELS})
+        if "stats" in phases:
+            if slice_seqs is None:
+                slice_seqs = run_slice_phase(cfg, params, args.batch)[1]
+            launches["lm_stats"] = run_stats_phase(cfg, params, args.batch,
+                                                   slice_seqs)["lm_stats"]
+        if "layerwise" in phases:
+            launches["flash_attention"] = run_layerwise_phase(
+                cfg, params, args.batch)["flash_attention"]
         if "profile" in phases:
             run_profile_phase(cfg, params, args.batch)
     for row in rows:
-        row["launches"] = counts.get(row.pop("kernel"))
+        row["launches"] = launches.get(row.pop("kernel"))
     if not rows:
         rows = [{"name": k, "route": "cuda", "source": SOURCES[k], "replaces": REPLACES[k],
-                 "launches": n} for k, n in counts.items()]
+                 "launches": n} for k, n in launches.items()]
     with open(os.path.join(OUT_DIR, "kernels.json"), "w") as f:
         json.dump(rows, f, indent=1)
     print(json.dumps({"kernels": rows}))

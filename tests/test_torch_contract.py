@@ -44,15 +44,25 @@ def test_port_imports_no_jax():
 
 
 def test_generate_mm_needs_explicit_cpu():
+    """Every entry point: generate_mm, generate_text_bart, greedy_search,
+    get_prob and mm_forward."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is valid here")
     from vacnic_tpu_torch.core.config import VacnicConfig
-    from vacnic_tpu_torch.infer.generate import generate_mm, resolve_device
+    from vacnic_tpu_torch.infer.generate import (generate_mm, generate_text_bart, get_prob,
+                                                 greedy_search, resolve_device)
+    from vacnic_tpu_torch.models.fusion import mm_forward
 
     cfg = VacnicConfig.tiny()
     ids = torch.ones(1, 4, dtype=torch.int64)
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        generate_mm({}, ids, ids, torch.zeros(1, 32), cfg.bart, cfg.fusion, cfg.decode)
+    img = torch.zeros(1, 32)
+    for call in (lambda: generate_mm({}, ids, ids, img, cfg.bart, cfg.fusion, cfg.decode),
+                 lambda: generate_text_bart({}, ids, ids, cfg.bart, cfg.decode),
+                 lambda: greedy_search({}, ids, ids, cfg.bart, cfg.decode),
+                 lambda: get_prob({}, ids, ids, ids, ids, cfg.bart),
+                 lambda: mm_forward({}, ids, ids, ids, img, cfg.bart, cfg.fusion)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
     with pytest.raises(RuntimeError):
         resolve_device("cuda")
     assert resolve_device("cpu").type == "cpu"
@@ -87,4 +97,5 @@ def test_kernel_build_refuses_without_nvcc(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc"):
         _build.build()
     names = {p.name for p in _build._sources()}
-    assert names == {"gemm_bf16.cu", "layernorm.cu", "enc_attention.cu", "dec_attention.cu"}
+    assert names == {"gemm_bf16.cu", "layernorm.cu", "enc_attention.cu", "dec_attention.cu",
+                     "lm_stats.cu", "flash_attn.cu"}

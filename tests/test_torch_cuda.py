@@ -99,3 +99,67 @@ def test_launch_counts_move(dev):
     K.gemm(a, a)
     K.gemm_plain(a, a)
     assert K.launch_counts()["gemm_bf16"] == 1
+
+
+def test_lm_stats_kernel(dev):
+    """Ragged rows, a partly padded block and three all-pad blocks: the
+    logits and statistics against the plain twin; all-pad blocks give
+    m = -1e9 and s = 1024; stage 2 is exact on the kernel's own logits."""
+    from vacnic_tpu_torch.kernels import lm_stats as LS
+    from vacnic_tpu_torch.kernels import primitives as K
+
+    g = torch.Generator(device=dev).manual_seed(2)
+    bk, d, v, vp = 37, 256, 5000, 8192
+    x = rn(g, bk, d, dtype=torch.bfloat16)
+    w = torch.zeros(vp, d, device=dev, dtype=torch.bfloat16)
+    w[:v] = rn(g, v, d, std=0.1, dtype=torch.bfloat16)
+    b = torch.full((vp,), -1e9, device=dev)
+    b[:v] = rn(g, v, std=0.1)
+    before = K.launch_counts()["lm_stats"]
+    logits, m, s = LS.lm_stats(x, w, b)
+    assert K.launch_counts()["lm_stats"] == before + 1
+    pl, pm, ps = LS.lm_stats_plain(x, w, b)
+    close(logits, pl, False)
+    close(m, pm, False)
+    close(s, ps, False)
+    assert bool((m[:, 5:] == -1e9).all()) and bool((s[:, 5:] == 1024.0).all())
+    assert torch.equal(m, logits.reshape(bk, -1, LS.VBLOCK).amax(-1))
+    cv, ci, lse = LS.lm_stats_topk(logits, m, s, 8, v)
+    tv, ti = LS.top_k(logits[:, :v], 8)
+    assert torch.equal(cv, tv) and torch.equal(ci, ti)
+    assert float((lse - torch.logsumexp(logits[:, :v], -1)).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("bias_dtype,per_head", [(torch.bfloat16, False), (torch.float32, True)])
+def test_flash_attention_kernel(dev, bias_dtype, per_head):
+    """Head-split views of [B, T, H*D] projections (read through their
+    strides), a [B, 1, T, S] or [B, H, T, S] bias with padded keys and one
+    fully masked query row, against the plain twin; attention_core takes the
+    kernel for f32 inputs too, in bf16."""
+    from vacnic_tpu_torch.kernels import flash_attn as FA
+    from vacnic_tpu_torch.kernels import primitives as K
+    from vacnic_tpu_torch.models import layers as TL
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    B, H, T, S, d = 2, 4, 256, 512, 64
+    bf = torch.bfloat16
+
+    def heads(n):
+        return rn(g, B, n, H * d, dtype=bf).view(B, n, H, d).permute(0, 2, 1, 3)
+
+    q = (heads(T).float() * d ** -0.5).to(bf)
+    k, v = heads(S), heads(S)
+    neg = torch.finfo(bias_dtype).min
+    bias = torch.zeros(B, H if per_head else 1, T, S, device=dev)
+    bias[1, :, :, 300:] = neg
+    bias[0, :, 7, :] = neg
+    bias = bias.to(bias_dtype)
+    before = K.launch_counts()["flash_attention"]
+    out = FA.flash_attention(q, k, v, bias)
+    assert K.launch_counts()["flash_attention"] == before + 1
+    assert out.shape == (B, H, T, d) and bool(torch.isfinite(out.float()).all())
+    close(out, FA.flash_attention_plain(q, k, v, bias), True)
+    out32 = TL.attention_core(q.float(), k.float(), v.float(), bias)
+    assert out32.dtype == torch.float32
+    assert K.launch_counts()["flash_attention"] == before + 2
+    close(out32, out, True)

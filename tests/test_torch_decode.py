@@ -106,6 +106,34 @@ def test_single_step(setup):
     assert ker.pos == 0
 
 
+def test_lm_head_rounds_tied_weights_to_dtype(setup, monkeypatch):
+    """f32 parameters decoded with dtype=bf16: the step's logits are JAX's
+    x_out @ shared.astype(bf16)ᵀ + bias with f32 accumulation
+    (vacnic_tpu/infer/decode_fast.py:761-763), not a product with the f32
+    tied weights."""
+    jcfg, tcfg, jp, tp, enc, enc_bias, j = setup
+    bf = torch.bfloat16
+    dp = TDF.build_decode_params(tp, bf)
+    cache = TDF.build_decode_cache(tp, t(enc), BEAMS, MAX_LEN, tcfg, bf, pad_to=16,
+                                   time_major=True)
+    seen = {}
+    real = DL.decode_stack
+
+    def spy(*a, **kw):
+        out = real(*a, **kw)
+        seen["x_out"] = out[0]
+        return out
+
+    monkeypatch.setattr(DL, "decode_stack", spy)
+    tok = torch.full((BATCH * BEAMS, 1), 5)
+    logits, _ = TDF.decode_step_kernel(dp, tp, cache, tok, 0, t(enc_bias), tcfg, bf)
+    x = seen["x_out"].float()
+    ref = x @ tp["shared"]["weight"].to(bf).float().t() + tp["final_logits_bias"]
+    assert_close(logits, ref, atol=1e-5, rtol=0)
+    f32_head = x @ tp["shared"]["weight"].t() + tp["final_logits_bias"]
+    assert float((ref - f32_head).abs().max()) > 1e-4  # the two heads differ here
+
+
 def test_decode_stack_plain_direct(setup):
     """decode_stack (CPU -> plain twin) at a later position with a
     non-identity ancestry equals decode_stack_plain and returns the step's

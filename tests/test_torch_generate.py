@@ -65,6 +65,21 @@ def test_generate_mm_matches_jax(only_image, mode, monkeypatch):
     assert len(np.unique(ts.numpy())) > 4  # the beams chose varied tokens
 
 
+def test_generate_mm_layerwise_matches_jax(monkeypatch):
+    """add_ner_ffn=False: the layer-by-layer encoder (x itself joins the
+    cross-attention KV), then the kernel decode step."""
+    jcfg, tcfg, jargs, jkw, targs, tkw = inputs(False, seed=3)
+    dec = dict(max_length=10)
+    monkeypatch.setenv("VACNIC_PALLAS_DECODE", "1")
+    js, jsc = j_generate(*jargs, jcfg.bart, jcfg.fusion,
+                         dataclasses.replace(jcfg.decode, **dec), add_ner_ffn=False, **jkw)
+    ts, tsc = t_generate(*targs, tcfg.bart, tcfg.fusion, dataclasses.replace(tcfg.decode, **dec),
+                         add_ner_ffn=False, device="cpu", **tkw)
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+    np.testing.assert_allclose(tsc.numpy(), np.asarray(jsc), rtol=1e-4, atol=1e-4)
+    assert len(np.unique(ts.numpy())) > 4
+
+
 def test_generate_mm_auto_mode_and_numpy_inputs():
     """cand_mode=None takes the auto rule; numpy inputs are accepted."""
     jcfg, tcfg, jargs, jkw, targs, tkw = inputs(False, seed=2)

@@ -12,11 +12,20 @@ Semantics, as in the JAX package:
   * finalize (4.18): at max_length the K running beams join the pool with
     denominator max_length**lp.
 
-Candidate selection: "full" (whole-vocab processors, one top-2K) or
-"shortlist" (per-row top-C of the raw logits, processors on [B, K, C], an
-exactness certificate, and a fallback to "full" when it fails).
+Candidate selection (`cand_mode`):
+  * "full": whole-vocab processors and one top-2K (the reference);
+  * "opt": one wide top-W (W = OPT_WINDOW) over the unbanned totals, bans
+    checked on the W winners only, an exactness certificate, and a fallback
+    to "full" when it fails;
+  * "shortlist": per-row top-C of the raw logits, processors on [B, K, C],
+    a certificate, and a fallback to "full" when it fails. Its row top-C
+    comes from `step_stats_fn` (the fused LM-stats head) when one is given,
+    else from the block-max two-stage top-C for wide vocabularies; with
+    `block_lse=True` one block pass over the logits feeds both that top-C
+    and the logsumexp.
 `resolve_cand_mode` picks shortlist for big vocabularies. The search steps
-from Python; the state stays on the device.
+from Python; the state stays on the device. A mode or option that cannot
+apply raises instead of running another path.
 
 Top-k order: every top-k here returns the larger value first and, among
 equal values, the lower index first (the lax.top_k rule the tie tests pin),
@@ -30,14 +39,11 @@ from typing import Any, Callable, NamedTuple
 import torch
 
 from vacnic_tpu_torch.core.config import DecodeConfig
+from vacnic_tpu_torch.kernels.lm_stats import gather_rerank, top_k
 
 NEG_INF = -1.0e7  # large but finite, as in the JAX package
-
-
-def top_k(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """Top-k over the last axis, ties broken toward the lower index."""
-    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
-    return vals[..., :k], idx[..., :k]
+OPT_WINDOW = 32  # the "opt" mode's top-k window; it tolerates OPT_WINDOW - 2K bans
+MODES = ("full", "opt", "shortlist")
 
 
 class BeamState(NamedTuple):
@@ -118,22 +124,21 @@ def _block_view(logits: torch.Tensor, blk: int = 128):
     return r3, r3.amax(dim=-1)
 
 
-def gather_rerank(r3: torch.Tensor, bid: torch.Tensor, C: int):
-    """Gather the top-C blocks (ids sorted ascending, so gathered position
-    order is global index order) and re-rank to the exact top-C."""
-    rows, nb, blk = r3.shape
-    bid = torch.sort(bid, dim=-1).values
-    g = torch.gather(r3, 1, bid[:, :, None].expand(rows, C, blk))
-    cv, loc = top_k(g.reshape(rows, C * blk), C)
-    gidx = (bid[:, :, None] * blk + torch.arange(blk, device=bid.device)[None, None, :]
-            ).reshape(rows, C * blk)
-    return cv, torch.gather(gidx, 1, loc)
+def blocked_logsumexp(r3: torch.Tensor, bm: torch.Tensor) -> torch.Tensor:
+    """logsumexp from the block view (JAX `block_lse`): per-block exp-sums
+    against the block max, combined against the row max. A pad block is all
+    -inf; its max is clamped so that it contributes 0 rather than NaN."""
+    bm_safe = torch.clamp(bm, min=torch.finfo(torch.float32).min)
+    bs = torch.exp(r3 - bm_safe[..., None]).sum(dim=-1)
+    m = bm.amax(dim=-1)
+    return torch.log((bs * torch.exp(bm_safe - m[:, None])).sum(dim=-1)) + m
 
 
-def row_topk_blockmax(logits: torch.Tensor, C: int, blk: int = 128):
+def row_topk_blockmax(logits: torch.Tensor, C: int, blk: int = 128, blocks=None):
     """Exact per-row top-C: the top-C blocks by block max hold every top-C
-    value (pigeonhole); gather and re-rank them."""
-    r3, bm = _block_view(logits, blk)
+    value (pigeonhole); gather and re-rank them. `blocks` passes a
+    precomputed `_block_view` (the block-lse path)."""
+    r3, bm = _block_view(logits, blk) if blocks is None else blocks
     _, bid = top_k(bm, C)
     return gather_rerank(r3, bid, C)
 
@@ -195,22 +200,33 @@ def candidates_full(logits, lse, s: BeamState, cur: int, *, cfg: DecodeConfig, b
 
 
 def _candidates_shortlist(logits, lse, s: BeamState, cur: int, *, cfg: DecodeConfig, b, k,
-                          vocab_size, eos_token_id, forced_bos_token_id, full_fn):
+                          vocab_size, eos_token_id, forced_bos_token_id, full_fn, pre=None,
+                          blocks=None):
     """Per-row shortlist on raw logits (within a row, total = logit + const,
     so raw order is total order) with a ban certificate; falls back to the
-    full path when more than C - 2K shortlist slots of a row are banned."""
+    full path when more than C - 2K shortlist slots of a row are banned.
+    `pre` = (cand_vals, cand_idx) [BK, C] from the stats head; `blocks` = the
+    block view the block-lse path already built."""
     is_fb = forced_bos_token_id is not None and cur == 1
     is_fe = cfg.forced_eos and cur == cfg.max_length - 1
     if is_fb or is_fe:
         return _forced_step_candidates(s, b=b, k=k, is_fe=is_fe, eos_token_id=eos_token_id,
                                        forced_bos_token_id=forced_bos_token_id,
                                        vocab_size=vocab_size)
-    C = min(shortlist_c_width(k), vocab_size)
     banned = _banned_token_list(s, cur, cfg=cfg, eos_token_id=eos_token_id)
-    if vocab_size >= 2 * C * 128:  # needs >= C blocks for exactness
-        cv, ci = row_topk_blockmax(logits, C)
+    if pre is not None:
+        cv, ci = pre
+        C = cv.shape[-1]
+        if C <= 2 * k:
+            raise ValueError(f"shortlist width {C} leaves no certificate tolerance at K={k}")
     else:
-        cv, ci = top_k(logits, C)
+        C = min(shortlist_c_width(k), vocab_size)
+        if blocks is not None:
+            cv, ci = row_topk_blockmax(logits, C, blocks=blocks)
+        elif vocab_size >= 2 * C * 128:  # needs >= C blocks for exactness
+            cv, ci = row_topk_blockmax(logits, C)
+        else:
+            cv, ci = top_k(logits, C)
     shift = s.running_scores.reshape(-1) - lse
     total = (cv + shift[:, None]).reshape(b, k, C)
     ci3 = ci.reshape(b, k, C)
@@ -221,6 +237,35 @@ def _candidates_shortlist(logits, lse, s: BeamState, cur: int, *, cfg: DecodeCon
         total = torch.where(hit, float("-inf"), total)
     ts, ti = top_k(total.reshape(b, k * C), 2 * k)
     return ts, ti // C, torch.gather(ci3.reshape(b, k * C), 1, ti)
+
+
+def _candidates_opt(logits, lse, s: BeamState, cur: int, *, cfg: DecodeConfig, b, k,
+                    vocab_size, eos_token_id, forced_bos_token_id, full_fn):
+    """One wide top-W over the unbanned totals, bans checked on the W winners
+    only; falls back to the full path when a row of the batch has more than
+    W - 2K banned winners. Forced steps take the analytic candidates, so
+    dropping the banned winners to -inf is exact."""
+    is_fb = forced_bos_token_id is not None and cur == 1
+    is_fe = cfg.forced_eos and cur == cfg.max_length - 1
+    if is_fb or is_fe:
+        return _forced_step_candidates(s, b=b, k=k, is_fe=is_fe, eos_token_id=eos_token_id,
+                                       forced_bos_token_id=forced_bos_token_id,
+                                       vocab_size=vocab_size)
+    total = logits.reshape(b, k, -1) + (s.running_scores - lse.reshape(b, k))[:, :, None]
+    banned = _banned_token_list(s, cur, cfg=cfg, eos_token_id=eos_token_id)
+    # an explicitly valid OPT_WINDOW is kept (the tests shrink it to force the
+    # fallback); otherwise the window widens with the beams
+    w = OPT_WINDOW if OPT_WINDOW > 2 * k else 2 * k + 8
+    ts, ti = top_k(total.reshape(b, k * vocab_size), w)
+    tbeam, ttok = ti // vocab_size, ti % vocab_size
+    if banned is not None:
+        bl = torch.gather(banned, 1, tbeam[:, :, None].expand(b, w, banned.shape[2]))
+        hit = (ttok[:, :, None] == bl).any(dim=-1)
+        if not bool((hit.sum(dim=1) <= w - 2 * k).all()):
+            return full_fn(logits, lse, s, cur)
+        ts = torch.where(hit, float("-inf"), ts)
+    s2, i2 = top_k(ts, 2 * k)
+    return s2, torch.gather(tbeam, 1, i2), torch.gather(ttok, 1, i2)
 
 
 def beam_search(
@@ -237,16 +282,33 @@ def beam_search(
     reorder_cache_fn: Callable[[Any, torch.Tensor], Any],
     device,
     cand_mode: str | None = None,
+    step_stats_fn: Callable | None = None,
+    block_lse: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Run beam search. `step_fn(tokens [BK, 1], cache, pos) -> (logits
     [BK, V], cache)`; `reorder_cache_fn(cache, flat_sel [BK])` applies a beam
     selection. cand_mode None takes resolve_cand_mode's auto rule.
+
+    `step_stats_fn(tokens, cache, pos) -> (logits_padded [BK, Vp] f32,
+    cand_vals [BK, C], cand_idx [BK, C], lse [BK], cache)` replaces step_fn
+    (shortlist mode only): a fused LM head that already computed the row
+    shortlist and the logsumexp; the padded logits feed only the
+    certificate fallback, sliced to V. `block_lse=True` (shortlist mode,
+    without a stats head, vocab >= 2 * C * 128) shares one block pass
+    between the row top-C and the logsumexp.
     Returns (sequences [B, L], scores [B]) of the best hypothesis per item."""
     b, k, L = batch_size, cfg.num_beams, cfg.max_length
     lp = cfg.length_penalty
     mode = cand_mode or resolve_cand_mode(cfg, vocab_size)
-    if mode not in ("full", "shortlist"):
-        raise ValueError(f"cand_mode {mode!r}: the port has 'full' and 'shortlist'")
+    if mode not in MODES:
+        raise ValueError(f"cand_mode {mode!r}: the port has {MODES}")
+    if step_stats_fn is not None and mode != "shortlist":
+        raise ValueError(f"a stats head feeds the shortlist mode only, not {mode!r}")
+    c_sl = min(shortlist_c_width(k), vocab_size)
+    if block_lse and (mode != "shortlist" or step_stats_fn is not None
+                      or vocab_size < 2 * c_sl * 128):
+        raise ValueError("block_lse needs the shortlist mode without a stats head and "
+                         f"vocab >= {2 * c_sl * 128} (mode {mode!r}, vocab {vocab_size})")
     legacy = cfg.hf_compat == "4.18"
 
     running_seqs = torch.full((b, k, L), pad_token_id, dtype=torch.int64, device=device)
@@ -265,7 +327,7 @@ def beam_search(
                   forced_bos_token_id=forced_bos_token_id)
 
     def full_fn(logits, lse, st, cur):
-        return candidates_full(logits, lse, st, cur, **common)
+        return candidates_full(logits[:, :vocab_size], lse, st, cur, **common)
 
     def pow_f32(x: int) -> torch.Tensor:
         return torch.tensor(float(x), dtype=torch.float32, device=device) ** lp
@@ -274,14 +336,27 @@ def beam_search(
     while s.cur_len < L and not bool(s.done.all()):
         cur = s.cur_len
         tok = s.running_seqs.reshape(b * k, L)[:, cur - 1:cur]
-        logits, new_cache = step_fn(tok, s.cache, cur - 1)
-        logits = logits.float()
-        lse = torch.logsumexp(logits, dim=-1)
-        if mode == "shortlist":
+        if step_stats_fn is not None:
+            logits, cv, ci, lse, new_cache = step_stats_fn(tok, s.cache, cur - 1)
             topk_scores, topk_beam, topk_tok = _candidates_shortlist(
-                logits, lse, s, cur, full_fn=full_fn, **common)
+                logits, lse, s, cur, full_fn=full_fn, pre=(cv, ci), **common)
         else:
-            topk_scores, topk_beam, topk_tok = full_fn(logits, lse, s, cur)
+            logits, new_cache = step_fn(tok, s.cache, cur - 1)
+            logits = logits.float()
+            blocks = None
+            if block_lse:
+                blocks = _block_view(logits)
+                lse = blocked_logsumexp(*blocks)
+            else:
+                lse = torch.logsumexp(logits, dim=-1)
+            if mode == "shortlist":
+                topk_scores, topk_beam, topk_tok = _candidates_shortlist(
+                    logits, lse, s, cur, full_fn=full_fn, blocks=blocks, **common)
+            elif mode == "opt":
+                topk_scores, topk_beam, topk_tok = _candidates_opt(
+                    logits, lse, s, cur, full_fn=full_fn, **common)
+            else:
+                topk_scores, topk_beam, topk_tok = full_fn(logits, lse, s, cur)
 
         cand_seqs = gather_beams(s.running_seqs, topk_beam)  # [B, 2K, L]
         cand_seqs[:, :, cur] = topk_tok

@@ -10,7 +10,12 @@ vacnic_tpu/infer/decode_fast.py).
 * `decode_step` is the plain reference step over the batch-major cache
   [L, BK, T, D] with a physical reorder; `decode_step_kernel` embeds, runs
   kernels/decode_layer.decode_stack, writes row `pos`, and applies the LM
-  head (a library product: it lies outside the TPU kernel too).
+  head x @ shared.to(dtype)ᵀ + final_logits_bias with f32 accumulation (a
+  library product: it lies outside the TPU kernel too).
+* `decode_step_kernel_stats` replaces that LM head with
+  kernels/lm_stats.lm_stats over the vocab-padded head of `build_lm_head`
+  (built lazily by `ensure_lm_head`) and returns the beam shortlist's
+  per-row top-C and logsumexp with the padded logits.
 
 Unlike the JAX package, the caches are updated in place: a step writes its
 rows into the tensors it was given and returns the same cache.
@@ -29,8 +34,8 @@ from vacnic_tpu_torch.models.layers import ACT2FN, Params, layernorm
 
 class DecodeParams(NamedTuple):
     """Stacked per-layer decoder weights [L, ...]; matrices in the matmul
-    dtype, biases and layer norms f32. w_lm/b_lm: the tied LM head in f32
-    for the product outside the stack."""
+    dtype, biases and layer norms f32. w_lm/b_lm: the vocab-padded LM head
+    of the stats step, None until `ensure_lm_head` builds it."""
 
     w_qkv: torch.Tensor        # [L, d, 3d]
     b_qkv: torch.Tensor        # [L, 3d]
@@ -47,8 +52,8 @@ class DecodeParams(NamedTuple):
     w_fc2: torch.Tensor        # [L, F, d]
     b_fc2: torch.Tensor        # [L, d]
     ln_final: torch.Tensor     # [L, 2, d]
-    w_lm: torch.Tensor         # [V, d] f32
-    b_lm: torch.Tensor         # [V] f32
+    w_lm: torch.Tensor | None = None  # [Vp, d] in dtype, pad rows zero
+    b_lm: torch.Tensor | None = None  # [Vp] f32, pad columns -1e9
 
 
 class DecodeCache(NamedTuple):
@@ -102,9 +107,32 @@ def build_decode_params(params: Params, dtype=torch.bfloat16) -> DecodeParams:
         w_fc2=w("fc2", "kernel"),
         b_fc2=b("fc2", "bias"),
         ln_final=ln("final_layer_norm"),
-        w_lm=params["shared"]["weight"].float().contiguous(),
-        b_lm=params["final_logits_bias"].float().contiguous(),
     )
+
+
+LM_PAD = 4096  # the padded head's vocab rounds up to a multiple of this
+
+
+def build_lm_head(params: Params, dtype=torch.bfloat16) -> tuple[torch.Tensor, torch.Tensor]:
+    """The tied LM head padded to Vp = ceil(V / 4096) * 4096 rows:
+    (w [Vp, d] in dtype with zero pad rows, b [Vp] f32 with -1e9 on the pad
+    columns), so that no pad column can outrank a real one."""
+    w_shared = params["shared"]["weight"]
+    v, d = w_shared.shape
+    vp = -(-v // LM_PAD) * LM_PAD
+    w = torch.zeros(vp, d, dtype=dtype, device=w_shared.device)
+    w[:v] = w_shared.to(dtype)
+    b = torch.full((vp,), -1e9, dtype=torch.float32, device=w_shared.device)
+    b[:v] = params["final_logits_bias"].float()
+    return w, b
+
+
+def ensure_lm_head(dp: DecodeParams, params: Params, dtype=torch.bfloat16) -> DecodeParams:
+    """dp with the padded LM head built (once: only the stats path needs it)."""
+    if dp.w_lm is None:
+        w, b = build_lm_head(params, dtype)
+        dp = dp._replace(w_lm=w, b_lm=b)
+    return dp
 
 
 def quantize_cross_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -188,8 +216,11 @@ def _embed(params: Params, tok: torch.Tensor, pos: int, cfg: BartConfig, dtype) 
     return layernorm(dec["layernorm_embedding"], x)
 
 
-def _lm_head(dp: DecodeParams, x: torch.Tensor) -> torch.Tensor:
-    return torch.matmul(x.float(), dp.w_lm.t()) + dp.b_lm
+def _lm_head(params: Params, x: torch.Tensor, dtype) -> torch.Tensor:
+    """x @ shared.to(dtype)ᵀ with f32 accumulation, + final_logits_bias in f32
+    (vacnic_tpu/infer/decode_fast.py:761-763)."""
+    w = params["shared"]["weight"].to(dtype)
+    return torch.matmul(x.float(), w.float().t()) + params["final_logits_bias"].float()
 
 
 def decode_step(dp: DecodeParams, params: Params, cache: DecodeCache, tok: torch.Tensor,
@@ -243,7 +274,24 @@ def decode_step(dp: DecodeParams, params: Params, cache: DecodeCache, tok: torch
         hmid = act(mm(x, dp.w_fc1[l], dp.b_fc1[l])).to(dtype)
         o = mm(hmid, dp.w_fc2[l], dp.b_fc2[l]).to(dtype)
         x = ln(dp.ln_final[l], residual + o)
-    return _lm_head(dp, x), cache
+    return _lm_head(params, x, dtype), cache
+
+
+def _kernel_stack_step(dp: DecodeParams, params: Params, cache: DecodeCache,
+                       tok: torch.Tensor, pos: int, enc_mask_bias: torch.Tensor,
+                       cfg: BartConfig, dtype) -> tuple[torch.Tensor, DecodeCache]:
+    """Embed, run kernels/decode_layer.decode_stack, write row `pos`
+    -> (x_out [BK, d] bf16, cache)."""
+    from vacnic_tpu_torch.kernels.decode_layer import decode_stack
+
+    x = _embed(params, tok, pos, cfg, dtype).to(torch.bfloat16)
+    x_out, k_new, v_new = decode_stack(
+        dp, x, pos, cache.self_k, cache.self_v, cache.anc, cache.cross_k, cache.cross_v,
+        enc_mask_bias[:, 0, 0, :].float().contiguous(), cfg.decoder_attention_heads,
+        cache.cross_k_scale, cache.cross_v_scale)
+    cache.self_k[:, pos] = k_new
+    cache.self_v[:, pos] = v_new
+    return x_out, cache._replace(pos=pos)
 
 
 def decode_step_kernel(dp: DecodeParams, params: Params, cache: DecodeCache,
@@ -255,13 +303,23 @@ def decode_step_kernel(dp: DecodeParams, params: Params, cache: DecodeCache,
     step. The step's K/V rows are written at `pos` after the stack (row
     `pos` is still zero while the stack runs; it reads them from the QKV
     output)."""
-    from vacnic_tpu_torch.kernels.decode_layer import decode_stack
+    x_out, cache = _kernel_stack_step(dp, params, cache, tok, pos, enc_mask_bias, cfg, dtype)
+    return _lm_head(params, x_out.to(dtype), dtype), cache
 
-    x = _embed(params, tok, pos, cfg, dtype).to(torch.bfloat16)
-    x_out, k_new, v_new = decode_stack(
-        dp, x, pos, cache.self_k, cache.self_v, cache.anc, cache.cross_k, cache.cross_v,
-        enc_mask_bias[:, 0, 0, :].float().contiguous(), cfg.decoder_attention_heads,
-        cache.cross_k_scale, cache.cross_v_scale)
-    cache.self_k[:, pos] = k_new
-    cache.self_v[:, pos] = v_new
-    return _lm_head(dp, x_out.to(dtype)), cache._replace(pos=pos)
+
+def decode_step_kernel_stats(dp: DecodeParams, params: Params, cache: DecodeCache,
+                             tok: torch.Tensor, pos: int, enc_mask_bias: torch.Tensor,
+                             cfg: BartConfig, dtype=torch.bfloat16, shortlist_c: int = 16):
+    """decode_step_kernel with the LM head replaced by kernels/lm_stats (port
+    of decode_step_pallas_stats): lm_stats over dp's padded head (in the
+    dtype it was built in), then lm_stats_topk with C = shortlist_c.
+    Returns (logits_padded [BK, Vp] f32, cand_vals [BK, C], cand_idx
+    [BK, C], lse [BK], cache) -- beam_search's `step_stats_fn` contract."""
+    from vacnic_tpu_torch.kernels.lm_stats import lm_stats, lm_stats_topk
+
+    if dp.w_lm is None:
+        raise ValueError("decode_step_kernel_stats: build the padded head with ensure_lm_head")
+    x_out, cache = _kernel_stack_step(dp, params, cache, tok, pos, enc_mask_bias, cfg, dtype)
+    logits_p, m, s = lm_stats(x_out.to(dp.w_lm.dtype), dp.w_lm, dp.b_lm)
+    cv, ci, lse = lm_stats_topk(logits_p, m, s, shortlist_c, params["shared"]["weight"].shape[0])
+    return logits_p, cv, ci, lse, cache

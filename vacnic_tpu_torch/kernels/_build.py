@@ -35,6 +35,8 @@ SIGNATURES = {
     "vt_enc_cross_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "vt_dec_self_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "vt_dec_cross_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    "vt_lm_stats": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "vt_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
 }
 
 NVCC_FALLBACKS = ("/usr/local/cuda/bin/nvcc",)  # the toolkit's usual home

@@ -19,7 +19,8 @@ import ctypes
 import torch
 
 KERNELS = ("gemm_bf16", "layernorm", "enc_self_attention", "enc_cross_attention",
-           "dec_self_attention", "dec_cross_attention")
+           "dec_self_attention", "dec_cross_attention", "lm_stats", "flash_attention")
+# (the wrappers of the last two live in kernels/lm_stats and kernels/flash_attn)
 LAUNCHES: dict[str, int] = {k: 0 for k in KERNELS}
 
 GELU = "gelu"

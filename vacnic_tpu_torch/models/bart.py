@@ -1,6 +1,7 @@
-"""BART backbone pieces used by the multimodal model (port of
-vacnic_tpu/models/bart.py): embeddings, the encoder and decoder layers over a
-whole sequence, the tied LM head, and the parameter init. Inference only."""
+"""BART backbone (port of vacnic_tpu/models/bart.py): embeddings, the
+encoder and decoder layers over a whole sequence, the text-only encoder and
+teacher-forced seq2seq forward, the tied LM head, label shifting and the
+parameter init. Inference only."""
 
 from __future__ import annotations
 
@@ -75,6 +76,37 @@ def decoder_fwd(params: Params, decoder_input_ids: torch.Tensor, enc_out: torch.
     for p in dec["layers"]:
         x = decoder_layer_fwd(p, x, self_mask, enc_out, cross_mask, cfg)
     return x
+
+
+def encoder_fwd(params: Params, input_ids: torch.Tensor, attention_mask: torch.Tensor,
+                cfg: BartConfig, dtype=torch.float32) -> torch.Tensor:
+    """Text-only encoder (the CoLaM teacher's) -> [B, S, d]."""
+    enc = params["encoder"]
+    x = embed_and_norm(params["shared"], enc["embed_positions"], enc["layernorm_embedding"],
+                       input_ids, cfg, dtype)
+    mask = expand_mask(attention_mask, dtype=dtype)
+    for p in enc["layers"]:
+        x = encoder_layer_fwd(p, x, mask, cfg)
+    return x
+
+
+def bart_forward(params: Params, input_ids: torch.Tensor, attention_mask: torch.Tensor,
+                 decoder_input_ids: torch.Tensor, cfg: BartConfig,
+                 dtype=torch.float32) -> dict[str, torch.Tensor]:
+    """Teacher-forced seq2seq forward -> {"logits", "decoder_hidden",
+    "encoder_hidden"}."""
+    enc_out = encoder_fwd(params, input_ids, attention_mask, cfg, dtype)
+    dec_out = decoder_fwd(params, decoder_input_ids, enc_out, attention_mask, cfg, dtype)
+    return {"logits": lm_logits(params, dec_out), "decoder_hidden": dec_out,
+            "encoder_hidden": enc_out}
+
+
+def shift_tokens_right(input_ids: torch.Tensor, pad_token_id: int,
+                       decoder_start_token_id: int) -> torch.Tensor:
+    """Prepend decoder_start, drop the last token, and map -100 to pad."""
+    shifted = torch.roll(input_ids, 1, dims=-1)
+    shifted[:, 0] = decoder_start_token_id
+    return torch.where(shifted == -100, pad_token_id, shifted)
 
 
 def lm_logits(params: Params, hidden: torch.Tensor) -> torch.Tensor:

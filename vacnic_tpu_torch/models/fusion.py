@@ -13,7 +13,8 @@ Per fusion layer, with streams threaded layer to layer:
 `mm_encoder_fwd` is the layer-by-layer reference; `mm_encoder_fwd_fused` runs
 the stream prologue here and the text path through
 kernels/encoder_stack.encoder_text_stack (CUDA on the card, its plain twin on
-the CPU).
+the CPU). `mm_forward` is the teacher-forced forward of the whole model
+(encoder, decoder, tied LM head), an entry point like infer/generate's.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from typing import Any
 import torch
 
 from vacnic_tpu_torch.core.config import BartConfig, FusionConfig
+from vacnic_tpu_torch.core.device import as_tensor, resolve_device
 from vacnic_tpu_torch.models import bart as B
 from vacnic_tpu_torch.models.layers import (
     ACT2FN,
@@ -37,6 +39,7 @@ from vacnic_tpu_torch.models.layers import (
     mha,
     mha_init,
 )
+from vacnic_tpu_torch.models.weights_io import tree_to
 
 
 # ---------------------------------------------------------------------------
@@ -310,6 +313,39 @@ def mm_encoder_fwd_fused(params: Params, input_ids, attention_mask, image_featur
         name_mask=name_mask, add_ner_ffn=add_ner_ffn, dtype=dtype)
     last = encoder_text_stack(sp, x, cross_k, cross_v, self_bias, cross_bias, cfg)
     return {"last_hidden": last, **streams}
+
+
+# ---------------------------------------------------------------------------
+# Full model forward
+# ---------------------------------------------------------------------------
+
+@torch.no_grad()
+def mm_forward(params: Params, input_ids, attention_mask, decoder_input_ids, image_features,
+               cfg: BartConfig, fcfg: FusionConfig, *, face_features=None, face_mask=None,
+               name_ids=None, name_mask=None, add_ner_ffn: bool = True, dtype=torch.float32,
+               allow_fused_encoder: bool = True, device=None) -> dict[str, Any]:
+    """BartForMultiModalGeneration.forward, teacher-forced: multimodal
+    encoder, BART decoder, tied LM head + final_logits_bias ->
+    {"logits", "decoder_hidden", "encoder_hidden", "hidden_states_img",
+    "hidden_states_ner", "hidden_states_face"}. The fused encoder runs when
+    eligible (as in generation) unless allow_fused_encoder=False. Params
+    and inputs move to `device` ("cuda" by default)."""
+    dev = resolve_device(device)
+    params = tree_to(params, dev)
+    (input_ids, attention_mask, decoder_input_ids, image_features, face_features, face_mask,
+     name_ids, name_mask) = (as_tensor(x, dev) for x in (
+        input_ids, attention_mask, decoder_input_ids, image_features, face_features, face_mask,
+        name_ids, name_mask))
+    fused = allow_fused_encoder and fused_encoder_eligible(fcfg, cfg, add_ner_ffn)
+    enc_fwd = mm_encoder_fwd_fused if fused else mm_encoder_fwd
+    enc_out = enc_fwd(params, input_ids, attention_mask, image_features, cfg, fcfg,
+                      face_features=face_features, face_mask=face_mask, name_ids=name_ids,
+                      name_mask=name_mask, add_ner_ffn=add_ner_ffn, dtype=dtype)
+    dec_out = B.decoder_fwd(params, decoder_input_ids, enc_out["last_hidden"], attention_mask,
+                            cfg, dtype)
+    return {"logits": B.lm_logits(params, dec_out), "decoder_hidden": dec_out,
+            "encoder_hidden": enc_out["last_hidden"], "hidden_states_img": enc_out["img"],
+            "hidden_states_ner": enc_out["ner"], "hidden_states_face": enc_out["face"]}
 
 
 # ---------------------------------------------------------------------------

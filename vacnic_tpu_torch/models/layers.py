@@ -13,6 +13,8 @@ from typing import Any, Callable
 
 import torch
 
+from vacnic_tpu_torch.kernels.flash_attn import flash_attention, flash_eligible
+
 Params = dict[str, Any]
 
 
@@ -80,17 +82,36 @@ def _merge_heads(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 1, 3).reshape(b, t, h * hd)
 
 
-def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                   mask: torch.Tensor | None) -> torch.Tensor:
-    """q [B,H,T,hd] (pre-scaled), k/v [B,H,S,hd], additive mask [B|1,1,T,S].
-    Scores and softmax in float32; probabilities cast to v.dtype before the
-    value product, which accumulates in float32 (attention_core :166)."""
+def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    mask: torch.Tensor | None) -> torch.Tensor:
+    """The softmax-then-P·V attention of JAX attention_core (:166): scores and
+    softmax in float32, probabilities cast to v.dtype before the value
+    product, which accumulates in float32."""
     scores = torch.einsum("bhtd,bhsd->bhts", q.float(), k.float())
     if mask is not None:
         scores = scores + mask.float()
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhts,bhsd->bhtd", probs.to(v.dtype).float(), v.float())
     return out.to(v.dtype)
+
+
+def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   mask: torch.Tensor | None) -> torch.Tensor:
+    """q [B,H,T,hd] (pre-scaled), k/v [B,H,S,hd], additive mask [B|1,1,T,S].
+
+    Shapes that `flash_eligible` accepts (the 512-token encoder
+    self-attention) go to kernels/flash_attn.flash_attention: the CUDA
+    kernel on the card, its plain twin on the CPU. The JAX package takes
+    that route only under VACNIC_PALLAS=1; the port always does. On the card
+    the kernel runs in bf16, as the fused stacks do: other inputs are
+    rounded to bf16 and the output is cast back to v.dtype. Other shapes
+    take `attention_plain`."""
+    if not flash_eligible(q, k, mask):
+        return attention_plain(q, k, v, mask)
+    if q.is_cuda and v.dtype != torch.bfloat16:
+        bf = torch.bfloat16
+        return flash_attention(q.to(bf), k.to(bf), v.to(bf), mask).to(v.dtype)
+    return flash_attention(q, k, v, mask)
 
 
 def mha(p: Params, hidden: torch.Tensor, key_value: torch.Tensor | None = None,
