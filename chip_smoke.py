@@ -8,7 +8,8 @@ Phases:
   build    compile kernels/csrc/*.cu (one nvcc per source, in parallel).
   kernels  each CUDA kernel against its plain PyTorch twin on the card at
            the main path's shapes: max error against a stated tolerance,
-           its time, the plain twin's time, its bound (bytes or operations
+           its time (the median of five groups of calls), the plain twin's
+           time, its bound (bytes or operations
            over the H100's peak rate) and, where one PyTorch call computes
            the same function, that call's time (timed here only; the port
            never calls it).
@@ -35,8 +36,9 @@ Phases:
            stats and layerwise paths under torch.profiler: device time by
            kernel family, busy/idle share.
 
-Prints the card's name and power limit (nvidia-smi), a JSON line with every
-kernel, and last `{"ok": true, "device": {...}}`. Exits non-zero, printing
+Prints the registers, spills and shared memory of the two 512-token
+self-attention kernels (from nvcc's output of this build), a JSON line with
+every kernel, the card's name and power limit (nvidia-smi), and last `{"ok": true, "device": {...}}`. Exits non-zero, printing
 no result, when a phase fails or there is no CUDA device. Long logs go to
 chiprun_out/chip_smoke/.
 
@@ -99,19 +101,25 @@ def gpu_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, reps: int, warmup: int = 2) -> float:
+def time_ms(fn, reps: int, warmup: int = 2, groups: int = 5) -> float:
+    """Median over `groups` of the mean time of `reps` back-to-back calls
+    (CUDA events): one slow group, a clock ramp or a neighbour on the host,
+    does not move the number."""
     import torch
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    means = []
+    for _ in range(groups):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        means.append(start.elapsed_time(end) / reps)
+    return sorted(means)[len(means) // 2]
 
 
 def bound(byts: float, ops: float, peak_ops: float = PEAK_BF16_FLOPS):
@@ -125,7 +133,8 @@ def bound(byts: float, ops: float, peak_ops: float = PEAK_BF16_FLOPS):
 
 def kernel_cases():
     """(name, kernel, call, plain call, bytes, ops, peak, library call or None,
-    bf16 output?) at the main path's shapes."""
+    bf16 output?) at the main path's shapes. A case with bytes None is held
+    against its plain twin only: it is not timed and not listed."""
     import torch
     import torch.nn.functional as Fn
 
@@ -164,20 +173,26 @@ def kernel_cases():
                       lambda x=x, gb=gb: Fn.layer_norm(x, (d,), gb[0], gb[1]), False))
 
     H, B, S, KV = 16, 8, 512, 40
-    qkv = rn(B * S, 3 * d, dtype=bf)
-    keep = torch.arange(S, device=dev)[None, :] < torch.randint(S // 2, S + 1, (B, 1), device=dev,
-                                                                generator=g)
-    sbias = torch.where(keep, 0.0, torch.finfo(torch.float32).min).float().contiguous()
-    clamped = sbias.clamp(min=float(torch.finfo(bf).min))
-    q4 = qkv.view(B, S, 3, H, 64)
-    mask = keep[:, None, None, :]
-    cases.append((f"enc_self_attention B={B} S={S} H={H}", "enc_self_attention",
-                  lambda: K.enc_self_attention(qkv, clamped, B, S, H),
-                  lambda: K.enc_self_attention_plain(qkv, clamped, B, S, H),
-                  B * S * 4 * d * 2 + B * S * 4, 4.0 * B * H * S * S * 64, PEAK_BF16_FLOPS,
-                  lambda: Fn.scaled_dot_product_attention(
-                      q4[:, :, 0].transpose(1, 2), q4[:, :, 1].transpose(1, 2),
-                      q4[:, :, 2].transpose(1, 2), attn_mask=mask), True))
+
+    def enc_self_case(bsz, seq, timed=True):  # B=32 is the slice's own shape
+        qkv = rn(bsz * seq, 3 * d, dtype=bf)
+        keep = torch.arange(seq, device=dev)[None, :] < torch.randint(
+            seq // 2, seq + 1, (bsz, 1), device=dev, generator=g)
+        sbias = torch.where(keep, 0.0, torch.finfo(torch.float32).min).float().contiguous()
+        clamped = sbias.clamp(min=float(torch.finfo(bf).min))
+        q4 = qkv.view(bsz, seq, 3, H, 64)
+        mask = keep[:, None, None, :]
+        return (f"enc_self_attention B={bsz} S={seq} H={H}", "enc_self_attention",
+                lambda: K.enc_self_attention(qkv, clamped, bsz, seq, H),
+                lambda: K.enc_self_attention_plain(qkv, clamped, bsz, seq, H),
+                bsz * seq * 4 * d * 2 + bsz * seq * 4 if timed else None,
+                4.0 * bsz * H * seq * seq * 64, PEAK_BF16_FLOPS,
+                lambda: Fn.scaled_dot_product_attention(
+                    q4[:, :, 0].transpose(1, 2), q4[:, :, 1].transpose(1, 2),
+                    q4[:, :, 2].transpose(1, 2), attn_mask=mask), True)
+
+    cases += [enc_self_case(B, S), enc_self_case(32, S), enc_self_case(3, 64, timed=False),
+              enc_self_case(3, 192, timed=False)]
     q = rn(B * S, d, dtype=bf)
     ck, cv = rn(B, d, KV, dtype=bf), rn(B, KV, d, dtype=bf)
     cases.append((f"enc_cross_attention B={B} S={S} KV={KV}", "enc_cross_attention",
@@ -265,6 +280,17 @@ def kernel_cases():
                   PEAK_BF16_FLOPS,
                   lambda: Fn.scaled_dot_product_attention(fq, fk, fv, attn_mask=fbias, scale=1.0),
                   True))
+    # correctness only: T != S, an f32 per-head bias, non-contiguous head-split views
+    B4, T4, S4 = 2, 256, 512
+    hq = (rn(B4, T4, d).view(B4, T4, H, 64).permute(0, 2, 1, 3) * 64 ** -0.5).to(bf)
+    hk = rn(B4, S4, d, dtype=bf).view(B4, S4, H, 64).permute(0, 2, 1, 3)
+    hv = rn(B4, S4, d, dtype=bf).view(B4, S4, H, 64).permute(0, 2, 1, 3)
+    hbias = rn(B4, H, T4, S4)
+    hbias[1, :, :, 300:] = torch.finfo(torch.float32).min
+    cases.append((f"flash_attention B={B4} H={H} T={T4} S={S4} D=64 bias [B,H,T,S] f32",
+                  "flash_attention", lambda: FA.flash_attention(hq, hk, hv, hbias),
+                  lambda: FA.flash_attention_plain(hq, hk, hv, hbias), None, 0.0,
+                  PEAK_BF16_FLOPS, None, True))
     return cases
 
 
@@ -286,6 +312,12 @@ def run_kernels_phase():
             ok = ok and bool(torch.isfinite(out.float()).all()) and bool(
                 (e <= tol_a + tol_r * ref.float().abs()).all())
             max_err = max(max_err, float(e.max()))
+        if byts is None:  # held against the plain twin only
+            log(f"kernel {name}: max_abs_err {max_err:.3e} (tol {tol_a}+{tol_r}*|plain|) "
+                f"{'ok' if ok else 'FAIL'}; not timed")
+            if not ok:
+                failures.append(name)
+            continue
         reps = 20
         ms = time_ms(call, reps)
         plain_ms = time_ms(plain, 5, warmup=1)
@@ -561,6 +593,36 @@ def run_layerwise_phase(cfg, params, batch_size: int):
     return counts
 
 
+def attention_build_lines() -> list[str]:
+    """Registers a thread, spill bytes and shared memory of the two 512-token
+    self-attention kernels, from nvcc's -Xptxas -v output of this build. The
+    dynamic shared memory is the launch's own (csrc/enc_attention.cu:
+    ring + 4 S; csrc/flash_attn.cu: two stages of K, V and the padded bias
+    tile; both + 1024 to align the tiles), computed here for S = 512."""
+    import re
+
+    from vacnic_tpu_torch.kernels import _build
+
+    dynamic = {"enc_self_attn_kernel": 4 * 8192 + 4 * 512 + 1024,
+               "flash_attn_kernelIf": 2 * (2 * 8192 + 64 * 72 * 4) + 1024,
+               "flash_attn_kernelI13__nv_bfloat16": 2 * (2 * 8192 + 64 * 72 * 2) + 1024}
+    if not _build.BUILD_LOG:
+        return ["ptxas: the library was already built; no compiler output in this run"]
+    text = "\n".join(_build.BUILD_LOG)
+    lines = []
+    for key, dyn in dynamic.items():
+        m = re.search(r"Function properties for \S*" + re.escape(key) + r"\S*\n(.*)\n(.*)\n", text)
+        if m is None:
+            raise RuntimeError(f"build log has no ptxas lines for {key}")
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", m.group(1))
+        regs = re.search(r"Used (\d+) registers", m.group(2))
+        static = re.search(r"(\d+) bytes smem", m.group(2))
+        lines.append(f"ptxas {key}: {regs.group(1)} registers/thread, spill stores "
+                     f"{spill.group(1)} B, spill loads {spill.group(2)} B, static shared "
+                     f"{static.group(1) if static else 0} B, dynamic shared {dyn} B a block")
+    return lines
+
+
 KERNEL_FAMILIES = (("gemm_kernel", "gemm_bf16"), ("layernorm_kernel", "layernorm"),
                    ("enc_self_attn", "enc_self_attention"),
                    ("enc_cross_attn", "enc_cross_attention"),
@@ -686,6 +748,7 @@ def main() -> int:
                  "launches": n} for k, n in launches.items()]
     with open(os.path.join(OUT_DIR, "kernels.json"), "w") as f:
         json.dump(rows, f, indent=1)
+    print("; ".join(attention_build_lines()))
     print(json.dumps({"kernels": rows}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

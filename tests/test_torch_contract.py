@@ -99,3 +99,39 @@ def test_kernel_build_refuses_without_nvcc(monkeypatch, tmp_path):
     names = {p.name for p in _build._sources()}
     assert names == {"gemm_bf16.cu", "layernorm.cu", "enc_attention.cu", "dec_attention.cu",
                      "lm_stats.cu", "flash_attn.cu"}
+
+
+def test_library_path_follows_headers(monkeypatch, tmp_path):
+    """The library is named by a hash of the sources and of the headers they
+    include: an edited attn_tiles.cuh gives a new path, hence a rebuild."""
+    from vacnic_tpu_torch.kernels import _build
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    assert (csrc / "attn_tiles.cuh").exists()
+    original = _build.library_path()
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    same = _build.library_path()
+    assert same.name == original.name  # the copy hashes like the original
+    with open(csrc / "attn_tiles.cuh", "a") as f:
+        f.write("// edited\n")
+    after_header = _build.library_path()
+    assert after_header.name != same.name
+    with open(csrc / "flash_attn.cu", "a") as f:
+        f.write("// edited\n")
+    assert _build.library_path().name not in (same.name, after_header.name)
+
+
+def test_flash_wrapper_checks_row_alignment():
+    """The kernel copies rows in 16-byte pieces; the wrapper's stride helper
+    refuses rows that start elsewhere, and a strided last dimension."""
+    from vacnic_tpu_torch.kernels import flash_attn as FA
+
+    assert FA._strides(torch.zeros(2, 1, 64, 64), "bias") == [64 * 64, 0, 64]
+    assert FA._strides(torch.zeros(1, 1, 64, 64, dtype=torch.bfloat16), "bias") == [0, 0, 64]
+    with pytest.raises(ValueError, match="16-byte"):
+        FA._strides(torch.zeros(1, 1, 64, 66)[..., :64], "bias")     # row stride 66 floats
+    with pytest.raises(ValueError, match="16-byte"):
+        FA._strides(torch.zeros(1, 1, 64, 68)[..., 1:65], "bias")   # base 4 bytes off
+    with pytest.raises(ValueError, match="contiguous"):
+        FA._strides(torch.zeros(1, 1, 64, 128)[..., ::2], "bias")

@@ -53,6 +53,50 @@ def test_gemm_and_layernorm(dev):
         close(y16, p16, True)
 
 
+def test_attention_tile_fragments(dev):
+    """One warpgroup, one 64 x 64 x 64 tile (16 x 64 x 64 a warp) through the
+    wgmma fragment and descriptor code of csrc/attn_tiles.cuh: s = q k^T and
+    o = bf16(s) v against torch.matmul. Non-symmetric random inputs, so a
+    K / V transposition mix-up cannot pass. Tolerance: f32 sum order only."""
+    from vacnic_tpu_torch.kernels import _build
+    from vacnic_tpu_torch.kernels import primitives as K
+
+    g = torch.Generator(device=dev).manual_seed(7)
+    bf = torch.bfloat16
+    q, k, v = rn(g, 64, 64, dtype=bf), rn(g, 64, 64, dtype=bf), rn(g, 64, 64, dtype=bf)
+    s_out = torch.empty(64, 64, device=dev)
+    o_out = torch.empty(64, 64, device=dev)
+    rc = _build.lib().vt_attn_tile_check(K._p(q), K._p(k), K._p(v), K._p(s_out), K._p(o_out),
+                                         K._stream())
+    assert rc == 0
+    torch.cuda.synchronize()
+    s_ref = q.float() @ k.float().T
+    close(s_out, s_ref, False)
+    # the kernel rounds its own scores; hold its output to them
+    close(o_out, s_out.to(bf).float() @ v.float(), False)
+    close(o_out, s_ref.to(bf).float() @ v.float(), True)
+
+
+@pytest.mark.parametrize("B,S,H", [(3, 64, 2), (2, 192, 4), (2, 512, 16), (1, 1024, 2)])
+def test_enc_self_attention_kernel(dev, B, S, H):
+    """Padded keys at finfo(bf16).min (clamped, f32) on every item but the
+    first; one, three, eight and sixteen 64-key tiles (S = 1024 is longer
+    than the encoder's 512 tokens)."""
+    from vacnic_tpu_torch.kernels import primitives as K
+
+    g = torch.Generator(device=dev).manual_seed(10 + S)
+    bf = torch.bfloat16
+    qkv = rn(g, B * S, 3 * H * 64, dtype=bf)
+    bias = torch.zeros(B, S, device=dev)
+    for b in range(1, B):
+        bias[b, S - 17 * b:] = torch.finfo(bf).min
+    before = K.launch_counts()["enc_self_attention"]
+    out = K.enc_self_attention(qkv, bias, B, S, H)
+    assert K.launch_counts()["enc_self_attention"] == before + 1
+    assert bool(torch.isfinite(out.float()).all())
+    close(out, K.enc_self_attention_plain(qkv, bias, B, S, H), True)
+
+
 def test_attention_kernels(dev):
     from vacnic_tpu_torch.kernels import primitives as K
 
@@ -63,6 +107,10 @@ def test_attention_kernels(dev):
     qkv = rn(g, B * S, 3 * d, dtype=bf)
     bias = torch.zeros(B, S, device=dev)
     bias[1, 100:] = torch.finfo(bf).min
+    close(K.enc_self_attention(qkv, bias, B, S, H),
+          K.enc_self_attention_plain(qkv, bias, B, S, H), True)
+    # one key kept: every other carries the clamped pad bias
+    bias[0, 1:] = torch.finfo(bf).min
     close(K.enc_self_attention(qkv, bias, B, S, H),
           K.enc_self_attention_plain(qkv, bias, B, S, H), True)
     q, ck, cv = rn(g, B * S, d, dtype=bf), rn(g, B, d, KV, dtype=bf), rn(g, B, KV, d, dtype=bf)
@@ -163,3 +211,39 @@ def test_flash_attention_kernel(dev, bias_dtype, per_head):
     assert out32.dtype == torch.float32
     assert K.launch_counts()["flash_attention"] == before + 2
     close(out32, out, True)
+
+
+@pytest.mark.parametrize("T,S", [(64, 64), (192, 192), (512, 512), (256, 1024)])
+@pytest.mark.parametrize("bias_dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_shapes_and_masked_rows(dev, T, S, bias_dtype):
+    """One to sixteen key tiles, T != S, padded keys, one fully masked row
+    with a finite bias (uniform weights) and one with -inf (zeros), against
+    the plain twin."""
+    from vacnic_tpu_torch.kernels import flash_attn as FA
+
+    g = torch.Generator(device=dev).manual_seed(T + S)
+    B, H, d = 2, 3, 64
+    bf = torch.bfloat16
+    q = (rn(g, B, T, H * d).view(B, T, H, d).permute(0, 2, 1, 3) * d ** -0.5).to(bf)
+    k = rn(g, B, S, H * d, dtype=bf).view(B, S, H, d).permute(0, 2, 1, 3)
+    v = rn(g, B, S, H * d, dtype=bf).view(B, S, H, d).permute(0, 2, 1, 3)
+    neg = torch.finfo(bias_dtype).min
+    bias = torch.zeros(B, 1, T, S, device=dev)
+    bias[1, :, :, S - 23:] = neg
+    bias[0, :, 5, :] = neg
+    bias[1, :, T - 1, :] = float("-inf")
+    bias = bias.to(bias_dtype)
+    out = FA.flash_attention(q, k, v, bias)
+    assert bool(torch.isfinite(out.float()).all())
+    close(out, FA.flash_attention_plain(q, k, v, bias), True)
+    close(out[0, :, 5], v[0].float().mean(dim=1), True)   # uniform over the keys
+    assert bool((out[1, :, T - 1] == 0).all())
+
+
+def test_flash_attention_refuses_misaligned_bias(dev):
+    from vacnic_tpu_torch.kernels import flash_attn as FA
+
+    x = torch.zeros(1, 1, 64, 64, device=dev, dtype=torch.bfloat16)
+    bias = torch.zeros(1, 1, 64, 66, device=dev)[..., 1:65]  # rows start 4 bytes off
+    with pytest.raises(ValueError, match="16-byte"):
+        FA.flash_attention(x, x, x, bias)

@@ -1,4 +1,4 @@
-"""Build and load the port's CUDA kernels (kernels/csrc/*.cu).
+"""Build and load the port's CUDA kernels (kernels/csrc/*.cu, headers *.cuh).
 
 Each source is compiled by its own `nvcc` process, all started together,
 for sm_90a (`-gencode arch=compute_90a,code=sm_90a -O3`, position
@@ -6,8 +6,8 @@ independent), and the objects are linked into one shared library with a
 plain C interface that ctypes loads. Pointers and the stream travel as
 ctypes.c_void_p; every entry point returns cudaGetLastError(), which the
 wrappers raise on. The library lands in kernels/build/ (listed in
-.gitignore), named by a hash of the sources and flags, so an edited source
-is rebuilt. A failed build raises; nothing falls back.
+.gitignore), named by a hash of the sources, headers and flags, so an edited
+source or header is rebuilt. A failed build raises; nothing falls back.
 
 Run `python -m vacnic_tpu_torch.kernels._build` to build ahead of use.
 """
@@ -37,6 +37,7 @@ SIGNATURES = {
     "vt_dec_cross_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     "vt_lm_stats": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "vt_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
+    "vt_attn_tile_check": [_P, _P, _P, _P, _P, _P],
 }
 
 NVCC_FALLBACKS = ("/usr/local/cuda/bin/nvcc",)  # the toolkit's usual home
@@ -57,8 +58,9 @@ def _sources() -> list[Path]:
 
 
 def library_path() -> Path:
+    """Named by a hash of the flags, the sources and the headers they include."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _sources() + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libvacnic_kernels_{h.hexdigest()[:16]}.so"

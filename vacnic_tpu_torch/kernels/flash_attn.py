@@ -50,10 +50,14 @@ def flash_attention_plain(q, k, v, bias):
 
 def _strides(t: torch.Tensor, name: str) -> list[int]:
     """(item, head, row) element strides of a 4-D tensor with a unit last
-    stride; a size-1 dimension reads with stride 0."""
+    stride; a size-1 dimension reads with stride 0. The kernel copies rows in
+    16-byte pieces, so every row must start on a 16-byte boundary."""
     if t.stride(-1) != 1:
         raise ValueError(f"flash_attention {name}: the last dimension must be contiguous")
-    return [0 if t.shape[i] == 1 else t.stride(i) for i in range(3)]
+    st = [0 if t.shape[i] == 1 else t.stride(i) for i in range(3)]
+    if any(z % (16 // t.element_size()) for z in st) or t.data_ptr() % 16:
+        raise ValueError(f"flash_attention {name}: rows must be 16-byte aligned")
+    return st
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -61,7 +65,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q [B, H, T, D] (pre-scaled), k/v [B, H, S, D], additive bias
     [B | 1, H | 1, T, S] -> [B, H, T, D] in q's dtype. The kernel takes bf16
     q/k/v, an f32 or bf16 bias, D == 64, T % 64 == 0, S % 64 == 0, and
-    q/k/v rows 16-byte aligned."""
+    rows of q, k, v and the bias 16-byte aligned."""
     if K._on_cpu(q):
         return flash_attention_plain(q, k, v, bias)
     b, h, t, d = q.shape
@@ -85,10 +89,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty(b, t, h, d, dtype=torch.bfloat16, device=q.device).permute(0, 2, 1, 3)
     strides = []
     for name, x in (("q", q), ("k", k), ("v", v), ("bias", bias), ("out", out)):
-        st = _strides(x, name)
-        if name != "bias" and (any(z % 8 for z in st) or x.data_ptr() % 16):
-            raise ValueError(f"flash_attention {name}: rows must be 16-byte aligned")
-        strides += st
+        strides += _strides(x, name)
     arr = (ctypes.c_longlong * 15)(*strides)
     K._launch("flash_attention", "vt_flash_attention", K._p(q), K._p(k), K._p(v), K._p(bias),
               K._p(out), b, h, t, s, d, int(bias.dtype == torch.bfloat16),

@@ -168,8 +168,8 @@ def enc_self_attention(qkv, bias, batch: int, seq: int, heads: int):
     d = qkv.shape[1] // 3
     _req(qkv, "enc_self qkv", torch.bfloat16, (batch * seq, 3 * d))
     _req(bias, "enc_self bias", torch.float32, (batch, seq), qkv.device)
-    if d != heads * 64 or seq % 64 or seq > 512:
-        raise ValueError(f"enc_self_attention: needs head_dim 64 and S % 64 == 0, S <= 512 "
+    if d != heads * 64 or seq % 64 or seq > 32768:
+        raise ValueError(f"enc_self_attention: needs head_dim 64 and S % 64 == 0, S <= 32768 "
                          f"(d={d}, heads={heads}, S={seq})")
     out = torch.empty(batch * seq, d, dtype=torch.bfloat16, device=qkv.device)
     _launch("enc_self_attention", "vt_enc_self_attention", _p(qkv), _p(bias), _p(out),
