@@ -2,25 +2,32 @@
 """End-to-end check of the PyTorch/CUDA port (vacnic_tpu_torch) on one GPU.
 
     python3 chip_smoke.py                     # every phase, one card
-    python3 chip_smoke.py --phases build,kernels
+    python3 chip_smoke.py --phases build,kernels   # `build` also prints the ptxas line
 
 Phases:
   build    compile kernels/csrc/*.cu (one nvcc per source, in parallel).
   kernels  each CUDA kernel against its plain PyTorch twin on the card at
            the main path's shapes: max error against a stated tolerance,
-           its time (the median of five groups of calls), the plain twin's
-           time, its bound (bytes or operations
+           its time (the median of five groups of 20 calls; graph_ms is the
+           same 20 calls replayed from one CUDA graph, without the host's
+           dispatch), the plain twin's time, its bound (bytes or operations
            over the H100's peak rate) and, where one PyTorch call computes
-           the same function, that call's time (timed here only; the port
-           never calls it).
+           the same function, that call's time, eager and from a graph
+           (timed here only; the port never calls it). gemm_bf16 runs every product of a layer in both
+           regimes (M = 16384: the TMA kernel, M = 160: the split-K kernel;
+           each row names its plan) and ragged shapes untimed.
+  dispatch host microseconds a call of the decoder's products, layernorm and
+           a bare torch.empty, issued without waiting for the card.
   stacks   full-width fused encoder and decode step (random weights) against
            the layer-by-layer references on a small batch.
   slice    VacnicConfig.full_train(), random bf16 weights from seed 0,
            synthetic_batch(32): generate_mm on cuda, beam 5 x max_length 50
            x length penalty 2.0 with min_length 49. Launch counts are zeroed
            just before this run and read just after; the six kernels of the
-           fused encoder and the decode stack must have launched. Checks
-           finite scores and a mean caption length >= 45.
+           fused encoder and the decode stack must have launched, gemm_bf16's
+           large-M kernel six times an encoder layer and its small-M kernel
+           for every other product. Checks finite scores and a mean caption
+           length >= 45.
   stats    the same run with lm_stats=True (the fused LM-stats head):
            lm_stats must launch once per decode step; at one step its
            stage 2 must be exact on the kernel's own logits (top-C equal to
@@ -37,7 +44,8 @@ Phases:
            kernel family, busy/idle share.
 
 Prints the registers, spills and shared memory of the two 512-token
-self-attention kernels (from nvcc's output of this build), a JSON line with
+self-attention kernels and the two gemm_bf16 kernels (from nvcc's output of
+this build; a spill in a gemm kernel fails the run), a JSON line with
 every kernel, the card's name and power limit (nvidia-smi), and last `{"ok": true, "device": {...}}`. Exits non-zero, printing
 no result, when a phase fails or there is no CUDA device. Long logs go to
 chiprun_out/chip_smoke/.
@@ -122,6 +130,26 @@ def time_ms(fn, reps: int, warmup: int = 2, groups: int = 5) -> float:
     return sorted(means)[len(means) // 2]
 
 
+def graph_ms(fn, reps: int = 20) -> float:
+    """Per-call time of `reps` calls captured once in a CUDA graph and
+    replayed (median of ten replays): the device's time, without the host's
+    dispatch between launches."""
+    import torch
+
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # allocator and library warm-up off the default stream
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    return time_ms(graph.replay, reps=1, groups=10) / reps
+
+
 def bound(byts: float, ops: float, peak_ops: float = PEAK_BF16_FLOPS):
     t_bytes, t_ops = byts / PEAK_BYTES, ops / peak_ops
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
@@ -135,6 +163,8 @@ def kernel_cases():
     """(name, kernel, call, plain call, bytes, ops, peak, library call or None,
     bf16 output?) at the main path's shapes. A case with bytes None is held
     against its plain twin only: it is not timed and not listed."""
+    import itertools
+
     import torch
     import torch.nn.functional as Fn
 
@@ -150,19 +180,42 @@ def kernel_cases():
 
     cases = []
     d, F = 1024, 4096
+    products = (("qkv", d, 3 * d, None, False, bf), ("self_out", d, d, None, True, torch.float32),
+                ("cross_q", d, d, None, False, bf), ("fc1", d, F, K.GELU, False, bf),
+                ("fc2", F, d, None, True, torch.float32))  # cross_out is self_out's product
     for tag, m in (("enc", 32 * 512), ("dec", 160)):
-        for sub, k, n, act, res, out in (("qkv", d, 3 * d, None, False, bf),
-                                         ("fc1", d, F, K.GELU, False, bf),
-                                         ("fc2", F, d, None, True, torch.float32)):
+        for sub, k, n, act, res, out in products:
             a, w, b = rn(m, k, dtype=bf), rn(k, n, std=0.02, dtype=bf), rn(n, std=0.02)
             r = rn(m, n) if res else None
             byts = (m * k + k * n) * 2 + n * 4 + (m * n * 4 if res else 0) + m * n * out.itemsize
-            lib = (lambda a=a, w=w, b=b: torch.addmm(b.to(bf), a, w)) if sub == "qkv" else None
-            cases.append((f"gemm_bf16 {tag} {sub} M={m} K={k} N={n}", "gemm_bf16",
+            b16 = b.to(bf)
+            plan = K.gemm_plan(m, n, k)
+            how = plan.variant + (f" split {plan.split}" if plan.variant == "small_m" else "")
+            epi = "".join((" +gelu" if act else "", " +res" if res else "",
+                           " f32" if out == torch.float32 else " bf16"))
+            cases.append((f"gemm_bf16 {tag} {sub} M={m} K={k} N={n}{epi} [{how}]",
+                          f"gemm_bf16:{plan.variant}",  # its launches are its own kernel's
                           lambda a=a, w=w, b=b, r=r, act=act, out=out: K.gemm(a, w, b, r, act, out),
                           lambda a=a, w=w, b=b, r=r, act=act, out=out:
                           K.gemm_plain(a, w, b, r, act, out),
-                          byts, 2.0 * m * n * k, PEAK_BF16_FLOPS, lib, out == bf))
+                          byts, 2.0 * m * n * k, PEAK_BF16_FLOPS,
+                          lambda a=a, w=w, b16=b16: torch.addmm(b16, a, w), out == bf))
+    # correctness only: ragged rows in both kernels, every epilogue combination
+    for m in (1, 37, 161, 1280):
+        a, w = rn(m, 256, dtype=bf), rn(256, 384, std=0.05, dtype=bf)
+        b, r = rn(384), rn(m, 384)
+        for bias, res, act, out in itertools.product((None, b), (None, r), (None, K.GELU),
+                                                     (torch.float32, bf)):
+            epi = "".join((" +bias" if bias is not None else "", " +gelu" if act else "",
+                           " +res" if res is not None else "",
+                           " f32" if out == torch.float32 else " bf16"))
+            cases.append((f"gemm_bf16 M={m} K=256 N=384{epi} [{K.gemm_plan(m, 384, 256).variant}]",
+                          "gemm_bf16",
+                          lambda a=a, w=w, bias=bias, res=res, act=act, out=out:
+                          K.gemm(a, w, bias, res, act, out),
+                          lambda a=a, w=w, bias=bias, res=res, act=act, out=out:
+                          K.gemm_plain(a, w, bias, res, act, out),
+                          None, 0.0, PEAK_BF16_FLOPS, None, out == bf))
     for rows in (32 * 512, 160):
         x = rn(rows, d)
         gb = torch.stack([1 + rn(d, std=0.1), rn(d, std=0.1)]).contiguous()
@@ -320,22 +373,80 @@ def run_kernels_phase():
             continue
         reps = 20
         ms = time_ms(call, reps)
+        g_ms = graph_ms(call, reps)
         plain_ms = time_ms(plain, 5, warmup=1)
         lib_ms = time_ms(lib, reps) if lib is not None else None
+        lib_g_ms = graph_ms(lib, reps) if lib is not None else None
         b_ms, b_by = bound(byts, ops, peak)
-        row = {"name": name, "kernel": kern, "route": "cuda", "source": SOURCES[kern],
-               "replaces": REPLACES[kern], "launches": None,
-               "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-               "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+        family = kern.split(":")[0]
+        row = {"name": name, "kernel": kern, "route": "cuda", "source": SOURCES[family],
+               "replaces": REPLACES[family], "launches": None,
+               "max_abs_err": max_err, "ms": ms, "graph_ms": g_ms, "plain_ms": plain_ms,
+               "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms, "library_graph_ms": lib_g_ms}
+        if family == "gemm_bf16":
+            row["library"] = "torch.addmm in bf16: product + bias only"
         rows.append(row)
         log(f"kernel {name}: max_abs_err {row['max_abs_err']:.3e} "
             f"(tol {tol_a}+{tol_r}*|plain|) {'ok' if ok else 'FAIL'}; ms {ms:.4f} "
-            f"plain_ms {plain_ms:.4f} bound_ms {b_ms:.4f} ({b_by}) library_ms {lib_ms}")
+            f"graph_ms {g_ms:.4f} plain_ms {plain_ms:.4f} bound_ms {b_ms:.4f} ({b_by}) library_ms {lib_ms} "
+            f"library_graph_ms {lib_g_ms}")
         if not ok:
             failures.append(name)
     if failures:
         raise RuntimeError(f"kernels disagree with their plain twins: {failures}")
     return rows
+
+
+def host_us(fn, calls: int = 500) -> float:
+    """Host time of one call, in microseconds: `calls` calls issued without
+    waiting for the card (perf_counter around the loop, one synchronize
+    after it). The card's queue is far deeper than the loop, so this is what
+    the call costs the Python thread: checks, torch.empty, ctypes and the
+    CUDA runtime's launch."""
+    import torch
+
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / calls * 1e6
+
+
+def run_dispatch_phase() -> None:
+    """What a launch costs the host, which sets the wall of every path: the
+    decoder's products (M = 160) through gemm, with layernorm at 160 rows (a
+    plain <<< >>> launch) and a bare torch.empty beside them; the median of
+    five loops each. Uses only the wrappers' public interface, so the same
+    phase times an older tree's kernels when this file is run from it
+    (`--phases dispatch`)."""
+    import torch
+
+    from vacnic_tpu_torch.kernels import primitives as K
+
+    bf, d, F, m = torch.bfloat16, 1024, 4096, 160
+    g = torch.Generator(device="cuda").manual_seed(4321)
+
+    def rn(*shape, dtype=torch.float32):
+        return (torch.randn(shape, generator=g, device="cuda") * 0.02).to(dtype)
+
+    calls = [("torch.empty [160, 1024] f32", lambda: torch.empty(m, d, device="cuda"))]
+    x, gb = rn(m, d), torch.stack([1 + rn(d), rn(d)]).contiguous()
+    calls.append(("layernorm rows=160", lambda: K.layernorm(x, gb, bf)))
+    for sub, k, n, act, res, out in (("qkv", d, 3 * d, None, False, bf),
+                                     ("self_out +res f32", d, d, None, True, torch.float32),
+                                     ("fc1 +gelu", d, F, K.GELU, False, bf),
+                                     ("fc2 +res f32", F, d, None, True, torch.float32)):
+        a, w, b = rn(m, k, dtype=bf), rn(k, n, dtype=bf), rn(n)
+        r = rn(m, n) if res else None
+        calls.append((f"gemm_bf16 dec {sub} M={m} K={k} N={n}",
+                      lambda a=a, w=w, b=b, r=r, act=act, out=out: K.gemm(a, w, b, r, act, out)))
+    for name, fn in calls:
+        us = sorted(host_us(fn) for _ in range(5))
+        log(f"dispatch {name}: host {us[2]:.2f} us a call (min {us[0]:.2f}, max {us[4]:.2f})")
 
 
 # ---------------------------------------------------------------------------
@@ -454,12 +565,19 @@ def run_slice_phase(cfg, params, batch_size: int):
     seqs, scores = run()
     dt = time.perf_counter() - t0
     counts = K.launch_counts()
+    by_kernel = K.gemm_variant_counts()
     nonpad = check_captions("slice", cfg, seqs, scores, batch_size)
     log(f"slice: full_train beam {cfg.decode.num_beams} x {cfg.decode.max_length} x lp "
         f"{cfg.decode.length_penalty}, batch {batch_size}: {dt:.3f} s, "
         f"{batch_size / dt:.2f} captions/s, mean non-pad length {nonpad:.1f}, "
         f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {counts}")
     check_launched("slice", counts, SLICE_KERNELS)
+    log(f"slice: gemm_bf16 by kernel {by_kernel}")
+    enc_products = 6 * cfg.bart.encoder_layers  # M = batch x 512 rows; decode has batch x 5
+    if by_kernel != {"large_m": enc_products, "small_m": counts["gemm_bf16"] - enc_products}:
+        raise RuntimeError(f"slice: gemm_bf16 kernels {by_kernel}: expected {enc_products} "
+                           "large_m launches (the encoder's) and small_m for the rest")
+    counts.update({f"gemm_bf16:{v}": n for v, n in by_kernel.items()})
     return counts, seqs
 
 
@@ -593,19 +711,26 @@ def run_layerwise_phase(cfg, params, batch_size: int):
     return counts
 
 
-def attention_build_lines() -> list[str]:
+def build_lines() -> list[str]:
     """Registers a thread, spill bytes and shared memory of the two 512-token
-    self-attention kernels, from nvcc's -Xptxas -v output of this build. The
-    dynamic shared memory is the launch's own (csrc/enc_attention.cu:
-    ring + 4 S; csrc/flash_attn.cu: two stages of K, V and the padded bias
-    tile; both + 1024 to align the tiles), computed here for S = 512."""
+    self-attention kernels and of the two gemm_bf16 kernels at the slice's
+    plans, from nvcc's -Xptxas -v output of this build. The dynamic shared
+    memory is the launch's own (csrc/enc_attention.cu: ring + 4 S;
+    csrc/flash_attn.cu: two stages of K, V and the padded bias tile; both
+    + 1024 to align the tiles, computed here for S = 512; gemm: what the
+    built library states for the shape). A gemm kernel that spills fails the
+    run."""
     import re
 
     from vacnic_tpu_torch.kernels import _build
+    from vacnic_tpu_torch.kernels import primitives as K
 
     dynamic = {"enc_self_attn_kernel": 4 * 8192 + 4 * 512 + 1024,
                "flash_attn_kernelIf": 2 * (2 * 8192 + 64 * 72 * 4) + 1024,
-               "flash_attn_kernelI13__nv_bfloat16": 2 * (2 * 8192 + 64 * 72 * 2) + 1024}
+               "flash_attn_kernelI13__nv_bfloat16": 2 * (2 * 8192 + 64 * 72 * 2) + 1024,
+               "gemm_large_kernel": K.gemm_smem_bytes(32 * 512, 1024, 1024),
+               # the instance of three warpgroups: 160 rows
+               "gemm_small_kernelILi3E": K.gemm_smem_bytes(160, 1024, 1024)}
     if not _build.BUILD_LOG:
         return ["ptxas: the library was already built; no compiler output in this run"]
     text = "\n".join(_build.BUILD_LOG)
@@ -620,10 +745,13 @@ def attention_build_lines() -> list[str]:
         lines.append(f"ptxas {key}: {regs.group(1)} registers/thread, spill stores "
                      f"{spill.group(1)} B, spill loads {spill.group(2)} B, static shared "
                      f"{static.group(1) if static else 0} B, dynamic shared {dyn} B a block")
+        if key.startswith("gemm_") and (int(spill.group(1)) or int(spill.group(2))):
+            raise RuntimeError(f"{key} spills registers: {lines[-1]}")
     return lines
 
 
-KERNEL_FAMILIES = (("gemm_kernel", "gemm_bf16"), ("layernorm_kernel", "layernorm"),
+KERNEL_FAMILIES = (("gemm_large_kernel", "gemm_bf16 large_m"),
+                   ("gemm_small_kernel", "gemm_bf16 small_m"), ("layernorm_kernel", "layernorm"),
                    ("enc_self_attn", "enc_self_attention"),
                    ("enc_cross_attn", "enc_cross_attention"),
                    ("dec_self_attn", "dec_self_attention"),
@@ -689,7 +817,7 @@ def run_profile_phase(cfg, params, batch_size: int) -> None:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="build,kernels,stacks,slice,stats,layerwise,profile")
+    ap.add_argument("--phases", default="build,kernels,dispatch,stacks,slice,stats,layerwise,profile")
     ap.add_argument("--batch", type=int, default=32)
     args = ap.parse_args()
     phases = set(args.phases.split(","))
@@ -722,6 +850,8 @@ def main() -> int:
         f.write("\n".join(_build.BUILD_LOG))
 
     rows = run_kernels_phase() if "kernels" in phases else []
+    if "dispatch" in phases:
+        run_dispatch_phase()
     launches = {}  # kernel -> launches in the run of the path that names it
     if phases & {"stacks", "slice", "stats", "layerwise", "profile"}:
         cfg, params = full_model()
@@ -730,7 +860,8 @@ def main() -> int:
         slice_seqs = None
         if "slice" in phases:
             counts, slice_seqs = run_slice_phase(cfg, params, args.batch)
-            launches.update({k: counts[k] for k in SLICE_KERNELS})
+            launches.update({k: counts[k] for k in SLICE_KERNELS +
+                             ("gemm_bf16:large_m", "gemm_bf16:small_m")})
         if "stats" in phases:
             if slice_seqs is None:
                 slice_seqs = run_slice_phase(cfg, params, args.batch)[1]
@@ -744,11 +875,13 @@ def main() -> int:
     for row in rows:
         row["launches"] = launches.get(row.pop("kernel"))
     if not rows:
-        rows = [{"name": k, "route": "cuda", "source": SOURCES[k], "replaces": REPLACES[k],
-                 "launches": n} for k, n in launches.items()]
+        rows = [{"name": k, "route": "cuda", "source": SOURCES[k.split(":")[0]],
+                 "replaces": REPLACES[k.split(":")[0]], "launches": n}
+                for k, n in launches.items() if k != "gemm_bf16"]
     with open(os.path.join(OUT_DIR, "kernels.json"), "w") as f:
         json.dump(rows, f, indent=1)
-    print("; ".join(attention_build_lines()))
+    if "build" in phases:
+        print("; ".join(build_lines()))
     print(json.dumps({"kernels": rows}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -53,6 +53,91 @@ def test_gemm_and_layernorm(dev):
         close(y16, p16, True)
 
 
+GEMM_EPILOGUES = [(False, False, None, torch.float32), (True, False, None, torch.bfloat16),
+                  (True, True, None, torch.float32), (True, False, "gelu", torch.bfloat16),
+                  (True, True, "gelu", torch.float32), (False, True, "gelu", torch.bfloat16)]
+
+
+@pytest.mark.parametrize("m", [1, 37, 160, 161, 256, 257, 1280, 2048 + 37])
+@pytest.mark.parametrize("k,n", [(256, 384), (32, 64), (96, 192), (1024, 1024)])
+def test_gemm_shape_sweep(dev, m, k, n):
+    """Ragged rows through both kernels (M <= 256: split-K cluster; above:
+    TMA tiles), a k tail of 32, a last column tile
+    half empty, every epilogue kind, against the twin; the launch counts by
+    kernel move with the plan."""
+    from vacnic_tpu_torch.kernels import primitives as K
+
+    g = torch.Generator(device=dev).manual_seed(m * 7 + n)
+    a, w = rn(g, m, k, dtype=torch.bfloat16), rn(g, k, n, std=0.05, dtype=torch.bfloat16)
+    b, r = rn(g, n), rn(g, m, n)
+    variant = K.gemm_plan(m, n, k).variant
+    assert variant == ("small_m" if m <= 256 else "large_m")
+    for has_b, has_r, act, out in GEMM_EPILOGUES:
+        before = K.gemm_variant_counts()[variant]
+        got = K.gemm(a, w, b if has_b else None, r if has_r else None, act, out)
+        assert K.gemm_variant_counts()[variant] == before + 1
+        assert got.dtype == out and got.shape == (m, n)
+        close(got, K.gemm_plain(a, w, b if has_b else None, r if has_r else None, act, out),
+              out == torch.bfloat16)
+
+
+@pytest.mark.parametrize("n,split", [(133 * 64, 1), (4096, 2), (1024, 4)])
+def test_gemm_small_m_splits_are_repeatable(dev, n, split):
+    """Every split of the small-M kernel, each through a decode-sized shape
+    whose plan picks it: right, and bit-identical from call to call (the
+    partial sums are combined in rank order, without atomics)."""
+    from vacnic_tpu_torch.kernels import primitives as K
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    m, k = 160, 1024
+    assert K.gemm_plan(m, n, k) == K.GemmPlan("small_m", split)
+    a, w = rn(g, m, k, dtype=torch.bfloat16), rn(g, k, n, std=0.05, dtype=torch.bfloat16)
+    b, r = rn(g, n), rn(g, m, n)
+    first = K.gemm(a, w, b, r, K.GELU, torch.float32)
+    close(first, K.gemm_plain(a, w, b, r, K.GELU, torch.float32), False)
+    for _ in range(3):
+        assert torch.equal(first, K.gemm(a, w, b, r, K.GELU, torch.float32))
+
+
+def test_gemm_large_m_tiles_and_clusters(dev):
+    """The smem-descriptor wgmma forms and the TMA multicast of the large-M
+    kernel on one and on several tiles: non-symmetric random A and W (a
+    transposed operand cannot pass), an odd number of column tiles (the grid
+    is padded to whole clusters), f32 out against torch.matmul (sum order
+    only)."""
+    from vacnic_tpu_torch.kernels import primitives as K
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    for m, k, n in ((257, 64, 128), (256 * 3 + 5, 320, 384), (700, 1024, 1024)):
+        assert K.gemm_plan(m, n, k).variant == "large_m"
+        a, w = rn(g, m, k, dtype=torch.bfloat16), rn(g, k, n, std=0.05, dtype=torch.bfloat16)
+        close(K.gemm(a, w), a.float() @ w.float(), False)
+        b, r = rn(g, n), rn(g, m, n)
+        close(K.gemm(a, w, b, r, K.GELU, torch.bfloat16),
+              K.gemm_plain(a, w, b, r, K.GELU, torch.bfloat16), True)
+
+
+@pytest.mark.parametrize("m", [1, 64, 65, 160, 256, 257, 16384])
+def test_gemm_shared_memory_fits_a_block(dev, m):
+    """The ring (and, for large M, its barriers) of the kernel a shape takes,
+    as the built library states it, fits the 227 KB a block can have and holds
+    at least three slots of (rows + 64 columns) x 64 k in bf16."""
+    from vacnic_tpu_torch.kernels import primitives as K
+
+    smem = K.gemm_smem_bytes(m, 1024, 1024)
+    rows, cols = (256, 128) if m > 256 else (64 * -(-m // 64), 64)
+    assert 3 * (rows + cols) * 64 * 2 <= smem <= 232448
+
+
+def test_gemm_refuses_other_shapes(dev):
+    from vacnic_tpu_torch.kernels import primitives as K
+
+    a = torch.zeros(300, 48, device=dev, dtype=torch.bfloat16)
+    w = torch.zeros(48, 64, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="K % 32"):
+        K.gemm(a, w)
+
+
 def test_attention_tile_fragments(dev):
     """One warpgroup, one 64 x 64 x 64 tile (16 x 64 x 64 a warp) through the
     wgmma fragment and descriptor code of csrc/attn_tiles.cuh: s = q k^T and

@@ -29,7 +29,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # entry point -> argument types (all return int: a cudaError_t)
 SIGNATURES = {
-    "vt_gemm_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "vt_gemm_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "vt_gemm_smem_bytes": [_I, _I],  # returns bytes, not an error code
     "vt_layernorm": [_P, _P, _P, _P, _I, _I, _F, _P],
     "vt_enc_self_attention": [_P, _P, _P, _I, _I, _I, _F, _P],
     "vt_enc_cross_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
@@ -92,7 +93,7 @@ def build() -> Path:
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    link = subprocess.run([nvcc, "-shared", *objs, "-o", str(tmp)],
+    link = subprocess.run([nvcc, "-shared", *objs, "-ldl", "-o", str(tmp)],  # dlsym in gemm_bf16
                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     if link.returncode != 0:
         raise RuntimeError(f"CUDA kernel link failed:\n{link.stdout}")

@@ -15,6 +15,8 @@ probabilities before the value product. In f32 every rounding is a no-op.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -22,6 +24,9 @@ KERNELS = ("gemm_bf16", "layernorm", "enc_self_attention", "enc_cross_attention"
            "dec_self_attention", "dec_cross_attention", "lm_stats", "flash_attention")
 # (the wrappers of the last two live in kernels/lm_stats and kernels/flash_attn)
 LAUNCHES: dict[str, int] = {k: 0 for k in KERNELS}
+# gemm_bf16 is two __global__ kernels; every launch also counts under its own
+GEMM_VARIANTS = ("large_m", "small_m")
+GEMM_VARIANT_LAUNCHES: dict[str, int] = {v: 0 for v in GEMM_VARIANTS}
 
 GELU = "gelu"
 
@@ -29,10 +34,17 @@ GELU = "gelu"
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    for v in GEMM_VARIANT_LAUNCHES:
+        GEMM_VARIANT_LAUNCHES[v] = 0
 
 
 def launch_counts() -> dict[str, int]:
     return dict(LAUNCHES)
+
+
+def gemm_variant_counts() -> dict[str, int]:
+    """Launches of gemm_bf16 by kernel: they add up to LAUNCHES["gemm_bf16"]."""
+    return dict(GEMM_VARIANT_LAUNCHES)
 
 
 # ---------------------------------------------------------------------------
@@ -93,6 +105,41 @@ def gemm_plain(a, w, bias=None, residual=None, act=None, out_dtype=torch.float32
     return y.to(out_dtype)
 
 
+GEMM_BK = 64                  # k per tile of csrc/gemm_bf16.cu
+GEMM_SMALL_M_MAX = 256        # four warpgroups of 64 rows
+GEMM_SMS = 132                # an H100's streaming multiprocessors
+
+
+class GemmPlan(NamedTuple):
+    """Which kernel of csrc/gemm_bf16.cu a product takes, and how K is cut."""
+    variant: str    # "large_m": TMA-fed 256 x 128 tiles; "small_m": split-K over a cluster
+    split: int = 1  # small_m: blocks of a cluster along K, each block a 64-column slab
+
+
+@functools.lru_cache(maxsize=None)  # a decode step asks 72 times, for four shapes
+def gemm_plan(m: int, n: int, k: int) -> GemmPlan:
+    """The kernel and split of an [m, k] @ [k, n] product. Pure: the CUDA
+    launcher only follows it. The rules were measured on an H100 (PERF.md).
+
+    m <= 256: the weight-streaming kernel. One block covers every row of a
+    64-column slab and a cluster of `split` blocks shares K: the largest
+    split of 1, 2, 4 that divides the k tiles and keeps the grid within one
+    wave of the 132 SMs (a block takes an SM's whole shared memory). More
+    blocks than SMs ran 1.5-2x slower, and so did clusters of 8, which the
+    card does not place 16 at a time.
+    Above: the TMA kernel, 256 x 128 tiles."""
+    if m < 1 or k < 32 or k % 32 or n < 64 or n % 64:
+        raise ValueError(f"gemm: needs M >= 1, K % 32 == 0 and N % 64 == 0, got M={m} K={k} N={n}")
+    if m > GEMM_SMALL_M_MAX:
+        return GemmPlan("large_m")
+    k_tiles = -(-k // GEMM_BK)
+    fits = [s for s in (1, 2, 4) if k_tiles % s == 0 and n // 64 * s <= GEMM_SMS]
+    return GemmPlan("small_m", max(fits, default=1))
+
+
+_VARIANT_ID = {"large_m": 1, "small_m": 2}
+
+
 def gemm(a, w, bias=None, residual=None, act=None, out_dtype=torch.float32):
     """epilogue(a [M, K] @ w [K, N]): + bias [N] f32, exact gelu if
     act == "gelu", + residual [M, N] f32; out_dtype f32 or bf16."""
@@ -108,12 +155,21 @@ def gemm(a, w, bias=None, residual=None, act=None, out_dtype=torch.float32):
         _req(residual, "gemm residual", torch.float32, (m, n), a.device)
     if act not in (None, GELU) or out_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"gemm: act {act!r}, out_dtype {out_dtype} not supported")
-    if k % 32 or n % 64:
-        raise ValueError(f"gemm: needs K % 32 == 0 and N % 64 == 0, got K={k} N={n}")
+    plan = gemm_plan(m, n, k)
     out = torch.empty(m, n, dtype=out_dtype, device=a.device)
     _launch("gemm_bf16", "vt_gemm_bf16", _p(a), _p(w), _p(bias), _p(residual), _p(out),
-            m, n, k, int(act == GELU), int(out_dtype == torch.bfloat16))
+            m, n, k, int(act == GELU), int(out_dtype == torch.bfloat16),
+            _VARIANT_ID[plan.variant], plan.split)
+    GEMM_VARIANT_LAUNCHES[plan.variant] += 1
     return out
+
+
+def gemm_smem_bytes(m: int, n: int, k: int) -> int:
+    """Dynamic shared memory a block of the product's kernel takes, as the
+    built library states it."""
+    from vacnic_tpu_torch.kernels._build import lib
+
+    return lib().vt_gemm_smem_bytes(_VARIANT_ID[gemm_plan(m, n, k).variant], m)
 
 
 # ---------------------------------------------------------------------------
