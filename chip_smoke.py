@@ -15,7 +15,11 @@ Phases:
            the same function, that call's time, eager and from a graph
            (timed here only; the port never calls it). gemm_bf16 runs every product of a layer in both
            regimes (M = 16384: the TMA kernel, M = 160: the split-K kernel;
-           each row names its plan) and ragged shapes untimed.
+           each row names its plan) and ragged shapes untimed. Untimed too:
+           layernorm at d 32 ... 2048 (both kernels, a scalar tail) and
+           rows 1 to 6000; dec_cross_attention at beams 1, 5, 8 x S 1, 40,
+           130, 512, int8 and bf16, with an item whose keys are all masked.
+           layernorm and dec_cross_attention must repeat bit-identically.
   dispatch host microseconds a call of the decoder's products, layernorm and
            a bare torch.empty, issued without waiting for the card.
   stacks   full-width fused encoder and decode step (random weights) against
@@ -26,8 +30,9 @@ Phases:
            just before this run and read just after; the six kernels of the
            fused encoder and the decode stack must have launched, gemm_bf16's
            large-M kernel six times an encoder layer and its small-M kernel
-           for every other product. Checks finite scores and a mean caption
-           length >= 45.
+           for every other product, layernorm once a layer norm (1800, all
+           on the warp kernel) and dec_cross_attention once a decoder layer a
+           step (588). Checks finite scores and a mean caption length >= 45.
   stats    the same run with lm_stats=True (the fused LM-stats head):
            lm_stats must launch once per decode step; at one step its
            stage 2 must be exact on the kernel's own logits (top-C equal to
@@ -44,16 +49,17 @@ Phases:
            kernel family, busy/idle share.
 
 Prints the registers, spills and shared memory of the two 512-token
-self-attention kernels and the two gemm_bf16 kernels (from nvcc's output of
-this build; a spill in a gemm kernel fails the run), a JSON line with
+self-attention kernels, the two gemm_bf16, two layernorm and two
+dec_cross_attention kernels (from nvcc's output of this build; a spill in
+any but the attention kernels fails the run), a JSON line with
 every kernel, the card's name and power limit (nvidia-smi), and last `{"ok": true, "device": {...}}`. Exits non-zero, printing
 no result, when a phase fails or there is no CUDA device. Long logs go to
 chiprun_out/chip_smoke/.
 
-Tolerances: bf16 outputs are held to |err| <= 2e-2 + 2e-2 * |plain| (one
-bf16 rounding of values up to a few units, plus f32 sum-order noise);
-f32 outputs of the GEMM, LayerNorm and LM-stats head to
-|err| <= 2e-3 + 2e-3 * |plain|.
+Tolerances, by each output's dtype: bf16 outputs are held to
+|err| <= 2e-2 + 2e-2 * |plain| (one bf16 rounding of values up to a few
+units, plus f32 sum-order noise); f32 outputs of the GEMM, LayerNorm and
+LM-stats head to |err| <= 2e-3 + 2e-3 * |plain|.
 """
 
 from __future__ import annotations
@@ -77,7 +83,7 @@ SOURCES = {
     "enc_self_attention": "vacnic_tpu_torch/kernels/csrc/enc_attention.cu",
     "enc_cross_attention": "vacnic_tpu_torch/kernels/csrc/enc_attention.cu",
     "dec_self_attention": "vacnic_tpu_torch/kernels/csrc/dec_attention.cu",
-    "dec_cross_attention": "vacnic_tpu_torch/kernels/csrc/dec_attention.cu",
+    "dec_cross_attention": "vacnic_tpu_torch/kernels/csrc/dec_cross_attention.cu",
     "lm_stats": "vacnic_tpu_torch/kernels/csrc/lm_stats.cu",
     "flash_attention": "vacnic_tpu_torch/kernels/csrc/flash_attn.cu",
 }
@@ -160,9 +166,9 @@ def bound(byts: float, ops: float, peak_ops: float = PEAK_BF16_FLOPS):
 # ---------------------------------------------------------------------------
 
 def kernel_cases():
-    """(name, kernel, call, plain call, bytes, ops, peak, library call or None,
-    bf16 output?) at the main path's shapes. A case with bytes None is held
-    against its plain twin only: it is not timed and not listed."""
+    """(name, kernel, call, plain call, bytes, ops, peak, library call or None)
+    at the main path's shapes. A case with bytes None is held against its
+    plain twin only: it is not timed and not listed."""
     import itertools
 
     import torch
@@ -199,7 +205,7 @@ def kernel_cases():
                           lambda a=a, w=w, b=b, r=r, act=act, out=out:
                           K.gemm_plain(a, w, b, r, act, out),
                           byts, 2.0 * m * n * k, PEAK_BF16_FLOPS,
-                          lambda a=a, w=w, b16=b16: torch.addmm(b16, a, w), out == bf))
+                          lambda a=a, w=w, b16=b16: torch.addmm(b16, a, w)))
     # correctness only: ragged rows in both kernels, every epilogue combination
     for m in (1, 37, 161, 1280):
         a, w = rn(m, 256, dtype=bf), rn(256, 384, std=0.05, dtype=bf)
@@ -215,15 +221,25 @@ def kernel_cases():
                           K.gemm(a, w, bias, res, act, out),
                           lambda a=a, w=w, bias=bias, res=res, act=act, out=out:
                           K.gemm_plain(a, w, bias, res, act, out),
-                          None, 0.0, PEAK_BF16_FLOPS, None, out == bf))
-    for rows in (32 * 512, 160):
-        x = rn(rows, d)
-        gb = torch.stack([1 + rn(d, std=0.1), rn(d, std=0.1)]).contiguous()
-        cases.append((f"layernorm rows={rows} d={d}", "layernorm",
-                      lambda x=x, gb=gb: K.layernorm(x, gb, bf)[0],
-                      lambda x=x, gb=gb: K.layernorm_plain(x, gb, bf)[0],
-                      rows * d * (4 + 4 + 2) + 2 * d * 4, 8.0 * rows * d, PEAK_F32_FLOPS,
-                      lambda x=x, gb=gb: Fn.layer_norm(x, (d,), gb[0], gb[1]), False))
+                          None, 0.0, PEAK_BF16_FLOPS, None))
+
+    def ln_case(rows, width, timed=False):  # both outputs, f32 and bf16, are held to the twin
+        x = rn(rows, width)
+        gb = torch.stack([1 + rn(width, std=0.1), rn(width, std=0.1)]).contiguous()
+        plan = K.layernorm_plan(rows, width)
+        how = plan.variant + (f" {plan.slots} slots" if plan.slots else "")
+        return (f"layernorm rows={rows} d={width} [{how}]", f"layernorm:{plan.variant}",
+                lambda: K.layernorm(x, gb, bf), lambda: K.layernorm_plain(x, gb, bf),
+                rows * width * (4 + 4 + 2) + 2 * width * 4 if timed else None,
+                8.0 * rows * width, PEAK_F32_FLOPS,
+                lambda: Fn.layer_norm(x, (width,), gb[0], gb[1]))
+
+    cases += [ln_case(32 * 512, d, timed=True), ln_case(160, d, timed=True)]
+    # correctness only: every width class of both kernels (a scalar tail where
+    # d % 4 != 0), one row to more than a resident wave of warps
+    cases += [ln_case(rows, width) for width in (32, 384, 768, 1022, 1024, 1030, 2048)
+              for rows in (1, 37, 160)]
+    cases += [ln_case(6000, 1024), ln_case(6000, 384)]
 
     H, B, S, KV = 16, 8, 512, 40
 
@@ -242,7 +258,7 @@ def kernel_cases():
                 4.0 * bsz * H * seq * seq * 64, PEAK_BF16_FLOPS,
                 lambda: Fn.scaled_dot_product_attention(
                     q4[:, :, 0].transpose(1, 2), q4[:, :, 1].transpose(1, 2),
-                    q4[:, :, 2].transpose(1, 2), attn_mask=mask), True)
+                    q4[:, :, 2].transpose(1, 2), attn_mask=mask))
 
     cases += [enc_self_case(B, S), enc_self_case(32, S), enc_self_case(3, 64, timed=False),
               enc_self_case(3, 192, timed=False)]
@@ -254,8 +270,7 @@ def kernel_cases():
                   (2 * B * S * d + 2 * B * KV * d) * 2, 4.0 * B * S * KV * d, PEAK_BF16_FLOPS,
                   lambda: Fn.scaled_dot_product_attention(
                       q.view(B, S, H, 64).transpose(1, 2),
-                      ck.view(B, H, 64, KV).transpose(2, 3), cv.view(B, KV, H, 64).transpose(1, 2)),
-                  True))
+                      ck.view(B, H, 64, KV).transpose(2, 3), cv.view(B, KV, H, 64).transpose(1, 2))))
 
     BK, T, B2, beams = 160, 64, 32, 5
     ck_cache, cv_cache = rn(T, BK, d, dtype=bf), rn(T, BK, d, dtype=bf)
@@ -271,7 +286,7 @@ def kernel_cases():
                       lambda pos=pos: K.dec_self_attention(qkv_d, ck_cache, cv_cache, anc, pos, H),
                       lambda pos=pos: K.dec_self_attention_plain(qkv_d, ck_cache, cv_cache, anc,
                                                                  pos, H),
-                      byts, 4.0 * BK * d * (pos + 1), PEAK_BF16_FLOPS, None, True))
+                      byts, 4.0 * BK * d * (pos + 1), PEAK_BF16_FLOPS, None))
     qd = rn(BK, d, dtype=bf)
     ebias = torch.where(torch.arange(S, device=dev)[None, :] < torch.randint(
         S // 2, S + 1, (B2, 1), device=dev, generator=g), 0.0,
@@ -297,7 +312,12 @@ def kernel_cases():
                           qd, kk, vv, ks, vs, ebias, H),
                       lambda kk=kk, vv=vv, ks=ks, vs=vs: K.dec_cross_attention_plain(
                           qd, kk, vv, ks, vs, ebias, H),
-                      byts, 4.0 * BK * S * d, PEAK_BF16_FLOPS, lib, True))
+                      byts, 4.0 * BK * S * d, PEAK_BF16_FLOPS, lib))
+    # correctness only: beams 1, 5, 8 x S 1, 40, 130, 512 x int8 and bf16; item
+    # 0 has every key masked (a uniform row), item 1 half of them
+    B5, H5 = 3, 4
+    for beams_c, s_c, kind in itertools.product((1, 5, 8), (1, 40, 130, 512), ("int8", "bf16")):
+        cases.append(dec_cross_case(rn, g, B5, H5, beams_c, s_c, kind))
 
     from vacnic_tpu_torch.kernels import flash_attn as FA
     from vacnic_tpu_torch.kernels import lm_stats as LS
@@ -313,7 +333,7 @@ def kernel_cases():
                   lambda: LS.lm_stats(x_lm, w_lm, b_lm),
                   lambda: LS.lm_stats_plain(x_lm, w_lm, b_lm),
                   BK * d * 2 + Vp * d * 2 + Vp * 4 + BK * Vp * 4 + 2 * BK * nvb * 4,
-                  2.0 * BK * Vp * d, PEAK_BF16_FLOPS, None, False))
+                  2.0 * BK * Vp * d, PEAK_BF16_FLOPS, None))
 
     B3, T3 = 32, 512
 
@@ -331,8 +351,7 @@ def kernel_cases():
                   lambda: FA.flash_attention_plain(fq, fk, fv, fbias),
                   4 * B3 * H * T3 * 64 * 2 + fbias.numel() * 2, 4.0 * B3 * H * T3 * T3 * 64,
                   PEAK_BF16_FLOPS,
-                  lambda: Fn.scaled_dot_product_attention(fq, fk, fv, attn_mask=fbias, scale=1.0),
-                  True))
+                  lambda: Fn.scaled_dot_product_attention(fq, fk, fv, attn_mask=fbias, scale=1.0)))
     # correctness only: T != S, an f32 per-head bias, non-contiguous head-split views
     B4, T4, S4 = 2, 256, 512
     hq = (rn(B4, T4, d).view(B4, T4, H, 64).permute(0, 2, 1, 3) * 64 ** -0.5).to(bf)
@@ -343,8 +362,46 @@ def kernel_cases():
     cases.append((f"flash_attention B={B4} H={H} T={T4} S={S4} D=64 bias [B,H,T,S] f32",
                   "flash_attention", lambda: FA.flash_attention(hq, hk, hv, hbias),
                   lambda: FA.flash_attention_plain(hq, hk, hv, hbias), None, 0.0,
-                  PEAK_BF16_FLOPS, None, True))
+                  PEAK_BF16_FLOPS, None))
     return cases
+
+
+def dec_cross_case(rn, g, items: int, heads: int, beams: int, s_len: int, kind: str):
+    """A correctness-only dec_cross_attention case: item 0 has every key
+    masked (the twin's softmax is uniform there), item 1 the first half of
+    them, the others none."""
+    import torch
+
+    from vacnic_tpu_torch.kernels import primitives as K
+
+    keep = torch.full((items, 1), s_len, device="cuda")
+    keep[0], keep[1] = 0, (s_len + 1) // 2
+    ebias = torch.where(torch.arange(s_len, device="cuda")[None, :] < keep, 0.0,
+                        torch.finfo(torch.float32).min).float().contiguous()
+    q = rn(items * beams, heads * 64, dtype=torch.bfloat16)
+    shape = (items, heads, 64, s_len)
+    if kind == "int8":
+        kk, vv = (torch.randint(-127, 128, shape, device="cuda", generator=g).to(torch.int8)
+                  for _ in range(2))
+        ks, vs = (rn(items, heads, 64, std=0.01).abs() + 1e-3 for _ in range(2))
+    else:
+        kk, vv = rn(*shape, dtype=torch.bfloat16), rn(*shape, dtype=torch.bfloat16)
+        ks = vs = None
+    return (f"dec_cross_attention {kind} B={items} beams={beams} S={s_len}",
+            "dec_cross_attention",
+            lambda: K.dec_cross_attention(q, kk, vv, ks, vs, ebias, heads),
+            lambda: K.dec_cross_attention_plain(q, kk, vv, ks, vs, ebias, heads),
+            None, 0.0, PEAK_BF16_FLOPS, None)
+
+
+def tolerance(out) -> tuple[float, float]:
+    """bf16 outputs: one bf16 rounding; f32 outputs: f32 sum order."""
+    import torch
+
+    return (2e-2, 2e-2) if out.dtype == torch.bfloat16 else (2e-3, 2e-3)
+
+
+REPEATABLE = ("layernorm", "dec_cross_attention")  # checked bit-identical over two calls
 
 
 def run_kernels_phase():
@@ -352,22 +409,30 @@ def run_kernels_phase():
 
     rows = []
     failures = []
-    for name, kern, call, plain, byts, ops, peak, lib, bf16_out in kernel_cases():
+    for name, kern, call, plain, byts, ops, peak, lib in kernel_cases():
         outs = call()
         torch.cuda.synchronize()
         refs = plain()
         if isinstance(outs, torch.Tensor):
             outs, refs = (outs,), (refs,)
-        tol_a, tol_r = (2e-2, 2e-2) if bf16_out else (2e-3, 2e-3)
-        ok, max_err = True, 0.0
+        ok, max_err, errs = True, 0.0, []
         for out, ref in zip(outs, refs):  # every output of the kernel
+            tol_a, tol_r = tolerance(out)
             e = (out.float() - ref.float()).abs()
             ok = ok and bool(torch.isfinite(out.float()).all()) and bool(
                 (e <= tol_a + tol_r * ref.float().abs()).all())
             max_err = max(max_err, float(e.max()))
+            errs.append(f"{str(out.dtype).split('.')[-1]} {float(e.max()):.3e} (tol {tol_a}+"
+                        f"{tol_r}*|plain|)")
+        if kern.split(":")[0] in REPEATABLE:
+            again = call()
+            again = (again,) if isinstance(again, torch.Tensor) else again
+            if not all(torch.equal(a, o) for a, o in zip(again, outs)):
+                ok = False
+                errs.append("NOT bit-identical over two calls")
         if byts is None:  # held against the plain twin only
-            log(f"kernel {name}: max_abs_err {max_err:.3e} (tol {tol_a}+{tol_r}*|plain|) "
-                f"{'ok' if ok else 'FAIL'}; not timed")
+            log(f"kernel {name}: max_abs_err {', '.join(errs)} {'ok' if ok else 'FAIL'}; "
+                "not timed")
             if not ok:
                 failures.append(name)
             continue
@@ -386,8 +451,7 @@ def run_kernels_phase():
         if family == "gemm_bf16":
             row["library"] = "torch.addmm in bf16: product + bias only"
         rows.append(row)
-        log(f"kernel {name}: max_abs_err {row['max_abs_err']:.3e} "
-            f"(tol {tol_a}+{tol_r}*|plain|) {'ok' if ok else 'FAIL'}; ms {ms:.4f} "
+        log(f"kernel {name}: max_abs_err {', '.join(errs)} {'ok' if ok else 'FAIL'}; ms {ms:.4f} "
             f"graph_ms {g_ms:.4f} plain_ms {plain_ms:.4f} bound_ms {b_ms:.4f} ({b_by}) library_ms {lib_ms} "
             f"library_graph_ms {lib_g_ms}")
         if not ok:
@@ -566,6 +630,7 @@ def run_slice_phase(cfg, params, batch_size: int):
     dt = time.perf_counter() - t0
     counts = K.launch_counts()
     by_kernel = K.gemm_variant_counts()
+    ln_by_kernel = K.layernorm_variant_counts()
     nonpad = check_captions("slice", cfg, seqs, scores, batch_size)
     log(f"slice: full_train beam {cfg.decode.num_beams} x {cfg.decode.max_length} x lp "
         f"{cfg.decode.length_penalty}, batch {batch_size}: {dt:.3f} s, "
@@ -578,6 +643,19 @@ def run_slice_phase(cfg, params, batch_size: int):
         raise RuntimeError(f"slice: gemm_bf16 kernels {by_kernel}: expected {enc_products} "
                            "large_m launches (the encoder's) and small_m for the rest")
     counts.update({f"gemm_bf16:{v}": n for v, n in by_kernel.items()})
+    # one launch a call: three layer norms an encoder layer and a decoder
+    # layer a step, one cross-attention a decoder layer a step; d = 1024 is
+    # the register-resident kernel's
+    steps = cfg.decode.max_length - 1  # min_length = max_length - 1: every step runs
+    dec_layers = cfg.bart.decoder_layers
+    want = {"layernorm": 3 * cfg.bart.encoder_layers + 3 * dec_layers * steps,
+            "dec_cross_attention": dec_layers * steps}
+    log(f"slice: layernorm by kernel {ln_by_kernel}; expected {want}")
+    if any(counts[k] != n for k, n in want.items()) or ln_by_kernel != {
+            "warp": want["layernorm"], "block": 0}:
+        raise RuntimeError(f"slice: launches {counts}, layernorm by kernel {ln_by_kernel}: "
+                           f"expected {want}, all layernorm launches the warp kernel's")
+    counts.update({f"layernorm:{v}": n for v, n in ln_by_kernel.items()})
     return counts, seqs
 
 
@@ -713,13 +791,14 @@ def run_layerwise_phase(cfg, params, batch_size: int):
 
 def build_lines() -> list[str]:
     """Registers a thread, spill bytes and shared memory of the two 512-token
-    self-attention kernels and of the two gemm_bf16 kernels at the slice's
+    self-attention kernels, the two gemm_bf16 kernels, the two layernorm
+    kernels and the int8 and bf16 dec_cross_attention kernels at the slice's
     plans, from nvcc's -Xptxas -v output of this build. The dynamic shared
     memory is the launch's own (csrc/enc_attention.cu: ring + 4 S;
     csrc/flash_attn.cu: two stages of K, V and the padded bias tile; both
     + 1024 to align the tiles, computed here for S = 512; gemm: what the
-    built library states for the shape). A gemm kernel that spills fails the
-    run."""
+    built library states for the shape; dec_cross: dec_cross_smem_bytes). A gemm,
+    layernorm or dec_cross kernel that spills fails the run."""
     import re
 
     from vacnic_tpu_torch.kernels import _build
@@ -730,7 +809,12 @@ def build_lines() -> list[str]:
                "flash_attn_kernelI13__nv_bfloat16": 2 * (2 * 8192 + 64 * 72 * 2) + 1024,
                "gemm_large_kernel": K.gemm_smem_bytes(32 * 512, 1024, 1024),
                # the instance of three warpgroups: 160 rows
-               "gemm_small_kernelILi3E": K.gemm_smem_bytes(160, 1024, 1024)}
+               "gemm_small_kernelILi3E": K.gemm_smem_bytes(160, 1024, 1024),
+               "layernorm_warp_kernelILi8ELb1E": 0,  # d = 1024: eight float4 slots a lane
+               "layernorm_block_kernelILb1E": 0,
+               # int8 (signed char, "a") and bf16 K/V, five beams, S = 512
+               "dec_cross_kernelIaLi5E": K.dec_cross_smem_bytes(5, 512, 1),
+               "dec_cross_kernelI13__nv_bfloat16Li5E": K.dec_cross_smem_bytes(5, 512, 2)}
     if not _build.BUILD_LOG:
         return ["ptxas: the library was already built; no compiler output in this run"]
     text = "\n".join(_build.BUILD_LOG)
@@ -745,17 +829,18 @@ def build_lines() -> list[str]:
         lines.append(f"ptxas {key}: {regs.group(1)} registers/thread, spill stores "
                      f"{spill.group(1)} B, spill loads {spill.group(2)} B, static shared "
                      f"{static.group(1) if static else 0} B, dynamic shared {dyn} B a block")
-        if key.startswith("gemm_") and (int(spill.group(1)) or int(spill.group(2))):
+        if key.startswith(("gemm_", "layernorm_", "dec_cross_")) and (
+                int(spill.group(1)) or int(spill.group(2))):
             raise RuntimeError(f"{key} spills registers: {lines[-1]}")
     return lines
 
 
 KERNEL_FAMILIES = (("gemm_large_kernel", "gemm_bf16 large_m"),
-                   ("gemm_small_kernel", "gemm_bf16 small_m"), ("layernorm_kernel", "layernorm"),
+                   ("gemm_small_kernel", "gemm_bf16 small_m"), ("layernorm_", "layernorm"),
                    ("enc_self_attn", "enc_self_attention"),
                    ("enc_cross_attn", "enc_cross_attention"),
                    ("dec_self_attn", "dec_self_attention"),
-                   ("dec_cross_attn", "dec_cross_attention"), ("lm_stats_kernel", "lm_stats"),
+                   ("dec_cross_kernel", "dec_cross_attention"), ("lm_stats_kernel", "lm_stats"),
                    ("flash_attn_kernel", "flash_attention"))
 
 
@@ -861,7 +946,7 @@ def main() -> int:
         if "slice" in phases:
             counts, slice_seqs = run_slice_phase(cfg, params, args.batch)
             launches.update({k: counts[k] for k in SLICE_KERNELS +
-                             ("gemm_bf16:large_m", "gemm_bf16:small_m")})
+                             ("gemm_bf16:large_m", "gemm_bf16:small_m", "layernorm:warp")})
         if "stats" in phases:
             if slice_seqs is None:
                 slice_seqs = run_slice_phase(cfg, params, args.batch)[1]

@@ -10,6 +10,8 @@ need not have).
 Tolerance: bf16 outputs within 2e-2 + 2e-2 * |plain| (one bf16 rounding),
 f32 outputs within 2e-3 + 2e-3 * |plain| (sum order)."""
 
+import ctypes
+
 import pytest
 import torch
 
@@ -332,3 +334,116 @@ def test_flash_attention_refuses_misaligned_bias(dev):
     bias = torch.zeros(1, 1, 64, 66, device=dev)[..., 1:65]  # rows start 4 bytes off
     with pytest.raises(ValueError, match="16-byte"):
         FA.flash_attention(x, x, x, bias)
+
+
+@pytest.mark.parametrize("d", [32, 384, 768, 1022, 1024, 1030, 2048])
+@pytest.mark.parametrize("rows", [1, 37, 160, 6000])
+def test_layernorm_shape_sweep(dev, rows, d):
+    """Both kernels (the warp kernel to d = 1024, a block a row past it), a
+    scalar tail (1022, 1030), one row to more than a resident wave of warps:
+    both outputs against the twin, bit-identical over two calls, and the
+    launch counted under the plan's kernel."""
+    from vacnic_tpu_torch.kernels import primitives as K
+
+    g = torch.Generator(device=dev).manual_seed(rows + d)
+    x = rn(g, rows, d, std=2.0) + 0.5
+    gb = torch.stack([1 + rn(g, d, std=0.1), rn(g, d, std=0.1)]).contiguous()
+    variant = K.layernorm_plan(rows, d).variant
+    before = K.layernorm_variant_counts()[variant]
+    y32, y16 = K.layernorm(x, gb, torch.bfloat16)
+    assert K.layernorm_variant_counts()[variant] == before + 1
+    p32, p16 = K.layernorm_plain(x, gb, torch.bfloat16)
+    close(y32, p32, False)
+    close(y16, p16, True)
+    a32, a16 = K.layernorm(x, gb, torch.bfloat16)
+    assert torch.equal(a32, y32) and torch.equal(a16, y16)
+
+
+@pytest.mark.parametrize("d", [1024, 1030])
+def test_layernorm_in_place(dev, d):
+    """y32 == x is legal in both kernels: a warp (a block) reads its row
+    before it writes it."""
+    from vacnic_tpu_torch.kernels import _build
+    from vacnic_tpu_torch.kernels import primitives as K
+
+    g = torch.Generator(device=dev).manual_seed(d)
+    x = rn(g, 300, d)
+    gb = torch.stack([1 + rn(g, d, std=0.1), rn(g, d, std=0.1)]).contiguous()
+    p32, p16 = K.layernorm_plain(x, gb, torch.bfloat16)
+    y16 = torch.empty(300, d, device=dev, dtype=torch.bfloat16)
+    plan = K.layernorm_plan(300, d)
+    rc = _build.lib().vt_layernorm(K._p(x), K._p(gb), K._p(x), K._p(y16), 300, d,
+                                   ctypes.c_float(1e-5), K._LN_VARIANT_ID[plan.variant],
+                                   plan.slots, K._stream())
+    assert rc == 0
+    torch.cuda.synchronize()
+    close(x, p32, False)
+    close(y16, p16, True)
+
+
+def cross_case(g, items, heads, beams, s_len, kind):
+    """Item 0 has every key masked (uniform weights), item 1 half of them."""
+    keep = torch.full((items, 1), s_len, device="cuda")
+    keep[0], keep[1] = 0, (s_len + 1) // 2
+    bias = torch.where(torch.arange(s_len, device="cuda")[None, :] < keep, 0.0,
+                       torch.finfo(torch.float32).min).float().contiguous()
+    q = rn(g, items * beams, heads * 64, dtype=torch.bfloat16)
+    shape = (items, heads, 64, s_len)
+    if kind == "int8":
+        k, v = (torch.randint(-127, 128, shape, device="cuda", generator=g).to(torch.int8)
+                for _ in range(2))
+        ks, vs = (rn(g, items, heads, 64).abs() * 0.01 + 1e-3 for _ in range(2))
+    else:
+        k, v = rn(g, *shape, dtype=torch.bfloat16), rn(g, *shape, dtype=torch.bfloat16)
+        ks = vs = None
+    return q, k, v, ks, vs, bias
+
+
+@pytest.mark.parametrize("kind", ["int8", "bf16"])
+@pytest.mark.parametrize("s_len", [1, 40, 130, 512])
+@pytest.mark.parametrize("beams", [1, 5, 8])
+def test_dec_cross_attention_sweep(dev, beams, s_len, kind):
+    """One tile, ragged last tiles (40, 130), the main path's eight, beams 1,
+    5, 8, int8 and bf16, a fully masked item: against the twin, and
+    bit-identical over two calls (the sums run in a fixed order)."""
+    from vacnic_tpu_torch.kernels import primitives as K
+
+    g = torch.Generator(device=dev).manual_seed(beams * 1000 + s_len)
+    args = cross_case(g, 3, 4, beams, s_len, kind)
+    before = K.launch_counts()["dec_cross_attention"]
+    out = K.dec_cross_attention(*args, 4)
+    assert K.launch_counts()["dec_cross_attention"] == before + 1
+    assert bool(torch.isfinite(out.float()).all())
+    close(out, K.dec_cross_attention_plain(*args, 4), True)
+    assert torch.equal(out, K.dec_cross_attention(*args, 4))
+
+
+@pytest.mark.parametrize("beams,s_len,kind", [(1, 12224, "bf16"), (1, 12224, "int8"),
+                                             (8, 1472, "bf16"), (4, 3008, "int8")])
+def test_dec_cross_attention_long_s(dev, beams, s_len, kind):
+    """The longest S the kernel before took (12288 / beams - 64): scores and
+    probabilities of all S in one block's shared memory, repeatable."""
+    from vacnic_tpu_torch.kernels import primitives as K
+
+    g = torch.Generator(device=dev).manual_seed(s_len)
+    args = cross_case(g, 2, 2, beams, s_len, kind)
+    out = K.dec_cross_attention(*args, 2)
+    close(out, K.dec_cross_attention_plain(*args, 2), True)
+    assert torch.equal(out, K.dec_cross_attention(*args, 2))
+
+
+def test_variant_counters_add_up(dev):
+    """Launches by kernel add up to the family's count, for gemm_bf16 and
+    layernorm."""
+    from vacnic_tpu_torch.kernels import primitives as K
+
+    K.reset_launch_counts()
+    for m in (37, 300):
+        a = torch.zeros(m, 64, device=dev, dtype=torch.bfloat16)
+        K.gemm(a, torch.zeros(64, 64, device=dev, dtype=torch.bfloat16))
+    for d in (64, 1024, 1030, 4096):
+        K.layernorm(torch.ones(5, d, device=dev), torch.ones(2, d, device=dev), torch.bfloat16)
+    counts = K.launch_counts()
+    assert sum(K.gemm_variant_counts().values()) == counts["gemm_bf16"] == 2
+    assert K.layernorm_variant_counts() == {"warp": 2, "block": 2}
+    assert sum(K.layernorm_variant_counts().values()) == counts["layernorm"] == 4

@@ -1,0 +1,447 @@
+// Decoder cross-attention of one beam-search step: every beam row of an item
+// attends over the item's beam-invariant K/V [B, H, 64, S] (channel-major,
+// bf16, or int8 with per-(item, head, channel) f32 scales) with the additive
+// pad bias [B, S].
+//
+// Replaces: the cross-attention phase of vacnic_tpu/kernels/decode_layer.py:
+//   _kernel (_cross_attn, decode_layer.py:499).
+// Semantics (the plain twin's, kernels/primitives.dec_cross_attention_plain):
+//   q is rounded to bf16 after the head_dim**-0.5 scaling (int8: then
+//   multiplied by the K scale and rounded again); scores and the softmax over
+//   all S are f32 with the f32 bias; the normalised probabilities are rounded
+//   to bf16 before the value sum, which is f32 (int8: times the V scale); the
+//   head output is bf16.
+//
+// Bound on the H100 at the main path (B = 32 items x 5 beams, H = 16, S = 512):
+//   bytes. Each K/V element is needed once a step for all beams of its item:
+//   2 * B * H * 64 * S = 33.5 MB in int8 (~10 us at 3.35 TB/s), 67 MB in bf16.
+// Design: one block of four warps an (item, head), all of them resident at
+//   once (B * H = 512 blocks, four a SM), each streaming its K and then its V
+//   through a ring of 64-position tiles in shared memory: 16-byte cp.async
+//   copies, R - 1 tiles in flight while the block works on one (R = 4 for
+//   int8, 3 for bf16), one block barrier a tile. So a block's loads never
+//   stop for its products or its softmax, and V's first tiles land while the
+//   last scores and the softmax run.
+//   - Scores: tensor cores (mma.sync m16n8k16, bf16 in, f32 sums). Warp w
+//     takes the tile's positions 16w .. 16w + 15 as the A operand, K read
+//     transposed by ldmatrix; q of the beams, padded to 8, is B, in registers.
+//     Scores + bias stay in shared memory, f32, for all S.
+//   - Softmax after the last K tile: a warp a beam, exact over all S, then
+//     the normalised probabilities rounded to bf16, as the twin does.
+//   - P V: warp w takes channels 16w .. 16w + 15 of each V tile as A (rows of
+//     V), the probabilities as B, and sums over all S in its registers.
+//   - int8 becomes bf16 exactly (byte v ^ 0x80 into the mantissa of 2^23,
+//     2^23 + 128 off again; the top half of that f32 is its bf16), each warp
+//     converting only the strip of the tile it multiplies, so no block
+//     barrier sits between the conversion and the product.
+//   The sums run in a fixed order: bit-identical from call to call. Positions
+//   past S (the last tile's tail) are zero in shared memory and masked out of
+//   the softmax. A head whose rows are not 16-byte aligned in device memory
+//   (S * element bytes % 16 != 0) is copied element by element.
+// Measured against it and not kept (PERF.md): S split over a thread
+//   block cluster of 2 or 4 blocks, the ranges' softmax statistics and
+//   outputs combined in rank order through distributed shared memory --
+//   2048 short blocks in three waves, whose loads stopped between the waves.
+
+#include <math.h>
+#include <stdint.h>
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+
+#include "attn_tiles.cuh"
+
+namespace {
+
+using attn_tiles::cp_async16;
+using attn_tiles::cp_async_commit;
+using attn_tiles::cp_async_wait;
+using attn_tiles::smem_u32;
+
+constexpr int HD = 64;
+constexpr int THREADS = 128;  // four warps
+constexpr int TP = 64;        // positions a tile
+constexpr int MAX_BEAMS = 8;
+constexpr int MAX_SMEM = 232448;
+constexpr int QSW = HD + 4;   // floats a row of q in shared memory
+constexpr int STRIP = 3072;   // bytes of a warp's bf16 strip of an int8 tile
+
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16(x));
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// Four int8 (one word) -> four bf16 (two words, the lower index in the low
+// half): byte v ^ 0x80 = v + 128 becomes the low mantissa byte of 2^23, and
+// 2^23 + 128 comes off again; the result is an integer of at most 8 bits, so
+// its bf16 is the top half of its f32. Exact.
+__device__ __forceinline__ uint2 quad_to_bf16(uint32_t w) {
+  const uint32_t u = w ^ 0x80808080u;
+  constexpr float OFF = 8388736.0f;  // 2^23 + 128
+  const float f0 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440)) - OFF;
+  const float f1 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7441)) - OFF;
+  const float f2 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7442)) - OFF;
+  const float f3 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7443)) - OFF;
+  return make_uint2(__byte_perm(__float_as_uint(f0), __float_as_uint(f1), 0x7632),
+                    __byte_perm(__float_as_uint(f2), __float_as_uint(f3), 0x7632));
+}
+
+// 16 int8 at `src` -> 16 bf16 at `dst` (both 16-byte aligned).
+__device__ __forceinline__ void int8x16_to_bf16(const unsigned char* src, unsigned char* dst) {
+  const uint4 v = *reinterpret_cast<const uint4*>(src);
+  const uint2 a = quad_to_bf16(v.x), b = quad_to_bf16(v.y), c = quad_to_bf16(v.z),
+              d = quad_to_bf16(v.w);
+  reinterpret_cast<uint4*>(dst)[0] = make_uint4(a.x, a.y, b.x, b.y);
+  reinterpret_cast<uint4*>(dst)[1] = make_uint4(c.x, c.y, d.x, d.y);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// ldmatrix: four (two) 8 x 8 bf16 matrices whose rows lanes 0-7, 8-15, 16-23,
+// 24-31 (0-7, 8-15) point at; .trans hands each lane a column pair.
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x2(uint32_t addr, uint32_t& r0, uint32_t& r1) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r0), "=r"(r1) : "r"(addr));
+}
+
+// d[16 x 8] += a[16 x 16] b[16 x 8], bf16 products, f32 sums. Lane (g, t) =
+// (lane / 4, lane % 4) holds a = rows g, g + 8 x k 2t, 2t + 1 (a0, a1) and
+// k 2t + 8, 2t + 9 (a2, a3); b = k 2t, 2t + 1 (b0), 2t + 8, 2t + 9 (b1) x
+// column g; d = rows g (d0, d1), g + 8 (d2, d3) x columns 2t, 2t + 1.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Bytes of a row of `n` elements in shared memory, padded to an odd number
+// of 16-byte chunks, so that the eight rows one ldmatrix (or eight lanes
+// reading 16 bytes) touches lie in eight different bank groups.
+__host__ __device__ constexpr int row_bytes(int n, int elem_bytes) {
+  return ((n * elem_bytes / 16) | 1) * 16;
+}
+
+__host__ __device__ constexpr int ring_slots(int elem_bytes) { return elem_bytes == 1 ? 4 : 3; }
+
+// Dynamic shared memory of a block (kernels/primitives.dec_cross_smem_bytes
+// states the same), sp = S rounded up to whole tiles: the ring of K/V tiles
+// as copied, int8's bf16 strips (one a warp), scores [beams][sp + 4] f32,
+// probabilities [beams][sp + 8] bf16, a zero row, q [8][68] f32, the bias
+// [sp], the V scales [64], the softmax statistics [8].
+__host__ __device__ constexpr long long smem_bytes(int beams, int S, int elem_bytes) {
+  return static_cast<long long>(ring_slots(elem_bytes)) * HD * row_bytes(TP, elem_bytes) +
+         (elem_bytes == 1 ? 4 * STRIP : 0) + 4LL * beams * ((S + TP - 1) / TP * TP + 4) +
+         2LL * beams * ((S + TP - 1) / TP * TP + 8) + 16 + 4LL * MAX_BEAMS * QSW +
+         4LL * ((S + TP - 1) / TP * TP) + 4LL * HD + 8LL * MAX_BEAMS;
+}
+
+// grid (H, B), block 128.
+template <typename KT, int NB>
+__global__ void __launch_bounds__(THREADS)
+dec_cross_kernel(const __nv_bfloat16* __restrict__ q, const KT* __restrict__ ck,
+                 const KT* __restrict__ cv, const float* __restrict__ ks,
+                 const float* __restrict__ vs, const float* __restrict__ bias,
+                 __nv_bfloat16* __restrict__ out, int H, int S, int vec, float scaling) {
+  constexpr int EB = sizeof(KT);
+  constexpr bool INT8 = EB == 1;
+  constexpr int R = ring_slots(EB);
+  constexpr int RB = row_bytes(TP, EB);   // a row of a tile as copied
+  constexpr int RBT = row_bytes(TP, 2);   // a bf16 row of a tile
+  constexpr int SLOT = HD * RB;
+  constexpr int SROW = row_bytes(16, 2);  // a row of a scores strip: 16 positions
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;   // mma lane naming
+  const int mi = lane >> 3, r = lane & 7;  // the ldmatrix matrix and row this lane points at
+  const int D = H * HD;
+  const size_t head = static_cast<size_t>(b) * H + h;
+  const int nt = (S + TP - 1) / TP, sp = nt * TP;
+  const int SCW = sp + 4, PW = sp + 8;  // rows of scores, probabilities
+  unsigned char* ring = smem;                                           // [R][64][RB]
+  unsigned char* strip = ring + R * SLOT + (INT8 ? warp * STRIP : 0);  // int8: this warp's
+  float* sc = reinterpret_cast<float*>(ring + R * SLOT + (INT8 ? 4 * STRIP : 0));  // [NB][SCW]
+  __nv_bfloat16* pt = reinterpret_cast<__nv_bfloat16*>(sc + NB * SCW);    // [NB][PW]
+  unsigned char* zero16 = reinterpret_cast<unsigned char*>(pt + NB * PW);  // 16 zero bytes
+  float* qs = reinterpret_cast<float*>(zero16 + 16);                     // [8][QSW]
+  float* bs = qs + MAX_BEAMS * QSW;                                      // [sp] bias
+  float* vss = bs + sp;                                                  // [64] V scales
+  float2* gst = reinterpret_cast<float2*>(vss + HD);                    // [8] (max, 1 / sum)
+  const KT* kg = ck + head * HD * S;
+  const KT* vg = cv + head * HD * S;
+  const float* bg = bias + static_cast<size_t>(b) * S;
+
+  // tile j of K_0 .. K_{nt-1}, V_0 .. V_{nt-1} into ring slot j % R: one
+  // cp.async group a tile (an empty one past the end keeps the count)
+  auto fetch = [&](int j) {
+    if (j < 2 * nt) {
+      const int jt = j < nt ? j : j - nt;
+      const KT* src = (j < nt ? kg : vg) + jt * TP;
+      unsigned char* dst = ring + (j % R) * SLOT;
+      const int n = min(TP, S - jt * TP);
+      if (vec && n == TP) {  // a whole tile: every thread the same pieces, no division
+        constexpr int CPR = TP * EB / 16;  // 16-byte pieces of a row
+        const int c = tid % CPR;
+#pragma unroll
+        for (int row = tid / CPR; row < HD; row += THREADS / CPR)
+          cp_async16(smem_u32(dst + row * RB + 16 * c),
+                     reinterpret_cast<const unsigned char*>(src + static_cast<size_t>(row) * S) +
+                         16 * c);
+      } else if (vec) {
+        const int chunks = n * EB / 16;
+        for (int i = tid; i < HD * chunks; i += THREADS) {
+          const int row = i / chunks, c = i - row * chunks;
+          cp_async16(smem_u32(dst + row * RB + 16 * c),
+                     reinterpret_cast<const unsigned char*>(src + static_cast<size_t>(row) * S) +
+                         16 * c);
+        }
+      } else {
+        for (int i = tid; i < HD * n; i += THREADS) {
+          const int row = i / n, p = i - row * n;
+          reinterpret_cast<KT*>(dst + row * RB)[p] = src[static_cast<size_t>(row) * S + p];
+        }
+      }
+      const int tail = (TP - n) * EB;  // past S: zero, so 0 * V stays 0
+      for (int i = tid; i < HD * tail; i += THREADS) {
+        const int row = i / tail;
+        dst[row * RB + n * EB + (i - row * tail)] = 0;
+      }
+    }
+    cp_async_commit();
+  };
+
+  // 1. the bias rides in the first tile's group; R - 1 tiles go out; q and
+  // the scales come into registers meanwhile
+  if (vec) {
+    for (int c = tid; c < S / 4; c += THREADS) cp_async16(smem_u32(bs + 4 * c), bg + 4 * c);
+  } else {
+    for (int p = tid; p < S; p += THREADS) bs[p] = bg[p];
+  }
+#pragma unroll
+  for (int j = 0; j < R - 1; ++j) fetch(j);
+  const int qb = tid >> 4, qc = 4 * (tid & 15);  // thread t: four channels of beam t / 16
+  uint2 q4 = make_uint2(0u, 0u);
+  float4 k4s = make_float4(1.0f, 1.0f, 1.0f, 1.0f), v4s = k4s;
+  if (qb < NB) {
+    q4 = *reinterpret_cast<const uint2*>(q + (static_cast<size_t>(b) * NB + qb) * D + h * HD + qc);
+    if (ks != nullptr) k4s = *reinterpret_cast<const float4*>(ks + head * HD + qc);
+  }
+  if (tid < HD / 4 && vs != nullptr) v4s = *reinterpret_cast<const float4*>(vs + head * HD + 4 * tid);
+  if (tid < 4) reinterpret_cast<uint32_t*>(zero16)[tid] = 0u;
+  {
+    const float qv[4] = {__uint_as_float(q4.x << 16), __uint_as_float(q4.x & 0xFFFF0000u),
+                         __uint_as_float(q4.y << 16), __uint_as_float(q4.y & 0xFFFF0000u)};
+    const float kv[4] = {k4s.x, k4s.y, k4s.z, k4s.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {  // beams past NB: q = 0
+      float v = bf16_round(qv[i] * scaling);
+      if (ks != nullptr) v = bf16_round(v * kv[i]);
+      qs[qb * QSW + qc + i] = v;
+    }
+  }
+  if (tid < HD / 4) *reinterpret_cast<float4*>(vss + 4 * tid) = v4s;
+  __syncthreads();
+  uint32_t qf[4][2];  // B of the scores: q of beam g at the channel pairs of k-step kk
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const float* qr = qs + g * QSW + 16 * kk + 2 * t;
+    qf[kk][0] = pack_bf16(qr[0], qr[1]);  // bf16 values already: exact
+    qf[kk][1] = pack_bf16(qr[8], qr[9]);
+  }
+  // B of P V: the probabilities of beam r, or a zero row past NB
+  const bool real = r < NB;
+  const uint32_t pbase = real ? smem_u32(pt) + (r * PW + 8 * (mi & 1)) * 2 : smem_u32(zero16);
+
+  // 2. the tiles, one block barrier each
+  float o[4] = {0.0f, 0.0f, 0.0f, 0.0f};  // channels 16w + g (+ 8) x beams 2t, 2t + 1
+  for (int j = 0; j < 2 * nt; ++j) {
+    cp_async_wait<R - 2>();  // this thread's copies of tile j have landed
+    __syncthreads();         // everyone's; and everyone is done with tile j - 1
+    fetch(j + R - 1);        // into the slot tile j - 1 left
+    const unsigned char* cur = ring + (j % R) * SLOT;
+    if (j < nt) {
+      // scores of positions j TP + 16w .. + 15: A = K^T (rows = positions)
+      uint32_t base;
+      if (INT8) {  // this warp's 16 columns of the 64 K rows, as bf16 rows of 16
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int row = lane + 32 * i;
+          int8x16_to_bf16(cur + row * RB + 16 * warp, strip + row * SROW);
+        }
+        __syncwarp();
+        base = smem_u32(strip) + (r + 8 * (mi >> 1)) * SROW + 16 * (mi & 1);
+      } else {
+        base = smem_u32(cur) + (r + 8 * (mi >> 1)) * RBT + 2 * (16 * warp + 8 * (mi & 1));
+      }
+      constexpr int KSTEP = 16 * (INT8 ? SROW : RBT);  // bytes of 16 channel rows
+      float d[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        uint32_t a[4];
+        ldsm_x4_trans(base + kk * KSTEP, a);
+        mma_bf16(d, a, qf[kk][0], qf[kk][1]);
+      }
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int pos = j * TP + 16 * warp + g + 8 * hh;
+        const bool inside = pos < S;
+        const float bb = inside ? bs[pos] : 0.0f;
+        if (2 * t < NB) sc[2 * t * SCW + pos] = inside ? d[2 * hh] + bb : -INFINITY;
+        if (2 * t + 1 < NB) sc[(2 * t + 1) * SCW + pos] = inside ? d[2 * hh + 1] + bb : -INFINITY;
+      }
+      if (j == nt - 1) {  // 3. softmax over all S, a warp a beam
+        __syncthreads();
+        for (int bm = warp; bm < NB; bm += THREADS / 32) {
+          const float* row = sc + bm * SCW;
+          float m = -INFINITY;
+          for (int p = lane; p < S; p += 32) m = fmaxf(m, row[p]);
+          m = warp_max(m);
+          float l = 0.0f;
+          for (int p = lane; p < S; p += 32) l += expf(row[p] - m);
+          l = warp_sum(l);
+          if (lane == 0) gst[bm] = make_float2(m, 1.0f / l);
+        }
+        __syncthreads();
+#pragma unroll
+        for (int bm = 0; bm < NB; ++bm) {  // normalised, then rounded to bf16; 0 past S
+          const float2 ml = gst[bm];
+          for (int pos = tid; pos < sp; pos += THREADS)
+            pt[bm * PW + pos] =
+                __float2bfloat16(pos < S ? expf(sc[bm * SCW + pos] - ml.x) * ml.y : 0.0f);
+        }
+      }
+    } else {
+      // 4. P V of positions (j - nt) TP .. + 63: A = V rows 16w .. 16w + 15
+      uint32_t base;
+      if (INT8) {  // this warp's 16 V rows, as bf16 rows of 64
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int row = lane >> 1, c = 2 * (lane & 1) + i;  // 16 rows x 4 pieces of 16
+          int8x16_to_bf16(cur + (16 * warp + row) * RB + 16 * c, strip + row * RBT + 32 * c);
+        }
+        __syncwarp();
+        base = smem_u32(strip) + (r + 8 * (mi & 1)) * RBT + 16 * (mi >> 1);
+      } else {
+        base = smem_u32(cur) + (16 * warp + r + 8 * (mi & 1)) * RBT + 16 * (mi >> 1);
+      }
+      const uint32_t pb = real ? pbase + 2 * (j - nt) * TP : pbase;
+#pragma unroll
+      for (int kk = 0; kk < TP / 16; ++kk) {
+        uint32_t a[4], b0, b1;
+        ldsm_x4(base + 32 * kk, a);
+        ldsm_x2(real ? pb + 32 * kk : pb, b0, b1);
+        mma_bf16(o, a, b0, b1);
+      }
+    }
+  }
+
+  // 5. the head output, times the V scale (int8)
+  const int ch = 16 * warp + g;
+  const float s0 = vs != nullptr ? vss[ch] : 1.0f, s8 = vs != nullptr ? vss[ch + 8] : 1.0f;
+  __nv_bfloat16* ob = out + static_cast<size_t>(b) * NB * D + h * HD + ch;
+  if (2 * t < NB) {
+    ob[2 * t * D] = __float2bfloat16(o[0] * s0);
+    ob[2 * t * D + 8] = __float2bfloat16(o[2] * s8);
+  }
+  if (2 * t + 1 < NB) {
+    ob[(2 * t + 1) * D] = __float2bfloat16(o[1] * s0);
+    ob[(2 * t + 1) * D + 8] = __float2bfloat16(o[3] * s8);
+  }
+}
+
+struct Args {
+  const void *q, *ck, *cv;
+  const float *ks, *vs, *bias;
+  __nv_bfloat16* out;
+  int B, H, S;
+  float scaling;
+  cudaStream_t stream;
+};
+
+template <typename KT, int NB>
+int launch(const Args& a) {
+  constexpr int EB = sizeof(KT);
+  const long long smem = smem_bytes(NB, a.S, EB);
+  if (smem > MAX_SMEM) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = dec_cross_kernel<KT, NB>;
+  static int configured_device = -1;  // the shared-memory limit is raised once per device
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (dev != configured_device) {
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    configured_device = dev;
+  }
+  const int vec = (a.S * EB) % 16 == 0 && reinterpret_cast<uintptr_t>(a.ck) % 16 == 0 &&
+                  reinterpret_cast<uintptr_t>(a.cv) % 16 == 0 &&
+                  reinterpret_cast<uintptr_t>(a.bias) % 16 == 0;
+  kernel<<<dim3(a.H, a.B), THREADS, static_cast<size_t>(smem), a.stream>>>(
+      reinterpret_cast<const __nv_bfloat16*>(a.q), reinterpret_cast<const KT*>(a.ck),
+      reinterpret_cast<const KT*>(a.cv), a.ks, a.vs, a.bias, a.out, a.H, a.S, vec, a.scaling);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename KT>
+int launch_beams(int beams, const Args& a) {
+  switch (beams) {
+    case 1: return launch<KT, 1>(a);
+    case 2: return launch<KT, 2>(a);
+    case 3: return launch<KT, 3>(a);
+    case 4: return launch<KT, 4>(a);
+    case 5: return launch<KT, 5>(a);
+    case 6: return launch<KT, 6>(a);
+    case 7: return launch<KT, 7>(a);
+    case 8: return launch<KT, 8>(a);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+}  // namespace
+
+// q [B*beams, H*64] bf16, ck/cv [B, H, 64, S] int8 (is_int8) or bf16,
+// ks/vs [B, H, 64] f32 (int8 only, else NULL), bias [B, S] f32,
+// out [B*beams, H*64] bf16. beams 1..8; q 8-byte and the scales 16-byte
+// aligned. A shape whose block would need more than 227 KB of shared memory
+// (kernels/primitives.dec_cross_smem_bytes), or anything else out of range,
+// is refused with cudaErrorInvalidValue.
+extern "C" int vt_dec_cross_attention(const void* q, const void* ck, const void* cv,
+                                      const void* ks, const void* vs, const void* bias, void* out,
+                                      int B, int beams, int H, int S, int is_int8, float scaling,
+                                      void* stream) {
+  const int invalid = static_cast<int>(cudaErrorInvalidValue);
+  if (B < 1 || H < 1 || S < 1 || B > 65535) return invalid;
+  if (reinterpret_cast<uintptr_t>(q) % 8 || reinterpret_cast<uintptr_t>(ks) % 16 ||
+      reinterpret_cast<uintptr_t>(vs) % 16)
+    return invalid;
+  const Args a = {q, ck, cv, reinterpret_cast<const float*>(ks), reinterpret_cast<const float*>(vs),
+                  reinterpret_cast<const float*>(bias), reinterpret_cast<__nv_bfloat16*>(out),
+                  B, H, S, scaling, reinterpret_cast<cudaStream_t>(stream)};
+  return is_int8 ? launch_beams<int8_t>(beams, a) : launch_beams<__nv_bfloat16>(beams, a);
+}

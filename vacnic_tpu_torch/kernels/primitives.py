@@ -27,6 +27,9 @@ LAUNCHES: dict[str, int] = {k: 0 for k in KERNELS}
 # gemm_bf16 is two __global__ kernels; every launch also counts under its own
 GEMM_VARIANTS = ("large_m", "small_m")
 GEMM_VARIANT_LAUNCHES: dict[str, int] = {v: 0 for v in GEMM_VARIANTS}
+# and so is layernorm
+LAYERNORM_VARIANTS = ("warp", "block")
+LAYERNORM_VARIANT_LAUNCHES: dict[str, int] = {v: 0 for v in LAYERNORM_VARIANTS}
 
 GELU = "gelu"
 
@@ -36,6 +39,8 @@ def reset_launch_counts() -> None:
         LAUNCHES[k] = 0
     for v in GEMM_VARIANT_LAUNCHES:
         GEMM_VARIANT_LAUNCHES[v] = 0
+    for v in LAYERNORM_VARIANT_LAUNCHES:
+        LAYERNORM_VARIANT_LAUNCHES[v] = 0
 
 
 def launch_counts() -> dict[str, int]:
@@ -45,6 +50,11 @@ def launch_counts() -> dict[str, int]:
 def gemm_variant_counts() -> dict[str, int]:
     """Launches of gemm_bf16 by kernel: they add up to LAUNCHES["gemm_bf16"]."""
     return dict(GEMM_VARIANT_LAUNCHES)
+
+
+def layernorm_variant_counts() -> dict[str, int]:
+    """Launches of layernorm by kernel: they add up to LAUNCHES["layernorm"]."""
+    return dict(LAYERNORM_VARIANT_LAUNCHES)
 
 
 # ---------------------------------------------------------------------------
@@ -184,6 +194,30 @@ def layernorm_plain(x, gb, mm_dtype, eps: float = 1e-5):
     return y, y.to(mm_dtype)
 
 
+LN_WARP_MAX_D = 1024  # 32 lanes x 8 float4 slots in registers (csrc/layernorm.cu)
+
+
+class LayernormPlan(NamedTuple):
+    """Which kernel of csrc/layernorm.cu a row width takes."""
+    variant: str    # "warp": a warp a row, the row in registers; "block": a block a row
+    slots: int = 0  # warp: float4 slots a lane, ceil(d / 128)
+
+
+@functools.lru_cache(maxsize=None)
+def layernorm_plan(rows: int, d: int) -> LayernormPlan:
+    """The kernel of a [rows, d] LayerNorm. Pure: the CUDA launcher only
+    follows it. d <= 1024: the register-resident warp kernel with the fewest
+    slots that cover the row; wider rows: a block a row. Any rows >= 1."""
+    if rows < 1 or d < 1:
+        raise ValueError(f"layernorm: needs rows >= 1 and d >= 1, got rows={rows} d={d}")
+    if d > LN_WARP_MAX_D:
+        return LayernormPlan("block")
+    return LayernormPlan("warp", -(-d // 128))
+
+
+_LN_VARIANT_ID = {"warp": 1, "block": 2}
+
+
 def layernorm(x, gb, mm_dtype, eps: float = 1e-5):
     """Row LayerNorm of x [R, d] f32 with gb [2, d] = (scale, bias) ->
     (y f32, y in mm_dtype)."""
@@ -194,10 +228,12 @@ def layernorm(x, gb, mm_dtype, eps: float = 1e-5):
     _req(gb, "layernorm gb", torch.float32, (2, d), x.device)
     if mm_dtype != torch.bfloat16:
         raise ValueError("layernorm: the kernel writes a bf16 copy")
+    plan = layernorm_plan(r, d)
     y32 = torch.empty_like(x)
     y16 = torch.empty(r, d, dtype=torch.bfloat16, device=x.device)
     _launch("layernorm", "vt_layernorm", _p(x), _p(gb), _p(y32), _p(y16), r, d,
-            ctypes.c_float(eps))
+            ctypes.c_float(eps), _LN_VARIANT_ID[plan.variant], plan.slots)
+    LAYERNORM_VARIANT_LAUNCHES[plan.variant] += 1
     return y32, y16
 
 
@@ -323,6 +359,23 @@ def dec_cross_attention_plain(q, ck, cv, ck_scale, cv_scale, enc_bias, heads: in
     return o.to(dt).reshape(bk, d)
 
 
+SMEM_MAX = 232448  # shared memory a block can have on an H100
+
+
+@functools.lru_cache(maxsize=None)  # a decode step asks once a layer, for one shape
+def dec_cross_smem_bytes(beams: int, s_len: int, elem_bytes: int) -> int:
+    """Dynamic shared memory of a dec_cross_attention block, as
+    csrc/dec_cross_attention.cu's smem_bytes counts it (sp = S in whole
+    64-position tiles): the ring of K/V tiles as copied (int8: four, rows of
+    80 bytes, and a 3 KB bf16 strip a warp; bf16: three, rows of 144 bytes),
+    scores [beams][sp + 4] f32, probabilities [beams][sp + 8] bf16, a zero
+    row, q [8][68] f32, the bias, the V scales, the softmax statistics."""
+    sp = 64 * -(-s_len // 64)
+    ring = 4 * 64 * 80 + 4 * 3072 if elem_bytes == 1 else 3 * 64 * 144
+    return (ring + 4 * beams * (sp + 4) + 2 * beams * (sp + 8) + 16 + 4 * 8 * 68 + 4 * sp
+            + 4 * 64 + 8 * 8)
+
+
 def dec_cross_attention(q, ck, cv, ck_scale, cv_scale, enc_bias, heads: int):
     """q [BK, d] (beams of item b are rows b*K..b*K+K-1), K/V [B, H, hd, S]
     bf16 or int8 (with scales [B, H, hd] f32), pad bias [B, S] f32 -> [BK, d]."""
@@ -345,6 +398,9 @@ def dec_cross_attention(q, ck, cv, ck_scale, cv_scale, enc_bias, heads: int):
     if d != heads * 64 or bk % b or bk // b > 8:
         raise ValueError(f"dec_cross_attention: needs head_dim 64 and <= 8 beams (d={d}, "
                          f"rows={bk}, items={b})")
+    if dec_cross_smem_bytes(bk // b, s_len, ck.element_size()) > SMEM_MAX:
+        raise ValueError(f"dec_cross_attention: S={s_len} with {bk // b} beams needs more "
+                         "shared memory than a block has")
     out = torch.empty(bk, d, dtype=torch.bfloat16, device=q.device)
     _launch("dec_cross_attention", "vt_dec_cross_attention", _p(q), _p(ck), _p(cv),
             _p(ck_scale), _p(cv_scale), _p(enc_bias), _p(out), b, bk // b, heads, s_len,
