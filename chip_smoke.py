@@ -18,8 +18,14 @@ Phases:
            each row names its plan) and ragged shapes untimed. Untimed too:
            layernorm at d 32 ... 2048 (both kernels, a scalar tail) and
            rows 1 to 6000; dec_cross_attention at beams 1, 5, 8 x S 1, 40,
-           130, 512, int8 and bf16, with an item whose keys are all masked.
-           layernorm and dec_cross_attention must repeat bit-identically.
+           130, 512, int8 and bf16, with an item whose keys are all masked;
+           dec_self_attention (timed at pos 0, 31, 49 for each of its bf16,
+           int8 and fp8 self caches) at BK 1, 5, 8, 37, 160, 640 x heads 4
+           and 16, pos = T - 1 and a middle pos, a random ancestry, and int8
+           with power-of-two scales against the bf16 kernel on the
+           dequantized cache, which must be bit-identical. layernorm,
+           dec_cross_attention and dec_self_attention must repeat
+           bit-identically.
   dispatch host microseconds a call of the decoder's products, layernorm and
            a bare torch.empty, issued without waiting for the card.
   stacks   full-width fused encoder and decode step (random weights) against
@@ -31,8 +37,15 @@ Phases:
            fused encoder and the decode stack must have launched, gemm_bf16's
            large-M kernel six times an encoder layer and its small-M kernel
            for every other product, layernorm once a layer norm (1800, all
-           on the warp kernel) and dec_cross_attention once a decoder layer a
-           step (588). Checks finite scores and a mean caption length >= 45.
+           on the warp kernel), dec_cross_attention and dec_self_attention
+           once a decoder layer a step (588, dec_self all on the bf16
+           cache's kernel). Checks finite scores and a mean caption length
+           >= 45.
+  selfkv   the same run with self_kv="int8" and with self_kv="fp8" (the
+           quantized self cache): dec_self_attention must launch 588 times
+           on that cache's kernel; finite scores, mean length >= 45; token
+           agreement with the slice and captions/s (not gated: random
+           weights make the logits near-degenerate).
   stats    the same run with lm_stats=True (the fused LM-stats head):
            lm_stats must launch once per decode step; at one step its
            stage 2 must be exact on the kernel's own logits (top-C equal to
@@ -45,13 +58,15 @@ Phases:
            at batch 2 on the card (bf16) against the same encoder in f32 on
            the CPU (relative error <= 5e-2).
   profile  the fused encoder alone, then one more run of each of the slice,
-           stats and layerwise paths under torch.profiler: device time by
-           kernel family, busy/idle share.
+           selfkv (int8, fp8), stats and layerwise paths under
+           torch.profiler: device time by kernel family (dec_self_attention
+           by cache type), busy/idle share.
 
 Prints the registers, spills and shared memory of the two 512-token
-self-attention kernels, the two gemm_bf16, two layernorm and two
-dec_cross_attention kernels (from nvcc's output of this build; a spill in
-any but the attention kernels fails the run), a JSON line with
+self-attention kernels, the two gemm_bf16, two layernorm, two
+dec_cross_attention and three dec_self_attention kernels (from nvcc's output
+of this build; a spill in any but the 512-token attention kernels fails the
+run), a JSON line with
 every kernel, the card's name and power limit (nvidia-smi), and last `{"ok": true, "device": {...}}`. Exits non-zero, printing
 no result, when a phase fails or there is no CUDA device. Long logs go to
 chiprun_out/chip_smoke/.
@@ -74,6 +89,7 @@ import time
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
 PEAK_F32_FLOPS = 67e12    # outside the tensor cores
+PEAK_8BIT_OPS = 1979e12   # int8 / fp8 tensor-core rate
 PEAK_BYTES = 3.35e12      # HBM3
 OUT_DIR = os.path.join("chiprun_out", "chip_smoke")
 
@@ -94,7 +110,8 @@ REPLACES = {
                  "vacnic_tpu/kernels/decode_layer.py:235 (ln)",
     "enc_self_attention": "vacnic_tpu/kernels/encoder_stack.py:160 (self-attention)",
     "enc_cross_attention": "vacnic_tpu/kernels/encoder_stack.py:197 (cross-attention)",
-    "dec_self_attention": "vacnic_tpu/kernels/decode_layer.py:314 (_self_attn)",
+    "dec_self_attention": "vacnic_tpu/kernels/decode_layer.py:314 (_self_attn; int8 self "
+                          "cache :393-409, :454-462; fp8 store :330-339)",
     "dec_cross_attention": "vacnic_tpu/kernels/decode_layer.py:499 (_cross_attn)",
     "lm_stats": "vacnic_tpu/kernels/lm_stats.py:76 (lm_stats; _kernel :44)",
     "flash_attention": "vacnic_tpu/kernels/flash_attn.py:65 (flash_attention; _flash_kernel :28)",
@@ -102,6 +119,7 @@ REPLACES = {
 SLICE_KERNELS = ("gemm_bf16", "layernorm", "enc_self_attention", "enc_cross_attention",
                  "dec_self_attention", "dec_cross_attention")
 DECODE_KERNELS = ("gemm_bf16", "layernorm", "dec_self_attention", "dec_cross_attention")
+SELF_KV_KINDS = ("int8", "fp8")
 
 
 def log(msg: str) -> None:
@@ -262,31 +280,48 @@ def kernel_cases():
 
     cases += [enc_self_case(B, S), enc_self_case(32, S), enc_self_case(3, 64, timed=False),
               enc_self_case(3, 192, timed=False)]
-    q = rn(B * S, d, dtype=bf)
-    ck, cv = rn(B, d, KV, dtype=bf), rn(B, KV, d, dtype=bf)
-    cases.append((f"enc_cross_attention B={B} S={S} KV={KV}", "enc_cross_attention",
-                  lambda: K.enc_cross_attention(q, ck, cv, B, S, H),
-                  lambda: K.enc_cross_attention_plain(q, ck, cv, B, S, H),
-                  (2 * B * S * d + 2 * B * KV * d) * 2, 4.0 * B * S * KV * d, PEAK_BF16_FLOPS,
-                  lambda: Fn.scaled_dot_product_attention(
-                      q.view(B, S, H, 64).transpose(1, 2),
-                      ck.view(B, H, 64, KV).transpose(2, 3), cv.view(B, KV, H, 64).transpose(1, 2))))
+
+    def enc_cross_case(bsz):  # B = 32 is the slice's own shape
+        q = rn(bsz * S, d, dtype=bf)
+        ck, cv = rn(bsz, d, KV, dtype=bf), rn(bsz, KV, d, dtype=bf)
+        return (f"enc_cross_attention B={bsz} S={S} KV={KV}", "enc_cross_attention",
+                lambda: K.enc_cross_attention(q, ck, cv, bsz, S, H),
+                lambda: K.enc_cross_attention_plain(q, ck, cv, bsz, S, H),
+                (2 * bsz * S * d + 2 * bsz * KV * d) * 2, 4.0 * bsz * S * KV * d, PEAK_BF16_FLOPS,
+                lambda: Fn.scaled_dot_product_attention(
+                    q.view(bsz, S, H, 64).transpose(1, 2), ck.view(bsz, H, 64, KV).transpose(2, 3),
+                    cv.view(bsz, KV, H, 64).transpose(1, 2)))
+
+    cases += [enc_cross_case(B), enc_cross_case(32)]
 
     BK, T, B2, beams = 160, 64, 32, 5
-    ck_cache, cv_cache = rn(T, BK, d, dtype=bf), rn(T, BK, d, dtype=bf)
     qkv_d = rn(BK, 3 * d, dtype=bf)
     item = torch.arange(BK, device=dev) // beams
     anc = (item[None, :] * beams + torch.randint(0, beams, (T, BK), device=dev, generator=g)
            ).to(torch.int32).contiguous()
-    for pos in (0, 31, 49):
-        n_rows = int(torch.unique(torch.arange(pos, device=dev)[:, None] * BK
-                                  + anc[:pos].long()).numel()) if pos else 0
-        byts = BK * 3 * d * 2 + 2 * n_rows * d * 2 + pos * BK * 4 + BK * d * 2
-        cases.append((f"dec_self_attention BK={BK} T={T} pos={pos}", "dec_self_attention",
-                      lambda pos=pos: K.dec_self_attention(qkv_d, ck_cache, cv_cache, anc, pos, H),
-                      lambda pos=pos: K.dec_self_attention_plain(qkv_d, ck_cache, cv_cache, anc,
-                                                                 pos, H),
-                      byts, 4.0 * BK * d * (pos + 1), PEAK_BF16_FLOPS, None))
+    for kind in ("bf16",) + SELF_KV_KINDS:
+        ck_c, cv_c, ks_c, vs_c = self_cache(rn, g, T, BK, H, kind)
+        elem = ck_c.element_size()
+        for pos in (0, 31, 49):
+            # the rows the ancestry reaches, each read once (with its scales for int8)
+            n_rows = int(torch.unique(torch.arange(pos, device=dev)[:, None] * BK
+                                      + anc[:pos].long()).numel()) if pos else 0
+            byts = (BK * 3 * d * 2 + 2 * n_rows * d * elem + pos * BK * 4 + BK * d * 2
+                    + (2 * n_rows * H * 4 if ks_c is not None else 0))
+            cases.append((f"dec_self_attention {kind} BK={BK} T={T} pos={pos}",
+                          f"dec_self_attention:{kind}",
+                          lambda pos=pos, c=(ck_c, cv_c, anc), s=(ks_c, vs_c):
+                          K.dec_self_attention(qkv_d, *c, pos, H, *s),
+                          lambda pos=pos, c=(ck_c, cv_c, anc), s=(ks_c, vs_c):
+                          K.dec_self_attention_plain(qkv_d, *c, pos, H, *s),
+                          byts, 4.0 * BK * d * (pos + 1),
+                          PEAK_BF16_FLOPS if kind == "bf16" else PEAK_8BIT_OPS, None))
+    # correctness only: every cache type at BK 1 ... 640 x heads 4 and 16, a
+    # middle pos and pos = T - 1, an ancestry over all rows
+    for kind, (bk_c, h_c) in itertools.product(("bf16",) + SELF_KV_KINDS,
+                                               ((1, 4), (5, 16), (8, 4), (37, 4), (160, 16),
+                                                (640, 16))):
+        cases += [dec_self_case(rn, g, bk_c, h_c, T, pos, kind) for pos in (T // 2 - 1, T - 1)]
     qd = rn(BK, d, dtype=bf)
     ebias = torch.where(torch.arange(S, device=dev)[None, :] < torch.randint(
         S // 2, S + 1, (B2, 1), device=dev, generator=g), 0.0,
@@ -366,6 +401,72 @@ def kernel_cases():
     return cases
 
 
+def self_cache(rn, g, t_len: int, bk: int, heads: int, kind: str):
+    """A dec_self_attention cache [T, BK, heads * 64] of the kind: bf16, int8
+    with per-row scales [T, BK, heads] f32, or fp8 e4m3 of values up to a
+    few units -> (K, V, K scales or None, V scales or None)."""
+    import torch
+
+    shape = (t_len, bk, heads * 64)
+    if kind == "int8":
+        kk, vv = (torch.randint(-127, 128, shape, device="cuda", generator=g).to(torch.int8)
+                  for _ in range(2))
+        ks, vs = (rn(t_len, bk, heads, std=0.01).abs() + 1e-3 for _ in range(2))
+        return kk, vv, ks, vs
+    if kind == "fp8":
+        return (*(rn(*shape, std=2.0).clamp(-448, 448).to(torch.float8_e4m3fn)
+                  for _ in range(2)), None, None)
+    return rn(*shape, dtype=torch.bfloat16), rn(*shape, dtype=torch.bfloat16), None, None
+
+
+def dec_self_case(rn, g, bk: int, heads: int, t_len: int, pos: int, kind: str):
+    """A correctness-only dec_self_attention case over an ancestry that
+    reaches any row."""
+    import torch
+
+    from vacnic_tpu_torch.kernels import primitives as K
+
+    qkv = rn(bk, 3 * heads * 64, dtype=torch.bfloat16)
+    ck, cv, ks, vs = self_cache(rn, g, t_len, bk, heads, kind)
+    anc = torch.randint(0, bk, (t_len, bk), device="cuda", generator=g).to(torch.int32)
+    return (f"dec_self_attention {kind} BK={bk} H={heads} T={t_len} pos={pos}",
+            f"dec_self_attention:{kind}",
+            lambda: K.dec_self_attention(qkv, ck, cv, anc, pos, heads, ks, vs),
+            lambda: K.dec_self_attention_plain(qkv, ck, cv, anc, pos, heads, ks, vs),
+            None, 0.0, PEAK_BF16_FLOPS, None)
+
+
+def dec_self_pow2_identity() -> str | None:
+    """int8 with power-of-two scales against the bf16 kernel on the
+    dequantized cache, at the main path's shape: must be bit-identical.
+    -> None, or what differed."""
+    import torch
+
+    from vacnic_tpu_torch.kernels import primitives as K
+
+    g = torch.Generator(device="cuda").manual_seed(77)
+    t_len, bk, heads = 64, 160, 16
+
+    def rn(*shape, std=1.0, dtype=torch.float32):
+        return (torch.randn(shape, generator=g, device="cuda") * std).to(dtype)
+
+    qkv = rn(bk, 3 * heads * 64, dtype=torch.bfloat16)
+    ck, cv, _, _ = self_cache(rn, g, t_len, bk, heads, "int8")
+    ks, vs = (torch.exp2(torch.randint(-3, 3, (t_len, bk, heads), device="cuda",
+                                       generator=g).float()) for _ in range(2))
+    deq = [(c.float().view(t_len, bk, heads, 64) * s[..., None]).view(c.shape).to(torch.bfloat16)
+           for c, s in ((ck, ks), (cv, vs))]
+    item = torch.arange(bk, device="cuda") // 5
+    anc = (item[None, :] * 5 + torch.randint(0, 5, (t_len, bk), device="cuda", generator=g)
+           ).to(torch.int32)
+    for pos in (0, 1, 31, 49, 63):
+        a = K.dec_self_attention(qkv, ck, cv, anc, pos, heads, ks, vs)
+        b = K.dec_self_attention(qkv, *deq, anc, pos, heads)
+        if not torch.equal(a, b):
+            return f"pos {pos}: max |int8 - bf16| {float((a.float() - b.float()).abs().max()):.3e}"
+    return None
+
+
 def dec_cross_case(rn, g, items: int, heads: int, beams: int, s_len: int, kind: str):
     """A correctness-only dec_cross_attention case: item 0 has every key
     masked (the twin's softmax is uniform there), item 1 the first half of
@@ -401,7 +502,8 @@ def tolerance(out) -> tuple[float, float]:
     return (2e-2, 2e-2) if out.dtype == torch.bfloat16 else (2e-3, 2e-3)
 
 
-REPEATABLE = ("layernorm", "dec_cross_attention")  # checked bit-identical over two calls
+# checked bit-identical over two calls
+REPEATABLE = ("layernorm", "dec_cross_attention", "dec_self_attention")
 
 
 def run_kernels_phase():
@@ -456,6 +558,11 @@ def run_kernels_phase():
             f"library_graph_ms {lib_g_ms}")
         if not ok:
             failures.append(name)
+    pow2 = dec_self_pow2_identity()
+    log("kernel dec_self_attention int8 with power-of-two scales vs bf16 on the dequantized "
+        f"cache, BK=160 H=16 T=64 pos 0/1/31/49/63: {pow2 or 'bit-identical ok'}")
+    if pow2:
+        failures.append("dec_self_attention int8 power-of-two identity")
     if failures:
         raise RuntimeError(f"kernels disagree with their plain twins: {failures}")
     return rows
@@ -631,6 +738,7 @@ def run_slice_phase(cfg, params, batch_size: int):
     counts = K.launch_counts()
     by_kernel = K.gemm_variant_counts()
     ln_by_kernel = K.layernorm_variant_counts()
+    self_by_kind = K.dec_self_variant_counts()
     nonpad = check_captions("slice", cfg, seqs, scores, batch_size)
     log(f"slice: full_train beam {cfg.decode.num_beams} x {cfg.decode.max_length} x lp "
         f"{cfg.decode.length_penalty}, batch {batch_size}: {dt:.3f} s, "
@@ -649,14 +757,58 @@ def run_slice_phase(cfg, params, batch_size: int):
     steps = cfg.decode.max_length - 1  # min_length = max_length - 1: every step runs
     dec_layers = cfg.bart.decoder_layers
     want = {"layernorm": 3 * cfg.bart.encoder_layers + 3 * dec_layers * steps,
-            "dec_cross_attention": dec_layers * steps}
-    log(f"slice: layernorm by kernel {ln_by_kernel}; expected {want}")
+            "dec_cross_attention": dec_layers * steps, "dec_self_attention": dec_layers * steps}
+    log(f"slice: layernorm by kernel {ln_by_kernel}, dec_self_attention by cache {self_by_kind}; "
+        f"expected {want}")
     if any(counts[k] != n for k, n in want.items()) or ln_by_kernel != {
-            "warp": want["layernorm"], "block": 0}:
-        raise RuntimeError(f"slice: launches {counts}, layernorm by kernel {ln_by_kernel}: "
-                           f"expected {want}, all layernorm launches the warp kernel's")
+            "warp": want["layernorm"], "block": 0} or self_by_kind != {
+            "bf16": want["dec_self_attention"], "int8": 0, "fp8": 0}:
+        raise RuntimeError(f"slice: launches {counts}, layernorm by kernel {ln_by_kernel}, "
+                           f"dec_self_attention by cache {self_by_kind}: expected {want}, all "
+                           "layernorm launches the warp kernel's, all dec_self the bf16 cache's")
     counts.update({f"layernorm:{v}": n for v, n in ln_by_kernel.items()})
+    counts.update({f"dec_self_attention:{v}": n for v, n in self_by_kind.items()})
     return counts, seqs
+
+
+def run_selfkv_phase(cfg, params, batch_size: int, ref_seqs, gpu: str) -> dict:
+    """generate_mm(self_kv=...) for the int8 and the fp8 self cache: every
+    dec_self_attention launch on that cache's kernel, one a decoder layer a
+    step; finite scores, mean length >= 45. Token agreement with the slice
+    and captions/s are printed, not gated."""
+    import torch
+
+    from vacnic_tpu_torch.infer.generate import generate_mm
+    from vacnic_tpu_torch.kernels import primitives as K
+
+    x = batch_inputs(cfg, batch_size)
+    want = cfg.bart.decoder_layers * (cfg.decode.max_length - 1)
+    launches = {}
+    for kind in SELF_KV_KINDS:
+        def run():
+            seqs, scores = generate_mm(params, cfg=cfg.bart, fcfg=cfg.fusion, dcfg=cfg.decode,
+                                       dtype=torch.bfloat16, device="cuda", self_kv=kind, **x)
+            torch.cuda.synchronize()
+            return seqs, scores
+
+        run()  # warm-up
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        seqs, scores = run()
+        dt = time.perf_counter() - t0
+        counts, by_kind = K.launch_counts(), K.dec_self_variant_counts()
+        nonpad = check_captions(f"selfkv {kind}", cfg, seqs, scores, batch_size)
+        agree = float((seqs == ref_seqs).float().mean())
+        log(f"selfkv {kind}: self_kv={kind!r}, batch {batch_size}: {dt:.3f} s, "
+            f"{batch_size / dt:.2f} captions/s, mean non-pad length {nonpad:.1f}, token "
+            f"agreement with the slice {agree:.4f} ({gpu}); dec_self_attention by cache "
+            f"{by_kind}; launches {counts}")
+        check_launched(f"selfkv {kind}", counts, DECODE_KERNELS)
+        if by_kind != {v: (want if v == kind else 0) for v in K.DEC_SELF_VARIANTS}:
+            raise RuntimeError(f"selfkv {kind}: dec_self_attention by cache {by_kind}, expected "
+                               f"{want} launches of the {kind} kernel only")
+        launches[f"dec_self_attention:{kind}"] = by_kind[kind]
+    return launches
 
 
 def run_stats_phase(cfg, params, batch_size: int, ref_seqs):
@@ -792,13 +944,15 @@ def run_layerwise_phase(cfg, params, batch_size: int):
 def build_lines() -> list[str]:
     """Registers a thread, spill bytes and shared memory of the two 512-token
     self-attention kernels, the two gemm_bf16 kernels, the two layernorm
-    kernels and the int8 and bf16 dec_cross_attention kernels at the slice's
-    plans, from nvcc's -Xptxas -v output of this build. The dynamic shared
+    kernels, the int8 and bf16 dec_cross_attention kernels and the bf16, int8
+    and fp8 dec_self_attention kernels at the slice's plans, from nvcc's
+    -Xptxas -v output of this build. The dynamic shared
     memory is the launch's own (csrc/enc_attention.cu: ring + 4 S;
     csrc/flash_attn.cu: two stages of K, V and the padded bias tile; both
     + 1024 to align the tiles, computed here for S = 512; gemm: what the
-    built library states for the shape; dec_cross: dec_cross_smem_bytes). A gemm,
-    layernorm or dec_cross kernel that spills fails the run."""
+    built library states for the shape; dec_cross: dec_cross_smem_bytes;
+    dec_self: dec_self_smem_bytes at T = 64). A gemm, layernorm, dec_cross
+    or dec_self kernel that spills fails the run."""
     import re
 
     from vacnic_tpu_torch.kernels import _build
@@ -814,7 +968,11 @@ def build_lines() -> list[str]:
                "layernorm_block_kernelILb1E": 0,
                # int8 (signed char, "a") and bf16 K/V, five beams, S = 512
                "dec_cross_kernelIaLi5E": K.dec_cross_smem_bytes(5, 512, 1),
-               "dec_cross_kernelI13__nv_bfloat16Li5E": K.dec_cross_smem_bytes(5, 512, 2)}
+               "dec_cross_kernelI13__nv_bfloat16Li5E": K.dec_cross_smem_bytes(5, 512, 2),
+               # bf16, int8 (signed char) and fp8 self caches, T = 64
+               "dec_self_kernelI13__nv_bfloat16E": K.dec_self_smem_bytes(64, 2),
+               "dec_self_kernelIaE": K.dec_self_smem_bytes(64, 1),
+               "dec_self_kernelI13__nv_fp8_e4m3E": K.dec_self_smem_bytes(64, 1)}
     if not _build.BUILD_LOG:
         return ["ptxas: the library was already built; no compiler output in this run"]
     text = "\n".join(_build.BUILD_LOG)
@@ -829,7 +987,7 @@ def build_lines() -> list[str]:
         lines.append(f"ptxas {key}: {regs.group(1)} registers/thread, spill stores "
                      f"{spill.group(1)} B, spill loads {spill.group(2)} B, static shared "
                      f"{static.group(1) if static else 0} B, dynamic shared {dyn} B a block")
-        if key.startswith(("gemm_", "layernorm_", "dec_cross_")) and (
+        if key.startswith(("gemm_", "layernorm_", "dec_cross_", "dec_self_")) and (
                 int(spill.group(1)) or int(spill.group(2))):
             raise RuntimeError(f"{key} spills registers: {lines[-1]}")
     return lines
@@ -839,18 +997,25 @@ KERNEL_FAMILIES = (("gemm_large_kernel", "gemm_bf16 large_m"),
                    ("gemm_small_kernel", "gemm_bf16 small_m"), ("layernorm_", "layernorm"),
                    ("enc_self_attn", "enc_self_attention"),
                    ("enc_cross_attn", "enc_cross_attention"),
-                   ("dec_self_attn", "dec_self_attention"),
+                   ("dec_self_kernel<__nv_bfloat16", "dec_self_attention bf16"),
+                   ("dec_self_kernel<signed char", "dec_self_attention int8"),
+                   ("dec_self_kernel<__nv_fp8_e4m3", "dec_self_attention fp8"),
+                   ("dec_self_kernel", "dec_self_attention"),
                    ("dec_cross_kernel", "dec_cross_attention"), ("lm_stats_kernel", "lm_stats"),
                    ("flash_attn_kernel", "flash_attention"))
 
 
-PROFILED_RUNS = (("slice", "profile.txt", {}), ("stats", "profile_stats.txt", {"lm_stats": True}),
+PROFILED_RUNS = (("slice", "profile.txt", {}),
+                 ("selfkv int8", "profile_selfkv_int8.txt", {"self_kv": "int8"}),
+                 ("selfkv fp8", "profile_selfkv_fp8.txt", {"self_kv": "fp8"}),
+                 ("stats", "profile_stats.txt", {"lm_stats": True}),
                  ("layerwise", "profile_layerwise.txt", {"add_ner_ffn": False}))
 
 
 def run_profile_phase(cfg, params, batch_size: int) -> None:
     """Where the time goes: the fused encoder alone (CUDA events), then one
-    generate_mm of each path (slice, stats, layerwise) under torch.profiler
+    generate_mm of each path (slice, selfkv int8 and fp8, stats, layerwise)
+    under torch.profiler
     -- device time by kernel family (the port's kernels vs PyTorch's own),
     the device's busy and idle share of the wall time. Full tables:
     chiprun_out/chip_smoke/profile*.txt."""
@@ -902,7 +1067,8 @@ def run_profile_phase(cfg, params, batch_size: int) -> None:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="build,kernels,dispatch,stacks,slice,stats,layerwise,profile")
+    ap.add_argument("--phases",
+                    default="build,kernels,dispatch,stacks,slice,selfkv,stats,layerwise,profile")
     ap.add_argument("--batch", type=int, default=32)
     args = ap.parse_args()
     phases = set(args.phases.split(","))
@@ -938,7 +1104,7 @@ def main() -> int:
     if "dispatch" in phases:
         run_dispatch_phase()
     launches = {}  # kernel -> launches in the run of the path that names it
-    if phases & {"stacks", "slice", "stats", "layerwise", "profile"}:
+    if phases & {"stacks", "slice", "selfkv", "stats", "layerwise", "profile"}:
         cfg, params = full_model()
         if "stacks" in phases:
             run_stacks_phase(cfg, params)
@@ -946,10 +1112,13 @@ def main() -> int:
         if "slice" in phases:
             counts, slice_seqs = run_slice_phase(cfg, params, args.batch)
             launches.update({k: counts[k] for k in SLICE_KERNELS +
-                             ("gemm_bf16:large_m", "gemm_bf16:small_m", "layernorm:warp")})
+                             ("gemm_bf16:large_m", "gemm_bf16:small_m", "layernorm:warp",
+                              "dec_self_attention:bf16")})
+        if phases & {"selfkv", "stats"} and slice_seqs is None:
+            slice_seqs = run_slice_phase(cfg, params, args.batch)[1]
+        if "selfkv" in phases:
+            launches.update(run_selfkv_phase(cfg, params, args.batch, slice_seqs, gpu))
         if "stats" in phases:
-            if slice_seqs is None:
-                slice_seqs = run_slice_phase(cfg, params, args.batch)[1]
             launches["lm_stats"] = run_stats_phase(cfg, params, args.batch,
                                                    slice_seqs)["lm_stats"]
         if "layerwise" in phases:

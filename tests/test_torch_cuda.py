@@ -447,3 +447,92 @@ def test_variant_counters_add_up(dev):
     assert sum(K.gemm_variant_counts().values()) == counts["gemm_bf16"] == 2
     assert K.layernorm_variant_counts() == {"warp": 2, "block": 2}
     assert sum(K.layernorm_variant_counts().values()) == counts["layernorm"] == 4
+
+
+def self_case(g, bk, heads, t_len, kind):
+    """dec_self_attention inputs: qkv bf16, a cache of the kind (int8 with
+    per-row scales [T, BK, H]; fp8 of values up to a few units), a random
+    ancestry over all rows."""
+    bf = torch.bfloat16
+    d = heads * 64
+    shape = (t_len, bk, d)
+    qkv = rn(g, bk, 3 * d, dtype=bf)
+    ks = vs = None
+    if kind == "int8":
+        ck, cv = (torch.randint(-127, 128, shape, device="cuda", generator=g).to(torch.int8)
+                  for _ in range(2))
+        ks, vs = (rn(g, t_len, bk, heads).abs() * 0.01 + 1e-3 for _ in range(2))
+    elif kind == "fp8":
+        ck, cv = (rn(g, *shape, std=2.0).clamp(-448, 448).to(torch.float8_e4m3fn)
+                  for _ in range(2))
+    else:
+        ck, cv = rn(g, *shape, dtype=bf), rn(g, *shape, dtype=bf)
+    anc = torch.randint(0, bk, (t_len, bk), device="cuda", generator=g).int()
+    return qkv, ck, cv, anc, ks, vs
+
+
+@pytest.mark.parametrize("kind", ["bf16", "int8", "fp8"])
+@pytest.mark.parametrize("bk,heads", [(1, 4), (5, 16), (8, 4), (37, 4), (160, 16), (640, 16)])
+def test_dec_self_attention_sweep(dev, kind, bk, heads):
+    """Each cache type at any row count, 4 and 16 heads, the step's row alone
+    (pos 0) up to pos = T - 1, a random ancestry: against the twin, counted
+    under its own type, bit-identical over two calls."""
+    from vacnic_tpu_torch.kernels import primitives as K
+
+    g = torch.Generator(device=dev).manual_seed(bk * 100 + heads)
+    qkv, ck, cv, anc, ks, vs = self_case(g, bk, heads, 64, kind)
+    for pos in (0, 1, 31, 49, 63):
+        before = K.dec_self_variant_counts()[kind]
+        out = K.dec_self_attention(qkv, ck, cv, anc, pos, heads, ks, vs)
+        assert K.dec_self_variant_counts()[kind] == before + 1
+        assert bool(torch.isfinite(out.float()).all())
+        close(out, K.dec_self_attention_plain(qkv, ck, cv, anc, pos, heads, ks, vs), True)
+        assert torch.equal(out, K.dec_self_attention(qkv, ck, cv, anc, pos, heads, ks, vs))
+
+
+def test_dec_self_int8_pow2_is_bf16_on_the_dequantized_cache(dev):
+    """Power-of-two scales: the int8 instance gives the bf16 instance's
+    result on the dequantized cache bit for bit."""
+    from vacnic_tpu_torch.kernels import primitives as K
+
+    g = torch.Generator(device=dev).manual_seed(7)
+    t_len, bk, heads = 64, 160, 16
+    qkv, ck, cv, anc, _, _ = self_case(g, bk, heads, t_len, "int8")
+    ks, vs = (torch.exp2(torch.randint(-3, 3, (t_len, bk, heads), device=dev,
+                                       generator=g).float()) for _ in range(2))
+
+    def deq(c, s):
+        return (c.float().view(t_len, bk, heads, 64) * s[..., None]).view(c.shape).to(
+            torch.bfloat16)
+
+    for pos in (0, 5, 31, 49, 63):
+        assert torch.equal(K.dec_self_attention(qkv, ck, cv, anc, pos, heads, ks, vs),
+                           K.dec_self_attention(qkv, deq(ck, ks), deq(cv, vs), anc, pos, heads))
+
+
+@pytest.mark.parametrize("kind", ["bf16", "int8", "fp8"])
+def test_dec_self_attention_long_cache(dev, kind):
+    """T = 4096, the longest the wrapper takes (86 KB of shared memory)."""
+    from vacnic_tpu_torch.kernels import primitives as K
+
+    g = torch.Generator(device=dev).manual_seed(4096)
+    args = self_case(g, 5, 4, 4096, kind)
+    for pos in (1000, 4095):
+        out = K.dec_self_attention(*args[:4], pos, 4, *args[4:])
+        close(out, K.dec_self_attention_plain(*args[:4], pos, 4, *args[4:]), True)
+
+
+def test_dec_self_attention_refuses(dev):
+    from vacnic_tpu_torch.kernels import primitives as K
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    qkv, ck, cv, anc, ks, vs = self_case(g, 5, 4, 16, "int8")
+    bad = [lambda: K.dec_self_attention(qkv, ck, cv, anc, 3, 4),            # no scales
+           lambda: K.dec_self_attention(qkv, ck.half(), cv.half(), anc, 3, 4),
+           lambda: K.dec_self_attention(qkv, ck, cv, anc, 16, 4, ks, vs),   # pos == T
+           lambda: K.dec_self_attention(qkv, ck, cv, anc, 3, 2, ks, vs)]    # head_dim 128
+    qkv2, ck2, cv2, anc2, _, _ = self_case(g, 2, 4, 4097, "bf16")
+    bad.append(lambda: K.dec_self_attention(qkv2, ck2, cv2, anc2, 3, 4))   # T > 4096
+    for call in bad:
+        with pytest.raises(ValueError):
+            call()

@@ -226,8 +226,9 @@ def test_crosskv_int8_exact_when_representable(setup):
 
 
 def test_int8_cache_layout():
-    """build_decode_cache's int8 option stores int8 values with f32 scales of
-    the JAX layout [L, B, H, hd]."""
+    """build_decode_cache's int8 options store int8 values with f32 scales of
+    the JAX layouts: cross [L, B, H, hd], self [L, T, BK, H] (zero until a
+    step writes its row)."""
     tcfg = TC.tiny().bart
     from vacnic_tpu_torch.core.rng import make_generator
     from vacnic_tpu_torch.models.bart import bart_init
@@ -239,6 +240,13 @@ def test_int8_cache_layout():
     assert c.cross_k.dtype == torch.int8 and c.cross_k_scale.dtype == torch.float32
     assert tuple(c.cross_k_scale.shape) == (2, 2, 4, 8)
     assert tuple(c.self_k.shape) == (2, 16, 6, 32) and c.self_k.dtype == torch.bfloat16
+    assert c.self_k_scale is None and c.self_v_scale is None
+    c = TDF.build_decode_cache(tp, enc, 3, 8, tcfg, torch.bfloat16, pad_to=16, time_major=True,
+                               self_kv_int8=True)
+    assert c.self_k.dtype == c.self_v.dtype == torch.int8 and c.cross_k_scale is None
+    for sc in (c.self_k_scale, c.self_v_scale):
+        assert sc.dtype == torch.float32 and tuple(sc.shape) == (2, 16, 6, 4)
+        assert not sc.any()
 
 
 def test_wrappers_refuse_other_devices():

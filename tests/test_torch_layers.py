@@ -98,3 +98,50 @@ def test_embed_encoder_decoder_layers_and_lm_head(params):
     dt = TB.decoder_fwd(tp, t(dec_ids), ht, t(amask), TCFG)
     assert_close(dt, dj)
     assert_close(TB.lm_logits(tp, dt), JB.lm_logits(jp, dj))
+
+
+def bf16_inputs(seed, x_shape, w_shape):
+    """bf16 activations and f32 weights with outputs of order 0.35, where a
+    bf16 step is at most 3.9e-3 for all but a few outputs."""
+    rng = np.random.RandomState(seed)
+    x = rng.randn(*x_shape).astype(np.float32)
+    w = (rng.randn(*w_shape) * 0.011).astype(np.float32)
+    b = (rng.randn(w_shape[-1]) * 0.05).astype(np.float32)
+    return x, w, b
+
+
+def assert_bf16_matches(out, ref):
+    """Fewer than 0.1% of the outputs differ, by at most 4e-3: with the
+    kernel rounded to bf16 first both sides sum exact products in f32, and
+    only a tie at a bf16 boundary can round apart. With the f32 kernel about
+    40% differ, by up to a bf16 step of the output."""
+    d = np.abs(out.float().numpy() - np.asarray(ref, np.float32))
+    assert (d > 0).mean() < 1e-3, (d > 0).mean()
+    assert d.max() <= 4e-3, d.max()
+
+
+def test_linear_rounds_kernel_to_input_dtype():
+    """f32 weights, bf16 x: JAX linear multiplies by kernel.astype(x.dtype)
+    (vacnic_tpu/models/layers.py:63-67), and so does the port."""
+    x, w, b = bf16_inputs(5, (64, 1024), (1024, 1024))
+    ref = JL.linear({"kernel": jnp.asarray(w), "bias": jnp.asarray(b)},
+                    jnp.asarray(x).astype(jnp.bfloat16))
+    out = TL.linear({"kernel": t(w), "bias": t(b)}, t(x).to(torch.bfloat16))
+    assert out.dtype == torch.bfloat16
+    assert_bf16_matches(out, ref.astype(jnp.float32))
+
+
+def test_linear_batched_rounds_kernel_to_input_dtype():
+    """The fused prologue's per-layer product against the JAX prologue's
+    recipe (vacnic_tpu/models/fusion.py:498-503), f32 weights, bf16 x."""
+    from vacnic_tpu_torch.models.fusion import linear_batched
+
+    x, w, b = bf16_inputs(6, (2, 1, 64, 1024), (2, 1024, 1024))
+    b = np.stack([b, -b])
+    xj = jnp.asarray(x).astype(jnp.bfloat16)
+    ref = jnp.einsum("lbnd,lde->lbne", xj, jnp.asarray(w).astype(xj.dtype),
+                     preferred_element_type=jnp.float32)
+    ref = (ref + jnp.asarray(b)[:, None, None, :]).astype(xj.dtype)
+    out = linear_batched(t(x).to(torch.bfloat16), t(w), t(b))
+    assert out.dtype == torch.bfloat16
+    assert_bf16_matches(out, ref.astype(jnp.float32))

@@ -7,6 +7,12 @@ vacnic_tpu/infer/decode_fast.py).
   write-once: a step writes its K/V at row `pos` of its own beam row, and a
   beam select only recomposes the ancestry matrix anc [T, BK]
   (`reorder_anc`); the cache is never gathered.
+* That self cache holds the stack's dtype, or (opt-in) int8 with per-(layer,
+  t, row, head) f32 scales [L, T, BK, H] (`quantize_self_rows` at the row
+  write; a row's scale travels with the physical row, so `reorder_anc` is
+  unchanged), or fp8 e4m3 clamped to +-448 at the store (`to_fp8`). The
+  step never reads its own row from the cache: row `pos` enters the
+  attention at full precision from the QKV output.
 * `decode_step` is the plain reference step over the batch-major cache
   [L, BK, T, D] with a physical reorder; `decode_step_kernel` embeds, runs
   kernels/decode_layer.decode_stack, writes row `pos`, and applies the LM
@@ -65,6 +71,8 @@ class DecodeCache(NamedTuple):
     pos: int | None = None           # last written time row (kernel path)
     cross_k_scale: torch.Tensor | None = None  # [L, B, H, hd] f32 (int8 cross K/V)
     cross_v_scale: torch.Tensor | None = None
+    self_k_scale: torch.Tensor | None = None   # [L, T, BK, H] f32 (int8 self cache)
+    self_v_scale: torch.Tensor | None = None
 
 
 def _stack(layers, *path) -> torch.Tensor:
@@ -148,12 +156,41 @@ def quantize_cross_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return q, scale
 
 
+def quantize_self_rows(rows: torch.Tensor, n_heads: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """[L, BK, d] new self K (or V) rows -> (int8 [L, BK, d], f32 [L, BK, H]).
+
+    Symmetric per-(layer, row, head) quantization over the head's channels,
+    max / 127 floored at 1e-12, round half to even (JAX quantize_self_rows,
+    vacnic_tpu/infer/decode_fast.py:353-373)."""
+    lr, bk, d = rows.shape
+    xf = rows.float().reshape(lr, bk, n_heads, d // n_heads)
+    scale = torch.clamp(xf.abs().amax(dim=-1) / 127.0, min=1e-12)
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127).to(torch.int8)
+    return q.reshape(lr, bk, d), scale
+
+
+FP8_MAX = 448.0  # largest finite float8_e4m3fn
+
+
+def to_fp8(x: torch.Tensor) -> torch.Tensor:
+    """The fp8 self cache's store: clamp to +-448, then cast. torch saturates
+    where ml_dtypes (JAX) overflows to NaN; the clamp makes both agree."""
+    return x.float().clamp(-FP8_MAX, FP8_MAX).to(torch.float8_e4m3fn)
+
+
 def build_decode_cache(params: Params, enc_out: torch.Tensor, num_beams: int, max_len: int,
                        cfg: BartConfig, dtype=torch.bfloat16, pad_to: int = 1,
-                       time_major: bool = False, cross_kv_int8: bool = False) -> DecodeCache:
+                       time_major: bool = False, cross_kv_int8: bool = False,
+                       self_kv_int8: bool = False, self_kv_fp8: bool = False) -> DecodeCache:
     """Cross K/V once per batch item; zero self cache at batch*beams with T
     rounded up to `pad_to`. time_major=True: [L, T, BK, D] + identity
-    ancestry (kernel path); else [L, BK, T, D] (reference path)."""
+    ancestry (kernel path); else [L, BK, T, D] (reference path).
+    self_kv_int8 / self_kv_fp8 (kernel path, one at most): the self cache in
+    int8 with zero [L, T, BK, H] scales, or in fp8 e4m3."""
+    if self_kv_int8 and self_kv_fp8:
+        raise ValueError("build_decode_cache: self_kv_int8 and self_kv_fp8 exclude each other")
+    if (self_kv_int8 or self_kv_fp8) and not time_major:
+        raise ValueError("build_decode_cache: a quantized self cache needs time_major=True")
     layers = params["decoder"]["layers"]
     b, s, d = enc_out.shape
     t_len = -(-max_len // pad_to) * pad_to
@@ -183,11 +220,17 @@ def build_decode_cache(params: Params, enc_out: torch.Tensor, num_beams: int, ma
     anc = None
     if time_major:
         anc = torch.arange(bkt, dtype=torch.int32, device=dev)[None, :].repeat(t_len, 1)
+    self_dtype = torch.int8 if self_kv_int8 else torch.float8_e4m3fn if self_kv_fp8 else dtype
+    sk_scale = sv_scale = None
+    if self_kv_int8:  # zero is safe: a row's scale is written with the row, before any read
+        sk_scale = torch.zeros(n_layers, t_len, bkt, h, dtype=torch.float32, device=dev)
+        sv_scale = torch.zeros_like(sk_scale)
     return DecodeCache(
-        self_k=torch.zeros(shape, dtype=dtype, device=dev),
-        self_v=torch.zeros(shape, dtype=dtype, device=dev),
+        self_k=torch.zeros(shape, dtype=self_dtype, device=dev),
+        self_v=torch.zeros(shape, dtype=self_dtype, device=dev),
         cross_k=cross_k, cross_v=cross_v, anc=anc, pos=0 if time_major else None,
-        cross_k_scale=ck_scale, cross_v_scale=cv_scale)
+        cross_k_scale=ck_scale, cross_v_scale=cv_scale,
+        self_k_scale=sk_scale, self_v_scale=sv_scale)
 
 
 def reorder_anc(cache: DecodeCache, flat_sel: torch.Tensor) -> DecodeCache:
@@ -280,15 +323,26 @@ def decode_step(dp: DecodeParams, params: Params, cache: DecodeCache, tok: torch
 def _kernel_stack_step(dp: DecodeParams, params: Params, cache: DecodeCache,
                        tok: torch.Tensor, pos: int, enc_mask_bias: torch.Tensor,
                        cfg: BartConfig, dtype) -> tuple[torch.Tensor, DecodeCache]:
-    """Embed, run kernels/decode_layer.decode_stack, write row `pos`
+    """Embed, run kernels/decode_layer.decode_stack, write row `pos` (int8:
+    quantized, with its scale rows; fp8: clamped and cast)
     -> (x_out [BK, d] bf16, cache)."""
     from vacnic_tpu_torch.kernels.decode_layer import decode_stack
 
+    heads = cfg.decoder_attention_heads
     x = _embed(params, tok, pos, cfg, dtype).to(torch.bfloat16)
     x_out, k_new, v_new = decode_stack(
         dp, x, pos, cache.self_k, cache.self_v, cache.anc, cache.cross_k, cache.cross_v,
-        enc_mask_bias[:, 0, 0, :].float().contiguous(), cfg.decoder_attention_heads,
-        cache.cross_k_scale, cache.cross_v_scale)
+        enc_mask_bias[:, 0, 0, :].float().contiguous(), heads,
+        cache.cross_k_scale, cache.cross_v_scale, cache.self_k_scale, cache.self_v_scale)
+    if cache.self_k.dtype == torch.int8:
+        # the rows are quantized from x's dtype (bf16), as the JAX kernel
+        # step hands them out even at dtype f32 (decode_layer.py:914)
+        k_new, ks = quantize_self_rows(k_new.to(x.dtype), heads)
+        v_new, vs = quantize_self_rows(v_new.to(x.dtype), heads)
+        cache.self_k_scale[:, pos] = ks
+        cache.self_v_scale[:, pos] = vs
+    elif cache.self_k.dtype == torch.float8_e4m3fn:
+        k_new, v_new = to_fp8(k_new), to_fp8(v_new)
     cache.self_k[:, pos] = k_new
     cache.self_v[:, pos] = v_new
     return x_out, cache._replace(pos=pos)

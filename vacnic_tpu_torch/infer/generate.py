@@ -10,8 +10,13 @@ through kernels/flash_attn -- then beam search steps the decoder with the
 kernel step (infer/decode_fast.decode_step_kernel): the write-once
 time-major self cache with its ancestry matrix, and int8 cross K/V. On the
 card both stacks run the CUDA kernels, with bf16 stacked weights and self
-cache, and the cross K/V are int8; for CPU tensors the stacks take their
-plain twins in the caller's dtype and the cross K/V stay unquantized.
+cache, and the cross K/V are int8 at every batch and beam count; for CPU
+tensors the stacks take their plain twins in the caller's dtype and the
+cross K/V stay unquantized (`cache_plan`).
+
+`self_kv="int8"` or `"fp8"` stores the self cache quantized, on the card
+and on the CPU alike: int8 with per-(layer, t, row, head) scales, or fp8
+e4m3 (infer/decode_fast.build_decode_cache).
 
 `lm_stats=True` replaces the LM head and the beam shortlist's full-width
 passes with the fused LM-stats head (kernels/lm_stats; bf16 on the card,
@@ -26,6 +31,7 @@ a card and without that argument they raise.
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
 
 import torch
 
@@ -40,6 +46,26 @@ from vacnic_tpu_torch.models.layers import expand_mask
 from vacnic_tpu_torch.models.weights_io import tree_to
 
 CACHE_PAD = 16  # self-cache T rounds up to a multiple of this (50 -> 64)
+SELF_KV_KINDS = (None, "int8", "fp8")
+
+
+class CachePlan(NamedTuple):
+    """The decode cache's types: the stacks' dtype, int8 cross K/V or not,
+    the self cache's kind (None: the stacks' dtype, "int8" or "fp8")."""
+    dtype: torch.dtype
+    cross_kv_int8: bool
+    self_kv: str | None
+
+
+def cache_plan(on_card: bool, self_kv: str | None, dtype) -> CachePlan:
+    """On the card: bf16 stacks and int8 cross K/V, whatever the batch and
+    beam count. (The JAX package quantizes the cross K/V only on its Pallas
+    path, which a Mosaic chunking rule keeps from batch 1 x beam 5; CUDA has
+    no such rule.) On the CPU: the caller's dtype, unquantized cross K/V.
+    The self cache is the caller's choice on both."""
+    if self_kv not in SELF_KV_KINDS:
+        raise ValueError(f"self_kv must be one of {SELF_KV_KINDS}, got {self_kv!r}")
+    return CachePlan(torch.bfloat16 if on_card else dtype, on_card, self_kv)
 
 
 def _mm_encode(params, input_ids, attention_mask, image_features, cfg, fcfg, *,
@@ -68,14 +94,16 @@ def _search_plan(params, dcfg: DecodeConfig, cand_mode, lm_stats: bool):
 
 
 def _decode_from_encoder(params, enc_hidden, attention_mask, cfg: BartConfig,
-                         dcfg: DecodeConfig, dtype, mode: str, shortlist_c: int | None):
-    on_card = enc_hidden.is_cuda
-    kdtype = torch.bfloat16 if on_card else dtype
+                         dcfg: DecodeConfig, dtype, mode: str, shortlist_c: int | None,
+                         plan: CachePlan):
+    kdtype = plan.dtype
     bsz = enc_hidden.shape[0]
     dp = DF.build_decode_params(params, kdtype)
     cache = DF.build_decode_cache(params, enc_hidden, dcfg.num_beams, dcfg.max_length, cfg,
                                   kdtype, pad_to=CACHE_PAD, time_major=True,
-                                  cross_kv_int8=on_card)
+                                  cross_kv_int8=plan.cross_kv_int8,
+                                  self_kv_int8=plan.self_kv == "int8",
+                                  self_kv_fp8=plan.self_kv == "fp8")
     enc_bias = expand_mask(attention_mask, 1)  # [B, 1, 1, S]
 
     def step_fn(tok, cache, pos):
@@ -103,13 +131,15 @@ def generate_mm(params, input_ids, attention_mask, image_features, cfg: BartConf
                 fcfg: FusionConfig, dcfg: DecodeConfig, *, face_features=None,
                 face_mask=None, name_ids=None, name_mask=None, add_ner_ffn: bool = True,
                 dtype=torch.float32, device=None, cand_mode: str | None = None,
-                lm_stats: bool = False):
+                lm_stats: bool = False, self_kv: str | None = None):
     """Multimodal beam-search captioning -> (sequences [B, max_length] int64,
     scores [B] f32). `params` (the tree of models/fusion) and the inputs
     (tensors or numpy arrays) are moved to `device` ("cuda" by default).
     `cand_mode` picks the beam candidate selection ("full" | "opt" |
-    "shortlist"; None = auto), `lm_stats` the fused LM-stats head."""
+    "shortlist"; None = auto), `lm_stats` the fused LM-stats head, `self_kv`
+    the self cache (None: the stacks' dtype, "int8" or "fp8")."""
     dev = resolve_device(device)
+    plan = cache_plan(dev.type == "cuda", self_kv, dtype)
     mode, shortlist_c = _search_plan(params, dcfg, cand_mode, lm_stats)
     params = tree_to(params, dev)
     input_ids, attention_mask, image_features, face_features, face_mask, name_ids, name_mask = (
@@ -119,20 +149,22 @@ def generate_mm(params, input_ids, attention_mask, image_features, cfg: BartConf
                      face_features=face_features, face_mask=face_mask, name_ids=name_ids,
                      name_mask=name_mask, add_ner_ffn=add_ner_ffn, dtype=dtype)
     return _decode_from_encoder(params, enc["last_hidden"], attention_mask, cfg, dcfg, dtype,
-                                mode, shortlist_c)
+                                mode, shortlist_c, plan)
 
 
 @torch.no_grad()
 def generate_text_bart(params, input_ids, attention_mask, cfg: BartConfig, dcfg: DecodeConfig,
-                       dtype=torch.float32, *, device=None):
+                       dtype=torch.float32, *, device=None, self_kv: str | None = None):
     """Text-only BART beam generation over a `models/bart.bart_init` tree
-    -> (sequences [B, max_length] int64, scores [B] f32)."""
+    -> (sequences [B, max_length] int64, scores [B] f32); `self_kv` as in
+    generate_mm."""
     dev = resolve_device(device)
+    plan = cache_plan(dev.type == "cuda", self_kv, dtype)
     mode = resolve_cand_mode(dcfg, params["shared"]["weight"].shape[0])
     params = tree_to(params, dev)
     input_ids, attention_mask = as_tensor(input_ids, dev), as_tensor(attention_mask, dev)
     enc = B.encoder_fwd(params, input_ids, attention_mask, cfg, dtype=dtype)
-    return _decode_from_encoder(params, enc, attention_mask, cfg, dcfg, dtype, mode, None)
+    return _decode_from_encoder(params, enc, attention_mask, cfg, dcfg, dtype, mode, None, plan)
 
 
 def greedy_search(params, input_ids, attention_mask, cfg: BartConfig, dcfg: DecodeConfig,

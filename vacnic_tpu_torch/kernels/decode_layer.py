@@ -1,11 +1,12 @@
 """One decoder step through all post-LN BART layers (port of
-vacnic_tpu/kernels/decode_layer.py:decode_stack with its default plan: LM
-head outside, bf16 self cache, bf16 or int8 cross K/V).
+vacnic_tpu/kernels/decode_layer.py:decode_stack: bf16, int8 or fp8 self
+cache; LM head outside; bf16 or int8 cross K/V).
 
 Per layer, for the [BK, d] rows of the step: fused QKV; self-attention over
 the time-major write-once cache [T, BK, d] through the ancestry matrix
 anc [T, BK] (rows t < pos read from row anc[t, c], the step's own K/V from
-the QKV output); out-projection + residual, self_attn_layer_norm;
+the QKV output; int8 rows with their [T, BK, H] scales, fp8 rows converted
+exactly); out-projection + residual, self_attn_layer_norm;
 cross-attention to the beam-invariant K/V [B, H, hd, S] with the [B, S] pad
 bias (int8: scales fold into q and the head output); out-projection +
 residual, encoder_attn_layer_norm; FFN (exact gelu) + residual,
@@ -34,8 +35,12 @@ PLAIN_OPS = SimpleNamespace(gemm=K.gemm_plain, layernorm=K.layernorm_plain,
                             cross_attn=K.dec_cross_attention_plain)
 
 
+def _layer(scale, l):
+    return None if scale is None else scale[l]
+
+
 def _layers(dp, x0, pos: int, self_k, self_v, anc, cross_k, cross_v, enc_bias, heads: int,
-            cross_k_scale, cross_v_scale, ops):
+            cross_k_scale, cross_v_scale, self_k_scale, self_v_scale, ops):
     n_layers = dp.w_qkv.shape[0]
     bk, d = x0.shape
     mm = dp.w_qkv.dtype
@@ -47,13 +52,13 @@ def _layers(dp, x0, pos: int, self_k, self_v, anc, cross_k, cross_v, enc_bias, h
         qkv = ops.gemm(xb, dp.w_qkv[l], dp.b_qkv[l], out_dtype=mm)
         k_new[l] = qkv[:, d:2 * d]
         v_new[l] = qkv[:, 2 * d:]
-        o = ops.self_attn(qkv, self_k[l], self_v[l], anc, pos, heads)
+        o = ops.self_attn(qkv, self_k[l], self_v[l], anc, pos, heads, _layer(self_k_scale, l),
+                          _layer(self_v_scale, l))
         h = ops.gemm(o, dp.w_self_out[l], dp.b_self_out[l], residual=x)
         x1, x1b = ops.layernorm(h, dp.ln_self[l], mm)
         q = ops.gemm(x1b, dp.w_cross_q[l], dp.b_cross_q[l], out_dtype=mm)
-        o = ops.cross_attn(q, cross_k[l], cross_v[l],
-                           None if cross_k_scale is None else cross_k_scale[l],
-                           None if cross_v_scale is None else cross_v_scale[l], enc_bias, heads)
+        o = ops.cross_attn(q, cross_k[l], cross_v[l], _layer(cross_k_scale, l),
+                           _layer(cross_v_scale, l), enc_bias, heads)
         h = ops.gemm(o, dp.w_cross_out[l], dp.b_cross_out[l], residual=x1)
         x2, x2b = ops.layernorm(h, dp.ln_cross[l], mm)
         hm = ops.gemm(x2b, dp.w_fc1[l], dp.b_fc1[l], act=K.GELU, out_dtype=mm)
@@ -63,17 +68,18 @@ def _layers(dp, x0, pos: int, self_k, self_v, anc, cross_k, cross_v, enc_bias, h
 
 
 def decode_stack_plain(dp, x0, pos: int, self_k, self_v, anc, cross_k, cross_v, enc_bias,
-                       heads: int, cross_k_scale=None, cross_v_scale=None):
+                       heads: int, cross_k_scale=None, cross_v_scale=None, self_k_scale=None,
+                       self_v_scale=None):
     """The plain-PyTorch twin of decode_stack, on any device."""
     return _layers(dp, x0, int(pos), self_k, self_v, anc, cross_k, cross_v, enc_bias, heads,
-                   cross_k_scale, cross_v_scale, PLAIN_OPS)
+                   cross_k_scale, cross_v_scale, self_k_scale, self_v_scale, PLAIN_OPS)
 
 
 def decode_stack(
     dp,                       # infer.decode_fast.DecodeParams (stacked [L, ...])
     x0: torch.Tensor,         # [BK, d] embedded + LN'd token
     pos: int,                 # step position (0-based)
-    self_k: torch.Tensor,     # [L, T, BK, d] time-major, never reordered
+    self_k: torch.Tensor,     # [L, T, BK, d] time-major, never reordered; bf16, int8 or fp8
     self_v: torch.Tensor,
     anc: torch.Tensor,        # [T, BK] int32 ancestry
     cross_k: torch.Tensor,    # [L, B, H, hd, S] bf16, or int8 with the scales below
@@ -82,16 +88,25 @@ def decode_stack(
     heads: int,
     cross_k_scale: torch.Tensor | None = None,  # [L, B, H, hd] f32 (int8 cross K/V)
     cross_v_scale: torch.Tensor | None = None,
+    self_k_scale: torch.Tensor | None = None,   # [L, T, BK, H] f32 (int8 self cache)
+    self_v_scale: torch.Tensor | None = None,
 ):
     """-> (x_out [BK, d] in x0.dtype, k_new [L, BK, d], v_new [L, BK, d]).
+    k_new/v_new are the step's rows at full precision (the weights' dtype);
+    the caller quantizes them for an int8 or fp8 cache.
     CUDA kernels for CUDA tensors, the plain twin for CPU tensors."""
+    if (self_k.dtype == torch.int8) != (self_k_scale is not None) or (
+            self_k_scale is None) != (self_v_scale is None):
+        raise ValueError("decode_stack: an int8 self cache and its scales travel together")
     if x0.device.type == "cpu":
         return decode_stack_plain(dp, x0, pos, self_k, self_v, anc, cross_k, cross_v,
-                                  enc_bias, heads, cross_k_scale, cross_v_scale)
+                                  enc_bias, heads, cross_k_scale, cross_v_scale, self_k_scale,
+                                  self_v_scale)
     if x0.device.type != "cuda":
         raise RuntimeError(f"decode_stack: unsupported device {x0.device}")
-    if dp.w_qkv.dtype != torch.bfloat16 or self_k.dtype != torch.bfloat16:
-        raise ValueError("decode_stack: the kernels take bf16 weights and a bf16 self cache")
+    if dp.w_qkv.dtype != torch.bfloat16 or self_k.dtype not in K.DEC_SELF_KINDS:
+        raise ValueError("decode_stack: the kernels take bf16 weights and a bf16, int8 or "
+                         f"float8_e4m3fn self cache (got {dp.w_qkv.dtype}, {self_k.dtype})")
     return _layers(dp, x0, int(pos), self_k, self_v, anc, cross_k, cross_v,
                    enc_bias.float().contiguous(), heads, cross_k_scale, cross_v_scale,
-                   KERNEL_OPS)
+                   self_k_scale, self_v_scale, KERNEL_OPS)

@@ -30,6 +30,9 @@ GEMM_VARIANT_LAUNCHES: dict[str, int] = {v: 0 for v in GEMM_VARIANTS}
 # and so is layernorm
 LAYERNORM_VARIANTS = ("warp", "block")
 LAYERNORM_VARIANT_LAUNCHES: dict[str, int] = {v: 0 for v in LAYERNORM_VARIANTS}
+# and dec_self_attention, one instance for each self-cache type
+DEC_SELF_VARIANTS = ("bf16", "int8", "fp8")
+DEC_SELF_VARIANT_LAUNCHES: dict[str, int] = {v: 0 for v in DEC_SELF_VARIANTS}
 
 GELU = "gelu"
 
@@ -41,6 +44,8 @@ def reset_launch_counts() -> None:
         GEMM_VARIANT_LAUNCHES[v] = 0
     for v in LAYERNORM_VARIANT_LAUNCHES:
         LAYERNORM_VARIANT_LAUNCHES[v] = 0
+    for v in DEC_SELF_VARIANT_LAUNCHES:
+        DEC_SELF_VARIANT_LAUNCHES[v] = 0
 
 
 def launch_counts() -> dict[str, int]:
@@ -55,6 +60,12 @@ def gemm_variant_counts() -> dict[str, int]:
 def layernorm_variant_counts() -> dict[str, int]:
     """Launches of layernorm by kernel: they add up to LAUNCHES["layernorm"]."""
     return dict(LAYERNORM_VARIANT_LAUNCHES)
+
+
+def dec_self_variant_counts() -> dict[str, int]:
+    """Launches of dec_self_attention by self-cache type: they add up to
+    LAUNCHES["dec_self_attention"]."""
+    return dict(DEC_SELF_VARIANT_LAUNCHES)
 
 
 # ---------------------------------------------------------------------------
@@ -304,41 +315,85 @@ def enc_cross_attention(q, ck, cv, batch: int, seq: int, heads: int):
 # Decoder attention
 # ---------------------------------------------------------------------------
 
-def dec_self_attention_plain(qkv, cache_k, cache_v, anc, pos: int, heads: int):
+def dec_self_attention_plain(qkv, cache_k, cache_v, anc, pos: int, heads: int,
+                             k_scale=None, v_scale=None):
     dt = qkv.dtype
     bk = qkv.shape[0]
     d = qkv.shape[1] // 3
     hd = d // heads
     rows = anc[:pos].long()  # [pos, BK] physical row of each beam row's step t
     t_ids = torch.arange(pos, device=qkv.device)[:, None]
-    kg = torch.cat([cache_k[t_ids, rows], qkv[None, :, d:2 * d]], dim=0)  # [pos+1, BK, d]
-    vg = torch.cat([cache_v[t_ids, rows], qkv[None, :, 2 * d:]], dim=0)
+    kg = torch.cat([cache_k[t_ids, rows].float(), qkv[None, :, d:2 * d].float()])  # [pos+1, BK, d]
+    vg = torch.cat([cache_v[t_ids, rows].float(), qkv[None, :, 2 * d:].float()])
     q = (qkv[:, :d].float() * hd ** -0.5).to(dt).reshape(bk, heads, hd)
-    s = torch.einsum("bhd,tbhd->bht", q.float(), kg.reshape(pos + 1, bk, heads, hd).float())
-    p = torch.softmax(s, dim=-1).to(dt)
-    o = torch.einsum("bht,tbhd->bhd", p.float(), vg.reshape(pos + 1, bk, heads, hd).float())
+    s = torch.einsum("bhd,tbhd->bht", q.float(), kg.reshape(pos + 1, bk, heads, hd))
+    if k_scale is not None:  # int8 rows t < pos; the step's own row is unscaled
+        s = s * _row_scales(k_scale, t_ids, rows)
+    p = torch.softmax(s, dim=-1).to(dt).float()
+    if v_scale is not None:
+        p = p * _row_scales(v_scale, t_ids, rows)
+    o = torch.einsum("bht,tbhd->bhd", p, vg.reshape(pos + 1, bk, heads, hd))
     return o.to(dt).reshape(bk, d)
 
 
-def dec_self_attention(qkv, cache_k, cache_v, anc, pos: int, heads: int):
+def _row_scales(scale, t_ids, rows):
+    """[T, BK, H] per-row scales of the gathered rows t < pos, and 1 for the
+    step's own row -> [BK, H, pos + 1]."""
+    sc = scale[t_ids, rows].float()  # [pos, BK, H]
+    return torch.cat([sc, torch.ones_like(scale[:1]).float()]).permute(1, 2, 0)
+
+
+DEC_SELF_MAX_T = 4096
+DEC_SELF_KINDS = {torch.bfloat16: "bf16", torch.int8: "int8", torch.float8_e4m3fn: "fp8"}  # cache dtypes
+
+
+def dec_self_smem_bytes(t_len: int, elem_bytes: int) -> int:
+    """Dynamic shared memory of a dec_self_attention block, as
+    csrc/dec_attention.cu's launcher counts it: for each of its four warps
+    (a head each), 64 staged V rows [64][64] of the cache's type, their
+    scales [64] f32, the scores [T] f32 and the ancestry [T] int32, rounded
+    up to 16 bytes."""
+    return 4 * (-(-(64 * 64 * elem_bytes + 4 * 64 + 8 * t_len) // 16) * 16)
+
+
+def dec_self_attention(qkv, cache_k, cache_v, anc, pos: int, heads: int, k_scale=None,
+                       v_scale=None):
     """One step of self-attention: qkv [BK, 3d] of this step, the layer's
-    write-once cache [T, BK, d], ancestry anc [T, BK] int32. Rows t < pos
-    are read from row anc[t, c]; the step's own K/V (t == pos) from qkv."""
+    write-once cache [T, BK, d] (bf16, int8 with per-row scales k_scale /
+    v_scale [T, BK, H] f32, or float8_e4m3fn), ancestry anc [T, BK] int32.
+    Rows t < pos are read from row anc[t, c]; the step's own K/V (t == pos)
+    from qkv."""
     if _on_cpu(qkv):
-        return dec_self_attention_plain(qkv, cache_k, cache_v, anc, pos, heads)
+        return dec_self_attention_plain(qkv, cache_k, cache_v, anc, pos, heads, k_scale,
+                                        v_scale)
     bk = qkv.shape[0]
     d = qkv.shape[1] // 3
     t_len = cache_k.shape[0]
+    kind = DEC_SELF_KINDS.get(cache_k.dtype)
+    if kind is None:
+        raise ValueError(f"dec_self_attention: cache dtype {cache_k.dtype}, expected bf16, "
+                         "int8 or float8_e4m3fn")
     _req(qkv, "dec_self qkv", torch.bfloat16, (bk, 3 * d))
-    _req(cache_k, "dec_self cache_k", torch.bfloat16, (t_len, bk, d), qkv.device)
-    _req(cache_v, "dec_self cache_v", torch.bfloat16, (t_len, bk, d), qkv.device)
+    _req(cache_k, "dec_self cache_k", cache_k.dtype, (t_len, bk, d), qkv.device)
+    _req(cache_v, "dec_self cache_v", cache_k.dtype, (t_len, bk, d), qkv.device)
     _req(anc, "dec_self anc", torch.int32, (t_len, bk), qkv.device)
-    if d != heads * 64 or heads % 4 or not 0 <= pos < t_len:
+    if (kind == "int8") != (k_scale is not None) or (kind == "int8") != (v_scale is not None):
+        raise ValueError("dec_self_attention: an int8 cache and its scales travel together")
+    if kind == "int8":
+        _req(k_scale, "dec_self k scale", torch.float32, (t_len, bk, heads), qkv.device)
+        _req(v_scale, "dec_self v scale", torch.float32, (t_len, bk, heads), qkv.device)
+    if d != heads * 64 or heads % 4 or not 0 <= pos < t_len or t_len > DEC_SELF_MAX_T:
         raise ValueError(f"dec_self_attention: needs head_dim 64, heads % 4 == 0, "
-                         f"0 <= pos < T (d={d}, heads={heads}, pos={pos}, T={t_len})")
+                         f"0 <= pos < T <= {DEC_SELF_MAX_T} (d={d}, heads={heads}, pos={pos}, "
+                         f"T={t_len})")
+    if any(x is not None and x.data_ptr() % 16 for x in (qkv, cache_k, cache_v, k_scale, v_scale)):
+        raise ValueError("dec_self_attention: qkv, the cache and the scales must start on 16 "
+                         "bytes")
     out = torch.empty(bk, d, dtype=torch.bfloat16, device=qkv.device)
     _launch("dec_self_attention", "vt_dec_self_attention", _p(qkv), _p(cache_k), _p(cache_v),
-            _p(anc), _p(out), bk, t_len, heads, int(pos), ctypes.c_float(64 ** -0.5))
+            _p(k_scale), _p(v_scale), _p(anc), _p(out), bk, t_len, heads, int(pos),
+            DEC_SELF_VARIANTS.index(kind), ctypes.c_float(64 ** -0.5))
+    DEC_SELF_VARIANT_LAUNCHES[kind] += 1
     return out
 
 

@@ -189,6 +189,13 @@ def _stack(layers, *path) -> torch.Tensor:
     return torch.stack([leaf(p) for p in layers])
 
 
+def linear_batched(t: torch.Tensor, kern: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """[L, B, N, din] @ [L, din, dout] + [L, dout] with linear()'s recipe:
+    the kernel rounded to t's dtype first, float32 accumulate, cast back."""
+    y = torch.einsum("lbnd,lde->lbne", t.float(), kern.to(t.dtype).float())
+    return (y + bias.float()[:, None, None, :]).to(t.dtype)
+
+
 def _fused_encoder_prologue(params: Params, input_ids, attention_mask, image_features,
                             cfg: BartConfig, fcfg: FusionConfig, *, face_features=None,
                             face_mask=None, name_ids=None, name_mask=None,
@@ -222,11 +229,6 @@ def _fused_encoder_prologue(params: Params, input_ids, attention_mask, image_fea
         mu = tf.mean(-1, keepdim=True)
         var = (tf - mu).square().mean(-1, keepdim=True)
         return ((tf - mu) * torch.rsqrt(var + 1e-5) * g + b).to(t.dtype)
-
-    def linear_batched(t, kern, bias):
-        """[L, B, N, din] @ [L, din, dout] + [L, dout], float32 accumulate."""
-        y = torch.einsum("lbnd,lde->lbne", t.float(), kern.float())
-        return (y + bias.float()[:, None, None, :]).to(t.dtype)
 
     img_states, ner_states = [], []
     for p in layers:

@@ -33,8 +33,9 @@ ACT2FN: dict[str, Callable] = {
 
 
 def linear(p: Params, x: torch.Tensor) -> torch.Tensor:
-    """x @ kernel (+ bias) with a float32 accumulator, cast back to x.dtype."""
-    y = torch.matmul(x.float(), p["kernel"].float())
+    """x @ kernel (+ bias) with the kernel rounded to x.dtype first, a
+    float32 accumulator, cast back to x.dtype."""
+    y = torch.matmul(x.float(), p["kernel"].to(x.dtype).float())
     if "bias" in p:
         y = y + p["bias"].float()
     return y.to(x.dtype)
