@@ -23,9 +23,14 @@ Phases:
            int8 and fp8 self caches) at BK 1, 5, 8, 37, 160, 640 x heads 4
            and 16, pos = T - 1 and a middle pos, a random ancestry, and int8
            with power-of-two scales against the bf16 kernel on the
-           dequantized cache, which must be bit-identical. layernorm,
-           dec_cross_attention and dec_self_attention must repeat
-           bit-identically.
+           dequantized cache, which must be bit-identical. lm_head (timed at
+           BK 160 x d 1024 x Vp 53248, beside two library columns:
+           torch.addmm on an f32 copy of the head made once, and the default
+           head decode_fast._lm_head as the step runs it, with its f32 cast
+           of the tied weights; also timed at BK 5 and 640 beside addmm) at
+           BK 1, 5, 37, 160, 320, 640 x Vp 4096 and 53248, and d 768.
+           layernorm, dec_cross_attention, dec_self_attention and lm_head
+           must repeat bit-identically.
   dispatch host microseconds a call of the decoder's products, layernorm and
            a bare torch.empty, issued without waiting for the card.
   stacks   full-width fused encoder and decode step (random weights) against
@@ -51,6 +56,12 @@ Phases:
            stage 2 must be exact on the kernel's own logits (top-C equal to
            top_k over logits[:, :V], lse within 1e-5 of torch.logsumexp);
            finite scores, mean length >= 45; token agreement with the slice.
+  stackhead  the same run with lm_head="stack" (the LM head inside the
+           decode stack, kernels/lm_head): lm_head must launch once per
+           decode step; at one step its logits[:, :V] must match the default
+           head decode_fast._lm_head on that step's x_out (f32 tolerance);
+           finite scores, mean length >= 45; token agreement with the slice
+           and captions/s (not gated).
   layerwise  generate_mm(add_ner_ffn=False): the layer-by-layer encoder,
            whose 512-token self-attention is flash_attention (12 launches a
            pass), then the decode kernels; get_prob at batch 8 x S 512
@@ -58,23 +69,24 @@ Phases:
            at batch 2 on the card (bf16) against the same encoder in f32 on
            the CPU (relative error <= 5e-2).
   profile  the fused encoder alone, then one more run of each of the slice,
-           selfkv (int8, fp8), stats and layerwise paths under
+           selfkv (int8, fp8), stats, stackhead and layerwise paths under
            torch.profiler: device time by kernel family (dec_self_attention
-           by cache type), busy/idle share.
+           by cache type), busy/idle share, and PyTorch's own device time
+           split by op (the top aten ops by self device time).
 
 Prints the registers, spills and shared memory of the two 512-token
 self-attention kernels, the two gemm_bf16, two layernorm, two
-dec_cross_attention and three dec_self_attention kernels (from nvcc's output
-of this build; a spill in any but the 512-token attention kernels fails the
-run), a JSON line with
+dec_cross_attention, three dec_self_attention and four lm_head kernels (from
+nvcc's output of this build; a spill in any but the 512-token attention
+kernels fails the run), a JSON line with
 every kernel, the card's name and power limit (nvidia-smi), and last `{"ok": true, "device": {...}}`. Exits non-zero, printing
 no result, when a phase fails or there is no CUDA device. Long logs go to
 chiprun_out/chip_smoke/.
 
 Tolerances, by each output's dtype: bf16 outputs are held to
 |err| <= 2e-2 + 2e-2 * |plain| (one bf16 rounding of values up to a few
-units, plus f32 sum-order noise); f32 outputs of the GEMM, LayerNorm and
-LM-stats head to |err| <= 2e-3 + 2e-3 * |plain|.
+units, plus f32 sum-order noise); f32 outputs of the GEMM, LayerNorm,
+LM-stats head and LM head to |err| <= 2e-3 + 2e-3 * |plain|.
 """
 
 from __future__ import annotations
@@ -102,6 +114,7 @@ SOURCES = {
     "dec_cross_attention": "vacnic_tpu_torch/kernels/csrc/dec_cross_attention.cu",
     "lm_stats": "vacnic_tpu_torch/kernels/csrc/lm_stats.cu",
     "flash_attention": "vacnic_tpu_torch/kernels/csrc/flash_attn.cu",
+    "lm_head": "vacnic_tpu_torch/kernels/csrc/lm_head.cu",
 }
 REPLACES = {
     "gemm_bf16": "vacnic_tpu/kernels/encoder_stack.py:103 (_kernel matmuls); "
@@ -115,6 +128,8 @@ REPLACES = {
     "dec_cross_attention": "vacnic_tpu/kernels/decode_layer.py:499 (_cross_attn)",
     "lm_stats": "vacnic_tpu/kernels/lm_stats.py:76 (lm_stats; _kernel :44)",
     "flash_attention": "vacnic_tpu/kernels/flash_attn.py:65 (flash_attention; _flash_kernel :28)",
+    "lm_head": "vacnic_tpu/kernels/decode_layer.py:643-650 (_lm_head, the n_lm > 0 grid "
+               "iteration of decode_stack :653)",
 }
 SLICE_KERNELS = ("gemm_bf16", "layernorm", "enc_self_attention", "enc_cross_attention",
                  "dec_self_attention", "dec_cross_attention")
@@ -370,6 +385,36 @@ def kernel_cases():
                   BK * d * 2 + Vp * d * 2 + Vp * 4 + BK * Vp * 4 + 2 * BK * nvb * 4,
                   2.0 * BK * Vp * d, PEAK_BF16_FLOPS, None))
 
+    from vacnic_tpu_torch.infer import decode_fast as DF
+    from vacnic_tpu_torch.kernels import lm_head as LH
+
+    w32 = w_lm.float()  # the library call's f32 head, made once outside the timing
+    tied = {"shared": {"weight": w_lm[:V]}, "final_logits_bias": b_lm[:V].to(bf)}  # bf16 params
+    cases.append((f"lm_head BK={BK} d={d} Vp={Vp}", "lm_head",
+                  lambda: LH.lm_head(x_lm, w_lm, b_lm), lambda: LH.lm_head_plain(x_lm, w_lm, b_lm),
+                  BK * d * 2 + Vp * d * 2 + Vp * 4 + BK * Vp * 4, 2.0 * BK * Vp * d,
+                  PEAK_BF16_FLOPS, lambda: torch.addmm(b_lm, x_lm.float(), w32.t()),
+                  ("decode_fast._lm_head: the default head as the step runs it (f32 cast of "
+                   "the tied weights, f32 product over V)", lambda: DF._lm_head(tied, x_lm, bf))))
+    for bk_t in (5, 640):  # batch 1 and batch 128 at beam 5: x nearly free, and three passes
+        xt = rn(bk_t, d, dtype=bf)
+        cases.append((f"lm_head BK={bk_t} d={d} Vp={Vp}", "lm_head",
+                      lambda xt=xt: LH.lm_head(xt, w_lm, b_lm),
+                      lambda xt=xt: LH.lm_head_plain(xt, w_lm, b_lm),
+                      bk_t * d * 2 + Vp * d * 2 + Vp * 4 + bk_t * Vp * 4, 2.0 * bk_t * Vp * d,
+                      PEAK_BF16_FLOPS, lambda xt=xt: torch.addmm(b_lm, xt.float(), w32.t())))
+    # correctness only: ragged BK, one and three passes of 256, a small head, d 768
+    for bk_c, vp_c in itertools.product((1, 5, 37, 160, 320, 640), (4096, Vp)):
+        xc = rn(bk_c, d, dtype=bf)
+        cases.append((f"lm_head BK={bk_c} d={d} Vp={vp_c}", "lm_head",
+                      lambda xc=xc, vp_c=vp_c: LH.lm_head(xc, w_lm[:vp_c], b_lm[:vp_c]),
+                      lambda xc=xc, vp_c=vp_c: LH.lm_head_plain(xc, w_lm[:vp_c], b_lm[:vp_c]),
+                      None, 0.0, PEAK_BF16_FLOPS, None))
+    x768, w768, b768 = rn(BK, 768, dtype=bf), rn(4096, 768, std=0.02, dtype=bf), rn(4096)
+    cases.append((f"lm_head BK={BK} d=768 Vp=4096", "lm_head",
+                  lambda: LH.lm_head(x768, w768, b768), lambda: LH.lm_head_plain(x768, w768, b768),
+                  None, 0.0, PEAK_BF16_FLOPS, None))
+
     B3, T3 = 32, 512
 
     def heads():  # head-split views of [B, T, H*64] projections, as attention_core gets them
@@ -503,7 +548,7 @@ def tolerance(out) -> tuple[float, float]:
 
 
 # checked bit-identical over two calls
-REPEATABLE = ("layernorm", "dec_cross_attention", "dec_self_attention")
+REPEATABLE = ("layernorm", "dec_cross_attention", "dec_self_attention", "lm_head")
 
 
 def run_kernels_phase():
@@ -511,7 +556,7 @@ def run_kernels_phase():
 
     rows = []
     failures = []
-    for name, kern, call, plain, byts, ops, peak, lib in kernel_cases():
+    for name, kern, call, plain, byts, ops, peak, lib, *second in kernel_cases():
         outs = call()
         torch.cuda.synchronize()
         refs = plain()
@@ -552,10 +597,17 @@ def run_kernels_phase():
                "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms, "library_graph_ms": lib_g_ms}
         if family == "gemm_bf16":
             row["library"] = "torch.addmm in bf16: product + bias only"
+        if family == "lm_head":
+            row["library"] = "torch.addmm on an f32 copy of w_lm made once"
+        for label, fn in second:  # a second PyTorch yardstick beside the library call
+            row.update(second=label, second_ms=time_ms(fn, reps),
+                       second_graph_ms=graph_ms(fn, reps))
         rows.append(row)
         log(f"kernel {name}: max_abs_err {', '.join(errs)} {'ok' if ok else 'FAIL'}; ms {ms:.4f} "
             f"graph_ms {g_ms:.4f} plain_ms {plain_ms:.4f} bound_ms {b_ms:.4f} ({b_by}) library_ms {lib_ms} "
-            f"library_graph_ms {lib_g_ms}")
+            f"library_graph_ms {lib_g_ms}" + "".join(
+                f"; {row['second']}: ms {row['second_ms']:.4f} "
+                f"graph_ms {row['second_graph_ms']:.4f}" for _ in second))
         if not ok:
             failures.append(name)
     pow2 = dec_self_pow2_identity()
@@ -870,6 +922,66 @@ def run_stats_phase(cfg, params, batch_size: int, ref_seqs):
     return counts
 
 
+def run_stackhead_phase(cfg, params, batch_size: int, ref_seqs):
+    """generate_mm(lm_head="stack"): the LM head inside the decode stack
+    (kernels/lm_head). One step's logits are held against the default head
+    on the same step's x_out, the bf16 copy the stack head multiplies."""
+    import torch
+
+    from vacnic_tpu_torch.infer import decode_fast as DF
+    from vacnic_tpu_torch.infer.generate import generate_mm
+    from vacnic_tpu_torch.kernels import decode_layer as DL
+    from vacnic_tpu_torch.kernels import primitives as K
+
+    x = batch_inputs(cfg, batch_size)
+    vocab = params["shared"]["weight"].shape[0]
+    real = DL.decode_stack
+    steps, seen = [], {}
+
+    def spy(*a, **kw):  # counts the steps, keeps one step's outputs
+        out = real(*a, **kw)
+        steps.append(1)
+        if len(steps) == 4:
+            seen["out"] = out
+        return out
+
+    def run():
+        seqs, scores = generate_mm(params, cfg=cfg.bart, fcfg=cfg.fusion, dcfg=cfg.decode,
+                                   dtype=torch.bfloat16, device="cuda", lm_head="stack", **x)
+        torch.cuda.synchronize()
+        return seqs, scores
+
+    DL.decode_stack = spy
+    try:
+        run()  # warm-up
+        steps.clear()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        seqs, scores = run()
+        dt = time.perf_counter() - t0
+        counts = K.launch_counts()
+    finally:
+        DL.decode_stack = real
+    nonpad = check_captions("stackhead", cfg, seqs, scores, batch_size)
+    agree = float((seqs == ref_seqs).float().mean())
+    logits_p, x_out = seen["out"][:2]
+    ref = DF._lm_head(params, x_out.to(torch.bfloat16), torch.bfloat16)
+    err = (logits_p[:, :vocab] - ref).abs()
+    ok = bool(torch.isfinite(logits_p).all()) and bool((err <= 2e-3 + 2e-3 * ref.abs()).all())
+    log(f"stackhead: lm_head=\"stack\", batch {batch_size}: {dt:.3f} s, {batch_size / dt:.2f} "
+        f"captions/s, mean non-pad length {nonpad:.1f}, {len(steps)} decode steps, token "
+        f"agreement with the slice {agree:.4f}; step-4 logits[:, :V] vs the default head on its "
+        f"x_out: max abs err {float(err.max()):.3e} (tol 2e-3+2e-3*|ref|) "
+        f"{'ok' if ok else 'FAIL'}; launches {counts}")
+    check_launched("stackhead", counts, SLICE_KERNELS + ("lm_head",))
+    if counts["lm_head"] != len(steps):
+        raise RuntimeError(f"stackhead: lm_head launched {counts['lm_head']} times over "
+                           f"{len(steps)} decode steps")
+    if not ok:
+        raise RuntimeError("stackhead: the stack head's logits disagree with the default head's")
+    return counts
+
+
 def run_layerwise_phase(cfg, params, batch_size: int):
     """The layer-by-layer encoder paths, whose 512-token self-attention is
     flash_attention: generate_mm(add_ner_ffn=False), get_prob, and the
@@ -944,15 +1056,18 @@ def run_layerwise_phase(cfg, params, batch_size: int):
 def build_lines() -> list[str]:
     """Registers a thread, spill bytes and shared memory of the two 512-token
     self-attention kernels, the two gemm_bf16 kernels, the two layernorm
-    kernels, the int8 and bf16 dec_cross_attention kernels and the bf16, int8
-    and fp8 dec_self_attention kernels at the slice's plans, from nvcc's
-    -Xptxas -v output of this build. The dynamic shared
+    kernels, the int8 and bf16 dec_cross_attention kernels, the bf16, int8
+    and fp8 dec_self_attention kernels at the slice's plans and the four
+    lm_head kernels (N = 64, 128, 192, 256 x rows a pass; BK 160 takes 192),
+    from nvcc's -Xptxas -v output of this build. The dynamic shared
     memory is the launch's own (csrc/enc_attention.cu: ring + 4 S;
     csrc/flash_attn.cu: two stages of K, V and the padded bias tile; both
     + 1024 to align the tiles, computed here for S = 512; gemm: what the
     built library states for the shape; dec_cross: dec_cross_smem_bytes;
-    dec_self: dec_self_smem_bytes at T = 64). A gemm, layernorm, dec_cross
-    or dec_self kernel that spills fails the run."""
+    dec_self: dec_self_smem_bytes at T = 64; lm_head: csrc/lm_head.cu's
+    Geometry, the ring, 20 KB of staging and the barriers, + 1024). A gemm,
+    layernorm, dec_cross, dec_self or lm_head kernel that spills fails the
+    run."""
     import re
 
     from vacnic_tpu_torch.kernels import _build
@@ -972,7 +1087,8 @@ def build_lines() -> list[str]:
                # bf16, int8 (signed char) and fp8 self caches, T = 64
                "dec_self_kernelI13__nv_bfloat16E": K.dec_self_smem_bytes(64, 2),
                "dec_self_kernelIaE": K.dec_self_smem_bytes(64, 1),
-               "dec_self_kernelI13__nv_fp8_e4m3E": K.dec_self_smem_bytes(64, 1)}
+               "dec_self_kernelI13__nv_fp8_e4m3E": K.dec_self_smem_bytes(64, 1),
+               **{f"lm_head_kernelILi{nb}E": lm_head_smem(nb) for nb in (1, 2, 3, 4)}}
     if not _build.BUILD_LOG:
         return ["ptxas: the library was already built; no compiler output in this run"]
     text = "\n".join(_build.BUILD_LOG)
@@ -987,10 +1103,20 @@ def build_lines() -> list[str]:
         lines.append(f"ptxas {key}: {regs.group(1)} registers/thread, spill stores "
                      f"{spill.group(1)} B, spill loads {spill.group(2)} B, static shared "
                      f"{static.group(1) if static else 0} B, dynamic shared {dyn} B a block")
-        if key.startswith(("gemm_", "layernorm_", "dec_cross_", "dec_self_")) and (
+        if key.startswith(("gemm_", "layernorm_", "dec_cross_", "dec_self_", "lm_head_")) and (
                 int(spill.group(1)) or int(spill.group(2))):
             raise RuntimeError(f"{key} spills registers: {lines[-1]}")
     return lines
+
+
+def lm_head_smem(nb: int) -> int:
+    """Dynamic shared memory of an lm_head block with N = 64 nb, as
+    csrc/lm_head.cu's Geometry counts it: as many ring slots (16 KB of
+    weights + 8 nb KB of x each, at most 8) as fit beside the 20 KB staging
+    area and the barriers, + 1024 to align the tiles."""
+    stage, staging = (2 + nb) * 8192, 20480
+    stages = min(8, (232448 - 1024 - staging - 128) // stage)
+    return 1024 + stages * stage + staging + 16 * stages
 
 
 KERNEL_FAMILIES = (("gemm_large_kernel", "gemm_bf16 large_m"),
@@ -1002,22 +1128,25 @@ KERNEL_FAMILIES = (("gemm_large_kernel", "gemm_bf16 large_m"),
                    ("dec_self_kernel<__nv_fp8_e4m3", "dec_self_attention fp8"),
                    ("dec_self_kernel", "dec_self_attention"),
                    ("dec_cross_kernel", "dec_cross_attention"), ("lm_stats_kernel", "lm_stats"),
-                   ("flash_attn_kernel", "flash_attention"))
+                   ("flash_attn_kernel", "flash_attention"), ("lm_head_kernel", "lm_head"))
 
 
 PROFILED_RUNS = (("slice", "profile.txt", {}),
                  ("selfkv int8", "profile_selfkv_int8.txt", {"self_kv": "int8"}),
                  ("selfkv fp8", "profile_selfkv_fp8.txt", {"self_kv": "fp8"}),
                  ("stats", "profile_stats.txt", {"lm_stats": True}),
+                 ("stackhead", "profile_stackhead.txt", {"lm_head": "stack"}),
                  ("layerwise", "profile_layerwise.txt", {"add_ner_ffn": False}))
 
 
 def run_profile_phase(cfg, params, batch_size: int) -> None:
     """Where the time goes: the fused encoder alone (CUDA events), then one
-    generate_mm of each path (slice, selfkv int8 and fp8, stats, layerwise)
-    under torch.profiler
+    generate_mm of each path (slice, selfkv int8 and fp8, stats, stackhead,
+    layerwise) under torch.profiler
     -- device time by kernel family (the port's kernels vs PyTorch's own),
-    the device's busy and idle share of the wall time. Full tables:
+    the device's busy and idle share of the wall time, and PyTorch's own
+    time by op: the aten ops' self device time (the port's kernels launch
+    through ctypes and belong to no op). Full tables:
     chiprun_out/chip_smoke/profile*.txt."""
     import torch
     from torch.autograd import DeviceType
@@ -1050,11 +1179,21 @@ def run_profile_phase(cfg, params, batch_size: int) -> None:
             key = next((f for pat, f in KERNEL_FAMILIES if pat in name), "pytorch (other)")
             fam[key] = fam.get(key, 0.0) + sum(times)
         rows = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))
+        aten = []  # (self device ms, calls, op)
+        for ev in prof.key_averages():
+            us = getattr(ev, "self_device_time_total", None)
+            us = ev.self_cuda_time_total if us is None else us
+            if ev.key.startswith("aten::") and us > 0:
+                aten.append((us / 1e3, ev.count, ev.key))
+        aten.sort(reverse=True)
         with open(os.path.join(OUT_DIR, fname), "w") as f:
             f.write(f"{tag} wall_ms {wall_ms:.3f} device_busy_ms {busy_ms:.3f} "
                     f"fused_encoder_ms {enc_ms:.3f}\n")
             for name, times in rows:
                 f.write(f"{sum(times):10.3f} ms {len(times):7d} x  {name[:160]}\n")
+            f.write("PyTorch's own by op (self device time):\n")
+            for ms, n, key in aten:
+                f.write(f"{ms:10.3f} ms {n:7d} x  {key}\n")
         if busy_ms == 0:
             log(f"profile {tag}: wall {wall_ms:.1f} ms; the profiler saw no device activity "
                 "(device time not measured)")
@@ -1063,12 +1202,16 @@ def run_profile_phase(cfg, params, batch_size: int) -> None:
         log(f"profile {tag}: batch {batch_size} wall {wall_ms:.1f} ms; device busy {busy_ms:.1f} "
             f"ms ({100 * busy_ms / wall_ms:.1f}% of wall, idle "
             f"{100 * (1 - busy_ms / wall_ms):.1f}%); by family: {fams}")
+        log(f"profile {tag}: PyTorch's own by op, self device ms (calls): "
+            + ", ".join(f"{key} {ms:.1f} ({n})" for ms, n, key in aten[:12])
+            + f"; all aten ops {sum(a[0] for a in aten):.1f} ms")
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
-                    default="build,kernels,dispatch,stacks,slice,selfkv,stats,layerwise,profile")
+                    default="build,kernels,dispatch,stacks,slice,selfkv,stats,stackhead,layerwise,"
+                            "profile")
     ap.add_argument("--batch", type=int, default=32)
     args = ap.parse_args()
     phases = set(args.phases.split(","))
@@ -1104,7 +1247,7 @@ def main() -> int:
     if "dispatch" in phases:
         run_dispatch_phase()
     launches = {}  # kernel -> launches in the run of the path that names it
-    if phases & {"stacks", "slice", "selfkv", "stats", "layerwise", "profile"}:
+    if phases & {"stacks", "slice", "selfkv", "stats", "stackhead", "layerwise", "profile"}:
         cfg, params = full_model()
         if "stacks" in phases:
             run_stacks_phase(cfg, params)
@@ -1114,13 +1257,16 @@ def main() -> int:
             launches.update({k: counts[k] for k in SLICE_KERNELS +
                              ("gemm_bf16:large_m", "gemm_bf16:small_m", "layernorm:warp",
                               "dec_self_attention:bf16")})
-        if phases & {"selfkv", "stats"} and slice_seqs is None:
+        if phases & {"selfkv", "stats", "stackhead"} and slice_seqs is None:
             slice_seqs = run_slice_phase(cfg, params, args.batch)[1]
         if "selfkv" in phases:
             launches.update(run_selfkv_phase(cfg, params, args.batch, slice_seqs, gpu))
         if "stats" in phases:
             launches["lm_stats"] = run_stats_phase(cfg, params, args.batch,
                                                    slice_seqs)["lm_stats"]
+        if "stackhead" in phases:
+            launches["lm_head"] = run_stackhead_phase(cfg, params, args.batch,
+                                                      slice_seqs)["lm_head"]
         if "layerwise" in phases:
             launches["flash_attention"] = run_layerwise_phase(
                 cfg, params, args.batch)["flash_attention"]

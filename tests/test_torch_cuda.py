@@ -536,3 +536,65 @@ def test_dec_self_attention_refuses(dev):
     for call in bad:
         with pytest.raises(ValueError):
             call()
+
+
+@pytest.fixture(scope="module")
+def lm_weights(dev):
+    """The full model's padded head: V 50267 real rows of 53248, d 1024,
+    pad rows zero, pad bias -1e9."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    v, vp, d = 50267, 53248, 1024
+    w = torch.zeros(vp, d, device=dev, dtype=torch.bfloat16)
+    w[:v] = rn(g, v, d, std=0.02, dtype=torch.bfloat16)
+    b = torch.full((vp,), -1e9, device=dev)
+    b[:v] = rn(g, v, std=0.02)
+    return w, b
+
+
+@pytest.mark.parametrize("vp", [4096, 53248])
+@pytest.mark.parametrize("bk", [1, 5, 37, 160, 320, 640])
+def test_lm_head_kernel(dev, lm_weights, bk, vp):
+    """Ragged BK through one pass (N 64 ... 256) and several (320, 640),
+    against the twin; bit-identical over two calls; one launch counted."""
+    from vacnic_tpu_torch.kernels import lm_head as LH
+    from vacnic_tpu_torch.kernels import primitives as K
+
+    w, b = (a[:vp] for a in lm_weights)
+    x = rn(torch.Generator(device=dev).manual_seed(bk), bk, 1024, dtype=torch.bfloat16)
+    before = K.launch_counts()["lm_head"]
+    out = LH.lm_head(x, w, b)
+    assert K.launch_counts()["lm_head"] == before + 1
+    close(out, LH.lm_head_plain(x, w, b), False)
+    assert torch.equal(out, LH.lm_head(x, w, b))
+
+
+@pytest.mark.parametrize("bk,d,vp", [(160, 768, 4096), (37, 96, 256), (300, 32, 128)])
+def test_lm_head_other_widths(dev, bk, d, vp):
+    """d 768, a k tail of 32 (d 96, d 32), and heads of 4 and 2 vocab units
+    (a block with one unit leaves its second warpgroup idle)."""
+    from vacnic_tpu_torch.kernels import lm_head as LH
+
+    g = torch.Generator(device=dev).manual_seed(d)
+    x, w, b = rn(g, bk, d, dtype=torch.bfloat16), rn(g, vp, d, std=0.1, dtype=torch.bfloat16), \
+        rn(g, vp)
+    out = LH.lm_head(x, w, b)
+    close(out, LH.lm_head_plain(x, w, b), False)
+    assert torch.equal(out, LH.lm_head(x, w, b))
+
+
+def test_lm_head_refuses(dev):
+    from vacnic_tpu_torch.kernels import lm_head as LH
+
+    x = torch.zeros(8, 64, device=dev, dtype=torch.bfloat16)
+    w = torch.zeros(256, 64, device=dev, dtype=torch.bfloat16)
+    b = torch.zeros(256, device=dev)
+    bad = [lambda: LH.lm_head(x, w.cpu(), b),                   # CPU weights, CUDA x
+           lambda: LH.lm_head(x, w, b.cpu()),
+           lambda: LH.lm_head(x.float(), w, b),                 # not bf16
+           lambda: LH.lm_head(x, w.float(), b),
+           lambda: LH.lm_head(x, w, b.to(torch.bfloat16)),      # bias not f32
+           lambda: LH.lm_head(x[:, :48].contiguous(), w[:, :48].contiguous(), b),  # d % 32
+           lambda: LH.lm_head(x, w[:200], b[:200])]             # Vp % 128
+    for call in bad:
+        with pytest.raises(ValueError):
+            call()

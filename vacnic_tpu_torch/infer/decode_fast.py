@@ -17,8 +17,11 @@ vacnic_tpu/infer/decode_fast.py).
   [L, BK, T, D] with a physical reorder; `decode_step_kernel` embeds, runs
   kernels/decode_layer.decode_stack, writes row `pos`, and applies the LM
   head x @ shared.to(dtype)ᵀ + final_logits_bias with f32 accumulation (a
-  library product: it lies outside the TPU kernel too).
-* `decode_step_kernel_stats` replaces that LM head with
+  library product: it lies outside the TPU kernel's default plan too).
+  With lm_head="stack" the head runs inside the stack instead
+  (kernels/lm_head over the padded head of `build_lm_head`, the TPU
+  kernel's n_lm > 0 plan), and the logits are sliced to the vocabulary.
+* `decode_step_kernel_stats` replaces the LM head with
   kernels/lm_stats.lm_stats over the vocab-padded head of `build_lm_head`
   (built lazily by `ensure_lm_head`) and returns the beam shortlist's
   per-row top-C and logsumexp with the padded logits.
@@ -41,7 +44,8 @@ from vacnic_tpu_torch.models.layers import ACT2FN, Params, layernorm
 class DecodeParams(NamedTuple):
     """Stacked per-layer decoder weights [L, ...]; matrices in the matmul
     dtype, biases and layer norms f32. w_lm/b_lm: the vocab-padded LM head
-    of the stats step, None until `ensure_lm_head` builds it."""
+    of the stats step and of the in-stack head, None until `ensure_lm_head`
+    builds it."""
 
     w_qkv: torch.Tensor        # [L, d, 3d]
     b_qkv: torch.Tensor        # [L, 3d]
@@ -136,7 +140,8 @@ def build_lm_head(params: Params, dtype=torch.bfloat16) -> tuple[torch.Tensor, t
 
 
 def ensure_lm_head(dp: DecodeParams, params: Params, dtype=torch.bfloat16) -> DecodeParams:
-    """dp with the padded LM head built (once: only the stats path needs it)."""
+    """dp with the padded LM head built, once: the stats step and the
+    in-stack head (lm_head="stack") need it, the library head does not."""
     if dp.w_lm is None:
         w, b = build_lm_head(params, dtype)
         dp = dp._replace(w_lm=w, b_lm=b)
@@ -322,18 +327,22 @@ def decode_step(dp: DecodeParams, params: Params, cache: DecodeCache, tok: torch
 
 def _kernel_stack_step(dp: DecodeParams, params: Params, cache: DecodeCache,
                        tok: torch.Tensor, pos: int, enc_mask_bias: torch.Tensor,
-                       cfg: BartConfig, dtype) -> tuple[torch.Tensor, DecodeCache]:
-    """Embed, run kernels/decode_layer.decode_stack, write row `pos` (int8:
-    quantized, with its scale rows; fp8: clamped and cast)
-    -> (x_out [BK, d] bf16, cache)."""
+                       cfg: BartConfig, dtype, in_stack_head: bool = False):
+    """Embed, run kernels/decode_layer.decode_stack (with dp's padded LM
+    head when in_stack_head), write row `pos` (int8: quantized, with its
+    scale rows; fp8: clamped and cast)
+    -> (logits_p [BK, Vp] f32 or None, x_out [BK, d] bf16, cache)."""
     from vacnic_tpu_torch.kernels.decode_layer import decode_stack
 
     heads = cfg.decoder_attention_heads
     x = _embed(params, tok, pos, cfg, dtype).to(torch.bfloat16)
-    x_out, k_new, v_new = decode_stack(
+    head = (dp.w_lm, dp.b_lm) if in_stack_head else (None, None)
+    out = decode_stack(
         dp, x, pos, cache.self_k, cache.self_v, cache.anc, cache.cross_k, cache.cross_v,
         enc_mask_bias[:, 0, 0, :].float().contiguous(), heads,
-        cache.cross_k_scale, cache.cross_v_scale, cache.self_k_scale, cache.self_v_scale)
+        cache.cross_k_scale, cache.cross_v_scale, cache.self_k_scale, cache.self_v_scale, *head)
+    logits_p = out[0] if in_stack_head else None
+    x_out, k_new, v_new = out[-3:]
     if cache.self_k.dtype == torch.int8:
         # the rows are quantized from x's dtype (bf16), as the JAX kernel
         # step hands them out even at dtype f32 (decode_layer.py:914)
@@ -345,35 +354,59 @@ def _kernel_stack_step(dp: DecodeParams, params: Params, cache: DecodeCache,
         k_new, v_new = to_fp8(k_new), to_fp8(v_new)
     cache.self_k[:, pos] = k_new
     cache.self_v[:, pos] = v_new
-    return x_out, cache._replace(pos=pos)
+    return logits_p, x_out, cache._replace(pos=pos)
+
+
+LM_HEADS = ("library", "stack")
 
 
 def decode_step_kernel(dp: DecodeParams, params: Params, cache: DecodeCache,
                        tok: torch.Tensor, pos: int, enc_mask_bias: torch.Tensor,
-                       cfg: BartConfig, dtype=torch.bfloat16) -> tuple[torch.Tensor, DecodeCache]:
+                       cfg: BartConfig, dtype=torch.bfloat16,
+                       lm_head: str = "library") -> tuple[torch.Tensor, DecodeCache]:
     """decode_step with the layer stack in kernels/decode_layer.decode_stack
     over the time-major cache. The embedded token enters the stack rounded
     to bf16 and the stack's output leaves in bf16, as in the JAX kernel
     step. The step's K/V rows are written at `pos` after the stack (row
     `pos` is still zero while the stack runs; it reads them from the QKV
-    output)."""
-    x_out, cache = _kernel_stack_step(dp, params, cache, tok, pos, enc_mask_bias, cfg, dtype)
+    output).
+
+    lm_head="library": the LM head on x_out after the stack (`_lm_head`);
+    "stack": inside it, over dp's padded head (build it with
+    `ensure_lm_head`), sliced to the vocabulary -- JAX decode_step_pallas
+    with plan.n_lm > 0 (vacnic_tpu/infer/decode_fast.py:753-759)."""
+    if lm_head not in LM_HEADS:
+        raise ValueError(f"lm_head must be one of {LM_HEADS}, got {lm_head!r}")
+    if lm_head == "stack":
+        if dp.w_lm is None:
+            raise ValueError('decode_step_kernel: lm_head="stack" needs the padded head; '
+                             "build it with ensure_lm_head")
+        logits_p, _, cache = _kernel_stack_step(dp, params, cache, tok, pos, enc_mask_bias,
+                                                cfg, dtype, in_stack_head=True)
+        return logits_p[:, :params["shared"]["weight"].shape[0]], cache
+    _, x_out, cache = _kernel_stack_step(dp, params, cache, tok, pos, enc_mask_bias, cfg, dtype)
     return _lm_head(params, x_out.to(dtype), dtype), cache
 
 
 def decode_step_kernel_stats(dp: DecodeParams, params: Params, cache: DecodeCache,
                              tok: torch.Tensor, pos: int, enc_mask_bias: torch.Tensor,
-                             cfg: BartConfig, dtype=torch.bfloat16, shortlist_c: int = 16):
+                             cfg: BartConfig, dtype=torch.bfloat16, shortlist_c: int = 16,
+                             lm_head: str = "library"):
     """decode_step_kernel with the LM head replaced by kernels/lm_stats (port
     of decode_step_pallas_stats): lm_stats over dp's padded head (in the
     dtype it was built in), then lm_stats_topk with C = shortlist_c.
     Returns (logits_padded [BK, Vp] f32, cand_vals [BK, C], cand_idx
-    [BK, C], lse [BK], cache) -- beam_search's `step_stats_fn` contract."""
+    [BK, C], lse [BK], cache) -- beam_search's `step_stats_fn` contract.
+    The stats head and the in-stack head exclude each other: lm_head="stack"
+    raises (JAX turns n_lm off here)."""
     from vacnic_tpu_torch.kernels.lm_stats import lm_stats, lm_stats_topk
 
+    if lm_head != "library":
+        raise ValueError(f"decode_step_kernel_stats: the stats head replaces the LM head; "
+                         f"lm_head={lm_head!r} is not taken")
     if dp.w_lm is None:
         raise ValueError("decode_step_kernel_stats: build the padded head with ensure_lm_head")
-    x_out, cache = _kernel_stack_step(dp, params, cache, tok, pos, enc_mask_bias, cfg, dtype)
+    _, x_out, cache = _kernel_stack_step(dp, params, cache, tok, pos, enc_mask_bias, cfg, dtype)
     logits_p, m, s = lm_stats(x_out.to(dp.w_lm.dtype), dp.w_lm, dp.b_lm)
     cv, ci, lse = lm_stats_topk(logits_p, m, s, shortlist_c, params["shared"]["weight"].shape[0])
     return logits_p, cv, ci, lse, cache

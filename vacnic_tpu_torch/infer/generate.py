@@ -24,6 +24,12 @@ like the stacks). It needs the shortlist candidate mode and a shortlist no
 wider than the vocab blocks; where that gate fails the call raises (the
 JAX package warns and runs the plain head instead).
 
+`lm_head` places the LM head: "library" (the default) runs it after the
+decode stack as a library product; "stack" inside the stack, over the
+vocab-padded head built once a call (kernels/lm_head; the JAX package's
+VACNIC_PLAN_NLM > 0). It excludes `lm_stats=True`: together they raise
+(the JAX package warns and runs without the stats head).
+
 Entry points run on "cuda" unless the caller passes device="cpu"; without
 a card and without that argument they raise.
 """
@@ -77,9 +83,15 @@ def _mm_encode(params, input_ids, attention_mask, image_features, cfg, fcfg, *,
                name_mask=name_mask, add_ner_ffn=add_ner_ffn, dtype=dtype)
 
 
-def _search_plan(params, dcfg: DecodeConfig, cand_mode, lm_stats: bool):
-    """(candidate mode, stats-head shortlist width or None). Raises when
+def _search_plan(params, dcfg: DecodeConfig, cand_mode, lm_stats: bool, lm_head: str):
+    """(candidate mode, stats-head shortlist width or None). Raises on an
+    unknown lm_head, on lm_stats=True with lm_head="stack", and when
     lm_stats=True fails the gate of vacnic_tpu/infer/generate.py:165-192."""
+    if lm_head not in DF.LM_HEADS:
+        raise ValueError(f"lm_head must be one of {DF.LM_HEADS}, got {lm_head!r}")
+    if lm_stats and lm_head == "stack":
+        raise ValueError('lm_stats=True and lm_head="stack" exclude each other: the stats '
+                         "head replaces the LM head")
     vocab = params["shared"]["weight"].shape[0]
     mode = cand_mode or resolve_cand_mode(dcfg, vocab)
     if not lm_stats:
@@ -95,7 +107,7 @@ def _search_plan(params, dcfg: DecodeConfig, cand_mode, lm_stats: bool):
 
 def _decode_from_encoder(params, enc_hidden, attention_mask, cfg: BartConfig,
                          dcfg: DecodeConfig, dtype, mode: str, shortlist_c: int | None,
-                         plan: CachePlan):
+                         plan: CachePlan, lm_head: str):
     kdtype = plan.dtype
     bsz = enc_hidden.shape[0]
     dp = DF.build_decode_params(params, kdtype)
@@ -105,13 +117,15 @@ def _decode_from_encoder(params, enc_hidden, attention_mask, cfg: BartConfig,
                                   self_kv_int8=plan.self_kv == "int8",
                                   self_kv_fp8=plan.self_kv == "fp8")
     enc_bias = expand_mask(attention_mask, 1)  # [B, 1, 1, S]
+    if shortlist_c is not None or lm_head == "stack":
+        dp = DF.ensure_lm_head(dp, params, kdtype)
 
     def step_fn(tok, cache, pos):
-        return DF.decode_step_kernel(dp, params, cache, tok, pos, enc_bias, cfg, dtype)
+        return DF.decode_step_kernel(dp, params, cache, tok, pos, enc_bias, cfg, dtype,
+                                     lm_head=lm_head)
 
     step_stats_fn = None
     if shortlist_c is not None:
-        dp = DF.ensure_lm_head(dp, params, kdtype)
 
         def step_stats_fn(tok, cache, pos):
             return DF.decode_step_kernel_stats(dp, params, cache, tok, pos, enc_bias, cfg,
@@ -131,16 +145,17 @@ def generate_mm(params, input_ids, attention_mask, image_features, cfg: BartConf
                 fcfg: FusionConfig, dcfg: DecodeConfig, *, face_features=None,
                 face_mask=None, name_ids=None, name_mask=None, add_ner_ffn: bool = True,
                 dtype=torch.float32, device=None, cand_mode: str | None = None,
-                lm_stats: bool = False, self_kv: str | None = None):
+                lm_stats: bool = False, self_kv: str | None = None, lm_head: str = "library"):
     """Multimodal beam-search captioning -> (sequences [B, max_length] int64,
     scores [B] f32). `params` (the tree of models/fusion) and the inputs
     (tensors or numpy arrays) are moved to `device` ("cuda" by default).
     `cand_mode` picks the beam candidate selection ("full" | "opt" |
     "shortlist"; None = auto), `lm_stats` the fused LM-stats head, `self_kv`
-    the self cache (None: the stacks' dtype, "int8" or "fp8")."""
+    the self cache (None: the stacks' dtype, "int8" or "fp8"), `lm_head`
+    where the LM head runs ("library" after the stack, "stack" inside it)."""
     dev = resolve_device(device)
     plan = cache_plan(dev.type == "cuda", self_kv, dtype)
-    mode, shortlist_c = _search_plan(params, dcfg, cand_mode, lm_stats)
+    mode, shortlist_c = _search_plan(params, dcfg, cand_mode, lm_stats, lm_head)
     params = tree_to(params, dev)
     input_ids, attention_mask, image_features, face_features, face_mask, name_ids, name_mask = (
         as_tensor(x, dev) for x in (input_ids, attention_mask, image_features, face_features,
@@ -149,22 +164,24 @@ def generate_mm(params, input_ids, attention_mask, image_features, cfg: BartConf
                      face_features=face_features, face_mask=face_mask, name_ids=name_ids,
                      name_mask=name_mask, add_ner_ffn=add_ner_ffn, dtype=dtype)
     return _decode_from_encoder(params, enc["last_hidden"], attention_mask, cfg, dcfg, dtype,
-                                mode, shortlist_c, plan)
+                                mode, shortlist_c, plan, lm_head)
 
 
 @torch.no_grad()
 def generate_text_bart(params, input_ids, attention_mask, cfg: BartConfig, dcfg: DecodeConfig,
-                       dtype=torch.float32, *, device=None, self_kv: str | None = None):
+                       dtype=torch.float32, *, device=None, self_kv: str | None = None,
+                       lm_head: str = "library"):
     """Text-only BART beam generation over a `models/bart.bart_init` tree
-    -> (sequences [B, max_length] int64, scores [B] f32); `self_kv` as in
-    generate_mm."""
+    -> (sequences [B, max_length] int64, scores [B] f32); `self_kv` and
+    `lm_head` as in generate_mm."""
     dev = resolve_device(device)
     plan = cache_plan(dev.type == "cuda", self_kv, dtype)
-    mode = resolve_cand_mode(dcfg, params["shared"]["weight"].shape[0])
+    mode, _ = _search_plan(params, dcfg, None, False, lm_head)
     params = tree_to(params, dev)
     input_ids, attention_mask = as_tensor(input_ids, dev), as_tensor(attention_mask, dev)
     enc = B.encoder_fwd(params, input_ids, attention_mask, cfg, dtype=dtype)
-    return _decode_from_encoder(params, enc, attention_mask, cfg, dcfg, dtype, mode, None, plan)
+    return _decode_from_encoder(params, enc, attention_mask, cfg, dcfg, dtype, mode, None, plan,
+                                lm_head)
 
 
 def greedy_search(params, input_ids, attention_mask, cfg: BartConfig, dcfg: DecodeConfig,

@@ -37,6 +37,7 @@ SIGNATURES = {
     "vt_dec_self_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     "vt_dec_cross_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     "vt_lm_stats": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "vt_lm_head": [_P, _P, _P, _P, _I, _I, _I, _P],
     "vt_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
     "vt_attn_tile_check": [_P, _P, _P, _P, _P, _P],
 }

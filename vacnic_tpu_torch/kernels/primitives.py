@@ -21,8 +21,10 @@ from typing import NamedTuple
 import torch
 
 KERNELS = ("gemm_bf16", "layernorm", "enc_self_attention", "enc_cross_attention",
-           "dec_self_attention", "dec_cross_attention", "lm_stats", "flash_attention")
-# (the wrappers of the last two live in kernels/lm_stats and kernels/flash_attn)
+           "dec_self_attention", "dec_cross_attention", "lm_stats", "flash_attention",
+           "lm_head")
+# (the wrappers of the last three live in kernels/lm_stats, kernels/flash_attn
+# and kernels/lm_head)
 LAUNCHES: dict[str, int] = {k: 0 for k in KERNELS}
 # gemm_bf16 is two __global__ kernels; every launch also counts under its own
 GEMM_VARIANTS = ("large_m", "small_m")
