@@ -29,8 +29,22 @@ Phases:
            head decode_fast._lm_head as the step runs it, with its f32 cast
            of the tied weights; also timed at BK 5 and 640 beside addmm) at
            BK 1, 5, 37, 160, 320, 640 x Vp 4096 and 53248, and d 768.
-           layernorm, dec_cross_attention, dec_self_attention and lm_head
-           must repeat bit-identically.
+           lm_stats (timed at BK 160, 5 and 640) at BK 1, 5, 37, 160, 320,
+           640 x Vp 1024, 4096 and 53248, where m must equal the max of the
+           kernel's own logits bit for bit and the arrival counters read
+           zero after the launch; enc_cross_attention (timed at B 8 and 32)
+           at KV 1, 8, 40, 64 x S 1, 63, 64, 130, 512. The rows of the two
+           kernels redesigned in this slice log the times of the kernels
+           before them (EARLIER), outside the kernels line. layernorm,
+           dec_cross_attention, dec_self_attention, lm_head,
+           enc_cross_attention and lm_stats must repeat bit-identically.
+  accuracy enc_cross_attention at the slice's shape on three seeds against
+           a float64 reference with the twin's rounding points, beside the
+           plain twin and an emulation of the kernel's order of work: the
+           outputs that differ from it in bf16, the worst distance in bf16
+           ulps of the output and of the sum's scale (fails beyond 4 of
+           the latter); the kernel against the emulation the same way
+           (runs unchanged in an older tree).
   dispatch host microseconds a call of the decoder's products, layernorm and
            a bare torch.empty, issued without waiting for the card.
   stacks   full-width fused encoder and decode step (random weights) against
@@ -74,11 +88,16 @@ Phases:
            by cache type), busy/idle share, and PyTorch's own device time
            split by op (the top aten ops by self device time).
 
+--tokens-out FILE saves every path's captions; --tokens-ref FILE holds every
+path of this run token-identical to captions another tree saved (copy this
+file into that tree and run it there with --tokens-out first).
+
 Prints the registers, spills and shared memory of the two 512-token
-self-attention kernels, the two gemm_bf16, two layernorm, two
-dec_cross_attention, three dec_self_attention and four lm_head kernels (from
-nvcc's output of this build; a spill in any but the 512-token attention
-kernels fails the run), a JSON line with
+self-attention kernels, the encoder's cross-attention, the two gemm_bf16,
+two layernorm, two dec_cross_attention, three dec_self_attention, four
+lm_head and four lm_stats kernels (from nvcc's output of this build; a spill
+in any but the 512-token self-attention kernels fails the run), a JSON line
+with
 every kernel, the card's name and power limit (nvidia-smi), and last `{"ok": true, "device": {...}}`. Exits non-zero, printing
 no result, when a phase fails or there is no CUDA device. Long logs go to
 chiprun_out/chip_smoke/.
@@ -104,6 +123,7 @@ PEAK_F32_FLOPS = 67e12    # outside the tensor cores
 PEAK_8BIT_OPS = 1979e12   # int8 / fp8 tensor-core rate
 PEAK_BYTES = 3.35e12      # HBM3
 OUT_DIR = os.path.join("chiprun_out", "chip_smoke")
+TOKENS: dict = {}  # path -> its captions [B, max_length] (int64, on the CPU)
 
 SOURCES = {
     "gemm_bf16": "vacnic_tpu_torch/kernels/csrc/gemm_bf16.cu",
@@ -112,7 +132,7 @@ SOURCES = {
     "enc_cross_attention": "vacnic_tpu_torch/kernels/csrc/enc_attention.cu",
     "dec_self_attention": "vacnic_tpu_torch/kernels/csrc/dec_attention.cu",
     "dec_cross_attention": "vacnic_tpu_torch/kernels/csrc/dec_cross_attention.cu",
-    "lm_stats": "vacnic_tpu_torch/kernels/csrc/lm_stats.cu",
+    "lm_stats": "vacnic_tpu_torch/kernels/csrc/lm_head.cu",
     "flash_attention": "vacnic_tpu_torch/kernels/csrc/flash_attn.cu",
     "lm_head": "vacnic_tpu_torch/kernels/csrc/lm_head.cu",
 }
@@ -308,6 +328,9 @@ def kernel_cases():
                     cv.view(bsz, KV, H, 64).transpose(1, 2)))
 
     cases += [enc_cross_case(B), enc_cross_case(32)]
+    # correctness only: KV 1 ... 64 x S 1 ... 512 (ragged last q tiles)
+    for kv_c, s_c in itertools.product((1, 8, 40, 64), (1, 63, 64, 130, 512)):
+        cases.append(enc_cross_sweep_case(rn, 3, s_c, kv_c))
 
     BK, T, B2, beams = 160, 64, 32, 5
     qkv_d = rn(BK, 3 * d, dtype=bf)
@@ -379,11 +402,22 @@ def kernel_cases():
     b_lm = torch.full((Vp,), -1e9, device=dev)
     b_lm[:V] = rn(V, std=0.02)
     nvb = Vp // LS.VBLOCK
-    cases.append((f"lm_stats BK={BK} d={d} Vp={Vp}", "lm_stats",
-                  lambda: LS.lm_stats(x_lm, w_lm, b_lm),
-                  lambda: LS.lm_stats_plain(x_lm, w_lm, b_lm),
-                  BK * d * 2 + Vp * d * 2 + Vp * 4 + BK * Vp * 4 + 2 * BK * nvb * 4,
-                  2.0 * BK * Vp * d, PEAK_BF16_FLOPS, None))
+    for bk_t in (BK, 5, 640):  # the stats path's batch 32, batch 1 and batch 128 at beam 5
+        xt = x_lm if bk_t == BK else rn(bk_t, d, dtype=bf)
+        cases.append((f"lm_stats BK={bk_t} d={d} Vp={Vp}", "lm_stats",
+                      lambda xt=xt: LS.lm_stats(xt, w_lm, b_lm),
+                      lambda xt=xt: LS.lm_stats_plain(xt, w_lm, b_lm),
+                      bk_t * d * 2 + Vp * d * 2 + Vp * 4 + bk_t * Vp * 4 + 2 * bk_t * nvb * 4,
+                      2.0 * bk_t * Vp * d, PEAK_BF16_FLOPS, None))
+    # correctness only: ragged BK, one to three passes, a head with one
+    # 1024-block, Vp 53248's two all-pad blocks; m must be the max of the
+    # kernel's own logits and the counters zero after it
+    for bk_c, vp_c in itertools.product((1, 5, 37, 160, 320, 640), (1024, 4096, Vp)):
+        xc = rn(bk_c, d, dtype=bf)
+        cases.append((f"lm_stats BK={bk_c} d={d} Vp={vp_c}", "lm_stats",
+                      lambda xc=xc, vp_c=vp_c: lm_stats_checked(xc, w_lm[:vp_c], b_lm[:vp_c]),
+                      lambda xc=xc, vp_c=vp_c: LS.lm_stats_plain(xc, w_lm[:vp_c], b_lm[:vp_c]),
+                      None, 0.0, PEAK_BF16_FLOPS, None))
 
     from vacnic_tpu_torch.infer import decode_fast as DF
     from vacnic_tpu_torch.kernels import lm_head as LH
@@ -444,6 +478,38 @@ def kernel_cases():
                   lambda: FA.flash_attention_plain(hq, hk, hv, hbias), None, 0.0,
                   PEAK_BF16_FLOPS, None))
     return cases
+
+
+def enc_cross_sweep_case(rn, items: int, s_len: int, kv: int, heads: int = 16):
+    """A correctness-only enc_cross_attention case."""
+    import torch
+
+    from vacnic_tpu_torch.kernels import primitives as K
+
+    d = heads * 64
+    q = rn(items * s_len, d, dtype=torch.bfloat16)
+    ck, cv = rn(items, d, kv, dtype=torch.bfloat16), rn(items, kv, d, dtype=torch.bfloat16)
+    return (f"enc_cross_attention B={items} S={s_len} KV={kv} H={heads}", "enc_cross_attention",
+            lambda: K.enc_cross_attention(q, ck, cv, items, s_len, heads),
+            lambda: K.enc_cross_attention_plain(q, ck, cv, items, s_len, heads),
+            None, 0.0, PEAK_BF16_FLOPS, None)
+
+
+def lm_stats_checked(x, w, b):
+    """lm_stats, raising unless m is the max of the kernel's own logits over
+    each 1024-block, bit for bit, and the arrival counters read zero after
+    the launch."""
+    import torch
+
+    from vacnic_tpu_torch.kernels import lm_stats as LS
+
+    logits, m, s = LS.lm_stats(x, w, b)
+    counters = LS.counters(x.device)
+    if not torch.equal(m, logits.view(logits.shape[0], -1, LS.VBLOCK).amax(-1)):
+        raise RuntimeError("lm_stats: m is not the max of the kernel's logits")
+    if bool(counters.any()):
+        raise RuntimeError("lm_stats: an arrival counter is not zero after the launch")
+    return logits, m, s
 
 
 def self_cache(rn, g, t_len: int, bk: int, heads: int, kind: str):
@@ -548,7 +614,17 @@ def tolerance(out) -> tuple[float, float]:
 
 
 # checked bit-identical over two calls
-REPEATABLE = ("layernorm", "dec_cross_attention", "dec_self_attention", "lm_head")
+REPEATABLE = ("layernorm", "dec_cross_attention", "dec_self_attention", "lm_head",
+              "enc_cross_attention", "lm_stats")
+# the times of the kernels a redesign replaced, logged beside the new ones
+# and kept out of the kernels line, which holds only this run's numbers
+# (this script's kernels phase on an NVIDIA H100 80GB HBM3, 700.00 W;
+# ms / graph ms)
+EARLIER = {
+    "enc_cross_attention B=8 S=512 KV=40": "the thread-a-row kernel before: 0.1032 / 0.1000",
+    "enc_cross_attention B=32 S=512 KV=40": "the thread-a-row kernel before: 0.4775 / 0.4720",
+    "lm_stats BK=160 d=1024 Vp=53248": "the WMMA kernel before (lm_stats.cu): 0.1644 / 0.1613",
+}
 
 
 def run_kernels_phase():
@@ -605,7 +681,8 @@ def run_kernels_phase():
         rows.append(row)
         log(f"kernel {name}: max_abs_err {', '.join(errs)} {'ok' if ok else 'FAIL'}; ms {ms:.4f} "
             f"graph_ms {g_ms:.4f} plain_ms {plain_ms:.4f} bound_ms {b_ms:.4f} ({b_by}) library_ms {lib_ms} "
-            f"library_graph_ms {lib_g_ms}" + "".join(
+            f"library_graph_ms {lib_g_ms}"
+            + (f"; earlier {EARLIER[name]}" if name in EARLIER else "") + "".join(
                 f"; {row['second']}: ms {row['second_ms']:.4f} "
                 f"graph_ms {row['second_graph_ms']:.4f}" for _ in second))
         if not ok:
@@ -618,6 +695,115 @@ def run_kernels_phase():
     if failures:
         raise RuntimeError(f"kernels disagree with their plain twins: {failures}")
     return rows
+
+
+def enc_cross_tiles(q, ck, cv, batch: int, seq: int, heads: int):
+    """enc_cross_attn_kernel's order of work in f32 PyTorch on the inputs'
+    device: q scaled and rounded to bf16, S = q K^T over keys zero-padded to
+    64 and masked to -inf past KV, exp(s - m) times the reciprocal of the
+    row sum rounded to bf16, P V one 16-key k-step after another, rounded
+    once. (The q tiles only group rows; no row reads another.)"""
+    import torch
+
+    bf, kv = torch.bfloat16, cv.shape[1]
+    qh = (q.view(batch, seq, heads, 64).transpose(1, 2).float() * 64 ** -0.5).to(bf).float()
+    k_pad = q.new_zeros(batch, heads, 64, 64, dtype=torch.float32)
+    k_pad[..., :kv] = ck.float().view(batch, heads, 64, kv)
+    v_pad = q.new_zeros(batch, heads, 64, 64, dtype=torch.float32)
+    v_pad[:, :, :kv] = cv.float().view(batch, kv, heads, 64).transpose(1, 2)
+    sc = torch.matmul(qh, k_pad)
+    sc[..., kv:] = float("-inf")
+    e = torch.exp(sc - sc.amax(-1, keepdim=True))
+    pr = (e * (1.0 / e.sum(-1, keepdim=True))).to(bf).float()
+    o = torch.zeros_like(qh)
+    for c in range(0, 64, 16):
+        o = o + torch.matmul(pr[..., c:c + 16], v_pad[:, :, c:c + 16])
+    return o.to(bf).transpose(1, 2).reshape(batch * seq, heads * 64)
+
+
+def bf16_ulp(x):
+    """The spacing of bf16 values at |x| (eight significant bits)."""
+    import torch
+
+    return torch.ldexp(torch.ones_like(x), torch.frexp(x)[1] - 8)
+
+
+def enc_cross_reference(q, ck, cv, batch: int, seq: int, heads: int):
+    """The float64 cross-attention with the twin's rounding points (q scaled
+    and rounded to bf16, the normalised probabilities rounded to bf16, the
+    output not rounded) -> (reference, the sum's scale sum_j p_j |v_j|),
+    both [B*S, d] float64."""
+    import torch
+
+    bf, kv, d = torch.bfloat16, cv.shape[1], heads * 64
+    qh = (q.view(batch, seq, heads, 64).double() * 64 ** -0.5).to(bf).double()
+    s = torch.einsum("bshd,bhdk->bhsk", qh, ck.view(batch, heads, 64, kv).double())
+    p = torch.softmax(s, dim=-1).to(bf).double()
+    vh = cv.view(batch, kv, heads, 64).double()
+    return (torch.einsum("bhsk,bkhd->bshd", p, vh).reshape(batch * seq, d),
+            torch.einsum("bhsk,bkhd->bshd", p, vh.abs()).reshape(batch * seq, d))
+
+
+def run_accuracy_phase(gpu: str) -> None:
+    """enc_cross_attention at the slice's shape (B 32, S 512, KV 40, H 16)
+    on three seeds, against a float64 reference with the twin's rounding
+    points (q scaled and rounded to bf16, the normalised probabilities
+    rounded to bf16, the output rounded once). For the kernel, the plain
+    twin (f32) and an emulation of the tensor-core kernel's order of work
+    (enc_cross_tiles, f32 on the card): the outputs that differ from the
+    reference rounded to bf16, and the largest absolute difference from it;
+    the largest distance from the reference in bf16 ulps of the reference,
+    with the |reference| and the sum's scale sum_j p_j |v_j| where it falls
+    (a near-zero output of a cancelling sum reads thousands of ulps from
+    one last-bit change of a term); and the largest distance in bf16 ulps
+    of that scale, which is what the output's rounding (at most half), a
+    sum in another order (far below one) and a probability rounded the
+    other way at a bf16 tie (at most two, mostly below one) can move an
+    output by, while a wrong key, mask or k-step moves it by tens to
+    hundreds. The kernel fails the phase beyond 4 such ulps. The kernel
+    against the emulation is read the same way. Uses only
+    the wrappers' interface, so this file run in an older tree measures
+    that tree's kernel on the same inputs (`--phases accuracy`)."""
+    import torch
+
+    from vacnic_tpu_torch.kernels import primitives as K
+
+    bf, (B, S, KV, H) = torch.bfloat16, (32, 512, 40, 16)
+    d = H * 64
+    worst_scaled, limit = 0.0, 4.0
+    for seed in (8, 9, 10):
+        g = torch.Generator(device="cuda").manual_seed(seed)
+
+        def rn(*shape):
+            return torch.randn(shape, generator=g, device="cuda").to(bf)
+
+        q, ck, cv = rn(B * S, d), rn(B, d, KV), rn(B, KV, d)
+        out = K.enc_cross_attention(q, ck, cv, B, S, H)
+        twin = K.enc_cross_attention_plain(q, ck, cv, B, S, H)
+        emul = enc_cross_tiles(q, ck, cv, B, S, H)
+        ref, scale = enc_cross_reference(q, ck, cv, B, S, H)
+        ulp_ref, ulp_scale = bf16_ulp(ref), bf16_ulp(scale)
+        for name, t, against in (("kernel", out, ref), ("plain twin", twin, ref),
+                                 ("order-of-work emulation", emul, ref),
+                                 ("kernel against the emulation", out, emul.double())):
+            e = (t.double() - against).abs()
+            e_bf = (t.double() - against.to(bf).double()).abs()
+            differ = int((e_bf != 0).sum())
+            raw = e / ulp_ref
+            at = int(raw.argmax())
+            scaled = float((e / ulp_scale).max())
+            if name == "kernel":
+                worst_scaled = max(worst_scaled, scaled)
+            log(f"accuracy enc_cross_attention B={B} S={S} KV={KV} H={H} seed {seed}, {name}: "
+                f"{differ} of {ref.numel()} outputs ({100.0 * differ / ref.numel():.4f}%) differ "
+                f"{'from it' if 'against' in name else 'from the float64 reference rounded to bf16'}"
+                f", by at most {float(e_bf.max()):.3e}; worst {float(raw.view(-1)[at]):.1f} "
+                f"bf16 ulps of the reference, at |ref| {float(ref.view(-1)[at].abs()):.3e} with "
+                f"scale {float(scale.view(-1)[at]):.3e}; worst {scaled:.3f} bf16 ulps of the "
+                f"scale ({gpu})")
+    if not worst_scaled <= limit:
+        raise RuntimeError(f"accuracy: enc_cross_attention is {worst_scaled:.3f} bf16 ulps of "
+                           f"the sum's scale from the float64 reference (limit {limit})")
 
 
 def host_us(fn, calls: int = 500) -> float:
@@ -792,6 +978,7 @@ def run_slice_phase(cfg, params, batch_size: int):
     ln_by_kernel = K.layernorm_variant_counts()
     self_by_kind = K.dec_self_variant_counts()
     nonpad = check_captions("slice", cfg, seqs, scores, batch_size)
+    TOKENS["slice"] = seqs.cpu()
     log(f"slice: full_train beam {cfg.decode.num_beams} x {cfg.decode.max_length} x lp "
         f"{cfg.decode.length_penalty}, batch {batch_size}: {dt:.3f} s, "
         f"{batch_size / dt:.2f} captions/s, mean non-pad length {nonpad:.1f}, "
@@ -850,6 +1037,7 @@ def run_selfkv_phase(cfg, params, batch_size: int, ref_seqs, gpu: str) -> dict:
         dt = time.perf_counter() - t0
         counts, by_kind = K.launch_counts(), K.dec_self_variant_counts()
         nonpad = check_captions(f"selfkv {kind}", cfg, seqs, scores, batch_size)
+        TOKENS[f"selfkv {kind}"] = seqs.cpu()
         agree = float((seqs == ref_seqs).float().mean())
         log(f"selfkv {kind}: self_kv={kind!r}, batch {batch_size}: {dt:.3f} s, "
             f"{batch_size / dt:.2f} captions/s, mean non-pad length {nonpad:.1f}, token "
@@ -904,6 +1092,7 @@ def run_stats_phase(cfg, params, batch_size: int, ref_seqs):
     finally:
         DF.decode_step_kernel_stats = real
     nonpad = check_captions("stats", cfg, seqs, scores, batch_size)
+    TOKENS["stats"] = seqs.cpu()
     agree = float((seqs == ref_seqs).float().mean())
     logits, cv, ci, lse, _ = seen["out"]
     tv, ti = top_k(logits[:, :vocab], cv.shape[1])
@@ -963,6 +1152,7 @@ def run_stackhead_phase(cfg, params, batch_size: int, ref_seqs):
     finally:
         DL.decode_stack = real
     nonpad = check_captions("stackhead", cfg, seqs, scores, batch_size)
+    TOKENS["stackhead"] = seqs.cpu()
     agree = float((seqs == ref_seqs).float().mean())
     logits_p, x_out = seen["out"][:2]
     ref = DF._lm_head(params, x_out.to(torch.bfloat16), torch.bfloat16)
@@ -1010,6 +1200,7 @@ def run_layerwise_phase(cfg, params, batch_size: int):
     dt = time.perf_counter() - t0
     counts = K.launch_counts()
     nonpad = check_captions("layerwise", cfg, seqs, scores, batch_size)
+    TOKENS["layerwise"] = seqs.cpu()
     log(f"layerwise: add_ner_ffn=False, batch {batch_size}: {dt:.3f} s, "
         f"{batch_size / dt:.2f} captions/s, mean non-pad length {nonpad:.1f}; launches {counts}")
     check_launched("layerwise", counts, DECODE_KERNELS + ("flash_attention",))
@@ -1055,25 +1246,28 @@ def run_layerwise_phase(cfg, params, batch_size: int):
 
 def build_lines() -> list[str]:
     """Registers a thread, spill bytes and shared memory of the two 512-token
-    self-attention kernels, the two gemm_bf16 kernels, the two layernorm
-    kernels, the int8 and bf16 dec_cross_attention kernels, the bf16, int8
-    and fp8 dec_self_attention kernels at the slice's plans and the four
-    lm_head kernels (N = 64, 128, 192, 256 x rows a pass; BK 160 takes 192),
-    from nvcc's -Xptxas -v output of this build. The dynamic shared
-    memory is the launch's own (csrc/enc_attention.cu: ring + 4 S;
-    csrc/flash_attn.cu: two stages of K, V and the padded bias tile; both
-    + 1024 to align the tiles, computed here for S = 512; gemm: what the
-    built library states for the shape; dec_cross: dec_cross_smem_bytes;
-    dec_self: dec_self_smem_bytes at T = 64; lm_head: csrc/lm_head.cu's
-    Geometry, the ring, 20 KB of staging and the barriers, + 1024). A gemm,
-    layernorm, dec_cross, dec_self or lm_head kernel that spills fails the
-    run."""
+    self-attention kernels, the encoder's cross-attention kernel, the two
+    gemm_bf16 kernels, the two layernorm kernels, the int8 and bf16
+    dec_cross_attention kernels, the bf16, int8 and fp8 dec_self_attention
+    kernels at the slice's plans and the four lm_head and four lm_stats
+    kernels (N = 64, 128, 192, 256 x rows a pass; BK 160 takes 192), from
+    nvcc's -Xptxas -v output of this build. The dynamic shared memory is the
+    launch's own (csrc/enc_attention.cu: ring + 4 S for the self-attention,
+    what the built library states for the cross-attention; csrc/flash_attn.cu:
+    two stages of K, V and the padded bias tile; both + 1024 to align the
+    tiles, computed here for S = 512; gemm: what the built library states
+    for the shape; dec_cross: dec_cross_smem_bytes; dec_self:
+    dec_self_smem_bytes at T = 64; lm_head and lm_stats: what the built
+    library states for csrc/lm_head.cu's Geometry). A kernel other
+    than the 512-token self-attention ones that spills fails the run."""
     import re
 
     from vacnic_tpu_torch.kernels import _build
     from vacnic_tpu_torch.kernels import primitives as K
 
+    lib = _build.lib()
     dynamic = {"enc_self_attn_kernel": 4 * 8192 + 4 * 512 + 1024,
+               "enc_cross_attn_kernel": lib.vt_enc_cross_smem_bytes(),
                "flash_attn_kernelIf": 2 * (2 * 8192 + 64 * 72 * 4) + 1024,
                "flash_attn_kernelI13__nv_bfloat16": 2 * (2 * 8192 + 64 * 72 * 2) + 1024,
                "gemm_large_kernel": K.gemm_smem_bytes(32 * 512, 1024, 1024),
@@ -1088,7 +1282,8 @@ def build_lines() -> list[str]:
                "dec_self_kernelI13__nv_bfloat16E": K.dec_self_smem_bytes(64, 2),
                "dec_self_kernelIaE": K.dec_self_smem_bytes(64, 1),
                "dec_self_kernelI13__nv_fp8_e4m3E": K.dec_self_smem_bytes(64, 1),
-               **{f"lm_head_kernelILi{nb}E": lm_head_smem(nb) for nb in (1, 2, 3, 4)}}
+               **{f"{name}_kernelILi{nb}E": lib.vt_lm_head_smem_bytes(nb, stats)
+                  for name, stats in (("lm_head", 0), ("lm_stats", 1)) for nb in (1, 2, 3, 4)}}
     if not _build.BUILD_LOG:
         return ["ptxas: the library was already built; no compiler output in this run"]
     text = "\n".join(_build.BUILD_LOG)
@@ -1103,20 +1298,11 @@ def build_lines() -> list[str]:
         lines.append(f"ptxas {key}: {regs.group(1)} registers/thread, spill stores "
                      f"{spill.group(1)} B, spill loads {spill.group(2)} B, static shared "
                      f"{static.group(1) if static else 0} B, dynamic shared {dyn} B a block")
-        if key.startswith(("gemm_", "layernorm_", "dec_cross_", "dec_self_", "lm_head_")) and (
+        if key.startswith(("gemm_", "layernorm_", "dec_cross_", "dec_self_", "lm_head_",
+                           "lm_stats_", "enc_cross_")) and (
                 int(spill.group(1)) or int(spill.group(2))):
             raise RuntimeError(f"{key} spills registers: {lines[-1]}")
     return lines
-
-
-def lm_head_smem(nb: int) -> int:
-    """Dynamic shared memory of an lm_head block with N = 64 nb, as
-    csrc/lm_head.cu's Geometry counts it: as many ring slots (16 KB of
-    weights + 8 nb KB of x each, at most 8) as fit beside the 20 KB staging
-    area and the barriers, + 1024 to align the tiles."""
-    stage, staging = (2 + nb) * 8192, 20480
-    stages = min(8, (232448 - 1024 - staging - 128) // stage)
-    return 1024 + stages * stage + staging + 16 * stages
 
 
 KERNEL_FAMILIES = (("gemm_large_kernel", "gemm_bf16 large_m"),
@@ -1207,12 +1393,39 @@ def run_profile_phase(cfg, params, batch_size: int) -> None:
             + f"; all aten ops {sum(a[0] for a in aten):.1f} ms")
 
 
+def compare_tokens(ref: dict, gpu: str) -> None:
+    """Every path run here against the captions another tree saved with
+    --tokens-out on the same seeds: token agreement printed, and any
+    difference fails the run."""
+    import torch
+
+    common = sorted(set(ref) & set(TOKENS))
+    if not common:
+        raise RuntimeError("tokens: no path of this run is in the reference file")
+    differ = []
+    for path in common:
+        a, b = TOKENS[path], ref[path]
+        same = a.shape == b.shape and bool(torch.equal(a, b))
+        agree = float((a == b).float().mean()) if a.shape == b.shape else 0.0
+        log(f"tokens {path}: token agreement with the reference tree {agree:.4f}, "
+            f"{'identical' if same else 'DIFFERENT'} ({gpu})")
+        if not same:
+            differ.append(path)
+    if differ:
+        raise RuntimeError(f"tokens: paths not token-identical to the reference tree: {differ}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
-                    default="build,kernels,dispatch,stacks,slice,selfkv,stats,stackhead,layerwise,"
-                            "profile")
+                    default="build,kernels,accuracy,dispatch,stacks,slice,selfkv,stats,stackhead,"
+                            "layerwise,profile")
     ap.add_argument("--batch", type=int, default=32)
+    ap.add_argument("--tokens-out", metavar="FILE",
+                    help="save each path's captions (torch.save of {path: tokens})")
+    ap.add_argument("--tokens-ref", metavar="FILE",
+                    help="captions saved by --tokens-out from another tree: every path run "
+                         "here must be token-identical to them")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
 
@@ -1244,6 +1457,8 @@ def main() -> int:
         f.write("\n".join(_build.BUILD_LOG))
 
     rows = run_kernels_phase() if "kernels" in phases else []
+    if "accuracy" in phases:
+        run_accuracy_phase(gpu)
     if "dispatch" in phases:
         run_dispatch_phase()
     launches = {}  # kernel -> launches in the run of the path that names it
@@ -1272,6 +1487,11 @@ def main() -> int:
                 cfg, params, args.batch)["flash_attention"]
         if "profile" in phases:
             run_profile_phase(cfg, params, args.batch)
+    if args.tokens_out:
+        torch.save(TOKENS, args.tokens_out)
+        log(f"tokens: the captions of {sorted(TOKENS)} saved to {args.tokens_out}")
+    if args.tokens_ref:
+        compare_tokens(torch.load(args.tokens_ref), gpu)
     for row in rows:
         row["launches"] = launches.get(row.pop("kernel"))
     if not rows:

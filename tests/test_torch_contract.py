@@ -98,7 +98,7 @@ def test_kernel_build_refuses_without_nvcc(monkeypatch, tmp_path):
         _build.build()
     names = {p.name for p in _build._sources()}
     assert names == {"gemm_bf16.cu", "layernorm.cu", "enc_attention.cu", "dec_attention.cu",
-                     "dec_cross_attention.cu", "lm_stats.cu", "flash_attn.cu", "lm_head.cu"}
+                     "dec_cross_attention.cu", "flash_attn.cu", "lm_head.cu"}
 
 
 def test_library_path_follows_headers(monkeypatch, tmp_path):

@@ -598,3 +598,136 @@ def test_lm_head_refuses(dev):
     for call in bad:
         with pytest.raises(ValueError):
             call()
+
+
+@pytest.mark.parametrize("vp", [1024, 4096, 53248])
+@pytest.mark.parametrize("bk", [1, 5, 37, 160, 320, 640])
+def test_lm_stats_tiles(dev, lm_weights, bk, vp):
+    """lm_stats_kernel (the LM head's kernel with the statistics epilogue)
+    at one to three passes over BK, against the twin; m the max of its own
+    logits bit for bit; Vp 53248's last two blocks all pad (m = -1e9, s =
+    1024); bit-identical over two calls; the arrival counters zero after a
+    launch; one launch counted."""
+    from vacnic_tpu_torch.kernels import lm_stats as LS
+    from vacnic_tpu_torch.kernels import primitives as K
+
+    w, b = (a[:vp] for a in lm_weights)
+    x = rn(torch.Generator(device=dev).manual_seed(bk + vp), bk, 1024, dtype=torch.bfloat16)
+    before = K.launch_counts()["lm_stats"]
+    logits, m, s = LS.lm_stats(x, w, b)
+    assert K.launch_counts()["lm_stats"] == before + 1
+    torch.cuda.synchronize()
+    assert not bool(LS.counters(dev).any())
+    pl, pm, ps = LS.lm_stats_plain(x, w, b)
+    close(logits, pl, False)
+    close(m, pm, False)
+    close(s, ps, False)
+    assert torch.equal(m, logits.view(bk, -1, LS.VBLOCK).amax(-1))
+    if vp == 53248:
+        assert bool((m[:, -2:] == -1e9).all()) and bool((s[:, -2:] == 1024.0).all())
+    again = LS.lm_stats(x, w, b)
+    assert all(torch.equal(a, o) for a, o in zip(again, (logits, m, s)))
+
+
+def test_lm_stats_graph_replay(dev, lm_weights):
+    """The counters reset themselves: replays of one captured launch give the
+    eager launch's statistics."""
+    from vacnic_tpu_torch.kernels import lm_stats as LS
+
+    w, b = (a[:8192] for a in lm_weights)
+    x = rn(torch.Generator(device=dev).manual_seed(3), 160, 1024, dtype=torch.bfloat16)
+    eager = LS.lm_stats(x, w, b)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = LS.lm_stats(x, w, b)
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, o) for a, o in zip(out, eager))
+
+
+def test_lm_stats_refuses(dev):
+    from vacnic_tpu_torch.kernels import lm_stats as LS
+
+    x = torch.zeros(8, 64, device=dev, dtype=torch.bfloat16)
+    w = torch.zeros(2048, 64, device=dev, dtype=torch.bfloat16)
+    b = torch.zeros(2048, device=dev)
+    off = torch.zeros(8 * 64 + 1, device=dev, dtype=torch.bfloat16)
+    bad = [lambda: LS.lm_stats(x, w.cpu(), b),                    # CPU weights, CUDA x
+           lambda: LS.lm_stats(x.float(), w, b),                  # not bf16
+           lambda: LS.lm_stats(x, w, b.to(torch.bfloat16)),       # bias not f32
+           lambda: LS.lm_stats(x[:, :48].contiguous(), w[:, :48].contiguous(), b),  # d % 32
+           lambda: LS.lm_stats(x, w[:1536], b[:1536]),            # Vp % 1024
+           lambda: LS.lm_stats(x[:0], w, b),                      # BK 0
+           lambda: LS.lm_stats(off[1:].view(8, 64), w, b)]        # x off 16 bytes
+    for call in bad:
+        with pytest.raises(ValueError):
+            call()
+
+
+@pytest.mark.parametrize("nb", [1, 2, 3, 4])
+def test_lm_head_smem_from_the_library(dev, nb):
+    """The library states each instance's shared memory: the statistics'
+    4 KB exchange and flags sit beside the LM head's ring without taking a
+    slot from it, inside the 227 KB a block may have; other N are refused."""
+    from vacnic_tpu_torch.kernels import _build
+    from vacnic_tpu_torch.kernels import primitives as K
+
+    lib = _build.lib()
+    plain, stats = lib.vt_lm_head_smem_bytes(nb, 0), lib.vt_lm_head_smem_bytes(nb, 1)
+    assert stats == plain + 4096 + 16 <= K.SMEM_MAX
+    assert lib.vt_lm_head_smem_bytes(0, 1) == lib.vt_lm_head_smem_bytes(5, 0) == -1
+
+
+def test_enc_cross_smem_from_the_library(dev):
+    """Four blocks of the cross-attention (K, V, three q tiles and the
+    output tile, + 1024 to align) fit an SM's 228 KB, 1 KB a block kept by
+    the card."""
+    from vacnic_tpu_torch.kernels import _build
+
+    smem = _build.lib().vt_enc_cross_smem_bytes()
+    assert smem == 1024 + 6 * 64 * 128
+    assert 4 * (smem + 1024) <= 228 * 1024
+
+
+@pytest.mark.parametrize("kv", [1, 8, 40, 64])
+@pytest.mark.parametrize("s_len", [1, 63, 64, 130, 512])
+def test_enc_cross_tiles(dev, s_len, kv):
+    """The tensor-core cross-attention against its twin at every KV <= 64
+    and ragged S (a last q tile of 1, 63, 2 rows), bit-identical over two
+    calls; and at batch 32, whose one (item, head) block walks all eight q
+    tiles of S 512, and batch 1, eight blocks of one q tile each."""
+    from vacnic_tpu_torch.kernels import primitives as K
+
+    g = torch.Generator(device=dev).manual_seed(s_len * 100 + kv)
+    bf = torch.bfloat16
+    # the launcher gives an (item, head) as many blocks as fill the card: one
+    # at batch 32 x 16 heads, one a q tile at batch 1 x 4 heads
+    for b_sz, heads in ((3, 4), (32, 16), (1, 4)) if s_len == 512 else ((3, 4),):
+        d = heads * 64
+        q = rn(g, b_sz * s_len, d, dtype=bf)
+        ck, cv = rn(g, b_sz, d, kv, dtype=bf), rn(g, b_sz, kv, d, dtype=bf)
+        before = K.launch_counts()["enc_cross_attention"]
+        out = K.enc_cross_attention(q, ck, cv, b_sz, s_len, heads)
+        assert K.launch_counts()["enc_cross_attention"] == before + 1
+        close(out, K.enc_cross_attention_plain(q, ck, cv, b_sz, s_len, heads), True)
+        assert torch.equal(out, K.enc_cross_attention(q, ck, cv, b_sz, s_len, heads))
+
+
+def test_enc_cross_refuses(dev):
+    from vacnic_tpu_torch.kernels import primitives as K
+
+    bf = torch.bfloat16
+    q = torch.zeros(2 * 8, 128, device=dev, dtype=bf)
+    ck, cv = torch.zeros(2, 128, 8, device=dev, dtype=bf), torch.zeros(2, 8, 128, device=dev,
+                                                                       dtype=bf)
+    ck65, cv65 = torch.zeros(2, 128, 65, device=dev, dtype=bf), torch.zeros(2, 65, 128,
+                                                                           device=dev, dtype=bf)
+    bad = [lambda: K.enc_cross_attention(q, ck65, cv65, 2, 8, 2),          # KV > 64
+           lambda: K.enc_cross_attention(q, ck[:, :, :0].contiguous(), cv[:, :0].contiguous(),
+                                         2, 8, 2),                          # KV 0
+           lambda: K.enc_cross_attention(q.float(), ck, cv, 2, 8, 2),       # not bf16
+           lambda: K.enc_cross_attention(q, ck, cv, 2, 8, 4)]               # head_dim 32
+    for call in bad:
+        with pytest.raises(ValueError):
+            call()

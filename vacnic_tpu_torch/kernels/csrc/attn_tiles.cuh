@@ -273,4 +273,19 @@ __device__ __forceinline__ void store_o_tile(__nv_bfloat16* out, long long strid
   }
 }
 
+// ---- host ----
+
+// SMs of the current device, asked once per device; 0 on an error.
+inline int sm_count() {
+  static int dev_seen = -1, sms = 0;
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  if (dev != dev_seen) {
+    if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      return 0;
+    dev_seen = dev;
+  }
+  return sms;
+}
+
 }  // namespace attn_tiles

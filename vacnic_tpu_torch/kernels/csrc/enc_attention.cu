@@ -14,7 +14,8 @@
 //   self: q, k, v and o are 134 MB, ~40 us at 3.35 TB/s (bytes); the two
 //     products are 4*B*H*S*S*hd = 34.4 GFLOP, ~35 us at 989 TFLOP/s, close
 //     behind. The design below computes Q K^T twice (51.6 GFLOP, ~52 us).
-//   cross: ~2.7 GFLOP against ~64 MB of q and o -- bytes bound (~20 us).
+//   cross: ~2.7 GFLOP against ~64 MB of q and o -- bytes bound (~20 us):
+//     the kernel has to move q in and o out at the memory's rate.
 // Design, self: the probabilities are rounded after the exact normalisation,
 //   which an online rescale of the output cannot reproduce, so the kernel
 //   makes two passes over the keys. Pass 1 computes Q K^T + bias tile by
@@ -40,11 +41,31 @@
 //   build never overflows to -inf (the TPU kernel had to clamp it before a
 //   bf16 cast). The output is stored as bf16 pairs, a quad of lanes covering
 //   16 contiguous bytes of a row.
-// Design, cross: one thread per query row, the head's K [hd, KV] and
-//   V [KV, hd] in shared memory as f32 and read by broadcast; KV <= 64.
+// Design, cross: the flash kernel with a single key tile, on the tensor
+//   cores. One block of one warpgroup takes an (item, head) and every
+//   gridDim.x-th 64-row tile of its q; the grid's x is as many tile groups
+//   as keep every SM's four block slots busy (one group at B = 32, 512
+//   blocks of eight tiles; four at B = 8). The head's K (hd x KV, keys
+//   contiguous: the MN-major B of q K^T) and V (KV x hd: the MN-major B of
+//   P V) are loaded once into swizzled 64 x 64 tiles, zero past KV (ck's
+//   rows are KV x 2 bytes apart, 80 at KV 40, so K comes by scalar loads,
+//   not TMA). q tiles stream through a ring of three by 16-byte cp.async,
+//   two tiles ahead of the one in work, zero-filled past S. Per tile: the q
+//   fragments are read from the ring, scaled and rounded to bf16 (A from
+//   registers); S = q K^T is one m64n64 wgmma over k = 64; keys at or past
+//   KV are set to -inf before the row max; the softmax runs in registers
+//   (accurate expf, normalised by the reciprocal of the row sum, as the
+//   kernel before); the normalised P is packed to bf16 as the A operand of
+//   O = P V; O is rounded once, turned around in shared memory and stored
+//   as whole 128-byte row slices. wgmma, not mma.sync: the same fragment
+//   layouts as enc_self_attn_kernel (attn_tiles.cuh), one instruction a
+//   k-step, and the tile operands read once a block; at 2.7 GFLOP the
+//   kernel is bytes bound either way.
 
 #include <float.h>
 #include <math.h>
+#include <stdint.h>
+#include <initializer_list>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
@@ -63,10 +84,11 @@ constexpr int RING_BYTES = 2 * 2 * KV_TILE_BYTES;  // two stages of K tile | V t
 constexpr int SELF_SMEM_FIXED = RING_BYTES + TILE_ALIGN;  // + 4 S for the bias row
 constexpr int MAX_S = 32768;  // bounds the bias row in shared memory
 constexpr int MAX_KV = 64;
-
-__device__ __forceinline__ float bf16_round(float x) {
-  return __bfloat162float(__float2bfloat16(x));
-}
+constexpr int CROSS_THREADS = QT / 16 * 32;  // one warpgroup: a 64-row q tile, 16 rows a warp
+constexpr int CROSS_STAGES = 3;              // q tiles a block has in flight
+// K tile | V tile | CROSS_STAGES q tiles | the output tile, + 1024 to align
+constexpr int CROSS_SMEM = TILE_ALIGN + (3 + CROSS_STAGES) * KV_TILE_BYTES;
+constexpr int CROSS_BLOCKS_PER_SM = 4;      // the block slots the grid fills
 
 __global__ void __launch_bounds__(SELF_THREADS, 4)
 enc_self_attn_kernel(const __nv_bfloat16* __restrict__ qkv, const float* __restrict__ bias,
@@ -195,74 +217,168 @@ enc_self_attn_kernel(const __nv_bfloat16* __restrict__ qkv, const float* __restr
   store_o_tile(out + (tok0 + row0) * d + h * HD, d, o, 1.0f, 1.0f, lane);
 }
 
-__global__ void __launch_bounds__(128)
+// One 16-byte asynchronous copy that reads `src` only when `ok`, and
+// writes zeros otherwise (src-size 0): the q rows past S.
+__device__ __forceinline__ void cp_async16_zfill(uint32_t dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+__global__ void __launch_bounds__(CROSS_THREADS, 4)  // four blocks an SM: 4 x 49 KB
 enc_cross_attn_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ ck,
                       const __nv_bfloat16* __restrict__ cv, __nv_bfloat16* __restrict__ out,
                       int S, int KV, int H, float scaling) {
-  __shared__ float Ks[HD][MAX_KV];
-  __shared__ float Vs[MAX_KV][HD];
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_tiles(smem_raw);
+  const uint32_t smem0 = smem_u32(smem);
+  const uint32_t ktile = smem0, vtile = smem0 + KV_TILE_BYTES;  // K [hd][key], V [key][hd]
+  const uint32_t ring0 = smem0 + 2 * KV_TILE_BYTES;               // CROSS_STAGES q tiles
+  unsigned char* ostage = smem + (2 + CROSS_STAGES) * KV_TILE_BYTES;  // the output tile
+
   const int d = H * HD;
   const int h = blockIdx.y, b = blockIdx.z;
-  for (int i = threadIdx.x; i < HD * KV; i += blockDim.x) {
-    const int j = i / KV, kv = i % KV;  // ck is [B, d, KV]
-    Ks[j][kv] = __bfloat162float(ck[((size_t)b * d + h * HD + j) * KV + kv]);
-  }
-  for (int i = threadIdx.x; i < KV * HD; i += blockDim.x) {
-    const int kv = i / HD, j = i % HD;  // cv is [B, KV, d]
-    Vs[kv][j] = __bfloat162float(cv[((size_t)b * KV + kv) * d + h * HD + j]);
-  }
-  __syncthreads();
-  const int row = blockIdx.x * blockDim.x + threadIdx.x;
-  if (row >= S) return;
-  const size_t tok = (size_t)b * S + row;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const size_t tok0 = (size_t)b * S;
+  const __nv_bfloat16* qbase = q + tok0 * d + h * HD;
+  // this block's q tiles: blockIdx.x, blockIdx.x + gridDim.x, ...
+  const int n_tiles = (S + QT - 1) / QT;
+  const int mine = ((int)blockIdx.x < n_tiles) ? (n_tiles - 1 - blockIdx.x) / gridDim.x + 1 : 0;
 
-  float qv[HD];
-  const uint4* qp = reinterpret_cast<const uint4*>(q + tok * d + h * HD);
+  // the block's i-th tile into ring slot i % CROSS_STAGES; one commit group
+  // a tile, empty past the last, so that the wait below counts alike
+  auto prefetch = [&](int i) {
+    if (i < mine) {
+      const int q0 = (blockIdx.x + i * gridDim.x) * QT;
+      const uint32_t dst = ring0 + (i % CROSS_STAGES) * KV_TILE_BYTES;
 #pragma unroll
-  for (int c = 0; c < HD / 8; ++c) {
-    uint4 raw = qp[c];
-    const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&raw);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) qv[c * 8 + i] = bf16_round(__bfloat162float(e[i]) * scaling);
-  }
-  float s[MAX_KV];
-  float m = -INFINITY;
-#pragma unroll
-  for (int kv = 0; kv < MAX_KV; ++kv) {
-    float a = 0.0f;
-    if (kv < KV) {
-#pragma unroll
-      for (int j = 0; j < HD; ++j) a += qv[j] * Ks[j][kv];
-      m = fmaxf(m, a);
+      for (int k = 0; k < QT * 8 / CROSS_THREADS; ++k) {
+        const int c = tid + k * CROSS_THREADS, row = c >> 3, chunk = c & 7;
+        const bool ok = q0 + row < S;
+        cp_async16_zfill(dst + swz(row, chunk),
+                         qbase + (size_t)(ok ? q0 + row : 0) * d + chunk * 8, ok);
+      }
     }
-    s[kv] = a;
-  }
-  float l = 0.0f;
+    cp_async_commit();
+  };
 #pragma unroll
-  for (int kv = 0; kv < MAX_KV; ++kv) {
-    s[kv] = (kv < KV) ? expf(s[kv] - m) : 0.0f;
-    l += s[kv];
-  }
-  const float inv = 1.0f / l;
-  float o[HD];
+  for (int i = 0; i < CROSS_STAGES - 1; ++i) prefetch(i);
+
+  // K and V of the (item, head), once, zero past KV: K's row j is head
+  // column j of ck (keys contiguous, KV x 2 bytes apart: scalar loads), V's
+  // row k is key k of cv (16-byte loads)
+  const __nv_bfloat16* kbase = ck + ((size_t)b * d + h * HD) * KV;
+  const __nv_bfloat16 zero = __float2bfloat16(0.0f);
 #pragma unroll
-  for (int j = 0; j < HD; ++j) o[j] = 0.0f;
+  for (int k = 0; k < HD * 8 / CROSS_THREADS; ++k) {
+    const int c = tid + k * CROSS_THREADS, j = c >> 3, chunk = c & 7;
+    __align__(16) __nv_bfloat16 e[8];
 #pragma unroll
-  for (int kv = 0; kv < MAX_KV; ++kv) {
-    if (kv < KV) {
-      const float p = bf16_round(s[kv] * inv);
-#pragma unroll
-      for (int j = 0; j < HD; ++j) o[j] += p * Vs[kv][j];
+    for (int i = 0; i < 8; ++i) {
+      const int key = chunk * 8 + i;
+      e[i] = key < KV ? kbase[(size_t)j * KV + key] : zero;
     }
+    *reinterpret_cast<uint4*>(smem + swz(j, chunk)) = *reinterpret_cast<const uint4*>(e);
   }
-  uint4* op = reinterpret_cast<uint4*>(out + tok * d + h * HD);
 #pragma unroll
-  for (int c = 0; c < HD / 8; ++c) {
-    uint4 raw;
-    __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&raw);
+  for (int k = 0; k < MAX_KV * 8 / CROSS_THREADS; ++k) {
+    const int c = tid + k * CROSS_THREADS, key = c >> 3, chunk = c & 7;
+    uint4 v = make_uint4(0, 0, 0, 0);
+    if (key < KV)
+      v = __ldg(reinterpret_cast<const uint4*>(cv + ((size_t)b * KV + key) * d + h * HD) + chunk);
+    *reinterpret_cast<uint4*>(smem + KV_TILE_BYTES + swz(key, chunk)) = v;
+  }
+  fence_proxy_async();  // written by the threads, read by wgmma
+
+  const int row0 = warp * 16 + g;  // this lane's rows of a tile: row0, row0 + 8
+  for (int i = 0; i < mine; ++i) {
+    cp_async_wait<CROSS_STAGES - 2>();
+    __syncthreads();  // tile i has landed for all; slot i - 1 and the output tile are free
+    prefetch(i + CROSS_STAGES - 1);
+    const int q0 = (blockIdx.x + i * gridDim.x) * QT;
+
+    // q fragments (A from registers) from the swizzled slot, scaled and
+    // rounded to bf16
+    const unsigned char* qs = smem + 2 * KV_TILE_BYTES + (i % CROSS_STAGES) * KV_TILE_BYTES;
+    uint32_t qf[4][4];
 #pragma unroll
-    for (int i = 0; i < 8; ++i) e[i] = __float2bfloat16(o[c * 8 + i]);
-    op[c] = raw;
+    for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = row0 + (e & 1) * 8, chunk = 2 * kk + (e >> 1);
+        const uint32_t raw = *reinterpret_cast<const uint32_t*>(qs + swz(row, chunk) + 4 * t);
+        const float2 f =
+            __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw));
+        qf[kk][e] = pack_bf16x2(f.x * scaling, f.y * scaling);
+      }
+    }
+
+    // S = q K^T: K [hd][key] is the MN-major B operand; head-dim step kk
+    // starts 16 rows (2048 bytes) further on
+    float s[8][4];
+    const uint64_t kdesc = wgmma_tile_desc(ktile);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_m64n64k16<1>(s, qf[kk], kdesc + 128 * kk, kk != 0);
+    wgmma_commit();
+    wgmma_wait(s);
+
+    // the keys at or past KV are padding: -inf before the max
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        if (8 * j + 2 * t + e >= KV) s[j][e] = s[j][2 + e] = -INFINITY;
+      }
+      mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
+      mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
+    }
+    mx0 = quad_max(mx0);
+    mx1 = quad_max(mx1);
+    float l0 = 0.0f, l1 = 0.0f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      s[j][0] = expf(s[j][0] - mx0);
+      s[j][1] = expf(s[j][1] - mx0);
+      s[j][2] = expf(s[j][2] - mx1);
+      s[j][3] = expf(s[j][3] - mx1);
+      l0 += s[j][0] + s[j][1];
+      l1 += s[j][2] + s[j][3];
+    }
+    const float inv0 = 1.0f / quad_sum(l0), inv1 = 1.0f / quad_sum(l1);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {  // the normalised probabilities, rounded by pack_p_frags
+      s[j][0] *= inv0;
+      s[j][1] *= inv0;
+      s[j][2] *= inv1;
+      s[j][3] *= inv1;
+    }
+    uint32_t pf[4][4];
+    pack_p_frags(pf, s);
+    float o[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.0f;
+    pv_tile(o, pf, vtile);
+    wgmma_wait(o);
+
+    // the output turned around in shared memory, then stored as 16-byte
+    // pieces of rows: a warp writes four whole 128-byte row slices
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      *reinterpret_cast<uint32_t*>(ostage + swz(row0, j) + 4 * t) = pack_bf16x2(o[j][0], o[j][1]);
+      *reinterpret_cast<uint32_t*>(ostage + swz(row0 + 8, j) + 4 * t) =
+          pack_bf16x2(o[j][2], o[j][3]);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < QT * 8 / CROSS_THREADS; ++k) {
+      const int c = tid + k * CROSS_THREADS, row = c >> 3, chunk = c & 7;
+      if (q0 + row < S)
+        *reinterpret_cast<uint4*>(out + (tok0 + q0 + row) * d + h * HD + chunk * 8) =
+            *reinterpret_cast<const uint4*>(ostage + swz(row, chunk));
+    }
   }
 }
 
@@ -292,14 +408,40 @@ extern "C" int vt_enc_self_attention(const void* qkv, const void* bias, void* ou
 }
 
 // q [B*S, H*64] bf16, ck [B, H*64, KV] bf16, cv [B, KV, H*64] bf16,
-// out [B*S, H*64] bf16. Needs KV <= 64.
+// out [B*S, H*64] bf16. Needs 1 <= KV <= 64, S >= 1 and q, cv and out on
+// 16 bytes; anything else is refused with cudaErrorInvalidValue.
 extern "C" int vt_enc_cross_attention(const void* q, const void* ck, const void* cv, void* out,
                                       int B, int S, int KV, int H, float scaling, void* stream) {
+  const int invalid = static_cast<int>(cudaErrorInvalidValue);
+  if (B < 1 || S < 1 || H < 1 || KV < 1 || KV > MAX_KV) return invalid;
+  for (const void* p : {q, cv, static_cast<const void*>(out)})
+    if (reinterpret_cast<uintptr_t>(p) % 16) return invalid;
+  static int configured_device = -1;  // the attribute is set once per device, not per launch
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (dev != configured_device) {
+    e = cudaFuncSetAttribute(enc_cross_attn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             CROSS_SMEM);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    configured_device = dev;
+  }
+  // blocks an (item, head), each taking every groups-th q tile: as many as
+  // fill the SMs' block slots, at least one and at most one a q tile
+  const int sms = sm_count();
+  if (sms <= 0) return static_cast<int>(cudaErrorInvalidDevice);
+  const long long fill = (long long)sms * CROSS_BLOCKS_PER_SM / ((long long)B * H);
+  const int tiles = (S + QT - 1) / QT;
+  const int groups = fill < 1 ? 1 : fill > tiles ? tiles : static_cast<int>(fill);
+  dim3 grid(groups, H, B);
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  dim3 grid((S + 127) / 128, H, B);
-  enc_cross_attn_kernel<<<grid, 128, 0, s>>>(
+  enc_cross_attn_kernel<<<grid, CROSS_THREADS, CROSS_SMEM, s>>>(
       reinterpret_cast<const __nv_bfloat16*>(q), reinterpret_cast<const __nv_bfloat16*>(ck),
       reinterpret_cast<const __nv_bfloat16*>(cv), reinterpret_cast<__nv_bfloat16*>(out), S, KV,
       H, scaling);
   return static_cast<int>(cudaGetLastError());
 }
+
+// Dynamic shared memory a block of enc_cross_attn_kernel takes. Returns
+// bytes, not an error code.
+extern "C" int vt_enc_cross_smem_bytes() { return CROSS_SMEM; }

@@ -305,8 +305,11 @@ def enc_cross_attention(q, ck, cv, batch: int, seq: int, heads: int):
     _req(q, "enc_cross q", torch.bfloat16, (batch * seq, d))
     _req(ck, "enc_cross k", torch.bfloat16, (batch, d, kv), q.device)
     _req(cv, "enc_cross v", torch.bfloat16, (batch, kv, d), q.device)
-    if d != heads * 64 or kv > 64:
-        raise ValueError(f"enc_cross_attention: needs head_dim 64 and KV <= 64 (d={d}, KV={kv})")
+    if d != heads * 64 or not 1 <= kv <= 64:
+        raise ValueError(f"enc_cross_attention: needs head_dim 64 and 1 <= KV <= 64 "
+                         f"(d={d}, KV={kv})")
+    if q.data_ptr() % 16 or cv.data_ptr() % 16:
+        raise ValueError("enc_cross_attention: q and cv must start on 16 bytes")
     out = torch.empty_like(q)
     _launch("enc_cross_attention", "vt_enc_cross_attention", _p(q), _p(ck), _p(cv), _p(out),
             batch, seq, kv, heads, ctypes.c_float(64 ** -0.5))
