@@ -82,6 +82,24 @@ Phases:
            (flash again in its text encoder); and the layer-by-layer encoder
            at batch 2 on the card (bf16) against the same encoder in f32 on
            the CPU (relative error <= 5e-2).
+  serve    the serving entry point (vacnic_tpu_torch/serve.py) on the
+           slice's config. Checkpoints: the slice's tree and a seeded
+           ViT-B/16 CLIP tree written under the reference's names and torch
+           layouts (model.-prefixed (out, in) weights; OpenAI visual.* with
+           in_proj_weight packed and conv1 OIHW), as a torch.save .bin and as
+           .safetensors (a writer of a few lines here), loaded by
+           weights_io.load_state_dict and converted back: every leaf must be
+           bit-identical. CaptionService(device="cuda") on the converted trees
+           behind make_http_server: 32 HTTP requests from 32 threads must
+           come back token- and score-identical to a direct generate_mm of
+           the same batch, with every kernel launched at the slice's counts
+           (zeroed just before the requests, read just after);
+           input_kind="pixels" at batch 8 identical to clip_vision_fwd +
+           generate_mm. Readings, not gated: the CLIP tower's ms at batch 8
+           and 32; with buckets (1, 8, 32) after precompile(), b1 latency
+           (median, p95 of 10 sequential requests), captions/s of a burst of
+           256 requests over HTTP, of the same rows submitted in-process and
+           of eight direct generate_mm calls of 32 on them, and stats().
   profile  the fused encoder alone, then one more run of each of the slice,
            selfkv (int8, fp8), stats, stackhead and layerwise paths under
            torch.profiler: device time by kernel family (dec_self_attention
@@ -973,21 +991,31 @@ def run_slice_phase(cfg, params, batch_size: int):
     t0 = time.perf_counter()
     seqs, scores = run()
     dt = time.perf_counter() - t0
-    counts = K.launch_counts()
-    by_kernel = K.gemm_variant_counts()
-    ln_by_kernel = K.layernorm_variant_counts()
-    self_by_kind = K.dec_self_variant_counts()
     nonpad = check_captions("slice", cfg, seqs, scores, batch_size)
     TOKENS["slice"] = seqs.cpu()
     log(f"slice: full_train beam {cfg.decode.num_beams} x {cfg.decode.max_length} x lp "
         f"{cfg.decode.length_penalty}, batch {batch_size}: {dt:.3f} s, "
         f"{batch_size / dt:.2f} captions/s, mean non-pad length {nonpad:.1f}, "
-        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {counts}")
-    check_launched("slice", counts, SLICE_KERNELS)
-    log(f"slice: gemm_bf16 by kernel {by_kernel}")
+        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
+        f"{K.launch_counts()}")
+    return check_slice_counts("slice", cfg), seqs
+
+
+def check_slice_counts(tag: str, cfg) -> dict:
+    """The launch counts since the last reset, held to one batch of the
+    slice's path (the fused encoder, then every decode step on the bf16
+    self cache) -> the counts with the per-kernel splits added."""
+    from vacnic_tpu_torch.kernels import primitives as K
+
+    counts = K.launch_counts()
+    by_kernel = K.gemm_variant_counts()
+    ln_by_kernel = K.layernorm_variant_counts()
+    self_by_kind = K.dec_self_variant_counts()
+    check_launched(tag, counts, SLICE_KERNELS)
+    log(f"{tag}: gemm_bf16 by kernel {by_kernel}")
     enc_products = 6 * cfg.bart.encoder_layers  # M = batch x 512 rows; decode has batch x 5
     if by_kernel != {"large_m": enc_products, "small_m": counts["gemm_bf16"] - enc_products}:
-        raise RuntimeError(f"slice: gemm_bf16 kernels {by_kernel}: expected {enc_products} "
+        raise RuntimeError(f"{tag}: gemm_bf16 kernels {by_kernel}: expected {enc_products} "
                            "large_m launches (the encoder's) and small_m for the rest")
     counts.update({f"gemm_bf16:{v}": n for v, n in by_kernel.items()})
     # one launch a call: three layer norms an encoder layer and a decoder
@@ -997,17 +1025,17 @@ def run_slice_phase(cfg, params, batch_size: int):
     dec_layers = cfg.bart.decoder_layers
     want = {"layernorm": 3 * cfg.bart.encoder_layers + 3 * dec_layers * steps,
             "dec_cross_attention": dec_layers * steps, "dec_self_attention": dec_layers * steps}
-    log(f"slice: layernorm by kernel {ln_by_kernel}, dec_self_attention by cache {self_by_kind}; "
+    log(f"{tag}: layernorm by kernel {ln_by_kernel}, dec_self_attention by cache {self_by_kind}; "
         f"expected {want}")
     if any(counts[k] != n for k, n in want.items()) or ln_by_kernel != {
             "warp": want["layernorm"], "block": 0} or self_by_kind != {
             "bf16": want["dec_self_attention"], "int8": 0, "fp8": 0}:
-        raise RuntimeError(f"slice: launches {counts}, layernorm by kernel {ln_by_kernel}, "
+        raise RuntimeError(f"{tag}: launches {counts}, layernorm by kernel {ln_by_kernel}, "
                            f"dec_self_attention by cache {self_by_kind}: expected {want}, all "
                            "layernorm launches the warp kernel's, all dec_self the bf16 cache's")
     counts.update({f"layernorm:{v}": n for v, n in ln_by_kernel.items()})
     counts.update({f"dec_self_attention:{v}": n for v, n in self_by_kind.items()})
-    return counts, seqs
+    return counts
 
 
 def run_selfkv_phase(cfg, params, batch_size: int, ref_seqs, gpu: str) -> dict:
@@ -1244,6 +1272,374 @@ def run_layerwise_phase(cfg, params, batch_size: int):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# serve phase
+# ---------------------------------------------------------------------------
+
+# tree key -> the reference module's member name, where they differ
+# (models/weights_io.convert_multimodal_bart's docstring)
+MEMBER_NAMES = {"img_up": "_linear_1up", "img_down": "_linear_1down", "face_up": "_face_up",
+                "face_down": "_face_down", "face_proj": "_linear_1"}
+SAFETENSORS_NAMES = {"float32": "F32", "float16": "F16", "bfloat16": "BF16", "float64": "F64",
+                     "int64": "I64", "int32": "I32", "int8": "I8", "uint8": "U8", "bool": "BOOL"}
+
+
+def _export(sd: dict, name: str, p) -> None:
+    """One node of a parameter tree under its torch name, on the CPU: a
+    linear ([in, out] kernel -> (out, in) weight), a layer norm, an
+    embedding, or a dict of them (an attention's four linears)."""
+    if "kernel" in p:
+        sd[f"{name}.weight"] = p["kernel"].detach().t().contiguous().cpu()
+        if "bias" in p:
+            sd[f"{name}.bias"] = p["bias"].detach().cpu()
+    elif "scale" in p:
+        sd[f"{name}.weight"], sd[f"{name}.bias"] = p["scale"].detach().cpu(), p["bias"].detach().cpu()
+    elif "weight" in p:
+        sd[f"{name}.weight"] = p["weight"].detach().cpu()
+    else:
+        for key, sub in p.items():
+            _export(sd, f"{name}.{key}", sub)
+
+
+def reference_state_dict(tree) -> dict:
+    """models/fusion.py tree -> the reference BartForMultiModalGeneration's
+    state dict: `model.`-prefixed names, torch (out, in) weights,
+    `final_logits_bias` [1, V]. The inverse of
+    models/weights_io.convert_multimodal_bart; the JAX package has no
+    exporter, so it lives here."""
+    sd = {"model.shared.weight": tree["shared"]["weight"].detach().cpu()}
+    for side in ("encoder", "decoder"):
+        part = tree[side]
+        for key in ("embed_positions", "layernorm_embedding"):
+            _export(sd, f"model.{side}.{key}", part[key])
+        for i, layer in enumerate(part["layers"]):
+            for key, p in layer.items():
+                _export(sd, f"model.{side}.layers.{i}.{MEMBER_NAMES.get(key, key)}", p)
+    enc = tree["encoder"]
+    mapper = enc.get("prompt_mlp")
+    if mapper is not None:  # both mapper kinds: linears at model.0, model.2, ...
+        stages = mapper["stages"] if "stages" in mapper else (mapper["prompt_fc1"],
+                                                              mapper["prompt_fc2"])
+        for j, stage in enumerate(stages):
+            _export(sd, f"model.encoder.prompt_mlp.model.{2 * j}", stage)
+    for key in ("visual_map", "embed_tokens_ner", "embed_positions_ner",
+                "layernorm_embedding_ner", "face_proj"):
+        if key in enc:
+            _export(sd, f"model.encoder.{MEMBER_NAMES.get(key, key)}", enc[key])
+    sd["final_logits_bias"] = tree["final_logits_bias"].detach().cpu()[None]
+    return sd
+
+
+def openai_clip_state_dict(tree) -> dict:
+    """models/clip_vit.py tree -> OpenAI CLIP's `visual.*` state dict: the
+    HWIO conv1 kernel as OIHW, q/k/v packed into in_proj_weight / _bias.
+    The inverse of models/weights_io.convert_clip_vision_openai."""
+    import torch
+
+    sd = {"visual.conv1.weight": tree["conv1"]["kernel"].detach().permute(3, 2, 0, 1)
+          .contiguous().cpu(),
+          "visual.class_embedding": tree["class_embedding"].detach().cpu(),
+          "visual.positional_embedding": tree["positional_embedding"].detach().cpu()}
+    _export(sd, "visual.ln_pre", tree["ln_pre"])
+    _export(sd, "visual.ln_post", tree["ln_post"])
+    if "proj" in tree:
+        sd["visual.proj"] = tree["proj"].detach().cpu()
+    for i, layer in enumerate(tree["layers"]):
+        pre = f"visual.transformer.resblocks.{i}"
+        qkv = [layer["attn"][n] for n in ("q_proj", "k_proj", "v_proj")]
+        sd[f"{pre}.attn.in_proj_weight"] = torch.cat([p["kernel"].detach().t() for p in qkv]).cpu()
+        sd[f"{pre}.attn.in_proj_bias"] = torch.cat([p["bias"].detach() for p in qkv]).cpu()
+        _export(sd, f"{pre}.attn.out_proj", layer["attn"]["out_proj"])
+        for key in ("ln_1", "ln_2"):
+            _export(sd, f"{pre}.{key}", layer[key])
+        for key in ("c_fc", "c_proj"):
+            _export(sd, f"{pre}.mlp.{key}", layer["mlp"][key])
+    return sd
+
+
+def write_safetensors(path: str, sd: dict) -> None:
+    """The `.safetensors` format in a few lines: an 8-byte little-endian
+    header length, a JSON header (dtype, shape, data_offsets of each
+    tensor), the raw little-endian bytes one tensor after another."""
+    import torch
+
+    header, blobs, offset = {}, [], 0
+    for name, t in sd.items():
+        t = t.detach().contiguous().cpu()
+        raw = t.reshape(-1).view(torch.uint8).numpy().tobytes()
+        header[name] = {"dtype": SAFETENSORS_NAMES[str(t.dtype).split(".")[-1]],
+                        "shape": list(t.shape), "data_offsets": [offset, offset + len(raw)]}
+        blobs.append(raw)
+        offset += len(raw)
+    head = json.dumps(header).encode()
+    head += b" " * (-len(head) % 8)  # the data starts 8-byte aligned
+    with open(path, "wb") as f:
+        f.write(len(head).to_bytes(8, "little"))
+        f.write(head)
+        for raw in blobs:
+            f.write(raw)
+
+
+def tree_mismatches(got, want, path: str = "") -> list[str]:
+    """Where `got` (a converted tree: f32 CPU leaves) differs from `want`:
+    another structure, a leaf that is not f32, or a leaf not bit-identical
+    to want's leaf widened to f32 on the CPU."""
+    import torch
+
+    if isinstance(want, dict):
+        if not isinstance(got, dict) or sorted(got) != sorted(want):
+            return [f"{path}: keys {sorted(got) if isinstance(got, dict) else type(got)}"]
+        return [m for k in want for m in tree_mismatches(got[k], want[k], f"{path}/{k}")]
+    if isinstance(want, (tuple, list)):
+        if type(got) is not type(want) or len(got) != len(want):
+            return [f"{path}: {type(got).__name__} of {len(got)}"]
+        return [m for i, (g, w) in enumerate(zip(got, want))
+                for m in tree_mismatches(g, w, f"{path}[{i}]")]
+    if got.dtype != torch.float32 or not torch.equal(got, want.detach().cpu().float()):
+        return [f"{path}: {got.dtype} {tuple(got.shape)}"]
+    return []
+
+
+def http_opener():
+    """urllib without proxies: the requests go to this process's own server."""
+    import urllib.request
+
+    return urllib.request.build_opener(urllib.request.ProxyHandler({}))
+
+
+def request_body(row: dict) -> bytes:
+    """A sample as the JSON body of POST /v1/caption."""
+    return json.dumps({k: v.tolist() for k, v in row.items()}).encode()
+
+
+def post_caption(opener, base: str, body: bytes) -> dict:
+    import urllib.request
+
+    req = urllib.request.Request(f"{base}/v1/caption", data=body,
+                                 headers={"Content-Type": "application/json"})
+    with opener.open(req, timeout=600) as r:
+        return json.load(r)
+
+
+def sample_rows(cfg, n: int, seed: int, with_pixels: bool = False) -> list[dict]:
+    from vacnic_tpu_torch.data.synthetic import synthetic_batch
+
+    b = synthetic_batch(cfg, n, seed=seed, with_pixels=with_pixels)
+    keys = ("article_ids", "pixels" if with_pixels else "image_cls", "face_emb", "names_art_ids")
+    return [{k: b[k][i].numpy() for k in keys} for i in range(n)]
+
+
+def direct_generate(cfg, model, rows, img_cls=None):
+    """generate_mm on the card of the stacked rows, as the service runs it
+    -> (tokens [n, L] int64, scores [n] f32), both on the CPU."""
+    import numpy as np
+    import torch
+
+    from vacnic_tpu_torch.infer.generate import generate_mm
+    from vacnic_tpu_torch.train.train_step import create_mask, face_mask_from_emb
+
+    b = {k: torch.from_numpy(np.stack([r[k] for r in rows])).cuda() for k in rows[0]}
+    seqs, scores = generate_mm(
+        model, b["article_ids"], create_mask(b["article_ids"]),
+        b["image_cls"] if img_cls is None else img_cls, cfg.bart, cfg.fusion, cfg.decode,
+        face_features=b["face_emb"], face_mask=face_mask_from_emb(b["face_emb"]),
+        name_ids=b["names_art_ids"], name_mask=create_mask(b["names_art_ids"]),
+        dtype=torch.bfloat16, device="cuda")
+    torch.cuda.synchronize()
+    return seqs.cpu(), scores.float().cpu()
+
+
+def check_identical(tag: str, results: list[dict], seqs, scores) -> None:
+    """Every result's tokens equal to the direct run's row, its score equal
+    bit for bit."""
+    bad = [i for i, r in enumerate(results)
+           if r["tokens"] != seqs[i].tolist() or r["score"] != float(scores[i])]
+    if bad:
+        raise RuntimeError(f"{tag}: rows {bad} differ from the direct generate_mm "
+                           f"(first: tokens {results[bad[0]]['tokens'][:8]}... score "
+                           f"{results[bad[0]]['score']!r} vs {seqs[bad[0]][:8].tolist()}... "
+                           f"{float(scores[bad[0]])!r})")
+
+
+def run_serve_phase(cfg, params, batch_size: int, gpu: str, slice_counts=None) -> None:
+    """The serving entry point at full width. (1) The slice's random tree and
+    a seeded ViT-B/16 CLIP tree written under the reference's names and
+    torch layouts, as a torch.save `.bin` and as `.safetensors`, loaded by
+    weights_io.load_state_dict and converted back: every leaf bit-identical.
+    (2) CaptionService on the converted trees behind make_http_server: 32
+    HTTP requests from 32 threads, one batch, tokens and scores identical to
+    a direct generate_mm of the same batch, and the kernels launched at the
+    slice's counts (zeroed just before the requests, read just after).
+    (3) input_kind="pixels" at batch 8 against clip_vision_fwd +
+    generate_mm. (4) Readings, not gated: the CLIP tower's ms at batch 8 and
+    32; with buckets (1, 8, 32) after precompile(), the latency of 10
+    sequential single requests and the captions/s of a burst of 256
+    requests over HTTP, of the same rows submitted in this process, and of
+    eight direct generate_mm calls of 32 on them. The HTTP clients run in
+    this process: their JSON bodies are made before the clock starts, but
+    their threads and sockets share the interpreter with the server's."""
+    import tempfile
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+
+    from vacnic_tpu_torch.core.rng import make_generator
+    from vacnic_tpu_torch.kernels import primitives as K
+    from vacnic_tpu_torch.models import weights_io as W
+    from vacnic_tpu_torch.models.clip_vit import clip_vision_fwd, clip_vision_init
+    from vacnic_tpu_torch.serve import CaptionService, ServeConfig, make_http_server
+
+    clip = clip_vision_init(make_generator(0, "cuda"), cfg.clip, device="cuda")
+    parts = {"model": (params, reference_state_dict(params),
+                       lambda sd: W.convert_multimodal_bart(sd, cfg.bart, cfg.fusion)),
+             "clip": (clip, openai_clip_state_dict(clip),
+                      lambda sd: W.convert_clip_vision_openai(sd, cfg.clip))}
+    served = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for part, (tree, sd, convert) in parts.items():
+            for fmt in ("bin", "safetensors"):
+                path = os.path.join(tmp, f"{part}.{fmt}")
+                t0 = time.perf_counter()
+                if fmt == "bin":
+                    torch.save(sd, path)
+                else:
+                    write_safetensors(path, sd)
+                t_write = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                out = convert(W.load_state_dict(path))
+                t_load = time.perf_counter() - t0
+                bad = tree_mismatches(out, tree)
+                log(f"serve: {part} checkpoint .{fmt}, {len(sd)} tensors "
+                    f"({next(iter(sd.values())).dtype}), {os.path.getsize(path) / 2**20:.1f} MiB: "
+                    f"written in {t_write:.2f} s, load_state_dict + convert {t_load:.2f} s; "
+                    + ("every leaf bit-identical to the tree it came from" if not bad
+                       else f"{len(bad)} leaves differ: {bad[:4]}"))
+                if bad:
+                    raise RuntimeError(f"serve: the {part} .{fmt} round trip changed the tree")
+                served[part] = out
+    del parts
+
+    opener = http_opener()
+
+    def serve_http(svc):
+        srv = make_http_server(svc, "127.0.0.1", 0)
+        threading.Thread(target=srv.serve_forever, daemon=True).start()
+        return srv, f"http://127.0.0.1:{srv.server_address[1]}"
+
+    # (2) exactness through HTTP, image_cls, the slice's batch
+    rows = sample_rows(cfg, batch_size, seed=0)
+    bodies = [request_body(r) for r in rows]
+    svc = CaptionService(cfg, served, device="cuda",
+                         serve_cfg=ServeConfig(buckets=(batch_size,), max_wait_ms=5000))
+    srv, base = serve_http(svc)
+    try:
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(batch_size) as ex:
+            results = list(ex.map(lambda b: post_caption(opener, base, b), bodies))
+        dt = time.perf_counter() - t0
+        log(f"serve: {batch_size} HTTP requests from {batch_size} threads: {dt:.3f} s; "
+            f"stats {svc.stats()}; launches {K.launch_counts()}")
+        counts = check_slice_counts("serve", cfg)
+        if slice_counts is not None:
+            differ = {k: (counts[k], slice_counts[k]) for k in slice_counts if k in counts
+                      and counts[k] != slice_counts[k]}
+            if differ:
+                raise RuntimeError(f"serve: launches (serve, slice) differ: {differ}")
+        seqs, scores = direct_generate(cfg, svc.params["model"], rows)
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        svc.close()
+    check_identical("serve", results, seqs, scores)
+    TOKENS["serve"] = seqs
+    agree = (f"{float((TOKENS['slice'] == seqs).float().mean()):.4f}" if "slice" in TOKENS
+             else "(no slice run)")
+    log(f"serve: {batch_size} responses token- and score-identical to a direct generate_mm of "
+        f"the same batch; token agreement with the slice (its bf16 tree) {agree}")
+
+    # (3) pixels through the CLIP tower
+    rows_px = sample_rows(cfg, 8, seed=0, with_pixels=True)
+    svc = CaptionService(cfg, served, device="cuda",
+                         serve_cfg=ServeConfig(buckets=(8,), max_wait_ms=5000,
+                                               input_kind="pixels"))
+    try:
+        futs = [svc.submit(r) for r in rows_px]
+        results = [f.result(timeout=600) for f in futs]
+        px = torch.from_numpy(np.stack([r["pixels"] for r in rows_px])).cuda()
+        with torch.inference_mode():
+            _, img_cls = clip_vision_fwd(svc.params["clip"], px, cfg.clip, torch.bfloat16)
+            seqs, scores = direct_generate(cfg, svc.params["model"], rows_px, img_cls=img_cls)
+            clip_ms = {}
+            for n in (8, 32):
+                pxn = px[:1].expand(n, -1, -1, -1).contiguous() if n > 8 else px
+                clip_ms[n] = time_ms(lambda pxn=pxn: clip_vision_fwd(
+                    svc.params["clip"], pxn, cfg.clip, torch.bfloat16), reps=3, warmup=1)
+    finally:
+        svc.close()
+    check_identical("serve pixels", results, seqs, scores)
+    TOKENS["serve pixels"] = seqs
+    log(f"serve: input_kind=pixels, batch 8: token- and score-identical to clip_vision_fwd + "
+        f"generate_mm; the CLIP tower ({cfg.clip.layers} layers x width {cfg.clip.width}, "
+        f"patch {cfg.clip.patch_size}, {cfg.clip.image_size}px, bf16) batch 8 "
+        f"{clip_ms[8]:.2f} ms, batch 32 {clip_ms[32]:.2f} ms ({gpu})")
+
+    # (4) readings: latency and throughput through the service
+    svc = CaptionService(cfg, served, device="cuda", serve_cfg=ServeConfig(buckets=(1, 8, 32)))
+    srv, base = serve_http(svc)
+    try:
+        t0 = time.perf_counter()
+        svc.precompile()
+        t_pre = time.perf_counter() - t0
+        lat = []
+        for body in [request_body(r) for r in sample_rows(cfg, 10, seed=2)]:
+            t0 = time.perf_counter()
+            post_caption(opener, base, body)
+            lat.append((time.perf_counter() - t0) * 1e3)
+        burst = sample_rows(cfg, 256, seed=3)
+        bodies = [request_body(r) for r in burst]  # the clients' JSON, made before the clock
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(len(burst)) as ex:
+            done = list(ex.map(lambda b: post_caption(opener, base, b), bodies))
+        t_burst = time.perf_counter() - t0
+        st = svc.stats()
+        t0 = time.perf_counter()  # the same burst without the HTTP front end
+        done_local = [f.result(timeout=600) for f in [svc.submit(r) for r in burst]]
+        t_local = time.perf_counter() - t0
+        st_local = svc.stats()
+        t0 = time.perf_counter()
+        for i in range(0, len(burst), 32):
+            direct_generate(cfg, svc.params["model"], burst[i:i + 32])
+        t_direct = time.perf_counter() - t0
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        svc.close()
+    if len(done) != len(burst) or len(done_local) != len(burst) or st_local["errors"]:
+        raise RuntimeError(f"serve: a burst lost requests ({len(done)} and {len(done_local)} "
+                           f"answered, stats {st_local})")
+    lat_sorted = sorted(lat)
+    log(f"serve: precompile of buckets (1, 8, 32) {t_pre:.2f} s; b1 latency over HTTP, 10 "
+        f"sequential requests: median {float(np.median(lat)):.1f} ms, p95 "
+        f"{float(np.percentile(lat, 95)):.1f} ms (min {lat_sorted[0]:.1f}, max "
+        f"{lat_sorted[-1]:.1f}) ({gpu})")
+    local_counts = {b: n - st["bucket_counts"][b] for b, n in st_local["bucket_counts"].items()}
+    log(f"serve: burst of {len(burst)} HTTP requests: {t_burst:.3f} s, "
+        f"{len(burst) / t_burst:.2f} captions/s; the same rows submitted in this process (no "
+        f"HTTP): {t_local:.3f} s, {len(burst) / t_local:.2f} captions/s, batches by bucket "
+        f"{local_counts}; as {len(burst) // 32} direct generate_mm calls of 32: "
+        f"{t_direct:.3f} s, {len(burst) / t_direct:.2f} captions/s; the service's own cost "
+        f"{t_burst - t_direct:.3f} s over HTTP, {t_local - t_direct:.3f} s without ({gpu})")
+    log(f"serve: stats after the b1 requests and the HTTP burst: bucket_decode_ms {st['bucket_decode_ms']}, "
+        f"bucket_counts {st['bucket_counts']}, padded_rows {st['padded_rows']}, "
+        f"deferred_rows {st['deferred_rows']}, mean_wait_ms {st['mean_wait_ms']:.1f}, "
+        f"mean_decode_ms {st['mean_decode_ms']:.1f}, latency p50/p95/p99 "
+        f"{st.get('latency_p50_ms')}/{st.get('latency_p95_ms')}/{st.get('latency_p99_ms')} ms "
+        f"({gpu})")
+
+
 def build_lines() -> list[str]:
     """Registers a thread, spill bytes and shared memory of the two 512-token
     self-attention kernels, the encoder's cross-attention kernel, the two
@@ -1419,7 +1815,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
                     default="build,kernels,accuracy,dispatch,stacks,slice,selfkv,stats,stackhead,"
-                            "layerwise,profile")
+                            "layerwise,serve,profile")
     ap.add_argument("--batch", type=int, default=32)
     ap.add_argument("--tokens-out", metavar="FILE",
                     help="save each path's captions (torch.save of {path: tokens})")
@@ -1462,11 +1858,12 @@ def main() -> int:
     if "dispatch" in phases:
         run_dispatch_phase()
     launches = {}  # kernel -> launches in the run of the path that names it
-    if phases & {"stacks", "slice", "selfkv", "stats", "stackhead", "layerwise", "profile"}:
+    if phases & {"stacks", "slice", "selfkv", "stats", "stackhead", "layerwise", "serve",
+                  "profile"}:
         cfg, params = full_model()
         if "stacks" in phases:
             run_stacks_phase(cfg, params)
-        slice_seqs = None
+        slice_seqs = counts = None
         if "slice" in phases:
             counts, slice_seqs = run_slice_phase(cfg, params, args.batch)
             launches.update({k: counts[k] for k in SLICE_KERNELS +
@@ -1485,6 +1882,8 @@ def main() -> int:
         if "layerwise" in phases:
             launches["flash_attention"] = run_layerwise_phase(
                 cfg, params, args.batch)["flash_attention"]
+        if "serve" in phases:
+            run_serve_phase(cfg, params, args.batch, gpu, counts)
         if "profile" in phases:
             run_profile_phase(cfg, params, args.batch)
     if args.tokens_out:

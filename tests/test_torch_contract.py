@@ -6,6 +6,9 @@ import os
 import shutil
 import subprocess
 import sys
+import threading
+import time
+import types
 from pathlib import Path
 
 import pytest
@@ -99,6 +102,41 @@ def test_kernel_build_refuses_without_nvcc(monkeypatch, tmp_path):
     names = {p.name for p in _build._sources()}
     assert names == {"gemm_bf16.cu", "layernorm.cu", "enc_attention.cu", "dec_attention.cu",
                      "dec_cross_attention.cu", "flash_attn.cu", "lm_head.cu"}
+
+
+def test_library_built_once_from_two_threads(monkeypatch, tmp_path):
+    """Two threads that reach lib() first (a service's batcher and a
+    caller's precompile) get one build and one CDLL: the second waits for
+    the first's build under the module's lock."""
+    from vacnic_tpu_torch.kernels import _build
+
+    calls = {"build": 0, "cdll": 0}
+    gate = threading.Event()
+
+    def slow_build():
+        calls["build"] += 1
+        gate.wait(5)  # hold the first build while the second thread arrives
+        return tmp_path / "libvacnic_kernels_stub.so"
+
+    def fake_cdll(path):
+        calls["cdll"] += 1
+        return types.SimpleNamespace(**{name: types.SimpleNamespace()
+                                        for name in _build.SIGNATURES})
+
+    monkeypatch.setattr(_build, "_LIB", None)
+    monkeypatch.setattr(_build, "build", slow_build)
+    monkeypatch.setattr(_build.ctypes, "CDLL", fake_cdll)
+    got = []
+    threads = [threading.Thread(target=lambda: got.append(_build.lib())) for _ in range(2)]
+    for t in threads:
+        t.start()
+    time.sleep(0.2)
+    gate.set()
+    for t in threads:
+        t.join(timeout=10)
+    assert calls == {"build": 1, "cdll": 1}
+    assert len(got) == 2 and got[0] is got[1]
+    assert got[0].vt_gemm_bf16.restype is _build.ctypes.c_int
 
 
 def test_library_path_follows_headers(monkeypatch, tmp_path):

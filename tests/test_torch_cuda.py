@@ -731,3 +731,73 @@ def test_enc_cross_refuses(dev):
     for call in bad:
         with pytest.raises(ValueError):
             call()
+
+
+def card_config():
+    """VacnicConfig.tiny() widened to shapes the kernels take: head_dim 64
+    with four heads (d 256), products with N % 64 == 0, S = 64; the CLIP
+    features (and so the CLIP tower's width) as wide as the model, as the
+    tiny config has them."""
+    import dataclasses
+
+    from vacnic_tpu_torch.core.config import BartConfig, ClipVisionConfig, VacnicConfig
+
+    tiny = VacnicConfig.tiny()
+    return dataclasses.replace(
+        tiny, bart=BartConfig.tiny(d_model=256, encoder_attention_heads=4,
+                                   decoder_attention_heads=4, encoder_ffn_dim=512,
+                                   decoder_ffn_dim=512),
+        clip=ClipVisionConfig.tiny(width=256, heads=4),
+        fusion=dataclasses.replace(tiny.fusion, dim_common=256, img_size=256),
+        data=dataclasses.replace(tiny.data, article_max_length=64))
+
+
+@pytest.mark.parametrize("input_kind", ["image_cls", "pixels"])
+def test_caption_service_on_the_card(dev, input_kind):
+    """CaptionService(device="cuda") with three requests in a 4-bucket:
+    tokens and scores identical to a direct generate_mm (after
+    clip_vision_fwd for pixels) of the same padded batch on the card, with
+    the encoder and decode stacks' kernels launched."""
+    import numpy as np
+
+    from vacnic_tpu_torch.core.rng import make_generator
+    from vacnic_tpu_torch.data.synthetic import synthetic_batch
+    from vacnic_tpu_torch.infer.generate import generate_mm
+    from vacnic_tpu_torch.kernels import primitives as K
+    from vacnic_tpu_torch.models.clip_vit import clip_vision_fwd, clip_vision_init
+    from vacnic_tpu_torch.models.fusion import multimodal_bart_init
+    from vacnic_tpu_torch.serve import CaptionService, ServeConfig
+    from vacnic_tpu_torch.train.train_step import create_mask, face_mask_from_emb
+
+    cfg = card_config()
+    params = {"model": multimodal_bart_init(make_generator(0, dev), cfg.bart, cfg.fusion,
+                                            device=dev),
+              "clip": clip_vision_init(make_generator(1, dev), cfg.clip, device=dev)}
+    pixels = input_kind == "pixels"
+    b = synthetic_batch(cfg, 3, seed=5, with_pixels=pixels)
+    keys = ("article_ids", input_kind, "face_emb", "names_art_ids")
+    rows = [{k: b[k][i].numpy() for k in keys} for i in range(3)]
+    svc = CaptionService(cfg, params, device="cuda",
+                         serve_cfg=ServeConfig(buckets=(4,), max_wait_ms=5000,
+                                               input_kind=input_kind))
+    try:
+        K.reset_launch_counts()
+        results = [f.result(timeout=600) for f in [svc.submit(r) for r in rows]]
+        counts = K.launch_counts()
+    finally:
+        svc.close()
+    for k in ("gemm_bf16", "layernorm", "enc_self_attention", "enc_cross_attention",
+              "dec_self_attention", "dec_cross_attention"):
+        assert counts[k] > 0, (k, counts)
+    x = {k: torch.from_numpy(np.stack([r[k] for r in rows + rows[:1]])).to(dev) for k in keys}
+    img = x.get("image_cls")
+    if pixels:
+        _, img = clip_vision_fwd(params["clip"], x["pixels"], cfg.clip, torch.float32)
+    seqs, scores = generate_mm(
+        params["model"], x["article_ids"], create_mask(x["article_ids"]), img, cfg.bart,
+        cfg.fusion, cfg.decode, face_features=x["face_emb"],
+        face_mask=face_mask_from_emb(x["face_emb"]), name_ids=x["names_art_ids"],
+        name_mask=create_mask(x["names_art_ids"]), dtype=torch.float32, device="cuda")
+    for i, res in enumerate(results):
+        assert res["tokens"] == seqs[i].tolist()
+        assert res["score"] == float(scores[i])

@@ -14,7 +14,11 @@ NONAME_ID = 50266  # <NONAME>
 
 
 def synthetic_batch(cfg: VacnicConfig, batch_size: int, seed: int = 0,
-                    num_names: int = 3, name_len: int = 4) -> dict[str, torch.Tensor]:
+                    with_pixels: bool = False, num_names: int = 3,
+                    name_len: int = 4) -> dict[str, torch.Tensor]:
+    """`with_pixels`: raw CLIP-normalised images `pixels` [B, H, W, 3] in
+    place of the CLS features `image_cls`, drawn at the same point of the
+    stream."""
     rng = np.random.RandomState(seed)
     b = batch_size
     bart, fus, data = cfg.bart, cfg.fusion, cfg.data
@@ -63,6 +67,10 @@ def synthetic_batch(cfg: VacnicConfig, batch_size: int, seed: int = 0,
         "names_ids": names_3d,
         "names_ids_flatten": names_flat,
         "face_emb": faces,
-        "image_cls": rng.randn(b, fus.img_size).astype(np.float32),
     }
+    if with_pixels:
+        size = cfg.clip.image_size
+        batch["pixels"] = rng.randn(b, size, size, 3).astype(np.float32)
+    else:
+        batch["image_cls"] = rng.randn(b, fus.img_size).astype(np.float32)
     return {k: torch.from_numpy(a) for k, a in batch.items()}

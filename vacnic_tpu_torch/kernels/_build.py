@@ -19,6 +19,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -46,6 +47,7 @@ SIGNATURES = {
 
 NVCC_FALLBACKS = ("/usr/local/cuda/bin/nvcc",)  # the toolkit's usual home
 _LIB = None
+_LIB_LOCK = threading.Lock()  # one build and one CDLL when threads reach lib() together
 BUILD_LOG: list[str] = []  # nvcc's output of the last build (-Xptxas -v lines)
 
 
@@ -105,15 +107,19 @@ def build() -> Path:
 
 
 def lib() -> ctypes.CDLL:
-    """The loaded kernel library, built at first use."""
+    """The loaded kernel library, built at first use. Thread-safe: a second
+    thread that reaches it during the first build waits for that build."""
     global _LIB
-    if _LIB is None:
-        handle = ctypes.CDLL(str(build()))
-        for name, args in SIGNATURES.items():
-            fn = getattr(handle, name)
-            fn.argtypes = args
-            fn.restype = ctypes.c_int
-        _LIB = handle
+    if _LIB is not None:
+        return _LIB
+    with _LIB_LOCK:
+        if _LIB is None:
+            handle = ctypes.CDLL(str(build()))
+            for name, args in SIGNATURES.items():
+                fn = getattr(handle, name)
+                fn.argtypes = args
+                fn.restype = ctypes.c_int
+            _LIB = handle
     return _LIB
 
 
