@@ -105,6 +105,18 @@ Phases:
            torch.profiler: device time by kernel family (dec_self_attention
            by cache type), busy/idle share, and PyTorch's own device time
            split by op (the top aten ops by self device time).
+  train    the training step at full width (VacnicConfig.full_train() as
+           released: batch 32, S 512, caption 100, bf16 over f32, remat,
+           dropout 0.1, CoLaM with the teacher's forward, SECLA, CLIP frozen
+           on pixels; random f32 trees from seed 0), after the trees above
+           are freed: 4 steps of make_train_step (finite metrics, lr 0 at
+           step 0, the CLIP tower and teacher bit-unchanged), step 1's
+           launches (flash_attention 12 from the teacher, nothing else),
+           remat on/off with dropout at batch 8, eval_step through the fused
+           encoder against allow_fused_encoder=False, a CheckpointManager
+           round trip (the next steps bit-identical), and readings: state
+           bytes, peak memory, step ms, samples/s, save/restore seconds and
+           one step under torch.profiler (profile_train.txt).
 
 --tokens-out FILE saves every path's captions; --tokens-ref FILE holds every
 path of this run token-identical to captions another tree saved (copy this
@@ -1789,6 +1801,331 @@ def run_profile_phase(cfg, params, batch_size: int) -> None:
             + f"; all aten ops {sum(a[0] for a in aten):.1f} ms")
 
 
+# ---------------------------------------------------------------------------
+# train phase
+# ---------------------------------------------------------------------------
+
+TRAIN_STEPS = 4
+REPLAY_BATCH = 8
+GRAD_TOL = 2e-2  # of a leaf's largest |gradient|: bf16 products summed in another order
+
+
+def tree_bytes(tree) -> int:
+    from vacnic_tpu_torch.core.tree import leaves_with_path
+
+    return sum(t.numel() * t.element_size() for _, t in leaves_with_path(tree)
+               if hasattr(t, "numel"))
+
+
+def n_params(tree) -> float:
+    from vacnic_tpu_torch.core.tree import leaves_with_path
+
+    return sum(t.numel() for _, t in leaves_with_path(tree) if hasattr(t, "numel")) / 1e6
+
+
+def bart_leaves(state):
+    """The bart group's leaves (everything but the CLIP towers)."""
+    from vacnic_tpu_torch.core.tree import leaves_with_path
+    from vacnic_tpu_torch.train.optim import is_clip
+
+    return [t for p, t in leaves_with_path(state.params) if not is_clip(p)]
+
+
+def frozen_leaves(state):
+    """The CLIP tower's and the teacher's leaves."""
+    from vacnic_tpu_torch.core.tree import leaves_with_path
+    from vacnic_tpu_torch.train.optim import is_clip
+
+    return ([t for p, t in leaves_with_path(state.params) if is_clip(p)]
+            + [t for _, t in leaves_with_path(state.teacher)])
+
+
+def same(a, b) -> bool:
+    import torch
+
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def check_train_metrics(tag: str, m: dict) -> None:
+    import math
+
+    bad = {k: float(v) for k, v in m.items() if not math.isfinite(float(v))}
+    if bad:
+        raise RuntimeError(f"{tag}: non-finite metrics {bad}")
+
+
+def replay_grads(cfg, state, batch, remat: bool, seed: int):
+    """The loss and the bart group's gradients of compute_losses with dropout
+    seeded by `seed`, with or without remat, on the live parameters."""
+    import torch
+
+    from vacnic_tpu_torch.train.train_step import compute_losses
+
+    c = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, grad_checkpoint=remat))
+    leaves = bart_leaves(state)
+    loss, _ = compute_losses(state.params, state.teacher, batch, c, seed)
+    return loss.detach(), torch.autograd.grad(loss, leaves, allow_unused=True)
+
+
+def run_train_phase(gpu: str) -> dict:
+    """The training step at full width: VacnicConfig.full_train() as released
+    (bf16 compute over f32 parameters, grad_checkpoint, dropout 0.1, CoLaM
+    alpha 0.5 with the teacher's forward, SECLA, CLIP frozen and run on
+    pixels), random weights from seed 0, synthetic_batch(32, with_pixels),
+    S 512, caption 100, make_train_step(num_training_steps=20), 4 steps.
+    Gated: every metric finite; after step 0 (lr 0) the bart group
+    bit-unchanged and its moments moved; after step 1 the bart group moved;
+    the CLIP tower and the teacher bit-unchanged after every step; in step
+    1's launch counts flash_attention 12 (the teacher's encoder) and no other
+    kernel (the differentiated forward reaches none); remat on and off give
+    the same loss and gradients at batch 8 with dropout on (bit-identical,
+    else within GRAD_TOL of each leaf's largest |gradient|); eval_step
+    through the fused encoder (whose kernels it must launch) against
+    allow_fused_encoder=False: logits and val_loss within 5e-2 relative (the
+    stacks phase's bf16 tolerance); CheckpointManager save after step 2 and
+    restore into a fresh state: the next step from each, with dropout as
+    released and then at dropout 0, gives bit-identical parameters.
+    Readings: state bytes from the trees' shapes against
+    torch.cuda.max_memory_allocated, step ms (median of the steps after the
+    first two), samples/s, save / restore seconds, and a torch.profiler
+    split of one step's device time (forward, backward, optimizer; aten ops;
+    the port's kernels). Returns the step's launch counts."""
+    import shutil
+    import tempfile
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from vacnic_tpu_torch.core.config import VacnicConfig
+    from vacnic_tpu_torch.core.rng import make_generator
+    from vacnic_tpu_torch.data.synthetic import synthetic_batch
+    from vacnic_tpu_torch.kernels import primitives as K
+    from vacnic_tpu_torch.models import fusion as F
+    from vacnic_tpu_torch.models.bart import bart_init, shift_tokens_right
+    from vacnic_tpu_torch.models.clip_vit import clip_vision_fwd, clip_vision_init
+    from vacnic_tpu_torch.train import losses as L
+    from vacnic_tpu_torch.train.checkpoints import CheckpointManager
+    from vacnic_tpu_torch.train.train_step import (create_mask, eval_step, face_mask_from_emb,
+                                                   make_train_step)
+
+    cfg = VacnicConfig.full_train()
+    bsz = cfg.train.train_batch_size
+    g = make_generator(0, "cuda")
+    model = F.multimodal_bart_init(g, cfg.bart, cfg.fusion, device="cuda")
+    clip = clip_vision_init(g, cfg.clip, device="cuda")
+    teacher = bart_init(g, cfg.bart, device="cuda")
+    init_fn, step_fn = make_train_step(cfg, 20)
+    state = init_fn({"model": model, "clip": clip}, teacher, cfg.train.seed)
+    del model, clip, teacher
+    batch = {k: v.cuda() for k, v in synthetic_batch(cfg, bsz, seed=0, with_pixels=True).items()}
+    m_bytes, c_bytes, t_bytes = (tree_bytes(state.params["model"]),
+                                 tree_bytes(state.params["clip"]), tree_bytes(state.teacher))
+    o_bytes = tree_bytes(state.opt_state)
+    log(f"train: full_train, batch {bsz} x S {cfg.data.article_max_length} x caption "
+        f"{cfg.data.caption_max_length}, {cfg.train.compute_dtype} over f32, remat "
+        f"{cfg.train.grad_checkpoint}, dropout {cfg.bart.dropout}, alpha {cfg.train.alpha}, "
+        f"secla {cfg.train.use_secla}, CLIP frozen on pixels; parameters: model "
+        f"{n_params(state.params['model']):.1f} M, CLIP {n_params(state.params['clip']):.1f} M, "
+        f"teacher {n_params(state.teacher):.1f} M")
+    log(f"train: state from the trees' shapes: params {(m_bytes + c_bytes) / 1e9:.2f} GB + "
+        f"teacher {t_bytes / 1e9:.2f} GB + Adam moments {o_bytes / 1e9:.2f} GB = "
+        f"{(m_bytes + c_bytes + t_bytes + o_bytes) / 1e9:.2f} GB, + the bart group's "
+        f"gradients {m_bytes / 1e9:.2f} GB in a step = "
+        f"{(2 * m_bytes + c_bytes + t_bytes + o_bytes) / 1e9:.2f} GB before activations; "
+        f"allocated now {torch.cuda.memory_allocated() / 1e9:.2f} GB")
+
+    frozen0 = [t.detach().clone() for t in frozen_leaves(state)]
+    bart0 = [t.detach().clone() for t in bart_leaves(state)]
+    torch.cuda.reset_peak_memory_stats()
+    step_s, counts, ckpt_dir = [], None, tempfile.mkdtemp(prefix="train_ckpt_")
+    try:
+        mgr = CheckpointManager(ckpt_dir, cfg, max_to_keep=1)
+        for i in range(TRAIN_STEPS):
+            if i == 1:
+                K.reset_launch_counts()
+            t0 = time.perf_counter()
+            state, m = step_fn(state, batch)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            if i == 1:
+                counts = K.launch_counts()
+            check_train_metrics(f"train step {i}", m)
+            log(f"train: step {i}: {step_s[-1] * 1e3:.1f} ms, " + ", ".join(
+                f"{k} {float(v):.4f}" for k, v in m.items()))
+            if not same(frozen0, frozen_leaves(state)):
+                raise RuntimeError(f"train step {i}: the CLIP tower or the teacher changed")
+            if i == 0:
+                mu = state.opt_state["bart"]["mu"]["model"]["shared"]["weight"]
+                nu = state.opt_state["bart"]["nu"]["model"]["shared"]["weight"]
+                if not same(bart0, bart_leaves(state)) or not (mu.any() and nu.any()):
+                    raise RuntimeError("train step 0 (lr 0): the bart group moved or its "
+                                       "moments did not")
+            if i == 1:
+                if same(bart0, bart_leaves(state)):
+                    raise RuntimeError("train step 1: the bart group did not move")
+                del bart0
+            if i == 2:
+                t0 = time.perf_counter()
+                mgr.save(state.step, state, {"loss": float(m["loss"])})
+                save_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        ms = sorted(s * 1e3 for s in step_s[2:])
+        med = ms[len(ms) // 2] if len(ms) % 2 else sum(ms[len(ms) // 2 - 1:len(ms) // 2 + 1]) / 2
+        others = {k: n for k, n in counts.items() if k != "flash_attention" and n}
+        log(f"train: step 1 launches {counts} ({gpu})")
+        if counts["flash_attention"] != cfg.bart.encoder_layers or others:
+            raise RuntimeError(f"train: a step must launch flash_attention once per teacher "
+                               f"encoder layer and no other kernel, got {counts}")
+        log(f"train: step wall ms {[round(s * 1e3, 1) for s in step_s]}; median of steps "
+            f"2..{TRAIN_STEPS - 1} {med:.1f} ms, {bsz / (med / 1e3):.2f} samples/s; peak "
+            f"memory {peak / 1e9:.2f} GB (torch.cuda.max_memory_allocated) ({gpu})")
+
+        # checkpoint round trip: the step after the save, from the live state
+        # (already taken: step 3) and from the restored one
+        t0 = time.perf_counter()
+        restored, at = mgr.restore(state)
+        restore_s = time.perf_counter() - t0
+        if at != 3 or restored.step != 3:
+            raise RuntimeError(f"train: restored step {at}, state step {restored.step}")
+        restored, _ = step_fn(restored, batch)
+        if not same(bart_leaves(state), bart_leaves(restored)):
+            raise RuntimeError("train: the step from the restored state differs from the live one")
+        cfg0 = dataclasses.replace(cfg, bart=dataclasses.replace(
+            cfg.bart, dropout=0.0, activation_dropout=0.0))
+        step0 = make_train_step(cfg0, 20)[1]
+        state, _ = step0(state, batch)
+        restored, _ = step0(restored, batch)
+        identical = same(bart_leaves(state), bart_leaves(restored))
+        ck_gb = (m_bytes + c_bytes + t_bytes + o_bytes) / 1e9
+        log(f"train: checkpoint of {ck_gb:.2f} GB: save {save_s:.2f} s, restore "
+            f"{restore_s:.2f} s; the step after it from the live and the restored state "
+            f"bit-identical (dropout {cfg.bart.dropout}), then one more at dropout 0: "
+            f"{'bit-identical' if identical else 'DIFFERENT'} ({gpu})")
+        if not identical:
+            raise RuntimeError("train: a dropout-0 step from the restored state differs")
+        del restored
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # remat replays dropout: batch 8, dropout on, the same seed
+    small = {k: v[:REPLAY_BATCH] for k, v in batch.items()}
+    l_on, g_on = replay_grads(cfg, state, small, True, 12345)
+    l_off, g_off = replay_grads(cfg, state, small, False, 12345)
+    bitwise = bool(torch.equal(l_on, l_off)) and all(
+        (a is None and b is None) or torch.equal(a, b) for a, b in zip(g_on, g_off))
+    worst = max(float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+                for a, b in zip(g_on, g_off) if a is not None)
+    log(f"train: remat replay at batch {REPLAY_BATCH}, dropout {cfg.bart.dropout}: loss "
+        f"{float(l_on):.6f} / {float(l_off):.6f}, gradients "
+        f"{'bit-identical' if bitwise else 'not bit-identical'}, worst leaf "
+        f"{worst:.3e} of its largest |gradient| (tol {GRAD_TOL})")
+    if not bitwise and (worst > GRAD_TOL or abs(float(l_on - l_off)) > 1e-3 * abs(float(l_off))):
+        raise RuntimeError("train: remat on and off disagree with dropout on")
+    del g_on, g_off
+    torch.cuda.empty_cache()
+
+    # eval_step: the fused encoder (kernels) against allow_fused_encoder=False
+    K.reset_launch_counts()
+    ev = eval_step(state.params, batch, cfg)
+    torch.cuda.synchronize()
+    ev_counts = K.launch_counts()
+    check_launched("train eval_step", ev_counts, SLICE_KERNELS[:4])
+    with torch.no_grad():
+        dt = torch.bfloat16
+        _, img = clip_vision_fwd(state.params["clip"], batch["pixels"], cfg.clip, dt)
+        tgt_in = shift_tokens_right(batch["caption_ids"], cfg.bart.pad_token_id,
+                                    cfg.bart.eos_token_id)
+        kw = dict(face_features=batch["face_emb"], face_mask=face_mask_from_emb(batch["face_emb"]),
+                  name_ids=batch["names_art_ids"], name_mask=create_mask(batch["names_art_ids"]))
+        args = (state.params["model"], batch["article_ids"], create_mask(batch["article_ids"]),
+                tgt_in, img, cfg.bart, cfg.fusion)
+        fused = F.mm_forward(*args, dtype=dt, **kw)["logits"]
+        ref = F.mm_forward(*args, dtype=dt, allow_fused_encoder=False, **kw)["logits"]
+        ref_loss = L.lm_cross_entropy(ref, batch["caption_ids"], cfg.bart.pad_token_id)
+    e_logits = rel_err(fused, ref)
+    e_loss = abs(float(ev["val_loss"]) - float(ref_loss)) / abs(float(ref_loss))
+    agree = float((ev["argmax_ids"] == ref.argmax(-1)).float().mean())
+    log(f"train: eval_step val_loss {float(ev['val_loss']):.5f} (fused encoder) vs "
+        f"{float(ref_loss):.5f} (allow_fused_encoder=False): rel {e_loss:.3e}; logits rel err "
+        f"{e_logits:.3e}; argmax agreement {agree:.4f} (tol rel 5e-2); launches {ev_counts}")
+    if not (e_loss <= 5e-2 and e_logits <= 5e-2):
+        raise RuntimeError("train: eval_step through the fused encoder disagrees")
+    del fused, ref
+
+    # where one step's device time goes
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, _ = step_fn(state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # the device's events: the step's three profiler ranges come back as
+    # annotations spanning their kernels; every other event is work
+    spans, work = {}, []
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        if e.name.startswith("train_step."):
+            spans.setdefault(e.name.split(".", 1)[1], []).append(
+                (e.time_range.start, e.time_range.end))
+        else:
+            work.append(e)
+    busy_ms = sum(e.time_range.elapsed_us() for e in work) / 1e3
+    part_ms, fam = {}, {}
+    for e in work:
+        t = e.time_range.elapsed_us() / 1e3
+        part = next((r for r, ss in spans.items()
+                     if any(a <= e.time_range.start < b for a, b in ss)), "outside the ranges")
+        part_ms[part] = part_ms.get(part, 0.0) + t
+        key = next((f for pat, f in KERNEL_FAMILIES if pat in e.name), None)
+        if key:
+            fam[key] = fam.get(key, 0.0) + t
+    span_ms = {r: sum(b - a for a, b in ss) / 1e3 for r, ss in spans.items()}
+    aten = []
+    for ev_ in prof.key_averages():
+        self_us = getattr(ev_, "self_device_time_total", None)
+        self_us = ev_.self_cuda_time_total if self_us is None else self_us
+        if ev_.key.startswith("aten::") and self_us > 0:
+            aten.append((self_us / 1e3, ev_.count, ev_.key))
+    aten.sort(reverse=True)
+    with open(os.path.join(OUT_DIR, "profile_train.txt"), "w") as f:
+        f.write(f"train step wall_ms {wall_ms:.3f} device_busy_ms {busy_ms:.3f} "
+                f"busy by range {part_ms} range spans {span_ms}\n")
+        for ms_, n, key in aten:
+            f.write(f"{ms_:10.3f} ms {n:7d} x  {key}\n")
+    if busy_ms == 0:
+        log(f"train profile: wall {wall_ms:.1f} ms; the profiler saw no device activity "
+            "(device time not measured)")
+    else:
+        log(f"train profile: one step, batch {bsz}: wall {wall_ms:.1f} ms, device busy "
+            f"{busy_ms:.1f} ms (idle {100 * (1 - busy_ms / wall_ms):.1f}%); device busy by "
+            "range (device span of the range): " + ", ".join(
+                f"{r} {v:.1f} ms ({span_ms[r]:.1f})" if r in span_ms else f"{r} {v:.1f} ms"
+                for r, v in part_ms.items())
+            + " (the backward's ops, remat's recompute among them, run on autograd's thread "
+            "outside the ranges); the port's kernels "
+            + (", ".join(f"{k} {v:.1f} ms" for k, v in fam.items()) or "none")
+            + "; aten self device ms (calls): "
+            + ", ".join(f"{key} {ms_:.1f} ({n})" for ms_, n, key in aten[:12])
+            + f"; all aten ops {sum(a[0] for a in aten):.1f} ms ({gpu})")
+
+    # the step's products, counted as they run (forward, remat's recompute,
+    # backward; the ctypes kernels are not seen)
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with FlopCounterMode(display=False) as fc:
+        state, _ = step_fn(state, batch)
+    flops = fc.get_total_flops()
+    mm_ms = sum(ms_ for ms_, _, key in aten if key in ("aten::mm", "aten::bmm", "aten::addmm"))
+    rate = f"{flops / 1e12 / (mm_ms / 1e3):.1f} TFLOP/s" if mm_ms else "not measured"
+    log(f"train: one step's library products, counted by torch.utils.flop_counter: "
+        f"{flops / 1e12:.2f} TFLOP; over the profiled step's aten mm + bmm + addmm device time "
+        f"({mm_ms:.1f} ms): {rate} ({gpu})")
+    return counts
+
+
 def compare_tokens(ref: dict, gpu: str) -> None:
     """Every path run here against the captions another tree saved with
     --tokens-out on the same seeds: token agreement printed, and any
@@ -1815,7 +2152,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
                     default="build,kernels,accuracy,dispatch,stacks,slice,selfkv,stats,stackhead,"
-                            "layerwise,serve,profile")
+                            "layerwise,serve,profile,train")
     ap.add_argument("--batch", type=int, default=32)
     ap.add_argument("--tokens-out", metavar="FILE",
                     help="save each path's captions (torch.save of {path: tokens})")
@@ -1886,6 +2223,10 @@ def main() -> int:
             run_serve_phase(cfg, params, args.batch, gpu, counts)
         if "profile" in phases:
             run_profile_phase(cfg, params, args.batch)
+        del params  # the train phase builds its own f32 trees
+    if "train" in phases:
+        torch.cuda.empty_cache()
+        launches.setdefault("flash_attention", run_train_phase(gpu)["flash_attention"])
     if args.tokens_out:
         torch.save(TOKENS, args.tokens_out)
         log(f"tokens: the captions of {sorted(TOKENS)} saved to {args.tokens_out}")

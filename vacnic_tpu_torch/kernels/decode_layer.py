@@ -111,6 +111,8 @@ def decode_stack(
     precision (the weights' dtype); the caller quantizes them for an int8 or
     fp8 cache. CUDA kernels for CUDA tensors, the plain twin for CPU
     tensors."""
+    K.no_grad_guard("decode_stack", *(dp or ()), x0, self_k, self_v, cross_k, cross_v, enc_bias,
+                    cross_k_scale, cross_v_scale, self_k_scale, self_v_scale, w_lm, b_lm)
     if (self_k.dtype == torch.int8) != (self_k_scale is not None) or (
             self_k_scale is None) != (self_v_scale is None):
         raise ValueError("decode_stack: an int8 self cache and its scales travel together")

@@ -97,6 +97,7 @@ def encoder_text_stack(
 ) -> torch.Tensor:
     """-> last_hidden [B, S, d] in x0.dtype. CUDA kernels for CUDA tensors,
     the plain twin for CPU tensors."""
+    K.no_grad_guard("encoder_text_stack", *(sp or ()), x0, cross_k, cross_v, self_bias, cross_bias)
     if x0.device.type == "cpu":
         return encoder_text_stack_plain(sp, x0, cross_k, cross_v, self_bias, cross_bias, cfg)
     if x0.device.type != "cuda":

@@ -66,6 +66,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     [B | 1, H | 1, T, S] -> [B, H, T, D] in q's dtype. The kernel takes bf16
     q/k/v, an f32 or bf16 bias, D == 64, T % 64 == 0, S % 64 == 0, and
     rows of q, k, v and the bias 16-byte aligned."""
+    K.no_grad_guard("flash_attention", q, k, v, bias)
     if K._on_cpu(q):
         return flash_attention_plain(q, k, v, bias)
     b, h, t, d = q.shape

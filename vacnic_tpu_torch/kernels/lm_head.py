@@ -25,6 +25,7 @@ def lm_head(x: torch.Tensor, w_lm: torch.Tensor, b_lm: torch.Tensor) -> torch.Te
     """x [BK, d], w_lm [Vp, d], b_lm [Vp] f32 -> logits [BK, Vp] f32. The
     kernel takes bf16 x and w_lm, any BK >= 1, d % 32 == 0, Vp % 128 == 0
     and tensors that start on 16 bytes."""
+    K.no_grad_guard("lm_head", x, w_lm, b_lm)
     if K._on_cpu(x):
         return lm_head_plain(x, w_lm, b_lm)
     bk, d = x.shape

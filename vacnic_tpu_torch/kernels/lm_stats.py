@@ -70,6 +70,7 @@ def lm_stats(x: torch.Tensor, w_lm: torch.Tensor, b_lm: torch.Tensor):
     m [BK, Vp/VBLOCK] f32, s [BK, Vp/VBLOCK] f32). The kernel takes bf16 x
     and w_lm, BK >= 1, d % 32 == 0, Vp % VBLOCK == 0 and tensors that start
     on 16 bytes (TMA reads x and w_lm)."""
+    K.no_grad_guard("lm_stats", x, w_lm, b_lm)
     if K._on_cpu(x):
         return lm_stats_plain(x, w_lm, b_lm)
     bk, d = x.shape

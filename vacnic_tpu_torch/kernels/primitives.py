@@ -4,7 +4,9 @@ Every wrapper dispatches on the device of its tensors: CPU tensors take the
 `*_plain` twin; CUDA tensors are checked (device, dtype, shape, contiguity),
 outputs are allocated with torch.empty, the kernel is launched on the
 current stream and its launch count goes up by one; any other tensor
-raises. There is no fallback from a CUDA tensor to the plain twin.
+raises. There is no fallback from a CUDA tensor to the plain twin. No
+kernel has a backward: every wrapper first refuses, on either device, a
+call under grad mode on a tensor that requires grad (`no_grad_guard`).
 
 The plain twins define the semantics the kernels are held to: the dtype of
 the inputs is the matmul dtype (bf16 on the card, f32 in the CPU tests),
@@ -81,6 +83,24 @@ def _on_cpu(t: torch.Tensor) -> bool:
         return False
     raise RuntimeError(f"unsupported device {t.device}: the kernels take cuda tensors, "
                        "their plain twins cpu tensors")
+
+
+def differentiated(*tensors) -> bool:
+    """Grad mode is on and one of the tensors (None allowed) requires grad:
+    an op on them is part of a computation autograd will differentiate."""
+    return torch.is_grad_enabled() and any(isinstance(t, torch.Tensor) and t.requires_grad
+                                           for t in tensors)
+
+
+def no_grad_guard(name: str, *tensors) -> None:
+    """Refuse a differentiated call: the kernels have no backward, so a
+    wrapper called with grad mode on and an input that requires grad would
+    drop that input's gradient. Raises on the CPU twin as on the card; run
+    such a call under torch.no_grad(), or take the plain path
+    (models/layers.attention_core does)."""
+    if differentiated(*tensors):
+        raise RuntimeError(f"{name}: the kernel has no backward; called under grad mode on a "
+                           "tensor that requires grad")
 
 
 def _req(t: torch.Tensor, name: str, dtype, shape=None, device=None) -> None:
@@ -166,6 +186,7 @@ _VARIANT_ID = {"large_m": 1, "small_m": 2}
 def gemm(a, w, bias=None, residual=None, act=None, out_dtype=torch.float32):
     """epilogue(a [M, K] @ w [K, N]): + bias [N] f32, exact gelu if
     act == "gelu", + residual [M, N] f32; out_dtype f32 or bf16."""
+    no_grad_guard("gemm", a, w, bias, residual)
     if _on_cpu(a):
         return gemm_plain(a, w, bias, residual, act, out_dtype)
     m, k = a.shape
@@ -234,6 +255,7 @@ _LN_VARIANT_ID = {"warp": 1, "block": 2}
 def layernorm(x, gb, mm_dtype, eps: float = 1e-5):
     """Row LayerNorm of x [R, d] f32 with gb [2, d] = (scale, bias) ->
     (y f32, y in mm_dtype)."""
+    no_grad_guard("layernorm", x, gb)
     if _on_cpu(x):
         return layernorm_plain(x, gb, mm_dtype, eps)
     r, d = x.shape
@@ -268,6 +290,7 @@ def enc_self_attention_plain(qkv, bias, batch: int, seq: int, heads: int):
 
 def enc_self_attention(qkv, bias, batch: int, seq: int, heads: int):
     """qkv [B*S, 3d] (q | k | v), additive pad bias [B, S] f32 -> [B*S, d]."""
+    no_grad_guard("enc_self_attention", qkv, bias)
     if _on_cpu(qkv):
         return enc_self_attention_plain(qkv, bias, batch, seq, heads)
     d = qkv.shape[1] // 3
@@ -298,6 +321,7 @@ def enc_cross_attention_plain(q, ck, cv, batch: int, seq: int, heads: int):
 
 def enc_cross_attention(q, ck, cv, batch: int, seq: int, heads: int):
     """q [B*S, d], ck [B, d, KV] (pre-transposed keys), cv [B, KV, d] -> [B*S, d]."""
+    no_grad_guard("enc_cross_attention", q, ck, cv)
     if _on_cpu(q):
         return enc_cross_attention_plain(q, ck, cv, batch, seq, heads)
     d = q.shape[1]
@@ -368,6 +392,7 @@ def dec_self_attention(qkv, cache_k, cache_v, anc, pos: int, heads: int, k_scale
     v_scale [T, BK, H] f32, or float8_e4m3fn), ancestry anc [T, BK] int32.
     Rows t < pos are read from row anc[t, c]; the step's own K/V (t == pos)
     from qkv."""
+    no_grad_guard("dec_self_attention", qkv, cache_k, cache_v, k_scale, v_scale)
     if _on_cpu(qkv):
         return dec_self_attention_plain(qkv, cache_k, cache_v, anc, pos, heads, k_scale,
                                         v_scale)
@@ -439,6 +464,7 @@ def dec_cross_smem_bytes(beams: int, s_len: int, elem_bytes: int) -> int:
 def dec_cross_attention(q, ck, cv, ck_scale, cv_scale, enc_bias, heads: int):
     """q [BK, d] (beams of item b are rows b*K..b*K+K-1), K/V [B, H, hd, S]
     bf16 or int8 (with scales [B, H, hd] f32), pad bias [B, S] f32 -> [BK, d]."""
+    no_grad_guard("dec_cross_attention", q, ck, cv, ck_scale, cv_scale, enc_bias)
     if _on_cpu(q):
         return dec_cross_attention_plain(q, ck, cv, ck_scale, cv_scale, enc_bias, heads)
     bk, d = q.shape

@@ -10,11 +10,13 @@ Per fusion layer, with streams threaded layer to layer:
   text : self-attention (+ pad mask), cross-attention to
          concat(img_prompt, ner_prefix) (only_image: img_prompt), FFN + LN.
 
-`mm_encoder_fwd` is the layer-by-layer reference; `mm_encoder_fwd_fused` runs
-the stream prologue here and the text path through
+`mm_encoder_fwd` is the layer-by-layer reference and the differentiated
+training path (dropout at JAX's sites, per-layer remat); `mm_encoder_fwd_fused`
+runs the stream prologue here and the text path through
 kernels/encoder_stack.encoder_text_stack (CUDA on the card, its plain twin on
-the CPU). `mm_forward` is the teacher-forced forward of the whole model
-(encoder, decoder, tied LM head), an entry point like infer/generate's.
+the CPU), which has no backward. `mm_forward` is the teacher-forced forward
+of the whole model (encoder, decoder, tied LM head), an entry point like
+infer/generate's.
 """
 
 from __future__ import annotations
@@ -29,7 +31,10 @@ from vacnic_tpu_torch.core.device import as_tensor, resolve_device
 from vacnic_tpu_torch.models import bart as B
 from vacnic_tpu_torch.models.layers import (
     ACT2FN,
+    NO_DROPOUT,
     Params,
+    RngStream,
+    dropout,
     embedding_init,
     expand_mask,
     layernorm,
@@ -38,6 +43,7 @@ from vacnic_tpu_torch.models.layers import (
     linear_init,
     mha,
     mha_init,
+    split,
 )
 from vacnic_tpu_torch.models.weights_io import tree_to
 
@@ -69,47 +75,53 @@ def map_image_prompt(enc: Params, image_features: torch.Tensor, cfg: BartConfig,
 
 
 def embed_ner_stream(enc: Params, name_ids: torch.Tensor, cfg: BartConfig,
-                     dtype) -> torch.Tensor:
-    """NER stream embedding: separate table + positions + LN."""
+                     dtype, rngs: RngStream = NO_DROPOUT) -> torch.Tensor:
+    """NER stream embedding: separate table + positions + LN + dropout."""
     return B.embed_and_norm(enc["embed_tokens_ner"], enc["embed_positions_ner"],
-                            enc["layernorm_embedding_ner"], name_ids, cfg, dtype)
+                            enc["layernorm_embedding_ner"], name_ids, cfg, dtype, rngs=rngs)
 
 
 # ---------------------------------------------------------------------------
 # Layer-by-layer encoder (reference path)
 # ---------------------------------------------------------------------------
 
-def _residual_ffn(up: Params, down: Params, ln: Params, x, act):
-    h = linear(down, act(linear(up, x)))
+def _residual_ffn(up: Params, down: Params, ln: Params, x, act, cfg: BartConfig,
+                  rngs: RngStream = NO_DROPOUT):
+    h = dropout(act(linear(up, x)), cfg.activation_dropout, rngs.next())
+    h = dropout(linear(down, h), cfg.dropout, rngs.next())
     return layernorm(ln, x + h)
 
 
-def _ner_prefix(p: Params, ner: torch.Tensor, act, fcfg: FusionConfig) -> torch.Tensor:
+def _ner_prefix(p: Params, ner: torch.Tensor, act, cfg: BartConfig, fcfg: FusionConfig,
+                rngs: RngStream = NO_DROPOUT) -> torch.Tensor:
     bsz, ner_len, d = ner.shape
     t = ner.reshape(bsz, d, ner_len)  # the reference reshapes, not transposes
-    t = linear(p["ner_map_down"], act(linear(p["ner_map_up"], t)))
+    t = dropout(act(linear(p["ner_map_up"], t)), cfg.activation_dropout, rngs.next())
+    t = dropout(linear(p["ner_map_down"], t), cfg.dropout, rngs.next())
     return layernorm(p["ner_map_layer_norm"], t.reshape(bsz, fcfg.max_ner_type_len_gt, d))
 
 
 def fusion_encoder_layer_fwd(p: Params, x: torch.Tensor, attn_mask: torch.Tensor,
                              streams: dict[str, Any], masks: dict[str, Any],
                              cfg: BartConfig, fcfg: FusionConfig, fused: bool,
-                             add_ner_ffn: bool = True):
+                             add_ner_ffn: bool = True, rngs: RngStream = NO_DROPOUT):
     """One encoder layer; `streams` = {"img", "face", "ner"} threaded between
-    layers. Returns (x, streams)."""
+    layers. Returns (x, streams). Dropout draws from `rngs` in JAX's order."""
     act = ACT2FN[cfg.activation_function]
     if not fused:
-        return B.encoder_layer_fwd(p, x, attn_mask, cfg), streams
+        return B.encoder_layer_fwd(p, x, attn_mask, cfg, rngs), streams
 
-    img = _residual_ffn(p["img_up"], p["img_down"], p["img_layer_norm"], streams["img"], act)
+    img = _residual_ffn(p["img_up"], p["img_down"], p["img_layer_norm"], streams["img"], act,
+                        cfg, rngs)
     face, ner = streams.get("face"), streams.get("ner")
     if not fcfg.only_image:
-        face = _residual_ffn(p["face_up"], p["face_down"], p["face_layer_norm"], face, act)
+        face = _residual_ffn(p["face_up"], p["face_down"], p["face_layer_norm"], face, act,
+                             cfg, rngs)
         if add_ner_ffn:
             h = mha(p["self_attn_img_name"], ner, key_value=torch.cat([face, ner], dim=1),
                     mask=masks["face_name"], num_heads=cfg.encoder_attention_heads)
             ner = layernorm(p["img_name_attn_layer_norm"], ner + h)
-            kv = torch.cat([img, _ner_prefix(p, ner, act, fcfg)], dim=1)
+            kv = torch.cat([img, _ner_prefix(p, ner, act, cfg, fcfg, rngs)], dim=1)
             cross_mask = masks["img_ner"]
         else:
             kv = torch.cat([img, ner, x], dim=1)
@@ -119,11 +131,11 @@ def fusion_encoder_layer_fwd(p: Params, x: torch.Tensor, attn_mask: torch.Tensor
         cross_mask = masks["img_ner"]
 
     h = mha(p["self_attn"], x, mask=attn_mask, num_heads=cfg.encoder_attention_heads)
-    x = layernorm(p["self_attn_layer_norm"], x + h)
+    x = layernorm(p["self_attn_layer_norm"], x + dropout(h, cfg.dropout, rngs.next()))
     h = mha(p["cross_attn_img_ner"], x, key_value=kv, mask=cross_mask,
             num_heads=cfg.encoder_attention_heads)
-    x = layernorm(p["img_ner_attn_layer_norm"], x + h)
-    x = _residual_ffn(p["fc1"], p["fc2"], p["final_layer_norm"], x, act)
+    x = layernorm(p["img_ner_attn_layer_norm"], x + dropout(h, cfg.dropout, rngs.next()))
+    x = _residual_ffn(p["fc1"], p["fc2"], p["final_layer_norm"], x, act, cfg, rngs)
     return x, {"img": img, "face": face, "ner": ner}
 
 
@@ -131,21 +143,30 @@ def _prompt_len(fcfg: FusionConfig) -> int:
     return fcfg.prompt_size if fcfg.prompt_mlp_type == "clipcap" else fcfg.map_size[-1]
 
 
+def _fusion_layer(p, x, attn_mask, streams, masks, cfg, fcfg, fused, add_ner_ffn, seed):
+    return fusion_encoder_layer_fwd(p, x, attn_mask, streams, masks, cfg, fcfg, fused,
+                                    add_ner_ffn, RngStream(seed))
+
+
 def mm_encoder_fwd(params: Params, input_ids, attention_mask, image_features,
                    cfg: BartConfig, fcfg: FusionConfig, *, face_features=None,
                    face_mask=None, name_ids=None, name_mask=None,
-                   add_ner_ffn: bool = True, dtype=torch.float32) -> dict[str, Any]:
-    """Modified BartEncoder.forward -> {"last_hidden", "img", "ner", "face"}."""
+                   add_ner_ffn: bool = True, dtype=torch.float32,
+                   dropout_rng: int | None = None, remat: bool = False) -> dict[str, Any]:
+    """Modified BartEncoder.forward -> {"last_hidden", "img", "ner", "face"}.
+    `dropout_rng` seeds dropout (None: none); `remat` recomputes each layer
+    in the backward (models/bart.run_layer)."""
     enc = params["encoder"]
     bsz, src_len = input_ids.shape
     dev = input_ids.device
+    rngs = RngStream(dropout_rng)
     x = B.embed_and_norm(params["shared"], enc["embed_positions"], enc["layernorm_embedding"],
-                         input_ids, cfg, dtype)
+                         input_ids, cfg, dtype, rngs=rngs)
     masks: dict[str, Any] = {}
     streams: dict[str, Any] = {}
     plen = _prompt_len(fcfg)
     if not fcfg.only_image:
-        streams["ner"] = embed_ner_stream(enc, name_ids, cfg, dtype)
+        streams["ner"] = embed_ner_stream(enc, name_ids, cfg, dtype, rngs)
         streams["face"] = linear(enc["face_proj"], face_features.to(dtype))
         if add_ner_ffn:
             fn_mask = torch.cat([face_mask, name_mask], dim=1)
@@ -162,8 +183,9 @@ def mm_encoder_fwd(params: Params, input_ids, attention_mask, image_features,
     attn_mask = expand_mask(attention_mask, dtype=dtype)
     fused_set = set(fcfg.fusion_layers)
     for i, p in enumerate(enc["layers"]):
-        x, streams = fusion_encoder_layer_fwd(p, x, attn_mask, streams, masks, cfg, fcfg,
-                                              i in fused_set, add_ner_ffn)
+        x, streams = B.run_layer(_fusion_layer, remat, p, x, attn_mask, streams, masks, cfg,
+                                 fcfg, i in fused_set, add_ner_ffn,
+                                 B.layer_seed(dropout_rng, i))
     return {"last_hidden": x, "img": streams.get("img"), "ner": streams.get("ner"),
             "face": streams.get("face")}
 
@@ -232,9 +254,10 @@ def _fused_encoder_prologue(params: Params, input_ids, attention_mask, image_fea
 
     img_states, ner_states = [], []
     for p in layers:
-        img = _residual_ffn(p["img_up"], p["img_down"], p["img_layer_norm"], img, act)
+        img = _residual_ffn(p["img_up"], p["img_down"], p["img_layer_norm"], img, act, cfg)
         if not fcfg.only_image:
-            face = _residual_ffn(p["face_up"], p["face_down"], p["face_layer_norm"], face, act)
+            face = _residual_ffn(p["face_up"], p["face_down"], p["face_layer_norm"], face, act,
+                                 cfg)
             h = mha(p["self_attn_img_name"], ner, key_value=torch.cat([face, ner], dim=1),
                     mask=fn_mask_bias, num_heads=cfg.encoder_attention_heads)
             ner = layernorm(p["img_name_attn_layer_norm"], ner + h)
@@ -321,30 +344,39 @@ def mm_encoder_fwd_fused(params: Params, input_ids, attention_mask, image_featur
 # Full model forward
 # ---------------------------------------------------------------------------
 
-@torch.no_grad()
 def mm_forward(params: Params, input_ids, attention_mask, decoder_input_ids, image_features,
                cfg: BartConfig, fcfg: FusionConfig, *, face_features=None, face_mask=None,
                name_ids=None, name_mask=None, add_ner_ffn: bool = True, dtype=torch.float32,
+               dropout_rng: int | None = None, remat: bool = False,
                allow_fused_encoder: bool = True, device=None) -> dict[str, Any]:
     """BartForMultiModalGeneration.forward, teacher-forced: multimodal
     encoder, BART decoder, tied LM head + final_logits_bias ->
     {"logits", "decoder_hidden", "encoder_hidden", "hidden_states_img",
-    "hidden_states_ner", "hidden_states_face"}. The fused encoder runs when
-    eligible (as in generation) unless allow_fused_encoder=False. Params
-    and inputs move to `device` ("cuda" by default)."""
+    "hidden_states_ner", "hidden_states_face"}. Params and inputs move to
+    `device` ("cuda" by default); leaves already there are used as they are,
+    so gradients reach them.
+
+    JAX's gate (vacnic_tpu/models/fusion.py:648-708): the fused encoder runs
+    only when allow_fused_encoder is true, there is no dropout and no remat,
+    and the config is eligible. Its kernels have no backward: a
+    differentiated forward passes allow_fused_encoder=False, as JAX
+    training does, or runs with dropout or remat."""
     dev = resolve_device(device)
     params = tree_to(params, dev)
     (input_ids, attention_mask, decoder_input_ids, image_features, face_features, face_mask,
      name_ids, name_mask) = (as_tensor(x, dev) for x in (
         input_ids, attention_mask, decoder_input_ids, image_features, face_features, face_mask,
         name_ids, name_mask))
-    fused = allow_fused_encoder and fused_encoder_eligible(fcfg, cfg, add_ner_ffn)
+    rng_e, rng_d = split(dropout_rng) if dropout_rng is not None else (None, None)
+    fused = (allow_fused_encoder and dropout_rng is None and not remat
+             and fused_encoder_eligible(fcfg, cfg, add_ner_ffn))
     enc_fwd = mm_encoder_fwd_fused if fused else mm_encoder_fwd
+    enc_kw = {} if fused else dict(dropout_rng=rng_e, remat=remat)
     enc_out = enc_fwd(params, input_ids, attention_mask, image_features, cfg, fcfg,
                       face_features=face_features, face_mask=face_mask, name_ids=name_ids,
-                      name_mask=name_mask, add_ner_ffn=add_ner_ffn, dtype=dtype)
+                      name_mask=name_mask, add_ner_ffn=add_ner_ffn, dtype=dtype, **enc_kw)
     dec_out = B.decoder_fwd(params, decoder_input_ids, enc_out["last_hidden"], attention_mask,
-                            cfg, dtype)
+                            cfg, dtype, dropout_rng=rng_d, remat=remat)
     return {"logits": B.lm_logits(params, dec_out), "decoder_hidden": dec_out,
             "encoder_hidden": enc_out["last_hidden"], "hidden_states_img": enc_out["img"],
             "hidden_states_ner": enc_out["ner"], "hidden_states_face": enc_out["face"]}

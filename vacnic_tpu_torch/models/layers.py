@@ -4,7 +4,13 @@ Plain functions over dict parameter trees. Linear kernels keep the JAX
 package's [in, out] layout (models/weights_io.py loads them untransposed),
 so `linear` is `x @ kernel`. Products accumulate in float32 and round once
 to the input dtype, the recipe of the JAX `preferred_element_type=float32`
-dots. Inference only: the port has no dropout.
+dots.
+
+Training: `dropout` takes a 63-bit seed where JAX takes a key, and
+`RngStream` / `fold_in` derive one seed per call site from (base seed,
+layer, site), as JAX's `fold_in` does. Each site draws its mask from a
+generator made for it from that seed alone, so a layer recomputed under
+`torch.utils.checkpoint` draws the masks of the forward that ran.
 """
 
 from __future__ import annotations
@@ -14,6 +20,7 @@ from typing import Any, Callable
 import torch
 
 from vacnic_tpu_torch.kernels.flash_attn import flash_attention, flash_eligible
+from vacnic_tpu_torch.kernels.primitives import differentiated
 
 Params = dict[str, Any]
 
@@ -30,6 +37,68 @@ ACT2FN: dict[str, Callable] = {
     # OpenAI CLIP's x*sigmoid(1.702x) ("quick gelu")
     "quick_gelu": lambda x: x * torch.sigmoid(1.702 * x),
 }
+
+
+# ---------------------------------------------------------------------------
+# Dropout seeds
+# ---------------------------------------------------------------------------
+
+_M64 = (1 << 64) - 1
+
+
+def _mix64(z: int) -> int:
+    """splitmix64's finaliser: a bijection of 64-bit integers that spreads
+    every input bit over the output."""
+    z = (z + 0x9E3779B97F4A7C15) & _M64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _M64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _M64
+    return z ^ (z >> 31)
+
+
+def fold_in(seed: int, data: int) -> int:
+    """A new 63-bit seed from `seed` and the integer `data` (the port's
+    jax.random.fold_in)."""
+    return _mix64(_mix64(seed & _M64) ^ (data & _M64)) >> 1
+
+
+def split(seed: int) -> tuple[int, int]:
+    """Two independent seeds from one (jax.random.split into two)."""
+    return fold_in(seed, 0), fold_in(seed, 1)
+
+
+def dropout(x: torch.Tensor, rate: float, seed: int | None) -> torch.Tensor:
+    """Inverted dropout; seed None or rate 0 is the identity (the eval path).
+
+    JAX's default keep rule (vacnic_tpu/models/layers.py:84-108): uniform
+    16-bit integers compared against round(keep * 65536), so the keep
+    probability is that threshold over 65536 (0.899994 at rate 0.1). The
+    bits come from a generator on x's device seeded with `seed` alone."""
+    if seed is None or rate <= 0.0:
+        return x
+    keep = 1.0 - rate
+    thresh = min(int(round(keep * 65536.0)), 65535)
+    g = torch.Generator(device=x.device)
+    g.manual_seed(seed)
+    bits = torch.randint(0, 65536, x.shape, generator=g, device=x.device, dtype=torch.int32)
+    return torch.where(bits < thresh, x / keep, torch.zeros_like(x))
+
+
+class RngStream:
+    """Per-call-site seeds: the n-th `next()` is fold_in(seed, n). A stream
+    made from None yields None, and every dropout it feeds is the identity."""
+
+    def __init__(self, seed: int | None):
+        self._seed = seed
+        self._n = 0
+
+    def next(self) -> int | None:
+        if self._seed is None:
+            return None
+        self._n += 1
+        return fold_in(self._seed, self._n)
+
+
+NO_DROPOUT = RngStream(None)  # the eval path's stream: next() is always None, nothing moves
 
 
 def linear(p: Params, x: torch.Tensor) -> torch.Tensor:
@@ -103,11 +172,17 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Shapes that `flash_eligible` accepts (the 512-token encoder
     self-attention) go to kernels/flash_attn.flash_attention: the CUDA
     kernel on the card, its plain twin on the CPU. The JAX package takes
-    that route only under VACNIC_PALLAS=1; the port always does. On the card
-    the kernel runs in bf16, as the fused stacks do: other inputs are
-    rounded to bf16 and the output is cast back to v.dtype. Other shapes
-    take `attention_plain`."""
-    if not flash_eligible(q, k, mask):
+    that route only under VACNIC_PALLAS=1; the port always does, outside
+    autograd. On the card the kernel runs in bf16, as the fused stacks do:
+    other inputs are rounded to bf16 and the output is cast back to v.dtype.
+
+    The kernel has no backward. When grad mode is on and q, k or v requires
+    grad (a differentiated training forward), every shape takes
+    `attention_plain`, the XLA recipe that JAX training runs
+    (vacnic_tpu/models/layers.py:166-197 without VACNIC_PALLAS). Under
+    torch.no_grad() (the teacher, eval) the kernel runs as above. Other
+    shapes take `attention_plain`."""
+    if not flash_eligible(q, k, mask) or differentiated(q, k, v):
         return attention_plain(q, k, v, mask)
     if q.is_cuda and v.dtype != torch.bfloat16:
         bf = torch.bfloat16

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from vacnic_tpu_torch.core.config import BartConfig, ClipVisionConfig, FusionConfig
+from vacnic_tpu_torch.core.tree import tree_map
 
 Params = dict[str, Any]
 
@@ -51,15 +52,18 @@ def params_from_jax(tree: Any, device: str | torch.device = "cpu",
 
 
 def tree_to(tree: Any, device=None, dtype: torch.dtype | None = None) -> Any:
-    """Move (and for floating leaves, cast) every tensor of a parameter tree."""
-    if isinstance(tree, dict):
-        return {k: tree_to(v, device, dtype) for k, v in tree.items()}
-    if isinstance(tree, (tuple, list)):
-        return type(tree)(tree_to(v, device, dtype) for v in tree)
-    t = tree.to(device) if device is not None else tree
-    if dtype is not None and t.is_floating_point():
-        t = t.to(dtype)
-    return t
+    """Move (and for floating leaves, cast) every tensor of a parameter tree.
+    A tensor already on `device` in `dtype` comes back as the same object, so
+    gradients taken through the moved tree reach the caller's leaves; leaves
+    that are not tensors (None, a tower's int "heads") are kept as they are."""
+
+    def move(_, t):
+        if not isinstance(t, torch.Tensor):
+            return t
+        t = t.to(device) if device is not None else t
+        return t.to(dtype) if dtype is not None and t.is_floating_point() else t
+
+    return tree_map(move, tree)
 
 
 # ---------------------------------------------------------------------------
