@@ -117,6 +117,19 @@ Phases:
            round trip (the next steps bit-identical), and readings: state
            bytes, peak memory, step ms, samples/s, save/restore seconds and
            one step under torch.profiler (profile_train.txt).
+  data     the data layer and evaluation (run_data_phase): a GoodNews-layout
+           fixture written here (64 / 8 / 32 rows, 224 px JPEGs, faces on
+           every second row, NER masks, byte-level BPE padded to BART's
+           50265 entries; the BPE engine and pretokenizer printed, native
+           ids equal to Python's); PrefetchLoader(device="cuda") batches
+           bit-identical to host collate, pinned, no thread left by an
+           abandoned iterator; fit at full_train() widths cut to 2 + 2
+           layers, batch 32, 2 epochs, teacher cache (epoch 2 launches no
+           flash_attention), then generate_captions on val; generate_captions
+           at full_train() as released over the 32 test rows at batch 32:
+           the slice's launch counts, tokens identical to a direct
+           clip_vision_fwd + generate_mm, metrics finite. Readings: loader
+           batches/s, H2D ms, fit step ms, captions/s against direct.
 
 --tokens-out FILE saves every path's captions; --tokens-ref FILE holds every
 path of this run token-identical to captions another tree saved (copy this
@@ -2126,6 +2139,602 @@ def run_train_phase(gpu: str) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# data phase
+# ---------------------------------------------------------------------------
+
+DATA_SPLITS = (("train", 64), ("val", 8), ("test", 32))
+SPECIAL_TOKENS = ("<ENT>", "<NONAME>", "<PERSON>", "<ORGNORP>", "<GPELOC>")
+BART_BASE_VOCAB = 50265  # entries of BART's vocab.json: the added tokens start here
+PERSON_ID = 50267        # <PERSON>, the third added token
+FIXTURE_WORDS = (
+    "the", "a", "of", "in", "and", "to", "on", "at", "with", "for", "press", "photo", "shows",
+    "waving", "crowd", "gathered", "today", "city", "council", "meeting", "president",
+    "minister", "visit", "speech", "during", "after", "team", "game", "season", "police",
+    "street", "protest", "market", "school", "students", "family", "river", "bridge",
+    "festival", "music", "night", "morning", "week", "year", "new", "old", "2020",
+    "Alice", "Smith", "Bob", "Jones", "Carol", "Diaz", "Paris", "London", "Berlin", "United",
+    "Nations", "Senate", "Google", "café")
+NAMES = ("Alice Smith", "Bob Jones", "Carol Diaz")
+PLACES = ("Paris", "London", "Berlin")
+ORGS = ("United Nations", "Senate", "Google")
+DATA_FIT_LAYERS = 2  # the fit run's depth cut (encoder and decoder; fusion in both)
+DATA_BATCH = 32
+
+
+def write_bpe_vocab(d: str, words=FIXTURE_WORDS, size: int | None = BART_BASE_VOCAB):
+    """A byte-level BPE vocab.json + merges.txt in BART's layout: <s> <pad>
+    </s> <unk>, the 256 byte symbols, one merge chain a word (with and
+    without its leading space), then filler tokens " w<i>" up to `size`
+    entries, so that added tokens get BART's ids (<ENT> 50265, <NONAME>
+    50266). -> (vocab path, merges path)."""
+    from vacnic_tpu_torch.data.tokenize import _bytes_to_unicode
+
+    b2u = _bytes_to_unicode()
+    chars = sorted(set(b2u.values()))
+    merges, extra, seen = [], [], set(chars)
+    for w in words:
+        for seq in ([b2u[b] for b in w.encode()], [b2u[b] for b in (" " + w).encode()]):
+            cur = list(seq)
+            while len(cur) > 1:
+                merges.append(f"{cur[0]} {cur[1]}")
+                cur = [cur[0] + cur[1]] + cur[2:]
+                if cur[0] not in seen:
+                    extra.append(cur[0])
+                    seen.add(cur[0])
+    tokens = ["<s>", "<pad>", "</s>", "<unk>"] + chars + extra
+    if size is not None:
+        tokens += [f"{b2u[ord(' ')]}w{i}" for i in range(size - len(tokens))]
+    vocab, merges_path = os.path.join(d, "vocab.json"), os.path.join(d, "merges.txt")
+    with open(vocab, "w", encoding="utf-8") as f:
+        json.dump({t: i for i, t in enumerate(tokens)}, f, ensure_ascii=False)
+    with open(merges_path, "w", encoding="utf-8") as f:
+        f.write("#version: 0.2\n" + "\n".join(dict.fromkeys(merges)))
+    return vocab, merges_path
+
+
+def write_news_fixture(root: str, splits=DATA_SPLITS, image_size: int = 224,
+                       face_dim: int = 512, article_words: int = 600, caption_words: int = 12,
+                       seed: int = 0):
+    """A GoodNews-layout dataset, made from `seed`: per-row files under
+    root/GoodNews/goodnews (images_processed/<h>.jpg, faces/<h>.npy of
+    [n, face_dim] on every second row, articles_full/<h>.txt, the
+    NER-masked ids in articles_full_newsmep_ent_by_count/<h>.json) and one
+    data dict a split, root/GoodNews/<split>_dict.json, whose sents_byclip
+    fills the 512-token article bucket.
+    -> (the per-row directory, {split: data dict})."""
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.RandomState(seed)
+    base = os.path.join(root, "GoodNews", "goodnews")
+    for sub in ("images_processed", "faces", "objects", "articles_full",
+                "articles_full_newsmep_ent_by_count"):
+        os.makedirs(os.path.join(base, sub), exist_ok=True)
+    plain = [w for w in FIXTURE_WORDS if w.islower()]
+    cell = max(1, image_size // 14)
+    dicts = {}
+    for split, n in splits:
+        dd = {}
+        for i in range(n):
+            h = f"{split}{i:03d}"
+            coarse = rng.randint(0, 256, (-(-image_size // cell), -(-image_size // cell), 3))
+            img = np.kron(coarse, np.ones((cell, cell, 1), np.int64))[:image_size, :image_size]
+            img = np.clip(img + rng.randint(-24, 25, img.shape), 0, 255).astype(np.uint8)
+            Image.fromarray(img).save(os.path.join(base, "images_processed", f"{h}.jpg"))
+            name, place, org = NAMES[i % 3], PLACES[(i // 3) % 3], ORGS[(i // 9) % 3]
+            faces = i % 2 == 0
+            if faces:
+                np.save(os.path.join(base, "faces", f"{h}.npy"),
+                        rng.randn(1 + i % 3, face_dim).astype(np.float32))
+            words = [str(w) for w in rng.choice(plain, article_words)]
+            words[3:3] = name.split()
+            words[40:40] = ["in", place]
+            words[90:90] = org.split()
+            article = " ".join(words) + "."
+            with open(os.path.join(base, "articles_full", f"{h}.txt"), "w") as f:
+                f.write(article)
+            with open(os.path.join(base, "articles_full_newsmep_ent_by_count", f"{h}.json"),
+                      "w") as f:
+                json.dump({"input_ids": [0, 5, PERSON_ID, PERSON_ID, 7, 9, PERSON_ID, 2]}, f)
+            cap = " ".join(str(w) for w in rng.choice(plain, caption_words))
+            dd[h] = {
+                "caption": f"{name} {cap} in {place}" + (" café" if i % 4 == 0 else ""),
+                "names": [name] if faces else [],
+                "org_norp": [org] if i % 3 == 0 else [], "gpe_loc": [place],
+                "names_art": [name, NAMES[(i + 1) % 3]], "org_norp_art": [org],
+                "gpe_loc_art": [place],
+                "sents_byclip": article,
+                "face_emb_dir": [f"faces/{h}.npy"] if faces else [],
+                "obj_emb_dir": [],
+                "name_pos_cap": [[0, 1]],
+            }
+        with open(os.path.join(root, "GoodNews", f"{split}_dict.json"), "w") as f:
+            json.dump(dd, f)
+        dicts[split] = dd
+    return base, dicts
+
+
+def news_tokenizer(vocab: str, merges: str):
+    """BartBpeTokenizer with the five added tokens, as the CLI builds it."""
+    from vacnic_tpu_torch.data.tokenize import BartBpeTokenizer
+
+    tok = BartBpeTokenizer(vocab, merges)
+    tok.add_special_tokens(list(SPECIAL_TOKENS))
+    return tok
+
+
+def news_collate(cfg, tokenizer):
+    from vacnic_tpu_torch.data.collate import collate
+
+    noname = tokenizer.added_tokens.get("<NONAME>", 50266)
+    return lambda s: collate(
+        s, article_len=cfg.data.article_max_length, caption_len=cfg.data.caption_max_length,
+        ner_len=cfg.fusion.max_ner_type_len, ner_len_gt=cfg.fusion.max_ner_type_len_gt,
+        max_faces=cfg.fusion.max_faces, face_dim=cfg.fusion.face_feature_dim, noname_id=noname)
+
+
+def news_dataset(cfg, tokenizer, base: str, data_dict: dict, is_train: bool):
+    from vacnic_tpu_torch.data.datasets import NewsCaptionDataset
+
+    return NewsCaptionDataset(
+        data_dict, base, tokenizer, dataset=cfg.data.dataset,
+        max_article_len=cfg.data.article_max_length, max_caption_len=cfg.data.caption_max_length,
+        max_ner_type_len=cfg.fusion.max_ner_type_len,
+        max_ner_type_len_gt=cfg.fusion.max_ner_type_len_gt,
+        retrieved_sent=cfg.data.use_retrieval, train=is_train, image_size=cfg.clip.image_size)
+
+
+def news_loader(cfg, tokenizer, base: str, data_dict: dict, is_train: bool, device=None,
+                batch_size: int | None = None, **kw):
+    """NewsCaptionDataset + collate + PrefetchLoader, wired as the JAX CLI
+    wires them (vacnic_tpu/cli.py:97-145): train batches shuffled, eval
+    loaders in order and keeping the tail."""
+    from vacnic_tpu_torch.data.pipeline import PrefetchLoader
+
+    bs = batch_size or (cfg.train.train_batch_size if is_train else cfg.train.val_batch_size)
+    return PrefetchLoader(news_dataset(cfg, tokenizer, base, data_dict, is_train), bs,
+                          news_collate(cfg, tokenizer), shuffle=is_train,
+                          num_workers=cfg.data.num_workers, drop_last=is_train, device=device,
+                          **kw)
+
+
+def data_config(data_dir: str):
+    """full_train() widths with the fit run's cuts: DATA_FIT_LAYERS encoder
+    and decoder layers (fusion in both), 2 epochs, the teacher cache on."""
+    from vacnic_tpu_torch.core.config import VacnicConfig
+
+    cfg = VacnicConfig.full_train()
+    return dataclasses.replace(
+        cfg, bart=dataclasses.replace(cfg.bart, encoder_layers=DATA_FIT_LAYERS,
+                                      decoder_layers=DATA_FIT_LAYERS),
+        fusion=dataclasses.replace(cfg.fusion, fusion_layers=tuple(range(DATA_FIT_LAYERS))),
+        data=dataclasses.replace(cfg.data, data_dir=data_dir),
+        train=dataclasses.replace(cfg.train, num_epochs=2, teacher_cache=True))
+
+
+def check_device_batch(tag: str, batch: dict, host: dict) -> None:
+    """Every array of `host` (collate on the host) must be a CUDA tensor of
+    the same dtype and shape in `batch`, equal bit for bit; lists equal."""
+    import numpy as np
+    import torch
+
+    if set(batch) != set(host):
+        raise RuntimeError(f"{tag}: keys {sorted(batch)} against the host's {sorted(host)}")
+    for k, h in host.items():
+        v = batch[k]
+        if isinstance(h, np.ndarray):
+            want = torch.from_numpy(h)
+            if not (isinstance(v, torch.Tensor) and v.is_cuda and v.dtype == want.dtype
+                    and v.shape == want.shape and torch.equal(v.cpu(), want)):
+                raise RuntimeError(f"{tag}: {k} differs from host collate "
+                                   f"({getattr(v, 'device', type(v))}, "
+                                   f"{getattr(v, 'dtype', None)} against {want.dtype})")
+        elif v != h:
+            raise RuntimeError(f"{tag}: {k} differs from host collate")
+
+
+def finite_metrics(tag: str, out: dict) -> dict:
+    """The "bleu" and "other metrics" numbers of a generate_captions dict,
+    each finite, with meteor_scorer recorded -> them, flat."""
+    import math
+
+    if "bleu" not in out or "other metrics" not in out:
+        raise RuntimeError(f"{tag}: no 'bleu' / 'other metrics' in the output")
+    om = dict(out["other metrics"])
+    scorer = om.pop("meteor_scorer", None)
+    nums = {**out["bleu"], **om}
+    bad = {k: v for k, v in nums.items() if not (isinstance(v, float) and math.isfinite(v))}
+    if bad or not scorer:
+        raise RuntimeError(f"{tag}: metrics {nums}, meteor_scorer {scorer!r}")
+    return dict(nums, meteor_scorer=scorer)
+
+
+def data_fixture(root: str):
+    """(1) of the data phase: the fixture and the tokenizer, whose engines
+    must agree on the fixture's text -> (vocab files, row directory, data
+    dicts, tokenizer)."""
+    from vacnic_tpu_torch.data.tokenize import PRETOKENIZER
+
+    t0 = time.perf_counter()
+    vocab = write_bpe_vocab(root)
+    base, dicts = write_news_fixture(root)
+    log(f"data: fixture of {', '.join(f'{s} {n}' for s, n in DATA_SPLITS)} rows with 224 px "
+        f"JPEGs written in {time.perf_counter() - t0:.2f} s")
+    tok, py_tok = news_tokenizer(*vocab), news_tokenizer(*vocab)
+    py_tok._native_tried = True  # the pure-Python merge loop
+    texts = [r[k] for d in dicts.values() for r in d.values() for k in ("sents_byclip", "caption")]
+    same = all(tok.encode(t) == py_tok.encode(t) for t in texts)
+    added = {t: tok.added_tokens[t] for t in SPECIAL_TOKENS}
+    log(f"data: BPE engine {tok.engine}, pretokenizer {PRETOKENIZER}; {len(texts)} fixture "
+        f"texts: native ids {'identical to' if same else 'DIFFERENT from'} Python ids; "
+        f"vocab {len(tok)}, added tokens {added}")
+    if not same or added["<ENT>"] != 50265 or added["<NONAME>"] != 50266:
+        raise RuntimeError("data: BPE ids differ between engines or added tokens off BART's")
+    return vocab, base, dicts, tok
+
+
+def check_data_loaders(cfg, tok, base: str, dicts: dict) -> None:
+    """(2) of the data phase: PrefetchLoader(device="cuda") batches, over two
+    epochs of the shuffled train split and the test split, against host
+    collate of the same rows; pinned bytes; an abandoned iterator."""
+    import threading
+
+    import numpy as np
+
+    from vacnic_tpu_torch.data.pipeline import THREAD_NAME, PrefetchLoader
+
+    collate_fn = news_collate(cfg, tok)
+    for split, shuffle in (("train", True), ("test", False)):
+        ds = news_dataset(cfg, tok, base, dicts[split], False)
+        loader = PrefetchLoader(ds, cfg.train.train_batch_size, collate_fn, shuffle=shuffle,
+                                drop_last=False, num_workers=cfg.data.num_workers, device="cuda")
+        host_bytes, seen = 0, []
+        for _ in range(2):
+            for b in loader:
+                idx = b["sample_idx"].tolist()
+                host = collate_fn([ds[i] for i in idx])
+                check_device_batch(f"data loader {split}", b, host)
+                host_bytes += sum(v.nbytes for v in host.values() if isinstance(v, np.ndarray))
+                seen.append(idx)
+        if sorted(i for s in seen[:len(loader)] for i in s) != list(range(len(ds))):
+            raise RuntimeError(f"data loader {split}: an epoch did not cover every row once")
+        if loader.pinned_bytes != host_bytes:
+            raise RuntimeError(f"data loader {split}: {loader.pinned_bytes} bytes pinned for "
+                               f"{host_bytes} copied")
+        log(f"data: loader {split} (shuffle {shuffle}), 2 epochs, {len(seen)} batches: every "
+            f"array on cuda, bit-identical to host collate with numpy's dtypes; "
+            f"{host_bytes / 1e6:.1f} MB copied, all from pinned memory")
+    it = iter(loader)
+    next(it)
+    it.close()
+    deadline, alive = time.time() + 10.0, ["?"]
+    while alive and time.time() < deadline:
+        alive = [t.name for t in threading.enumerate()
+                 if t.name.startswith(THREAD_NAME) and t.is_alive()]
+        time.sleep(0.05)
+    if alive:
+        raise RuntimeError(f"data: an abandoned iterator left live threads {alive}")
+    log("data: an abandoned iterator left no producer or worker thread")
+
+
+def loader_readings(cfg, vocab, base: str, data_dict: dict, gpu: str) -> None:
+    """Readings of the train loader as fit uses it (train=True reads, batch
+    32): batches/s over three epochs from a cold tokenizer cache at
+    cfg.data.num_workers threads, then warm by worker count; the H2D ms of
+    one batch (pinning, then the copy); one thread's ms a row, under
+    cProfile into profile_data.txt (the top functions by cumulative time);
+    ascii_fold's us a call against JAX's form of it."""
+    import cProfile
+    import io
+    import pstats
+
+    import numpy as np
+    import torch
+
+    from vacnic_tpu_torch.data import datasets as D
+
+    tok = news_tokenizer(*vocab)  # cold caches, as a run starts
+    bsz = cfg.train.train_batch_size
+    loader = news_loader(cfg, tok, base, data_dict, True, "cuda")
+    epoch_s = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        n = sum(1 for _ in loader)
+        torch.cuda.synchronize()
+        epoch_s.append(time.perf_counter() - t0)
+    rates = {}
+    for workers in (1, 2, 4, 8):
+        c = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, num_workers=workers))
+        loader = news_loader(c, tok, base, data_dict, True, "cuda")
+        t0 = time.perf_counter()
+        nb = sum(1 for _ in loader) + sum(1 for _ in loader)
+        torch.cuda.synchronize()
+        rates[workers] = round(nb / (time.perf_counter() - t0), 3)
+
+    ds = news_dataset(cfg, tok, base, data_dict, True)
+    arrays = [v for v in news_collate(cfg, tok)([ds[i] for i in range(bsz)]).values()
+              if isinstance(v, np.ndarray)]
+    nbytes = sum(a.nbytes for a in arrays)
+    pin_ms, copy_ms = [], []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        pinned = [torch.from_numpy(np.ascontiguousarray(a)).pin_memory() for a in arrays]
+        t1 = time.perf_counter()
+        on_card = [p.to("cuda", non_blocking=True) for p in pinned]
+        torch.cuda.synchronize()
+        pin_ms.append((t1 - t0) * 1e3)
+        copy_ms.append((time.perf_counter() - t1) * 1e3)
+        del pinned, on_card
+    pin_ms, copy_ms = sorted(pin_ms)[2], sorted(copy_ms)[2]
+
+    t0 = time.perf_counter()
+    for i in range(bsz):
+        ds[i]
+    row_ms = (time.perf_counter() - t0) / bsz * 1e3
+    prof = cProfile.Profile()
+    prof.enable()
+    for i in range(bsz):
+        ds[i]
+    prof.disable()
+    out = io.StringIO()
+    stats = pstats.Stats(prof, stream=out).sort_stats("cumulative")
+    stats.print_stats(25)
+    with open(os.path.join(OUT_DIR, "profile_data.txt"), "w") as f:
+        f.write(out.getvalue())
+    top = sorted(((v[3] / bsz * 1e3, f"{os.path.basename(k[0])}:{k[2]}")
+                  for k, v in stats.stats.items()), reverse=True)[1:9]
+    captions = [r["caption"] for r in data_dict.values()] * 10
+    fold_us = {}
+    for name, fold in (("port", D.ascii_fold), ("import per call", ascii_fold_import_per_call)):
+        t0 = time.perf_counter()
+        for c in captions:
+            fold(c)
+        fold_us[name] = round((time.perf_counter() - t0) / len(captions) * 1e6, 2)
+
+    log(f"data: loader readings at batch {bsz} (read + decode + tokenize + collate + H2D), "
+        f"{cfg.data.num_workers} worker threads: epoch 1 (cold tokenizer cache) "
+        f"{n / epoch_s[0]:.2f} batches/s, epochs 2-3 {2 * n / sum(epoch_s[1:]):.2f} batches/s "
+        f"({[round(s, 3) for s in epoch_s]} s an epoch of {n}); warm, by worker threads "
+        f"{rates}; {os.cpu_count()} host cores ({gpu})")
+    log(f"data: H2D of one batch ({nbytes / 1e6:.1f} MB): pin {pin_ms:.2f} ms + copy "
+        f"{copy_ms:.2f} ms ({nbytes / 1e6 / copy_ms:.2f} GB/s); one thread reads a row in "
+        f"{row_ms:.2f} ms (cProfile ms a row, cumulative: "
+        + ", ".join(f"{name} {ms:.2f}" for ms, name in top)
+        + f"); ascii_fold us a call, the port's (unidecode looked up once) and JAX's form "
+        f"(the import tried on every call): {fold_us} ({gpu})")
+
+
+def ascii_fold_import_per_call(text: str) -> str:
+    """vacnic_tpu/data/datasets.py's ascii_fold as written there, for the
+    reading beside the port's: the import is tried on every call."""
+    import unicodedata
+
+    try:
+        import unidecode
+
+        return unidecode.unidecode(text)
+    except ImportError:
+        return unicodedata.normalize("NFKD", text).encode("ascii", "ignore").decode("ascii")
+
+
+def run_data_fit(cfg, tok, base: str, dicts: dict, out_dir: str, gpu: str) -> None:
+    """(3) of the data phase: fit over the train and val loaders at
+    full_train() widths cut to DATA_FIT_LAYERS, then generate_captions on
+    the val split with the state fit returns."""
+    import math
+
+    import torch
+
+    from vacnic_tpu_torch.core.rng import make_generator
+    from vacnic_tpu_torch.kernels import primitives as K
+    from vacnic_tpu_torch.models import fusion as F
+    from vacnic_tpu_torch.models.bart import bart_init
+    from vacnic_tpu_torch.models.clip_vit import clip_vision_init
+    from vacnic_tpu_torch.train import loop
+    from vacnic_tpu_torch.train.train_step import make_train_step
+
+    log(f"data: fit at full_train() widths (d {cfg.bart.d_model}, vocab {cfg.bart.vocab_size}, "
+        f"S {cfg.data.article_max_length}, caption {cfg.data.caption_max_length}, ViT-B/16 at "
+        f"{cfg.clip.image_size}, {cfg.train.compute_dtype} over f32, remat "
+        f"{cfg.train.grad_checkpoint}, dropout {cfg.bart.dropout}); cut: {DATA_FIT_LAYERS} "
+        f"encoder and {DATA_FIT_LAYERS} decoder layers (released 12 + 12), fusion_layers "
+        f"{cfg.fusion.fusion_layers}; batch {cfg.train.train_batch_size}, "
+        f"{cfg.train.num_epochs} epochs, teacher_cache, val batch {cfg.train.val_batch_size}")
+    g = make_generator(0, "cuda")
+    model = F.multimodal_bart_init(g, cfg.bart, cfg.fusion, device="cuda")
+    clip = clip_vision_init(g, cfg.clip, device="cuda")
+    teacher = bart_init(g, cfg.bart, device="cuda")
+    train_loader = news_loader(cfg, tok, base, dicts["train"], True, "cuda")
+    val_loader = news_loader(cfg, tok, base, dicts["val"], False, "cuda")
+    init_fn, step_fn = make_train_step(cfg, cfg.train.num_epochs * len(train_loader))
+    state = init_fn({"model": model, "clip": clip}, teacher, cfg.train.seed)
+    del model, clip, teacher
+    per_step, step_ms, mallocs = [], [], []
+
+    def counted_step(state, batch):
+        before = K.launch_counts()
+        m0 = torch.cuda.memory_stats().get("num_device_alloc", 0)
+        t0 = time.perf_counter()
+        out = step_fn(state, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        mallocs.append(torch.cuda.memory_stats().get("num_device_alloc", 0) - m0)
+        after = K.launch_counts()
+        per_step.append({k: after[k] - before[k] for k in after if after[k] != before[k]})
+        return out
+
+    t0 = time.perf_counter()
+    state = loop.fit(cfg, state, counted_step, train_loader, val_loader, out_dir, tokenizer=tok)
+    fit_s = time.perf_counter() - t0
+    with open(os.path.join(out_dir, "run.metrics.jsonl")) as f:
+        logged = [json.loads(line) for line in f]
+    bad = [m for m in logged for v in m.values() if isinstance(v, float) and not math.isfinite(v)]
+    per_epoch = len(train_loader)
+    flash = [s.get("flash_attention", 0) for s in per_step]
+    log(f"data: fit {len(per_step)} steps in {fit_s:.2f} s (validation and the checkpoint saves "
+        f"included); step ms {[round(s, 1) for s in step_ms]} (cudaMalloc calls by step "
+        f"{mallocs}); flash_attention launches by step {flash}; val_loss by epoch "
+        f"{[round(m['val_loss'], 4) for m in logged if 'val_loss' in m]} ({gpu})")
+    if bad or not logged:
+        raise RuntimeError(f"data: fit logged non-finite metrics {bad}")
+    if (len(per_step) != cfg.train.num_epochs * per_epoch
+            or any(n != cfg.bart.encoder_layers for n in flash[:per_epoch])
+            or any(flash[per_epoch:])):
+        raise RuntimeError(f"data: flash_attention launches by step {flash}: the teacher's "
+                           f"{cfg.bart.encoder_layers} a step in epoch 1, none in epoch 2 (the "
+                           "teacher cache)")
+    for sub in ("best", "last"):
+        if not any(n.isdigit() for n in os.listdir(os.path.join(out_dir, sub))):
+            raise RuntimeError(f"data: fit wrote no {sub}/ checkpoint")
+    with open(os.path.join(out_dir, "val_outputs.json")) as f:
+        vo = json.load(f)
+    if len(vo) != len(val_loader) or not all(
+            v["gt_cap"] and v["logit_output"]
+            and all(isinstance(s, str) for s in v["gt_cap"] + v["logit_output"])
+            for v in vo.values()):
+        raise RuntimeError("data: val_outputs.json lacks gt_cap / logit_output strings")
+    t0 = time.perf_counter()
+    caps = loop.generate_captions(cfg, state.params, val_loader, tok,
+                                  out_path=os.path.join(out_dir, "val_captions.json"))
+    val_s = time.perf_counter() - t0
+    rows = [k for k in caps if k not in ("bleu", "other metrics")]
+    m = finite_metrics("data generate_captions (val)", caps)
+    if len(rows) != len(dicts["val"]):
+        raise RuntimeError(f"data: generate_captions on val gave {len(rows)} captions")
+    log(f"data: best/ and last/ written; val_outputs.json has gt_cap and logit_output for "
+        f"{len(vo)} steps; generate_captions on val with fit's state: {len(rows)} captions in "
+        f"{val_s:.2f} s, metrics {m}")
+
+
+def run_data_generate(tok, base: str, dicts: dict, out_path: str, gpu: str) -> dict:
+    """(4) of the data phase: generate_captions at full_train() as released
+    over the test rows, held to the slice's launch counts and to a direct
+    clip_vision_fwd + generate_mm on the same device batch -> the counts."""
+    import torch
+
+    from vacnic_tpu_torch.core.rng import make_generator
+    from vacnic_tpu_torch.data.datasets import ascii_fold
+    from vacnic_tpu_torch.eval.caption_metrics import compute_caption_metrics
+    from vacnic_tpu_torch.infer.generate import generate_mm
+    from vacnic_tpu_torch.kernels import primitives as K
+    from vacnic_tpu_torch.models.clip_vit import clip_vision_fwd, clip_vision_init
+    from vacnic_tpu_torch.models.weights_io import tree_to
+    from vacnic_tpu_torch.train import loop
+    from vacnic_tpu_torch.train.train_step import create_mask, face_mask_from_emb
+
+    cfg, model = full_model()
+    clip = tree_to(clip_vision_init(make_generator(0, "cuda"), cfg.clip, device="cuda"),
+                   dtype=torch.bfloat16)
+    params = {"model": model, "clip": clip}
+    test_loader = news_loader(cfg, tok, base, dicts["test"], False, "cuda",
+                              batch_size=DATA_BATCH)
+    loop.generate_captions(cfg, params, test_loader, tok, compute_metrics=False)  # warm-up
+    seen_batches, seen_seqs = [], []
+
+    def tapped(loader):
+        for b in loader:
+            seen_batches.append(b)
+            yield b
+
+    def recording(*a, **kw):
+        seqs, scores = generate_mm(*a, **kw)
+        seen_seqs.append(seqs.clone())
+        return seqs, scores
+
+    loop.generate_mm = recording
+    try:
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        caps = loop.generate_captions(cfg, params, tapped(test_loader), tok, out_path=out_path)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        counts = check_slice_counts("data generate_captions", cfg)
+    finally:
+        loop.generate_mm = generate_mm
+    if len(seen_batches) != 1 or len(seen_seqs) != 1:
+        raise RuntimeError(f"data: {len(seen_batches)} batches for the {DATA_BATCH} test rows")
+    b, dt = seen_batches[0], torch.bfloat16
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        _, img = clip_vision_fwd(clip, b["pixels"], cfg.clip, dt)
+        seqs, scores = generate_mm(model, b["article_ids"], create_mask(b["article_ids"]), img,
+                                   cfg.bart, cfg.fusion, cfg.decode, dtype=dt, device="cuda",
+                                   face_features=b["face_emb"],
+                                   face_mask=face_mask_from_emb(b["face_emb"]),
+                                   name_ids=b["names_art_ids"],
+                                   name_mask=create_mask(b["names_art_ids"]))
+        torch.cuda.synchronize()
+        direct_s = time.perf_counter() - t0
+    check_captions("data direct", cfg, seqs, scores, DATA_BATCH)
+    identical = torch.equal(seqs, seen_seqs[0])
+    TOKENS["data"] = seen_seqs[0].cpu()
+    want = [ascii_fold(tok.decode(r, skip_special_tokens=True)) for r in seqs.tolist()]
+    rows = [k for k in caps if k not in ("bleu", "other metrics")]
+    strings = rows == list(range(DATA_BATCH)) and all(
+        caps[i]["gen"] == want[i] and caps[i]["gt"] == ascii_fold(b["caption"][i])
+        for i in range(DATA_BATCH))
+    with open(out_path) as f:
+        m = finite_metrics("data generate_captions (test)", json.load(f))
+    t0 = time.perf_counter()
+    compute_caption_metrics([(caps[i]["gen"], caps[i]["gt"]) for i in rows])
+    metrics_s = time.perf_counter() - t0
+    log(f"data: generate_captions, full_train() beam {cfg.decode.num_beams} x "
+        f"{cfg.decode.max_length}, {DATA_BATCH} test rows at batch {DATA_BATCH} (CLIP on "
+        f"pixels): tokens {'identical to' if identical else 'DIFFERENT from'} a direct "
+        f"clip_vision_fwd + generate_mm on the same device batch; gen strings "
+        f"{'equal to' if strings else 'DIFFERENT from'} ascii_fold(decode); metrics {m}")
+    log(f"data: readings: generate_captions {gen_s:.3f} s ({DATA_BATCH / gen_s:.2f} captions/s, "
+        f"the loader's read of the batch and the metrics included), direct {direct_s:.3f} s "
+        f"({DATA_BATCH / direct_s:.2f} captions/s); the metrics alone {metrics_s:.3f} s "
+        f"(meteor_scorer {m['meteor_scorer']}) ({gpu})")
+    if not identical or not strings:
+        raise RuntimeError("data: generate_captions disagrees with the direct generate_mm")
+    return counts
+
+
+def run_data_phase(gpu: str) -> dict:
+    """The data layer and evaluation on the card, from a GoodNews-layout
+    fixture written here (DATA_SPLITS rows, 224 px JPEGs, faces on every
+    second row, NER masks, a byte-level BPE vocab padded to BART's 50265
+    entries): (1) the BPE engine and pretokenizer in use, native ids equal
+    to Python ids on the fixture's text; (2) PrefetchLoader(device="cuda")
+    over NewsCaptionDataset + collate, every array of every batch
+    bit-identical in dtype and value to host collate of the same rows, host
+    memory pinned for every byte copied, no producer thread left by an
+    abandoned iterator; readings (loader_readings); (3) fit at full_train()
+    widths with the depth cut to DATA_FIT_LAYERS (batch 32, 2 epochs,
+    teacher cache, val batch 1): finite metrics, epoch 2's train steps
+    served from the teacher cache (no flash_attention launch), best/ and
+    last/ written, val_outputs.json with gt_cap and logit_output strings,
+    then generate_captions on the val split with fit's state; (4)
+    generate_captions at full_train() as released (full depth, random bf16
+    weights from seed 0 as in the slice, a ViT-B/16 tower on the rows'
+    pixels) over the 32 test rows at batch 32: launches at the slice's
+    counts (zeroed just before, read just after), tokens identical to a
+    direct clip_vision_fwd + generate_mm on the same device batch, each gen
+    string ascii_fold(decode) of them, "bleu" and "other metrics" finite with
+    meteor_scorer recorded; readings: captions/s through it and direct, the
+    metrics' seconds. -> the launch counts of (4)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    root = tempfile.mkdtemp(prefix="data_phase_")
+    try:
+        vocab, base, dicts, tok = data_fixture(root)
+        cfg = data_config(root)
+        check_data_loaders(cfg, tok, base, dicts)
+        loader_readings(cfg, vocab, base, dicts["train"], gpu)
+        run_data_fit(cfg, tok, base, dicts, os.path.join(root, "fit"), gpu)
+        shutil.rmtree(os.path.join(root, "fit"), ignore_errors=True)
+        torch.cuda.empty_cache()
+        return run_data_generate(tok, base, dicts, os.path.join(root, "test_captions.json"), gpu)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def compare_tokens(ref: dict, gpu: str) -> None:
     """Every path run here against the captions another tree saved with
     --tokens-out on the same seeds: token agreement printed, and any
@@ -2152,7 +2761,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
                     default="build,kernels,accuracy,dispatch,stacks,slice,selfkv,stats,stackhead,"
-                            "layerwise,serve,profile,train")
+                            "layerwise,serve,profile,train,data")
     ap.add_argument("--batch", type=int, default=32)
     ap.add_argument("--tokens-out", metavar="FILE",
                     help="save each path's captions (torch.save of {path: tokens})")
@@ -2227,6 +2836,12 @@ def main() -> int:
     if "train" in phases:
         torch.cuda.empty_cache()
         launches.setdefault("flash_attention", run_train_phase(gpu)["flash_attention"])
+    if "data" in phases:
+        torch.cuda.empty_cache()
+        counts = run_data_phase(gpu)
+        for k in SLICE_KERNELS + ("gemm_bf16:large_m", "gemm_bf16:small_m", "layernorm:warp",
+                                  "dec_self_attention:bf16"):
+            launches.setdefault(k, counts[k])
     if args.tokens_out:
         torch.save(TOKENS, args.tokens_out)
         log(f"tokens: the captions of {sorted(TOKENS)} saved to {args.tokens_out}")

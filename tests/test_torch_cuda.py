@@ -801,3 +801,70 @@ def test_caption_service_on_the_card(dev, input_kind):
     for i, res in enumerate(results):
         assert res["tokens"] == seqs[i].tolist()
         assert res["score"] == float(scores[i])
+
+
+class LoaderRows:
+    """Rows of numpy arrays at the main path's widths (512-token articles,
+    [n, 512] faces, 224 px pixels), made from the row's index."""
+
+    def __len__(self):
+        return 48
+
+    def __getitem__(self, i):
+        import numpy as np
+
+        rng = np.random.RandomState(int(i))
+        return {"article_ids": rng.randint(0, 50265, rng.randint(3, 600)).tolist(),
+                "caption_ids": rng.randint(0, 50265, rng.randint(2, 40)).tolist(),
+                "names_art_ids": [0, 11, 50265, 12, 2], "names_ids_flatten": [0, 13, 2],
+                "names_ids": [[0, 14, 2]] * (i % 3),
+                "face_emb": rng.randn(i % 4, 512).astype(np.float32),
+                "pixels": rng.randn(224, 224, 3).astype(np.float32),
+                "caption": f"caption {i}", "sample_idx": int(i)}
+
+
+def test_prefetch_loader_on_the_card(dev):
+    """Batches on the card equal host collate bit for bit, with numpy's
+    dtypes, from pinned memory. Epoch 1 keeps the current stream busy
+    before it reads each batch and drops it: without record_stream the
+    producer's next copies could land in its memory first. Epoch 2 reads
+    each batch at once: without the wait on the copy's event the read could
+    see the copy unfinished. An abandoned iterator leaves no thread."""
+    import threading
+    import time
+
+    import numpy as np
+
+    from vacnic_tpu_torch.data.collate import collate
+    from vacnic_tpu_torch.data.pipeline import THREAD_NAME, PrefetchLoader
+
+    rows, bs = LoaderRows(), 8
+    loader = PrefetchLoader(rows, bs, collate, shuffle=False, num_workers=4, device="cuda")
+    host = [collate([rows[i] for i in range(k * bs, (k + 1) * bs)]) for k in range(len(loader))]
+    for busy in (True, False):
+        copies = []
+        for b in loader:
+            if busy:
+                torch.cuda._sleep(5_000_000)
+            copies.append({k: v.clone() for k, v in b.items() if isinstance(v, torch.Tensor)})
+            assert all(v.is_cuda for v in copies[-1].values())
+            del b
+        torch.cuda.synchronize()
+        assert len(copies) == len(host)
+        for got, want in zip(copies, host):
+            arrays = {k: v for k, v in want.items() if isinstance(v, np.ndarray)}
+            assert set(got) == set(arrays)
+            for k, v in arrays.items():
+                w = torch.from_numpy(v)
+                assert got[k].dtype == w.dtype and torch.equal(got[k].cpu(), w), k
+    assert loader.pinned_bytes == 2 * sum(v.nbytes for h in host for v in h.values()
+                                          if isinstance(v, np.ndarray))
+    it = iter(loader)
+    next(it)
+    it.close()
+    deadline = time.time() + 10.0
+    while time.time() < deadline and any(t.name.startswith(THREAD_NAME)
+                                         for t in threading.enumerate()):
+        time.sleep(0.05)
+    assert not any(t.name.startswith(THREAD_NAME) and t.is_alive()
+                   for t in threading.enumerate())

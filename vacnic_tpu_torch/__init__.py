@@ -1,7 +1,7 @@
 """vacnic_tpu_torch — the PyTorch/CUDA port of vacnic_tpu for NVIDIA Hopper.
 
 The package mirrors vacnic_tpu's layout (core/ models/ kernels/ infer/ data/
-train/) module for module, so each port module has one JAX counterpart that
+train/ eval/ runtime/) module for module, so each port module has one JAX counterpart that
 the tests hold it against. It imports torch and numpy only: never jax and
 never vacnic_tpu. The hot path's TPU kernels are hand-written CUDA C++ for
 sm_90a under kernels/csrc/, each with a plain-PyTorch twin that CPU tensors

@@ -1,10 +1,14 @@
-"""The training loop (port of `fit`, vacnic_tpu/train/loop.py:47-134):
-train steps, the cross-epoch teacher cache, validation with the greedy
-`logit_output` dump, best and last checkpoints, `max_steps`.
+"""The training loop (port of vacnic_tpu/train/loop.py): `fit` (train
+steps, the cross-epoch teacher cache, validation with the greedy
+`logit_output` dump, best and last checkpoints, `max_steps`) and
+`generate_captions` (beam decoding of a loader, then the caption metrics,
+as `{step: {gt, gen}}` + "bleu" + "other metrics").
 
-`generate_captions` (beam decoding of a loader with caption metrics) waits
-for the port of eval/caption_metrics and data/datasets, and its `mesh`
-argument for multi-GPU decoding.
+Batches may hold numpy arrays or tensors on any device, as
+data/pipeline.PrefetchLoader gives them; `sample_idx` is read back to the
+host with one copy. `generate_captions` runs on "cuda" unless the caller
+passes device="cpu"; its `mesh` argument waits for multi-GPU decoding
+(ROADMAP A.5).
 """
 
 from __future__ import annotations
@@ -17,10 +21,16 @@ from typing import Any, Iterable
 import numpy as np
 import torch
 
-from vacnic_tpu_torch.core.config import VacnicConfig
+from vacnic_tpu_torch.core.config import VacnicConfig, dtype_of
+from vacnic_tpu_torch.core.device import resolve_device
 from vacnic_tpu_torch.core.logging import MetricsLogger, get_logger
+from vacnic_tpu_torch.data.datasets import ascii_fold
+from vacnic_tpu_torch.eval.caption_metrics import compute_caption_metrics
+from vacnic_tpu_torch.infer.generate import generate_mm
+from vacnic_tpu_torch.models.weights_io import tree_to
 from vacnic_tpu_torch.train.checkpoints import CheckpointManager
-from vacnic_tpu_torch.train.train_step import TrainState, device_of, eval_step
+from vacnic_tpu_torch.train.train_step import (TrainState, _feed, _image_features, create_mask,
+                                               device_of, eval_step, face_mask_from_emb)
 
 log = get_logger(__name__)
 
@@ -63,7 +73,7 @@ def fit(cfg: VacnicConfig, state: TrainState, step_fn, train_loader: Iterable,
             feed = dict(batch)
             idxs = None
             if use_tcache and "sample_idx" in batch:
-                idxs = [int(i) for i in np.asarray(batch["sample_idx"])]
+                idxs = torch.as_tensor(batch["sample_idx"]).tolist()  # one host copy
                 if all(i in teacher_vecs for i in idxs):
                     feed["teacher_pooled"] = np.stack([teacher_vecs[i] for i in idxs])
             state, m = step_fn(state, feed)
@@ -105,3 +115,48 @@ def fit(cfg: VacnicConfig, state: TrainState, step_fn, train_loader: Iterable,
     ckpt_best.wait()
     ckpt_last.wait()
     return state
+
+
+@torch.no_grad()
+def generate_captions(cfg: VacnicConfig, params: dict, loader: Iterable, tokenizer, *,
+                      out_path: str | None = None, compute_metrics: bool = True, mesh=None,
+                      device=None) -> dict:
+    """Beam-decode a loader -> `{step: {gt, gen}}` (+ metrics), written to
+    `out_path` as JSON when given (gen_caption_from_loader_bart,
+    train...match.py:480-559). Image features come from the batch's
+    `image_cls`, else from params["clip"] on its `pixels`; the dtype is
+    cfg.train.compute_dtype. The tree is moved to the device once, before
+    the loop."""
+    if mesh is not None:
+        raise NotImplementedError("generate_captions(mesh=...) waits for multi-GPU decoding "
+                                  "(ROADMAP A.5)")
+    dev = resolve_device(device)
+    dtype = dtype_of(cfg.train.compute_dtype)
+    params = tree_to(params, dev)
+    out_dict: dict[Any, Any] = {}
+    step_idx = 0
+    for batch in loader:
+        feed = _feed(batch, dev)
+        src_ids = feed["article_ids"]
+        img_cls = _image_features(params, feed, cfg, dtype)
+        kwargs = {}
+        if not cfg.fusion.only_image:
+            kwargs = dict(face_features=feed["face_emb"],
+                          face_mask=face_mask_from_emb(feed["face_emb"]),
+                          name_ids=feed["names_art_ids"],
+                          name_mask=create_mask(feed["names_art_ids"]))
+        seqs, _ = generate_mm(params["model"], src_ids, create_mask(src_ids), img_cls, cfg.bart,
+                              cfg.fusion, cfg.decode, dtype=dtype, device=dev, **kwargs)
+        seqs = seqs.cpu().numpy()
+        gts = batch.get("caption", [""] * seqs.shape[0])
+        for i in range(seqs.shape[0]):
+            gen = tokenizer.decode(seqs[i], skip_special_tokens=True)
+            out_dict[step_idx] = {"gt": ascii_fold(gts[i]), "gen": ascii_fold(gen)}
+            step_idx += 1
+
+    if compute_metrics and out_dict:
+        out_dict.update(compute_caption_metrics([(v["gen"], v["gt"]) for v in out_dict.values()]))
+    if out_path:
+        with open(out_path, "w") as f:
+            json.dump(out_dict, f)
+    return out_dict
