@@ -130,6 +130,26 @@ Phases:
            the slice's launch counts, tokens identical to a direct
            clip_vision_fwd + generate_mm, metrics finite. Readings: loader
            batches/s, H2D ms, fit step ms, captions/s against direct.
+  cli      every subcommand of `python -m vacnic_tpu_torch.cli` (run_cli_phase)
+           on the data phase's fixture, in this process but serve: generate
+           at full_train() as released (random bf16 weights from seed 0 and
+           a ViT-B/16 tower saved once by CheckpointManager, the 32 test rows
+           at batch 32): tokens and file identical to
+           train/loop.generate_captions on the same tree and loader, the
+           slice's launch counts (zeroed just before, read just after);
+           evaluate of that output with --data-dict; serve as a subprocess
+           on that checkpoint with --watch-ckpt-s 1: three requests over HTTP
+           each identical to a direct generate_mm of its row, a newer step
+           saved and weights_version rising in /v1/stats, SIGINT -> exit 0;
+           train at full_train() widths cut to 2 + 2 layers (each save
+           writes the whole state), --max-steps 2, then --resume:
+           flash_attention launched (the teacher), test metrics finite;
+           retrieve with a random ViT-B/16 + CLIP text tower .npz
+           (convert_checkpoint.save_tree; released widths, each tower cut to
+           2 of 12 layers) and a fixture CLIP vocab, equal to
+           retrieve_sentences recomputed on the card; lmm --backend echo;
+           smoke (the six slice kernels launched). One line a subcommand
+           with its wall seconds; logs in chiprun_out/chip_smoke/cli_*.log.
 
 --tokens-out FILE saves every path's captions; --tokens-ref FILE holds every
 path of this run token-identical to captions another tree saved (copy this
@@ -2735,6 +2755,399 @@ def run_data_phase(gpu: str) -> dict:
         shutil.rmtree(root, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# cli phase
+# ---------------------------------------------------------------------------
+
+CLI_SPLIT_FILE = "{split}_dict_newsmep_ent_clip8sent_contras_name_pos.json"  # cli train's names
+CLI_SERVE_ROWS = 3
+CLI_CLIP_LAYERS = 2  # retrieve's towers: depth cut, so the compressed .npz is written in seconds
+
+
+def write_clip_vocab(d: str, words=FIXTURE_WORDS) -> str:
+    """An OpenAI-format CLIP BPE vocab (bpe_simple_vocab_*.txt.gz: a header
+    line, then one merge a line) with one merge chain a lower-cased ASCII
+    word, ending in its "</w>" piece -> its path."""
+    import gzip
+
+    merges = []
+    for w in dict.fromkeys(w.lower() for w in words if w.isascii()):
+        cur = list(w[:-1]) + [w[-1] + "</w>"]
+        while len(cur) > 1:
+            merges.append(f"{cur[0]} {cur[1]}")
+            cur = [cur[0] + cur[1]] + cur[2:]
+    path = os.path.join(d, "bpe_simple_vocab_fixture.txt.gz")
+    with gzip.open(path, "wt", encoding="utf-8") as f:
+        f.write("bpe vocab fixture\n" + "\n".join(dict.fromkeys(merges)))
+    return path
+
+
+def run_cli(argv: list[str], tag: str | None = None) -> str:
+    """vacnic_tpu_torch.cli.main(argv) in this process; it must return 0.
+    Its wall seconds are logged on a line of their own, its standard output
+    goes to OUT_DIR/cli_<tag>.log -> that output."""
+    import contextlib
+    import io
+
+    from vacnic_tpu_torch import cli
+
+    tag = tag or argv[0]
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    dt = time.perf_counter() - t0
+    with open(os.path.join(OUT_DIR, f"cli_{tag.replace(' ', '_')}.log"), "w") as f:
+        f.write(buf.getvalue())
+    if rc != 0:
+        raise RuntimeError(f"cli {tag}: exit code {rc}")
+    log(f"cli {tag}: {dt:.2f} s wall")
+    return buf.getvalue()
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def http_json(opener, url: str, timeout: float = 10) -> dict:
+    with opener.open(url, timeout=timeout) as r:
+        return json.load(r)
+
+
+def serve_cli_roundtrip(ckpt_dir: str, rows: list[dict], direct, save_newer, log_path: str,
+                        args=(), start_timeout: float = 600) -> dict:
+    """`python -m vacnic_tpu_torch.cli serve --ckpt-dir ... --watch-ckpt-s 1`
+    as a subprocess: each row POSTed alone must come back with the tokens
+    and score of `direct(row)` -> (tokens, score); then `save_newer()`
+    writes a newer step and /v1/stats' weights_version must rise within 60
+    s; one more row after the swap; SIGINT must end the process with exit
+    code 0 -> readings (seconds to healthy, ms a request, seconds to the
+    swap)."""
+    import signal
+    import urllib.error
+
+    port = free_port()
+    base = f"http://127.0.0.1:{port}"
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (root, os.environ.get("PYTHONPATH")) if p))
+    cmd = [sys.executable, "-m", "vacnic_tpu_torch.cli", *args, "serve", "--ckpt-dir",
+           ckpt_dir, "--port", str(port), "--watch-ckpt-s", "1", "--buckets", "1,4"]
+    opener = http_opener()
+    with open(log_path, "w") as logf:
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(cmd, cwd=root, env=env, stdout=logf, stderr=subprocess.STDOUT)
+        try:
+            while True:
+                if proc.poll() is not None:
+                    raise RuntimeError(f"cli serve exited with {proc.returncode} before it "
+                                       f"served (log: {log_path})")
+                try:
+                    if http_json(opener, f"{base}/healthz")["ok"]:
+                        break
+                except (urllib.error.URLError, ConnectionError, OSError):
+                    pass
+                if time.perf_counter() - t0 > start_timeout:
+                    raise RuntimeError(f"cli serve not healthy after {start_timeout} s")
+                time.sleep(0.5)
+            ready_s = time.perf_counter() - t0
+
+            def check(row, tag):
+                t = time.perf_counter()
+                got = post_caption(opener, base, request_body(row))
+                ms = (time.perf_counter() - t) * 1e3
+                seqs, scores = direct(row)
+                check_identical(tag, [got], seqs, scores)
+                return ms
+
+            req_ms = [check(r, f"cli serve row {i}") for i, r in enumerate(rows)]
+            v0 = http_json(opener, f"{base}/v1/stats")["weights_version"]
+            t_save = time.perf_counter()
+            save_newer()
+            while http_json(opener, f"{base}/v1/stats")["weights_version"] <= v0:
+                if time.perf_counter() - t_save > 60:
+                    raise RuntimeError("cli serve: weights_version did not rise within 60 s "
+                                       "of a newer checkpoint")
+                time.sleep(0.25)
+            swap_s = time.perf_counter() - t_save
+            req_ms.append(check(rows[0], "cli serve after the swap"))
+            proc.send_signal(signal.SIGINT)
+            rc = proc.wait(timeout=120)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if rc != 0:
+        raise RuntimeError(f"cli serve exited with {rc} on SIGINT (log: {log_path})")
+    return {"ready_s": ready_s, "request_ms": req_ms, "swap_s": swap_s, "exit": rc,
+            "wall_s": time.perf_counter() - t0}
+
+
+def cli_fixture(root: str):
+    """The data phase's GoodNews fixture and BPE vocab, with the split dicts
+    also under the names `cli train` reads -> (vocab, merges, row
+    directory, data dicts, tokenizer)."""
+    vocab, merges = write_bpe_vocab(root)
+    base, dicts = write_news_fixture(root)
+    for split, _ in DATA_SPLITS:
+        with open(os.path.join(root, "GoodNews", CLI_SPLIT_FILE.format(split=split)), "w") as f:
+            json.dump(dicts[split], f)
+    return vocab, merges, base, dicts, news_tokenizer(vocab, merges)
+
+
+def run_cli_generate(root: str, vocab: str, merges: str, tok, base: str, dicts: dict,
+                     gpu: str):
+    """`cli generate` at full_train() as released (random bf16 weights from
+    seed 0 and a ViT-B/16 tower, saved once by CheckpointManager) over the
+    32 test rows at batch 32: tokens and file identical to
+    train/loop.generate_captions on the same tree and loader, launches at
+    the slice's counts (zeroed just before, read just after); then
+    `cli evaluate` of its output. -> (cfg, model, ckpt dir, counts)."""
+    import torch
+
+    from vacnic_tpu_torch.core.rng import make_generator
+    from vacnic_tpu_torch.infer.generate import generate_mm
+    from vacnic_tpu_torch.kernels import primitives as K
+    from vacnic_tpu_torch.models.clip_vit import clip_vision_init
+    from vacnic_tpu_torch.models.weights_io import tree_to
+    from vacnic_tpu_torch.train import loop
+    from vacnic_tpu_torch.train.checkpoints import CheckpointManager
+    from vacnic_tpu_torch.train.train_step import TrainState
+
+    cfg, model = full_model()
+    cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, data_dir=root))
+    clip = tree_to(clip_vision_init(make_generator(0, "cuda"), cfg.clip, device="cuda"),
+                   dtype=torch.bfloat16)
+    params = {"model": model, "clip": clip}
+    ckpt = os.path.join(root, "ckpt")
+    t0 = time.perf_counter()
+    CheckpointManager(ckpt, cfg).save(0, TrainState(step=0, params=params, teacher={},
+                                                    opt_state={}, rng=0))
+    log(f"cli: full_train() tree (bf16, {tree_bytes(params) / 2**30:.2f} GiB) saved by "
+        f"CheckpointManager in {time.perf_counter() - t0:.2f} s")
+    seen = []
+
+    def recording(*a, **kw):
+        seqs, scores = generate_mm(*a, **kw)
+        seen.append(seqs.cpu())
+        return seqs, scores
+
+    test_dict = os.path.join(root, "GoodNews", CLI_SPLIT_FILE.format(split="test"))
+    ref_path, out_path = os.path.join(root, "ref_captions.json"), os.path.join(root, "gen.json")
+    loop.generate_mm = recording
+    try:
+        loader = news_loader(cfg, tok, base, dicts["test"], False, "cuda", batch_size=DATA_BATCH)
+        loop.generate_captions(cfg, params, loader, tok, out_path=ref_path, device="cuda")
+        K.reset_launch_counts()
+        run_cli(["generate", "--ckpt-dir", ckpt, "--data-dict", test_dict, "--vocab", vocab,
+                 "--merges", merges, "--out", out_path, "--set",
+                 f"train.val_batch_size={DATA_BATCH}"])
+        torch.cuda.synchronize()
+        counts = check_slice_counts("cli generate", cfg)
+    finally:
+        loop.generate_mm = generate_mm
+    with open(ref_path) as f, open(out_path) as g:
+        ref, got = json.load(f), json.load(g)
+    identical = len(seen) == 2 and torch.equal(seen[0], seen[1])
+    m = finite_metrics("cli generate", got)
+    log(f"cli generate: full_train() beam {cfg.decode.num_beams} x {cfg.decode.max_length}, "
+        f"{len(seen[-1])} test rows: tokens {'identical to' if identical else 'DIFFERENT from'} "
+        f"generate_captions on the same tree and loader; file "
+        f"{'equal' if got == ref else 'DIFFERENT'}; metrics {m} ({gpu})")
+    if not identical or got != ref:
+        raise RuntimeError("cli generate disagrees with train/loop.generate_captions")
+    TOKENS["cli_generate"] = seen[-1]
+    report_path = os.path.join(root, "report.json")
+    run_cli(["evaluate", "--results", out_path, "--data-dict", test_dict, "--out", report_path])
+    with open(report_path) as f:
+        report = json.load(f)
+    missing = {"bleu", "entities", "face_groups"} - set(report)
+    if missing or report["entities"].get("ner_engine") is None:
+        raise RuntimeError(f"cli evaluate: the report lacks {sorted(missing)} or an NER engine")
+    log(f"cli evaluate: keys {sorted(report)}, NER engine {report['entities']['ner_engine']}")
+    return cfg, model, params, ckpt, counts
+
+
+def run_cli_serve(cfg, model, params, ckpt: str, gpu: str) -> None:
+    """`cli serve` as a subprocess on the generate checkpoint (serve_cli_roundtrip)."""
+    from vacnic_tpu_torch.train.checkpoints import CheckpointManager
+    from vacnic_tpu_torch.train.train_step import TrainState
+
+    rows = sample_rows(cfg, CLI_SERVE_ROWS, seed=7)
+    r = serve_cli_roundtrip(
+        ckpt, rows, lambda row: direct_generate(cfg, model, [row]),
+        lambda: CheckpointManager(ckpt).save(1, TrainState(step=1, params=params, teacher={},
+                                                           opt_state={}, rng=0)),
+        os.path.join(OUT_DIR, "cli_serve.log"))
+    log(f"cli serve: {r['wall_s']:.2f} s wall")
+    log(f"cli serve: healthy after {r['ready_s']:.2f} s (restore + buckets 1, 4 warmed); "
+        f"{len(r['request_ms'])} requests over HTTP identical to a direct generate_mm of each "
+        f"row (ms {[round(x, 1) for x in r['request_ms']]}); a newer step saved -> "
+        f"weights_version rose after {r['swap_s']:.2f} s; SIGINT -> exit {r['exit']} ({gpu})")
+
+
+def run_cli_train(root: str, vocab: str, merges: str, gpu: str) -> int:
+    """`cli train` at full_train() widths cut to DATA_FIT_LAYERS, 2 steps,
+    then again with --resume: test_captions.json with finite metrics, best/
+    and last/ written, flash_attention launched by the teacher -> its
+    launches over both runs. The state last/ holds after the second run
+    must be at step 4."""
+    import torch
+
+    from vacnic_tpu_torch.kernels import primitives as K
+    from vacnic_tpu_torch.train.checkpoints import CheckpointManager
+
+    out = os.path.join(root, "train")
+    cut = ["--set", f"bart.encoder_layers={DATA_FIT_LAYERS}",
+           "--set", f"bart.decoder_layers={DATA_FIT_LAYERS}",
+           "--set", "fusion.fusion_layers=" + ",".join(map(str, range(DATA_FIT_LAYERS))),
+           "--set", f"train.val_batch_size={DATA_BATCH}"]
+    argv = ["train", "--config", "full", "--data-dir", root, "--out-dir", out, "--vocab", vocab,
+            "--merges", merges, "--max-steps", "2", *cut]
+    K.reset_launch_counts()
+    run_cli(argv)
+    run_cli(argv + ["--resume"], "train --resume")
+    torch.cuda.synchronize()
+    flash = K.launch_counts()["flash_attention"]
+    with open(os.path.join(out, "test_captions.json")) as f:
+        m = finite_metrics("cli train", json.load(f))
+    with open(os.path.join(out, "run.metrics.jsonl")) as f:
+        losses = [round(x["loss"], 4) for x in map(json.loads, f) if "loss" in x]
+    for sub in ("best", "last"):
+        if not any(n.isdigit() for n in os.listdir(os.path.join(out, sub))):
+            raise RuntimeError(f"cli train wrote no {sub}/ checkpoint")
+    raw, _ = CheckpointManager(os.path.join(out, "last")).restore_raw()
+    log(f"cli train: full_train() widths, {DATA_FIT_LAYERS} + {DATA_FIT_LAYERS} layers, batch "
+        f"{DATA_BATCH}, --max-steps 2 twice (the second --resume): the last state's step "
+        f"{raw['step']}; losses logged {losses}; flash_attention {flash} launches; test "
+        f"metrics {m} ({gpu})")
+    if raw["step"] != 4 or len(losses) != 4:
+        raise RuntimeError("cli train --resume did not continue from the saved step 2")
+    if flash == 0:
+        raise RuntimeError("cli train: flash_attention never launched (the teacher's encoder)")
+    return flash
+
+
+def run_cli_retrieve(root: str, base: str, dicts: dict, gpu: str) -> None:
+    """`cli retrieve` with a random ViT-B/16 + CLIP text tower .npz written
+    by convert_checkpoint.save_tree (released widths, CLI_CLIP_LAYERS layers
+    each) and a fixture CLIP BPE vocab, over four
+    test rows with 12-sentence articles: each row's sents_byclip must equal
+    retrieve_sentences recomputed on the card from the same file, with the
+    top 8 of its article's sentences."""
+    import numpy as np
+    import torch
+
+    from vacnic_tpu_torch.convert_checkpoint import load_tree, save_tree
+    from vacnic_tpu_torch.core.config import ClipVisionConfig
+    from vacnic_tpu_torch.core.rng import make_generator
+    from vacnic_tpu_torch.data.clip_tokenize import ClipBpeTokenizer
+    from vacnic_tpu_torch.data.datasets import load_image
+    from vacnic_tpu_torch.data.preprocess.clip_retrieval import (retrieve_sentences,
+                                                                 split_sentences)
+    from vacnic_tpu_torch.models.clip_text import clip_text_init
+    from vacnic_tpu_torch.models.clip_vit import clip_image_embed, clip_vision_init
+    from vacnic_tpu_torch.models.weights_io import tree_to
+
+    vcfg = ClipVisionConfig()
+    npz, clip_vocab = os.path.join(root, "clip.npz"), write_clip_vocab(root)
+    t0 = time.perf_counter()
+    save_tree({"vision": clip_vision_init(make_generator(0), dataclasses.replace(
+                   vcfg, layers=CLI_CLIP_LAYERS)),
+               "text": clip_text_init(make_generator(1), layers=CLI_CLIP_LAYERS)}, npz)
+    log(f"cli: ViT-B/16 + text tower .npz ({os.path.getsize(npz) / 2**20:.1f} MiB; widths as "
+        f"released, cut to {CLI_CLIP_LAYERS} of 12 layers in each tower) written in "
+        f"{time.perf_counter() - t0:.2f} s")
+    rng = np.random.RandomState(3)
+    plain = [w for w in FIXTURE_WORDS if w.islower() and w.isascii()]
+    rows = {h: dict(dicts["test"][h], article=" ".join(
+        " ".join(rng.choice(plain, 8)).capitalize() + "." for _ in range(12)))
+        for h in list(dicts["test"])[:4]}
+    dd, out = os.path.join(root, "retrieve_in.json"), os.path.join(root, "retrieve_out.json")
+    with open(dd, "w") as f:
+        json.dump(rows, f)
+    run_cli(["retrieve", "--data-dict", dd, "--data-base-dir", base, "--clip-ckpt", npz,
+             "--clip-vocab", clip_vocab, "--out", out])
+    with open(out) as f:
+        got = json.load(f)
+    tree = tree_to(load_tree(npz), "cuda")
+    tok = ClipBpeTokenizer.from_dir(clip_vocab)
+    bad = []
+    for h, rec in rows.items():
+        with torch.no_grad():
+            img = clip_image_embed(tree["vision"], load_image(
+                os.path.join(base, "images_processed", f"{h}.jpg"))[None], vcfg)[0]
+        want = retrieve_sentences(tree["text"], tok, img, rec["article"])
+        picked = split_sentences(got[h]["sents_byclip"])
+        if (got[h]["sents_byclip"] != want or len(picked) != 8
+                or not set(picked) <= set(split_sentences(rec["article"]))):
+            bad.append(h)
+    log(f"cli retrieve: {len(rows)} rows x 12 sentences -> top 8 each, "
+        f"{'equal to' if not bad else 'DIFFERENT from'} retrieve_sentences recomputed on the "
+        f"card ({gpu})")
+    if bad:
+        raise RuntimeError(f"cli retrieve: rows {bad} differ from retrieve_sentences")
+
+
+def run_cli_phase(gpu: str) -> dict:
+    """Every subcommand of `python -m vacnic_tpu_torch.cli` on the card, on
+    the data phase's fixture (its vocab and 64 / 8 / 32 rows):
+    generate (run_cli_generate) and evaluate; serve as a subprocess
+    (run_cli_serve); train and train --resume (run_cli_train); retrieve
+    (run_cli_retrieve); lmm --backend echo (a JSON of 8 steps x 4 captions,
+    finite metrics); smoke (the slice's six kernels launched). One line a
+    subcommand with its wall seconds. -> the launch counts of cli generate
+    (the slice's kernels) with flash_attention's in cli train."""
+    import math
+    import shutil
+    import tempfile
+
+    import torch
+
+    from vacnic_tpu_torch.kernels import primitives as K
+
+    root = tempfile.mkdtemp(prefix="cli_phase_")
+    try:
+        vocab, merges, base, dicts, tok = cli_fixture(root)
+        cfg, model, params, ckpt, counts = run_cli_generate(root, vocab, merges, tok, base,
+                                                            dicts, gpu)
+        run_cli_serve(cfg, model, params, ckpt, gpu)
+        del cfg, model, params
+        shutil.rmtree(ckpt, ignore_errors=True)
+        torch.cuda.empty_cache()
+        flash = run_cli_train(root, vocab, merges, gpu)
+        shutil.rmtree(os.path.join(root, "train"), ignore_errors=True)
+        torch.cuda.empty_cache()
+        run_cli_retrieve(root, base, dicts, gpu)
+        lmm_out = os.path.join(root, "lmm.json")
+        test_dict = os.path.join(root, "GoodNews", CLI_SPLIT_FILE.format(split="test"))
+        printed = run_cli(["lmm", "--backend", "echo", "--data-dict", test_dict,
+                           "--data-base-dir", base, "--use-retrieval", "--out", lmm_out])
+        with open(lmm_out) as f:
+            lmm = json.load(f)
+        gens = [g for v in lmm.values() for g in v["gen"]]
+        m = json.loads(printed.strip().splitlines()[-1])
+        nums = [v for v in {**m["bleu"], **m["other metrics"]}.values()
+                if not isinstance(v, str)]
+        if (len(lmm) != 8 or len(gens) != len(dicts["test"])
+                or not all(math.isfinite(v) for v in nums)):
+            raise RuntimeError(f"cli lmm: {len(lmm)} steps, {len(gens)} captions, metrics {m}")
+        K.reset_launch_counts()
+        run_cli(["smoke"])
+        torch.cuda.synchronize()
+        smoke = K.launch_counts()
+        check_launched("cli smoke", smoke, SLICE_KERNELS)
+        log(f"cli lmm: {len(lmm)} steps, {len(gens)} echo captions, metrics finite; cli smoke "
+            f"launches { {k: smoke[k] for k in SLICE_KERNELS} } ({gpu})")
+        return dict(counts, flash_attention=flash)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def compare_tokens(ref: dict, gpu: str) -> None:
     """Every path run here against the captions another tree saved with
     --tokens-out on the same seeds: token agreement printed, and any
@@ -2761,7 +3174,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
                     default="build,kernels,accuracy,dispatch,stacks,slice,selfkv,stats,stackhead,"
-                            "layerwise,serve,profile,train,data")
+                            "layerwise,serve,profile,train,data,cli")
     ap.add_argument("--batch", type=int, default=32)
     ap.add_argument("--tokens-out", metavar="FILE",
                     help="save each path's captions (torch.save of {path: tokens})")
@@ -2841,6 +3254,12 @@ def main() -> int:
         counts = run_data_phase(gpu)
         for k in SLICE_KERNELS + ("gemm_bf16:large_m", "gemm_bf16:small_m", "layernorm:warp",
                                   "dec_self_attention:bf16"):
+            launches.setdefault(k, counts[k])
+    if "cli" in phases:
+        torch.cuda.empty_cache()
+        counts = run_cli_phase(gpu)
+        for k in SLICE_KERNELS + ("gemm_bf16:large_m", "gemm_bf16:small_m", "layernorm:warp",
+                                  "dec_self_attention:bf16", "flash_attention"):
             launches.setdefault(k, counts[k])
     if args.tokens_out:
         torch.save(TOKENS, args.tokens_out)

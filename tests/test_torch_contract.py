@@ -27,6 +27,7 @@ bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "vacnic_tpu"
              or m.startswith("vacnic_tpu."))
 print("MODULES", len(names))
+print("NAMES", " ".join(names))
 print("BAD", bad)
 """
 
@@ -44,6 +45,10 @@ def test_port_imports_no_jax():
     assert "BAD []" in out.stdout, out.stdout
     n = int(out.stdout.split("MODULES")[1].split()[0])
     assert n >= 20  # every subpackage's modules were walked
+    walked = set(out.stdout.split("NAMES")[1].split())
+    assert {"vacnic_tpu_torch.cli", "vacnic_tpu_torch.convert_checkpoint",
+            "vacnic_tpu_torch.core.profiling", "vacnic_tpu_torch.lmm.prompting",
+            "vacnic_tpu_torch.data.preprocess.clip_retrieval"} <= walked
 
 
 def test_generate_mm_needs_explicit_cpu():

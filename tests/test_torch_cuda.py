@@ -734,22 +734,11 @@ def test_enc_cross_refuses(dev):
 
 
 def card_config():
-    """VacnicConfig.tiny() widened to shapes the kernels take: head_dim 64
-    with four heads (d 256), products with N % 64 == 0, S = 64; the CLIP
-    features (and so the CLIP tower's width) as wide as the model, as the
-    tiny config has them."""
-    import dataclasses
+    """VacnicConfig.tiny() widened to shapes the kernels take (head_dim 64
+    with four heads, d 256; S = 64): the config `cli smoke` runs."""
+    from vacnic_tpu_torch.cli import _smoke_config
 
-    from vacnic_tpu_torch.core.config import BartConfig, ClipVisionConfig, VacnicConfig
-
-    tiny = VacnicConfig.tiny()
-    return dataclasses.replace(
-        tiny, bart=BartConfig.tiny(d_model=256, encoder_attention_heads=4,
-                                   decoder_attention_heads=4, encoder_ffn_dim=512,
-                                   decoder_ffn_dim=512),
-        clip=ClipVisionConfig.tiny(width=256, heads=4),
-        fusion=dataclasses.replace(tiny.fusion, dim_common=256, img_size=256),
-        data=dataclasses.replace(tiny.data, article_max_length=64))
+    return _smoke_config()
 
 
 @pytest.mark.parametrize("input_kind", ["image_cls", "pixels"])
@@ -868,3 +857,62 @@ def test_prefetch_loader_on_the_card(dev):
         time.sleep(0.05)
     assert not any(t.name.startswith(THREAD_NAME) and t.is_alive()
                    for t in threading.enumerate())
+
+
+def test_cli_smoke_and_generate_on_the_card(dev, tmp_path, capsys):
+    """`python -m vacnic_tpu_torch.cli smoke` and `generate` on the card (the
+    default device): smoke launches the slice's kernels; generate from a
+    CheckpointManager directory writes the file train/loop.generate_captions
+    writes for the same tree and loader (card_config, a 4-row fixture from
+    chip_smoke.py's writers)."""
+    import dataclasses
+    import json
+    import runpy
+    from pathlib import Path
+
+    from vacnic_tpu_torch import cli
+    from vacnic_tpu_torch.core.rng import make_generator
+    from vacnic_tpu_torch.kernels import primitives as K
+    from vacnic_tpu_torch.models.clip_vit import clip_vision_init
+    from vacnic_tpu_torch.models.fusion import multimodal_bart_init
+    from vacnic_tpu_torch.train import loop
+    from vacnic_tpu_torch.train.checkpoints import CheckpointManager
+    from vacnic_tpu_torch.train.train_step import TrainState
+
+    slice_kernels = ("gemm_bf16", "layernorm", "enc_self_attention", "enc_cross_attention",
+                     "dec_self_attention", "dec_cross_attention")
+    K.reset_launch_counts()
+    assert cli.main(["smoke"]) == 0
+    assert "smoke ok" in capsys.readouterr().out
+    assert all(K.launch_counts()[k] > 0 for k in slice_kernels), K.launch_counts()
+
+    smoke = runpy.run_path(str(Path(__file__).resolve().parents[1] / "chip_smoke.py"),
+                           run_name="chip_smoke_helpers")
+    vocab, merges = smoke["write_bpe_vocab"](str(tmp_path), size=None)
+    cfg = card_config()
+    base, dicts = smoke["write_news_fixture"](str(tmp_path), splits=(("test", 4),),
+                                              image_size=cfg.clip.image_size,
+                                              face_dim=cfg.fusion.face_feature_dim,
+                                              article_words=80, caption_words=6)
+    n_vocab = len(json.load(open(vocab))) + 8
+    cfg = dataclasses.replace(
+        cfg, bart=dataclasses.replace(cfg.bart, vocab_size=n_vocab),
+        fusion=dataclasses.replace(cfg.fusion, ner_vocab_size=n_vocab),
+        data=dataclasses.replace(cfg.data, data_dir=str(tmp_path), num_workers=2),
+        train=dataclasses.replace(cfg.train, val_batch_size=4))
+    params = {"model": multimodal_bart_init(make_generator(0, dev), cfg.bart, cfg.fusion,
+                                            device=dev),
+              "clip": clip_vision_init(make_generator(1, dev), cfg.clip, device=dev)}
+    ckpt = str(tmp_path / "ckpt")
+    CheckpointManager(ckpt, cfg).save(0, TrainState(step=0, params=params, teacher={},
+                                                    opt_state={}, rng=0))
+    tok = smoke["news_tokenizer"](vocab, merges)
+    loader = smoke["news_loader"](cfg, tok, base, dicts["test"], False, "cuda")
+    loop.generate_captions(cfg, params, loader, tok, out_path=str(tmp_path / "ref.json"),
+                           device="cuda")
+    K.reset_launch_counts()
+    assert cli.main(["generate", "--ckpt-dir", ckpt, "--data-dict",
+                     str(tmp_path / "GoodNews" / "test_dict.json"), "--vocab", vocab,
+                     "--merges", merges, "--out", str(tmp_path / "gen.json")]) == 0
+    assert all(K.launch_counts()[k] > 0 for k in slice_kernels), K.launch_counts()
+    assert (tmp_path / "gen.json").read_text() == (tmp_path / "ref.json").read_text()

@@ -232,7 +232,8 @@ class TrainConfig:
     teacher_cache: bool = False
     # PRNG implementation name of the JAX package's training key tree; kept
     # so both packages serialize the same config. The port draws its random
-    # numbers from torch.Generator (core/rng.py) and does not read it.
+    # numbers from torch.Generator (core/rng.py): set_random_seed accepts
+    # "threefry2x32" and "rbg" and changes nothing for either.
     prng_impl: str = "rbg"
 
 

@@ -445,9 +445,26 @@ def multimodal_bart_init(g: torch.Generator, cfg: BartConfig, fcfg: FusionConfig
         enc["layernorm_embedding_ner"] = layernorm_init(cfg.d_model, device)
         enc["face_proj"] = linear_init(g, fcfg.face_feature_dim, fcfg.dim_common, device)
     if fcfg.init_attn_weight:
-        for i in fused_set:
-            lp = enc["layers"][i]
-            lp["cross_attn_img_ner"] = copy.deepcopy(lp["self_attn"])
-            if not fcfg.only_image:
-                lp["self_attn_img_name"] = copy.deepcopy(lp["self_attn"])
+        params = tie_fusion_attn_weights(params, fcfg)
+    return params
+
+
+def tie_fusion_attn_weights(params: Params, fcfg: FusionConfig) -> Params:
+    """Tie each fused layer's fusion attentions to copies of its CURRENT
+    self_attn (init_attn_weight_encoder, reference :1858-1869). Applied at
+    init, and again after pretrained BART weights are merged in (cli train
+    --init-bart): the tie must copy the pretrained self_attn, not the random
+    init it would otherwise have captured. The encoder's layer tuple and the
+    tied layers' dicts are replaced; the other layers are shared."""
+    enc = params["encoder"]
+    layers = list(enc["layers"])
+    for i in set(fcfg.fusion_layers):
+        if i >= len(layers):
+            continue
+        lp = dict(layers[i])
+        lp["cross_attn_img_ner"] = copy.deepcopy(lp["self_attn"])
+        if not fcfg.only_image and "self_attn_img_name" in lp:
+            lp["self_attn_img_name"] = copy.deepcopy(lp["self_attn"])
+        layers[i] = lp
+    enc["layers"] = tuple(layers)
     return params

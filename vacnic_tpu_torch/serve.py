@@ -29,9 +29,12 @@ Design points:
 `make_http_server` / `http_serve` put a minimal stdlib HTTP front on the
 service (POST /v1/caption, GET /healthz, GET /v1/stats).
 
+`watch_checkpoints` polls a training checkpoint directory and hot-swaps
+newer steps into a running service (`cli serve --watch-ckpt-s`).
+
 The service runs on "cuda" unless it is given device="cpu"; without a card
-and without that argument it raises. Sharded serving over several cards and
-the checkpoint watcher (`watch_checkpoints`) are not ported yet.
+and without that argument it raises. Sharded serving over several cards
+waits for multi-GPU (ROADMAP A.5).
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import json
+import logging
 import math
 import queue
 import threading
@@ -638,6 +642,49 @@ class CaptionService:
             out.append({"tokens": [int(t) for t in seqs[i]],
                         "score": float(scores[i]), "caption": caption})
         return out
+
+
+def watch_checkpoints(service: CaptionService, directory: str, load_params,
+                      *, poll_s: float = 30.0,
+                      initial_step: int | None = None) -> threading.Thread:
+    """Continuous checkpoint rollout: poll `directory` (a
+    train/checkpoints.CheckpointManager directory) for a newer training step
+    and hot-swap its weights into the running service
+    (`CaptionService.update_params`, between batches).
+
+    `load_params(step) -> params` does the restore (the caller owns the
+    restore path and its config; cli serve passes its own). `initial_step`
+    is the step the service already serves (only newer steps swap); None
+    swaps on the first checkpoint seen, right for a --random-init service
+    warming up while training runs. The thread stops when the service
+    closes; restore errors are logged and retried at the next poll, never
+    fatal to serving."""
+    log = logging.getLogger(__name__)
+
+    def loop() -> None:
+        from vacnic_tpu_torch.train import checkpoints
+
+        last = initial_step
+        while not service._closed.wait(poll_s):
+            try:
+                mgr = checkpoints.CheckpointManager(directory)
+                try:
+                    step = mgr.latest_step()
+                finally:
+                    mgr.close()
+                if step is None or (last is not None and step <= last):
+                    continue
+                version = service.update_params(load_params(step))
+                last = step
+                log.info("serving weights hot-swapped to checkpoint step %d "
+                         "(weights_version %d)", step, version)
+            except Exception:
+                log.warning("checkpoint watch poll failed; retrying",
+                            exc_info=True)
+
+    t = threading.Thread(target=loop, daemon=True, name="vacnic-ckpt-watch")
+    t.start()
+    return t
 
 
 # ---------------------------------------------------------------------------
