@@ -105,6 +105,23 @@ Phases:
            torch.profiler: device time by kernel family (dec_self_attention
            by cache type), busy/idle share, and PyTorch's own device time
            split by op (the top aten ops by self device time).
+  mesh     multi-GPU over every visible card (run_mesh_phase): make_mesh();
+           generate_mm_sharded at the slice's batch token- and
+           score-identical to the slice (on several cards each shard to a
+           generate_mm of its rows on its card), every kernel launched the
+           slice's count times the cards; CaptionService(mesh=) answering 8
+           requests identically to a direct generate_mm_sharded, then an
+           update_params swap to a seed-1 tree reaching every card's
+           shard; `cli generate --sharded` writing the file of
+           generate_captions(mesh=), `cli serve --sharded` as a subprocess;
+           the data-parallel training step in torch.cuda.device_count()
+           spawned NCCL ranks (run_dp_group) at full_train() widths cut to
+           2 + 2 layers, batch 32, its loss terms equal to one process's
+           within 2e-5.
+  meshscale  readings only, not in the default list: generate_mm_sharded
+           over the first 1, 2, 4 cards at 32 rows a card (the switch
+           interval at its default and at 1e-4 s) beside one card's
+           generate_mm and the shards run in turn from one thread.
   train    the training step at full width (VacnicConfig.full_train() as
            released: batch 32, S 512, caption 100, bf16 over f32, remat,
            dropout 0.1, CoLaM with the teacher's forward, SECLA, CLIP frozen
@@ -187,6 +204,7 @@ PEAK_8BIT_OPS = 1979e12   # int8 / fp8 tensor-core rate
 PEAK_BYTES = 3.35e12      # HBM3
 OUT_DIR = os.path.join("chiprun_out", "chip_smoke")
 TOKENS: dict = {}  # path -> its captions [B, max_length] (int64, on the CPU)
+SCORES: dict = {}  # path -> its scores [B] (f32, on the CPU)
 
 SOURCES = {
     "gemm_bf16": "vacnic_tpu_torch/kernels/csrc/gemm_bf16.cu",
@@ -218,6 +236,9 @@ SLICE_KERNELS = ("gemm_bf16", "layernorm", "enc_self_attention", "enc_cross_atte
                  "dec_self_attention", "dec_cross_attention")
 DECODE_KERNELS = ("gemm_bf16", "layernorm", "dec_self_attention", "dec_cross_attention")
 SELF_KV_KINDS = ("int8", "fp8")
+# the slice's kernels, and the splits of those that are several __global__ kernels
+SLICE_COUNTED = SLICE_KERNELS + ("gemm_bf16:large_m", "gemm_bf16:small_m", "layernorm:warp",
+                                 "dec_self_attention:bf16")
 
 
 def log(msg: str) -> None:
@@ -1037,7 +1058,7 @@ def run_slice_phase(cfg, params, batch_size: int):
     seqs, scores = run()
     dt = time.perf_counter() - t0
     nonpad = check_captions("slice", cfg, seqs, scores, batch_size)
-    TOKENS["slice"] = seqs.cpu()
+    TOKENS["slice"], SCORES["slice"] = seqs.cpu(), scores.float().cpu()
     log(f"slice: full_train beam {cfg.decode.num_beams} x {cfg.decode.max_length} x lp "
         f"{cfg.decode.length_penalty}, batch {batch_size}: {dt:.3f} s, "
         f"{batch_size / dt:.2f} captions/s, mean non-pad length {nonpad:.1f}, "
@@ -1046,13 +1067,25 @@ def run_slice_phase(cfg, params, batch_size: int):
     return check_slice_counts("slice", cfg), seqs
 
 
+def counts_by_kernel() -> dict:
+    """The launch counts since the last reset, with gemm_bf16's, layernorm's
+    and dec_self_attention's split by kernel ("gemm_bf16:small_m", ...)."""
+    from vacnic_tpu_torch.kernels import primitives as K
+
+    counts = K.launch_counts()
+    counts.update({f"gemm_bf16:{v}": n for v, n in K.gemm_variant_counts().items()})
+    counts.update({f"layernorm:{v}": n for v, n in K.layernorm_variant_counts().items()})
+    counts.update({f"dec_self_attention:{v}": n for v, n in K.dec_self_variant_counts().items()})
+    return counts
+
+
 def check_slice_counts(tag: str, cfg) -> dict:
     """The launch counts since the last reset, held to one batch of the
     slice's path (the fused encoder, then every decode step on the bf16
     self cache) -> the counts with the per-kernel splits added."""
     from vacnic_tpu_torch.kernels import primitives as K
 
-    counts = K.launch_counts()
+    counts = counts_by_kernel()
     by_kernel = K.gemm_variant_counts()
     ln_by_kernel = K.layernorm_variant_counts()
     self_by_kind = K.dec_self_variant_counts()
@@ -1062,7 +1095,6 @@ def check_slice_counts(tag: str, cfg) -> dict:
     if by_kernel != {"large_m": enc_products, "small_m": counts["gemm_bf16"] - enc_products}:
         raise RuntimeError(f"{tag}: gemm_bf16 kernels {by_kernel}: expected {enc_products} "
                            "large_m launches (the encoder's) and small_m for the rest")
-    counts.update({f"gemm_bf16:{v}": n for v, n in by_kernel.items()})
     # one launch a call: three layer norms an encoder layer and a decoder
     # layer a step, one cross-attention a decoder layer a step; d = 1024 is
     # the register-resident kernel's
@@ -1078,8 +1110,6 @@ def check_slice_counts(tag: str, cfg) -> dict:
         raise RuntimeError(f"{tag}: launches {counts}, layernorm by kernel {ln_by_kernel}, "
                            f"dec_self_attention by cache {self_by_kind}: expected {want}, all "
                            "layernorm launches the warp kernel's, all dec_self the bf16 cache's")
-    counts.update({f"layernorm:{v}": n for v, n in ln_by_kernel.items()})
-    counts.update({f"dec_self_attention:{v}": n for v, n in self_by_kind.items()})
     return counts
 
 
@@ -2819,9 +2849,10 @@ def http_json(opener, url: str, timeout: float = 10) -> dict:
 
 
 def serve_cli_roundtrip(ckpt_dir: str, rows: list[dict], direct, save_newer, log_path: str,
-                        args=(), start_timeout: float = 600) -> dict:
-    """`python -m vacnic_tpu_torch.cli serve --ckpt-dir ... --watch-ckpt-s 1`
-    as a subprocess: each row POSTed alone must come back with the tokens
+                        args=(), start_timeout: float = 600, serve_args=()) -> dict:
+    """`python -m vacnic_tpu_torch.cli [args] serve --ckpt-dir ...
+    --watch-ckpt-s 1 [serve_args]` as a subprocess: each row POSTed alone
+    must come back with the tokens
     and score of `direct(row)` -> (tokens, score); then `save_newer()`
     writes a newer step and /v1/stats' weights_version must rise within 60
     s; one more row after the swap; SIGINT must end the process with exit
@@ -2836,7 +2867,8 @@ def serve_cli_roundtrip(ckpt_dir: str, rows: list[dict], direct, save_newer, log
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         p for p in (root, os.environ.get("PYTHONPATH")) if p))
     cmd = [sys.executable, "-m", "vacnic_tpu_torch.cli", *args, "serve", "--ckpt-dir",
-           ckpt_dir, "--port", str(port), "--watch-ckpt-s", "1", "--buckets", "1,4"]
+           ckpt_dir, "--port", str(port), "--watch-ckpt-s", "1", "--buckets", "1,4",
+           *serve_args]
     opener = http_opener()
     with open(log_path, "w") as logf:
         t0 = time.perf_counter()
@@ -3148,6 +3180,419 @@ def run_cli_phase(gpu: str) -> dict:
         shutil.rmtree(root, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# mesh phase
+# ---------------------------------------------------------------------------
+
+DP_SPEC, DP_OUT, DP_STORE = "dp_spec.pt", "dp_out.pt", "dp_store"
+
+
+def dp_step_worker(rank: int, world: int, work_dir: str, timeout_s: float) -> None:
+    """One rank of a data-parallel group (spawned by run_dp_group; also by
+    tests/test_torch_distributed.py on the CPU): joins the group through a
+    file store in `work_dir`, then for each case of the spec there runs
+    make_train_step(group=WORLD) on the spec's global batch and trees (or
+    the case's own "batch" and "params"). A case gives the config, `steps`
+    steps (their metrics), and with `grads` first one loss_and_grads at step
+    1's dropout seed (the reduced gradients). Rank 0 saves [{"steps":
+    [metrics], "grads": [...], "grad_metrics": {...}}] a case."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from vacnic_tpu_torch.core import distributed as D
+    from vacnic_tpu_torch.core.tree import tree_map
+    from vacnic_tpu_torch.models.layers import split
+    from vacnic_tpu_torch.train import train_step as TT
+
+    def fresh(tree):  # a copy on the rank's device: the step updates its trees in place
+        return tree_map(lambda _, t: t.detach().to(dev, copy=True)
+                        if isinstance(t, torch.Tensor) else t, tree)
+
+    spec = torch.load(os.path.join(work_dir, DP_SPEC), weights_only=False)
+    if spec["device"] == "cpu":
+        torch.set_num_threads(spec.get("threads", 1))
+    D.initialize("file://" + os.path.join(work_dir, DP_STORE), world, rank,
+                 device=spec["device"], timeout=datetime.timedelta(seconds=timeout_s))
+    try:
+        dev = (torch.device("cuda", torch.cuda.current_device()) if spec["device"] == "cuda"
+               else torch.device("cpu"))
+        results = []
+        for case in spec["cases"]:
+            cfg = case["cfg"]
+            batch = case.get("batch", spec["batch"])
+            init_fn, step_fn = TT.make_train_step(cfg, 100, device=dev, group=dist.group.WORLD)
+            state = init_fn(fresh(case.get("params", spec["params"])), fresh(spec["teacher"]),
+                            spec["rng"])
+            out: dict = {"steps": []}
+            if case.get("grads"):
+                m, grads = TT.loss_and_grads(state.params, state.teacher, batch, cfg,
+                                             split(state.rng)[1], dist.group.WORLD)
+                out["grads"] = [None if g is None else g.cpu() for g in grads]
+                out["grad_metrics"] = {k: float(v) for k, v in m.items()
+                                       if k != "teacher_pooled"}
+            for _ in range(case["steps"]):
+                state, m = step_fn(state, batch)
+                out["steps"].append({k: float(v) for k, v in m.items() if k != "teacher_pooled"})
+            results.append(out)
+            del state
+        if rank == 0:
+            torch.save(results, os.path.join(work_dir, DP_OUT))
+    finally:
+        dist.destroy_process_group()
+
+
+def run_dp_group(world: int, spec: dict, work_dir: str, timeout_s: float = 300) -> list:
+    """dp_step_worker in `world` spawned processes (spec: device "cpu" for
+    gloo, "cuda" for NCCL ranks, one card each; params, teacher, rng, batch,
+    cases), each joined within `timeout_s` of the start; a rank still alive
+    then is killed, and any rank that failed fails the run -> rank 0's
+    results."""
+    import multiprocessing
+
+    import torch
+
+    os.makedirs(work_dir, exist_ok=True)
+    for name in (DP_STORE, DP_OUT):
+        if os.path.exists(os.path.join(work_dir, name)):
+            os.remove(os.path.join(work_dir, name))
+    torch.save(spec, os.path.join(work_dir, DP_SPEC))
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=dp_step_worker, args=(r, world, work_dir, timeout_s),
+                         daemon=True) for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + timeout_s
+    for p in procs:
+        p.join(max(0.0, deadline - time.monotonic()))
+    hung = [r for r, p in enumerate(procs) if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    failed = [(r, p.exitcode) for r, p in enumerate(procs) if p.exitcode != 0]
+    if hung or failed:
+        raise RuntimeError(f"data-parallel group of {world}: ranks {hung} still running after "
+                           f"{timeout_s} s, (rank, exit code) {failed}")
+    return torch.load(os.path.join(work_dir, DP_OUT), weights_only=False)
+
+
+MESH_SERVE_ROWS = 8
+MESHSCALE_ROWS = 32
+
+
+def direct_sharded(cfg, mesh, model, rows):
+    """generate_mm_sharded over `mesh` of the stacked rows, as the sharded
+    service runs it -> (tokens, scores) on the CPU."""
+    import numpy as np
+    import torch
+
+    from vacnic_tpu_torch.infer.generate import generate_mm_sharded
+    from vacnic_tpu_torch.train.train_step import create_mask, face_mask_from_emb
+
+    b = {k: torch.from_numpy(np.stack([r[k] for r in rows])).cuda() for k in rows[0]}
+    seqs, scores = generate_mm_sharded(
+        mesh, model, b["article_ids"], create_mask(b["article_ids"]), b["image_cls"], cfg.bart,
+        cfg.fusion, cfg.decode, face_features=b["face_emb"],
+        face_mask=face_mask_from_emb(b["face_emb"]), name_ids=b["names_art_ids"],
+        name_mask=create_mask(b["names_art_ids"]), dtype=torch.bfloat16)
+    return seqs.cpu(), scores.float().cpu()
+
+
+def run_mesh_decode(cfg, params, mesh, batch_size: int, slice_counts: dict, gpu: str) -> dict:
+    """(1) of the mesh phase: generate_mm_sharded over the mesh at the
+    slice's batch, after one warm-up run; the launches (zeroed just before,
+    read just after) must be the slice's counts times the devices, and the
+    captions the slice's, token- and score-identical (on one device the
+    same program at the same shapes; on several, each shard is held to a
+    generate_mm of its own rows on its own device) -> the counts."""
+    import torch
+
+    from vacnic_tpu_torch.infer.generate import generate_mm, generate_mm_sharded
+    from vacnic_tpu_torch.kernels import primitives as K
+
+    devs = mesh.data_devices()
+    x = batch_inputs(cfg, batch_size)
+
+    def run():
+        out = generate_mm_sharded(mesh, params, cfg=cfg.bart, fcfg=cfg.fusion, dcfg=cfg.decode,
+                                  dtype=torch.bfloat16, **x)
+        for d in devs:
+            torch.cuda.synchronize(d)
+        return out
+
+    run()  # warm-up: the replicas, each device's allocator
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    seqs, scores = run()
+    dt = time.perf_counter() - t0
+    counts = counts_by_kernel()
+    seqs, scores = seqs.cpu(), scores.float().cpu()
+    if len(devs) == 1:
+        want = [(TOKENS["slice"], SCORES["slice"])]
+    else:
+        per = batch_size // len(devs)
+        want = []
+        for i, d in enumerate(devs):  # from this thread: the launches go to d all the same
+            s, c = generate_mm(params, cfg=cfg.bart, fcfg=cfg.fusion, dcfg=cfg.decode,
+                               dtype=torch.bfloat16, device=d,
+                               **{k: v[i * per:(i + 1) * per] for k, v in x.items()})
+            want.append((s.cpu(), c.float().cpu()))
+    want_seqs, want_scores = (torch.cat([w[0] for w in want]), torch.cat([w[1] for w in want]))
+    nonpad = check_captions("mesh", cfg, seqs, scores, batch_size)
+    expected = {k: len(devs) * slice_counts[k] for k in SLICE_COUNTED}
+    log(f"mesh: generate_mm_sharded over {len(devs)} device(s), batch {batch_size}: "
+        f"{dt:.3f} s, {batch_size / dt:.2f} captions/s, mean non-pad length {nonpad:.1f}; "
+        f"launches { {k: counts[k] for k in SLICE_COUNTED} } (expected {expected}); tokens "
+        f"{'identical' if torch.equal(seqs, want_seqs) else 'DIFFERENT'}, scores "
+        f"{'identical' if torch.equal(scores, want_scores) else 'DIFFERENT'} ({gpu})")
+    if any(counts[k] != n for k, n in expected.items()):
+        raise RuntimeError(f"mesh: launches {counts}, expected the slice's times "
+                           f"{len(devs)}: {expected}")
+    if not (torch.equal(seqs, want_seqs) and torch.equal(scores, want_scores)):
+        raise RuntimeError("mesh: generate_mm_sharded differs from one device's captions")
+    TOKENS["mesh"] = seqs
+    return counts
+
+
+def run_mesh_service(cfg, params, mesh, gpu: str) -> None:
+    """(2) of the mesh phase: CaptionService(mesh=) with one bucket of
+    MESH_SERVE_ROWS rounded up to the devices: the rows' answers identical
+    (tokens and scores) to a direct generate_mm_sharded of them; then an
+    update_params swap to a tree from seed 1: the answers identical to a
+    direct call on the new tree, and changed on every device's shard."""
+    from vacnic_tpu_torch.serve import CaptionService, ServeConfig
+
+    n = len(mesh.data_devices())
+    bucket = -(-MESH_SERVE_ROWS // n) * n
+    rows = sample_rows(cfg, bucket, seed=9)
+    svc = CaptionService(cfg, {"model": params}, mesh=mesh,
+                         serve_cfg=ServeConfig(buckets=(bucket,), max_wait_ms=2000))
+    try:
+        t0 = time.perf_counter()
+        before = [f.result(timeout=600) for f in [svc.submit(r) for r in rows]]
+        first_s = time.perf_counter() - t0
+        check_identical("mesh service", before, *direct_sharded(cfg, mesh, params, rows))
+        _, new = full_model(seed=1)
+        t0 = time.perf_counter()
+        version = svc.update_params({"model": new})
+        swap_s = time.perf_counter() - t0
+        after = [f.result(timeout=600) for f in [svc.submit(r) for r in rows]]
+        check_identical("mesh service after the swap", after,
+                        *direct_sharded(cfg, mesh, new, rows))
+    finally:
+        svc.close()
+    per = bucket // n
+    changed = [any(before[j]["tokens"] != after[j]["tokens"] for j in range(i * per, (i + 1) * per))
+               for i in range(n)]
+    log(f"mesh service: {bucket} requests over {n} device(s) in {first_s:.2f} s, identical to a "
+        f"direct generate_mm_sharded; update_params to a seed-1 tree in {swap_s:.2f} s "
+        f"(weights_version {version}): identical to a direct call on it, answers changed on "
+        f"the shards {changed} ({gpu})")
+    if version != 1 or not all(changed):
+        raise RuntimeError("mesh service: the swap did not reach every replica")
+
+
+def run_mesh_cli(cfg, params, mesh, gpu: str) -> None:
+    """(3) of the mesh phase, on the cli phase's fixture and a checkpoint of
+    the slice's tree with a ViT-B/16 tower: `cli generate --sharded` over
+    the 32 test rows at batch 32 writes the file train/loop.
+    generate_captions(mesh=) writes over the same cards (on one card, the
+    one-device file), with every slice kernel launched; `cli serve
+    --sharded` as a subprocess (serve_cli_roundtrip)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from vacnic_tpu_torch.core.rng import make_generator
+    from vacnic_tpu_torch.kernels import primitives as K
+    from vacnic_tpu_torch.models.clip_vit import clip_vision_init
+    from vacnic_tpu_torch.models.weights_io import tree_to
+    from vacnic_tpu_torch.train import loop
+    from vacnic_tpu_torch.train.checkpoints import CheckpointManager
+    from vacnic_tpu_torch.train.train_step import TrainState
+
+    root = tempfile.mkdtemp(prefix="mesh_cli_")
+    try:
+        vocab, merges, base, dicts, tok = cli_fixture(root)
+        cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, data_dir=root))
+        clip = tree_to(clip_vision_init(make_generator(0, "cuda"), cfg.clip, device="cuda"),
+                       dtype=torch.bfloat16)
+        tree = {"model": params, "clip": clip}
+        ckpt = os.path.join(root, "ckpt")
+        CheckpointManager(ckpt, cfg).save(0, TrainState(step=0, params=tree, teacher={},
+                                                        opt_state={}, rng=0))
+        test_dict = os.path.join(root, "GoodNews", CLI_SPLIT_FILE.format(split="test"))
+        ref, out = os.path.join(root, "ref.json"), os.path.join(root, "gen.json")
+        loop.generate_captions(cfg, tree, news_loader(cfg, tok, base, dicts["test"], False,
+                                                      "cuda", batch_size=DATA_BATCH),
+                               tok, out_path=ref, mesh=mesh)
+        K.reset_launch_counts()
+        run_cli(["generate", "--ckpt-dir", ckpt, "--data-dict", test_dict, "--vocab", vocab,
+                 "--merges", merges, "--out", out, "--set", f"train.val_batch_size={DATA_BATCH}",
+                 "--sharded"], "generate --sharded")
+        counts = counts_by_kernel()
+        check_launched("cli generate --sharded", counts, SLICE_KERNELS)
+        with open(ref) as f, open(out) as g:
+            equal = json.load(f) == json.load(g)
+        log(f"cli generate --sharded: the file {'equal to' if equal else 'DIFFERENT from'} "
+            f"generate_captions(mesh=) over {len(mesh.data_devices())} device(s); launches "
+            f"{ {k: counts[k] for k in SLICE_KERNELS} } ({gpu})")
+        if not equal:
+            raise RuntimeError("cli generate --sharded differs from generate_captions")
+        rows = sample_rows(cfg, CLI_SERVE_ROWS, seed=7)
+        r = serve_cli_roundtrip(
+            ckpt, rows, lambda row: direct_generate(cfg, params, [row]),
+            lambda: CheckpointManager(ckpt).save(1, TrainState(step=1, params=tree, teacher={},
+                                                               opt_state={}, rng=0)),
+            os.path.join(OUT_DIR, "cli_serve_sharded.log"), serve_args=("--sharded",))
+        log(f"cli serve --sharded: {r['wall_s']:.2f} s wall, healthy after {r['ready_s']:.2f} s; "
+            f"{len(r['request_ms'])} requests over HTTP identical to a direct generate_mm "
+            f"(ms {[round(v, 1) for v in r['request_ms']]}); the swap seen after "
+            f"{r['swap_s']:.2f} s; SIGINT -> exit {r['exit']} ({gpu})")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def run_mesh_train(gpu: str) -> None:
+    """(4) of the mesh phase: the data-parallel training step in a group of
+    torch.cuda.device_count() NCCL ranks (run_dp_group: spawned processes,
+    one card each) at full_train() widths cut to DATA_FIT_LAYERS + DATA_FIT_LAYERS
+    layers, as released otherwise (bf16 over f32, remat, dropout 0.1, CoLaM
+    with the teacher's forward, SECLA, CLIP frozen on pixels), batch 32,
+    random f32 trees from seed 0, one step; its loss terms equal to a
+    one-process step on the same global batch within 2e-5 (the CPU tests'
+    tolerance; bit for bit on one card, 1.1e-5 relative at most over four
+    H100s at 700 W: a rank's rows meet products of another batch size), the
+    gradient norm
+    within 2e-3: the bf16 gradients of each rank's rows round before the
+    ranks' sum (2e-4 seen over 2 CPU ranks), and the backward's atomics sum
+    in another order from run to run."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from vacnic_tpu_torch.core.config import VacnicConfig
+    from vacnic_tpu_torch.core.rng import make_generator
+    from vacnic_tpu_torch.data.synthetic import synthetic_batch
+    from vacnic_tpu_torch.models import fusion as F
+    from vacnic_tpu_torch.models.bart import bart_init
+    from vacnic_tpu_torch.models.clip_vit import clip_vision_init
+    from vacnic_tpu_torch.models.weights_io import tree_to
+    from vacnic_tpu_torch.train.train_step import make_train_step
+
+    cfg = VacnicConfig.full_train()
+    cfg = dataclasses.replace(
+        cfg, bart=dataclasses.replace(cfg.bart, encoder_layers=DATA_FIT_LAYERS,
+                                      decoder_layers=DATA_FIT_LAYERS),
+        fusion=dataclasses.replace(cfg.fusion, fusion_layers=tuple(range(DATA_FIT_LAYERS))))
+    bsz = cfg.train.train_batch_size
+    g = make_generator(0, "cuda")
+    params = tree_to({"model": F.multimodal_bart_init(g, cfg.bart, cfg.fusion, device="cuda"),
+                      "clip": clip_vision_init(g, cfg.clip, device="cuda")}, "cpu")
+    teacher = tree_to(bart_init(g, cfg.bart, device="cuda"), "cpu")
+    batch = {k: v.numpy() for k, v in synthetic_batch(cfg, bsz, seed=0, with_pixels=True).items()}
+    world = torch.cuda.device_count()
+    work = tempfile.mkdtemp(prefix="mesh_dp_")
+    try:
+        t0 = time.perf_counter()
+        (res,) = run_dp_group(world, dict(device="cuda", params=params, teacher=teacher,
+                                          rng=cfg.train.seed, batch=batch,
+                                          cases=[dict(cfg=cfg, steps=1)]), work, timeout_s=600)
+        group_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    init_fn, step_fn = make_train_step(cfg, 100, device="cuda")
+    state = init_fn(tree_to(params, "cuda"), tree_to(teacher, "cuda"), cfg.train.seed)
+    _, m = step_fn(state, batch)
+    want = {k: float(v) for k, v in m.items() if k != "teacher_pooled"}
+    got = res["steps"][0]
+    log(f"mesh train: {world} NCCL rank(s), full_train() widths at {DATA_FIT_LAYERS} + "
+        f"{DATA_FIT_LAYERS} layers, batch {bsz} (each rank {bsz // world} rows): the group "
+        f"{group_s:.2f} s (spawn, NCCL, one step); its metrics {got}; one process {want} ({gpu})")
+    if set(got) != set(want):
+        raise RuntimeError(f"mesh train: metrics {sorted(got)} vs {sorted(want)}")
+    for k in want:
+        tol = 2e-3 if k == "grad_norm" else 2e-5
+        if not (np.isfinite(got[k]) and abs(got[k] - want[k]) <= tol * (1 + abs(want[k]))):
+            raise RuntimeError(f"mesh train: {k} {got[k]!r} on {world} rank(s) against "
+                               f"{want[k]!r} in one process")
+
+
+def run_meshscale_phase(cfg, params, gpu: str) -> None:
+    """Readings, not gated (`--phases meshscale`, not in the default list):
+    the wall of generate_mm_sharded over the first k cards (k = 1, 2, 4, ...
+    up to every card) at MESHSCALE_ROWS rows a card, the interpreter's
+    switch interval at its default and at 1e-4 s, each timed after a
+    warm-up run; beside them, one card's generate_mm at MESHSCALE_ROWS and
+    at MESHSCALE_ROWS x k rows, and the k shards run one after another from
+    this thread (no worker threads). Captions/s of each."""
+    import torch
+
+    from vacnic_tpu_torch.core.mesh import make_mesh
+    from vacnic_tpu_torch.infer.generate import generate_mm, generate_mm_sharded
+    from vacnic_tpu_torch.models.weights_io import tree_to
+
+    n = torch.cuda.device_count()
+    ks = [k for k in (1, 2, 4, 8) if k <= n]
+    default_si = sys.getswitchinterval()
+
+    def timed(fn) -> float:
+        fn()
+        for d in range(n):
+            torch.cuda.synchronize(d)
+        t0 = time.perf_counter()
+        fn()
+        for d in range(n):
+            torch.cuda.synchronize(d)
+        return time.perf_counter() - t0
+
+    kw = dict(cfg=cfg.bart, fcfg=cfg.fusion, dcfg=cfg.decode, dtype=torch.bfloat16)
+    for k in ks:
+        rows = MESHSCALE_ROWS * k
+        x = batch_inputs(cfg, rows)
+        mesh = make_mesh(devices=[f"cuda:{i}" for i in range(k)])
+        one = timed(lambda: generate_mm(params, device="cuda:0", **kw, **x))
+        readings = [f"one card at {rows} rows {one:.3f} s ({rows / one:.2f} captions/s)"]
+        for si in (default_si, 1e-4):
+            sys.setswitchinterval(si)
+            try:
+                dt = timed(lambda: generate_mm_sharded(mesh, params, **kw, **x))
+            finally:
+                sys.setswitchinterval(default_si)
+            readings.append(f"sharded, switch interval {si:g} s: {dt:.3f} s "
+                            f"({rows / dt:.2f} captions/s)")
+        replicas = [tree_to(params, f"cuda:{i}") for i in range(k)]
+        seq = timed(lambda: [generate_mm(replicas[i], device=f"cuda:{i}", **kw,
+                                         **{a: v[i * MESHSCALE_ROWS:(i + 1) * MESHSCALE_ROWS]
+                                            for a, v in x.items()}) for i in range(k)])
+        readings.append(f"the {k} shards one after another from one thread {seq:.3f} s")
+        log(f"meshscale: {k} card(s), {MESHSCALE_ROWS} rows a card: " + "; ".join(readings)
+            + f" ({gpu})")
+        del replicas
+
+
+def run_mesh_phase(cfg, params, batch_size: int, slice_counts: dict, gpu: str) -> dict:
+    """The mesh phase: multi-GPU over every visible card (make_mesh()) and
+    a group of as many NCCL ranks -- run_mesh_decode, run_mesh_service,
+    run_mesh_cli, run_mesh_train -> the sharded decode's launch counts."""
+    from vacnic_tpu_torch.core.mesh import make_mesh
+
+    t0 = time.perf_counter()
+    mesh = make_mesh()
+    log(f"mesh: devices {[str(d) for d in mesh.data_devices()]}, mesh shape {mesh.shape}")
+    counts = run_mesh_decode(cfg, params, mesh, batch_size, slice_counts, gpu)
+    run_mesh_service(cfg, params, mesh, gpu)
+    run_mesh_cli(cfg, params, mesh, gpu)
+    run_mesh_train(gpu)
+    log(f"mesh: phase {time.perf_counter() - t0:.1f} s wall")
+    return counts
+
+
 def compare_tokens(ref: dict, gpu: str) -> None:
     """Every path run here against the captions another tree saved with
     --tokens-out on the same seeds: token agreement printed, and any
@@ -3174,7 +3619,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
                     default="build,kernels,accuracy,dispatch,stacks,slice,selfkv,stats,stackhead,"
-                            "layerwise,serve,profile,train,data,cli")
+                            "layerwise,serve,profile,mesh,train,data,cli")
     ap.add_argument("--batch", type=int, default=32)
     ap.add_argument("--tokens-out", metavar="FILE",
                     help="save each path's captions (torch.save of {path: tokens})")
@@ -3218,18 +3663,16 @@ def main() -> int:
         run_dispatch_phase()
     launches = {}  # kernel -> launches in the run of the path that names it
     if phases & {"stacks", "slice", "selfkv", "stats", "stackhead", "layerwise", "serve",
-                  "profile"}:
+                  "profile", "mesh", "meshscale"}:
         cfg, params = full_model()
         if "stacks" in phases:
             run_stacks_phase(cfg, params)
         slice_seqs = counts = None
         if "slice" in phases:
             counts, slice_seqs = run_slice_phase(cfg, params, args.batch)
-            launches.update({k: counts[k] for k in SLICE_KERNELS +
-                             ("gemm_bf16:large_m", "gemm_bf16:small_m", "layernorm:warp",
-                              "dec_self_attention:bf16")})
-        if phases & {"selfkv", "stats", "stackhead"} and slice_seqs is None:
-            slice_seqs = run_slice_phase(cfg, params, args.batch)[1]
+            launches.update({k: counts[k] for k in SLICE_COUNTED})
+        if phases & {"selfkv", "stats", "stackhead", "mesh"} and slice_seqs is None:
+            counts, slice_seqs = run_slice_phase(cfg, params, args.batch)
         if "selfkv" in phases:
             launches.update(run_selfkv_phase(cfg, params, args.batch, slice_seqs, gpu))
         if "stats" in phases:
@@ -3245,6 +3688,12 @@ def main() -> int:
             run_serve_phase(cfg, params, args.batch, gpu, counts)
         if "profile" in phases:
             run_profile_phase(cfg, params, args.batch)
+        if "mesh" in phases:
+            mesh_counts = run_mesh_phase(cfg, params, args.batch, counts, gpu)
+            for k in SLICE_COUNTED:
+                launches.setdefault(k, mesh_counts[k])
+        if "meshscale" in phases:
+            run_meshscale_phase(cfg, params, gpu)
         del params  # the train phase builds its own f32 trees
     if "train" in phases:
         torch.cuda.empty_cache()
@@ -3252,14 +3701,12 @@ def main() -> int:
     if "data" in phases:
         torch.cuda.empty_cache()
         counts = run_data_phase(gpu)
-        for k in SLICE_KERNELS + ("gemm_bf16:large_m", "gemm_bf16:small_m", "layernorm:warp",
-                                  "dec_self_attention:bf16"):
+        for k in SLICE_COUNTED:
             launches.setdefault(k, counts[k])
     if "cli" in phases:
         torch.cuda.empty_cache()
         counts = run_cli_phase(gpu)
-        for k in SLICE_KERNELS + ("gemm_bf16:large_m", "gemm_bf16:small_m", "layernorm:warp",
-                                  "dec_self_attention:bf16", "flash_attention"):
+        for k in SLICE_COUNTED + ("flash_attention",):
             launches.setdefault(k, counts[k])
     if args.tokens_out:
         torch.save(TOKENS, args.tokens_out)

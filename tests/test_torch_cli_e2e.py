@@ -18,8 +18,12 @@ dataset at 32 px):
 * `serve` as a subprocess (chip_smoke.py's serve_cli_roundtrip, the card's
   check, here with --device cpu): requests equal a direct generate_mm, a
   newer checkpoint is hot-swapped, SIGINT exits 0;
+* `generate --sharded` over a 2-way CPU mesh writes the file one device
+  writes; `serve --sharded` serves as a subprocess (a 1-device CPU mesh)
+  and rounds its buckets up to multiples of a 4-way data axis;
 * refusals: without a card and without `--device cpu`, every subcommand that
-  touches a tensor exits naming the device; `--sharded` names ROADMAP A.5.
+  touches a tensor exits naming the device, `--sharded` included (the mesh
+  never falls back to the CPU).
 
 Tolerance: exact (tokens, files, metrics)."""
 
@@ -44,11 +48,13 @@ from vacnic_tpu.models import clip_vit as JV
 from vacnic_tpu.models import fusion as JF
 from vacnic_tpu.train import loop as JL
 from vacnic_tpu_torch import cli
+from vacnic_tpu_torch import serve as serve_mod
 from vacnic_tpu_torch.convert_checkpoint import load_tree, save_tree
 from vacnic_tpu_torch.core.config import VacnicConfig
 from vacnic_tpu_torch.core.rng import make_generator
 from vacnic_tpu_torch.core.tree import leaves_with_path
 from vacnic_tpu_torch.data.synthetic import synthetic_batch
+from vacnic_tpu_torch.infer import generate as G
 from vacnic_tpu_torch.infer.generate import generate_mm
 from vacnic_tpu_torch.models import bart as B
 from vacnic_tpu_torch.models import fusion as F
@@ -350,8 +356,80 @@ def test_cli_refuses_without_a_card(argv):
     ["serve", "--random-init"],
 ])
 def test_sharded_is_refused(cmd):
-    with pytest.raises(SystemExit, match="ROADMAP A.5"):
-        cli.main(["--device", "cpu"] + cmd + ["--sharded"])
+    """--sharded spreads over every visible card: without one, and without
+    --device cpu, it exits naming the device."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid here")
+    with pytest.raises(SystemExit, match="--device cuda: no CUDA device"):
+        cli.main(cmd + ["--sharded"])
+
+
+def test_generate_sharded_writes_the_one_device_file(fixture, tmp_path, monkeypatch, capsys):
+    root, vocab, merges, model_vocab, data_dir, test_dict = fixture
+    _, tcfg = _cfgs(model_vocab, data_dir)
+    _, params = cli._init_inference_params(tcfg, torch.device("cpu"))
+    ckpt = str(tmp_path / "ckpt")
+    TC.CheckpointManager(ckpt, tcfg).save(0, TrainState(step=0, params=params, teacher={},
+                                                        opt_state={}, rng=0))
+    argv = ["--device", "cpu", "generate", "--ckpt-dir", ckpt, "--data-dict", test_dict,
+            "--vocab", vocab, "--merges", merges]
+    assert cli.main(argv + ["--out", str(tmp_path / "one.json")]) == 0
+    monkeypatch.setattr(cli, "_mesh_devices", lambda dev: [dev, dev])
+    calls = []
+    monkeypatch.setattr(TL, "generate_mm_sharded",
+                        lambda *a, **kw: calls.append(1) or G.generate_mm_sharded(*a, **kw))
+    capsys.readouterr()
+    assert cli.main(argv + ["--out", str(tmp_path / "mesh.json"), "--sharded"]) == 0
+    assert "sharded decode over 2 devices" in capsys.readouterr().err
+    assert calls  # the batches went through the mesh
+    assert (tmp_path / "mesh.json").read_text() == (tmp_path / "one.json").read_text()
+
+
+def test_serve_sharded_rounds_the_buckets(monkeypatch, capsys):
+    served = []
+    monkeypatch.setattr(cli, "_mesh_devices", lambda dev: [dev] * 4)
+    monkeypatch.setattr(serve_mod, "http_serve", lambda svc, **kw: served.append(svc))
+    assert cli.main(["--device", "cpu", "serve", "--random-init", "--config", "tiny",
+                     "--buckets", "1,8,30", "--no-precompile", "--sharded"]) == 0
+    err = capsys.readouterr().err
+    assert "sharded serving over 4 devices" in err
+    assert "buckets [1, 8, 30] -> [4, 8, 32] (rounded up to multiples of the 4-way data axis)" \
+        in err
+    (svc,) = served
+    assert svc.scfg.buckets == (4, 8, 32) and svc.mesh.shape == {"data": 4, "model": 1}
+    assert svc._closed.is_set()  # cmd_serve closed it after the serve loop returned
+
+
+def test_serve_sharded_subprocess(tmp_path):
+    """`cli serve --sharded` as a user runs it (chip_smoke's roundtrip, as
+    test_serve_subprocess_hot_swaps_and_exits_on_sigint): over --device
+    cpu's one-device mesh, requests equal a direct generate_mm, a newer
+    checkpoint reaches the replica, SIGINT exits 0."""
+    cfg = VacnicConfig.tiny()
+    params = {"model": F.multimodal_bart_init(make_generator(0), cfg.bart, cfg.fusion),
+              "clip": clip_vision_init(make_generator(1), cfg.clip)}
+    ckpt = str(tmp_path / "ckpt")
+    mgr = TC.CheckpointManager(ckpt, cfg)
+    mgr.save(0, TrainState(step=0, params=params, teacher={}, opt_state={}, rng=0))
+    b = synthetic_batch(cfg, 2, seed=7)
+    keys = ("article_ids", "image_cls", "face_emb", "names_art_ids")
+    rows = [{k: b[k][i].numpy() for k in keys} for i in range(2)]
+
+    def direct(row):
+        x = {k: torch.from_numpy(row[k])[None] for k in row}
+        return generate_mm(params["model"], x["article_ids"], create_mask(x["article_ids"]),
+                           x["image_cls"], cfg.bart, cfg.fusion, cfg.decode,
+                           face_features=x["face_emb"], face_mask=face_mask_from_emb(x["face_emb"]),
+                           name_ids=x["names_art_ids"], name_mask=create_mask(x["names_art_ids"]),
+                           dtype=torch.float32, device="cpu")
+
+    r = SMOKE["serve_cli_roundtrip"](
+        ckpt, rows, direct,
+        lambda: mgr.save(1, TrainState(step=1, params=params, teacher={}, opt_state={}, rng=0)),
+        str(tmp_path / "serve.log"), args=("--device", "cpu"), start_timeout=120,
+        serve_args=("--sharded",))
+    assert r["exit"] == 0 and len(r["request_ms"]) == 3
+    assert "sharded serving over 1 devices" in (tmp_path / "serve.log").read_text()
 
 
 @pytest.mark.parametrize("where", ["before", "after"])

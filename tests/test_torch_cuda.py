@@ -916,3 +916,148 @@ def test_cli_smoke_and_generate_on_the_card(dev, tmp_path, capsys):
                      "--merges", merges, "--out", str(tmp_path / "gen.json")]) == 0
     assert all(K.launch_counts()[k] > 0 for k in slice_kernels), K.launch_counts()
     assert (tmp_path / "gen.json").read_text() == (tmp_path / "ref.json").read_text()
+
+
+def mesh_inputs(dev, rows: int = 8):
+    """card_config()'s model from seed 0 on `dev` and a batch of `rows`."""
+    from vacnic_tpu_torch.core.rng import make_generator
+    from vacnic_tpu_torch.data.synthetic import synthetic_batch
+    from vacnic_tpu_torch.models.fusion import multimodal_bart_init
+    from vacnic_tpu_torch.train.train_step import create_mask, face_mask_from_emb
+
+    cfg = card_config()
+    params = multimodal_bart_init(make_generator(0, dev), cfg.bart, cfg.fusion, device=dev)
+    b = {k: v.to(dev) for k, v in synthetic_batch(cfg, rows, seed=2).items()}
+    x = dict(input_ids=b["article_ids"], attention_mask=create_mask(b["article_ids"]),
+             image_features=b["image_cls"], face_features=b["face_emb"],
+             face_mask=face_mask_from_emb(b["face_emb"]), name_ids=b["names_art_ids"],
+             name_mask=create_mask(b["names_art_ids"]))
+    return cfg, params, x
+
+
+def two_cards():
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+
+
+def test_mesh_one_card_matches_generate_mm(dev):
+    """generate_mm_sharded over a one-card mesh: the program generate_mm
+    runs, at the same shapes: tokens and scores identical, the decode
+    kernels launched."""
+    from vacnic_tpu_torch.core.mesh import make_mesh
+    from vacnic_tpu_torch.infer.generate import generate_mm, generate_mm_sharded
+    from vacnic_tpu_torch.kernels import primitives as K
+
+    cfg, params, x = mesh_inputs(dev)
+    seqs, scores = generate_mm(params, cfg=cfg.bart, fcfg=cfg.fusion, dcfg=cfg.decode,
+                               device=dev, **x)
+    K.reset_launch_counts()
+    mseqs, mscores = generate_mm_sharded(make_mesh(devices=["cuda:0"]), params, cfg=cfg.bart,
+                                         fcfg=cfg.fusion, dcfg=cfg.decode, **x)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["dec_cross_attention"] > 0
+    assert torch.equal(seqs, mseqs) and torch.equal(scores, mscores)
+
+
+def test_mesh_two_cards_match(dev):
+    """A 2-card mesh: each shard identical to generate_mm of its rows on its
+    card, the tokens of the whole batch on one card."""
+    from vacnic_tpu_torch.core.mesh import make_mesh
+    from vacnic_tpu_torch.infer.generate import generate_mm, generate_mm_sharded
+
+    two_cards()
+    cfg, params, x = mesh_inputs(dev)
+    kw = dict(cfg=cfg.bart, fcfg=cfg.fusion, dcfg=cfg.decode)
+    mseqs, mscores = generate_mm_sharded(make_mesh(devices=["cuda:0", "cuda:1"]), params,
+                                         **kw, **x)
+    assert mseqs.device == torch.device("cuda", 0)
+    whole, _ = generate_mm(params, device="cuda:0", **kw, **x)
+    assert torch.equal(mseqs, whole)
+    for i, d in enumerate(("cuda:0", "cuda:1")):
+        s, c = generate_mm(params, device=d, **kw, **{k: v[4 * i:4 * i + 4] for k, v in x.items()})
+        assert torch.equal(mseqs[4 * i:4 * i + 4], s.to(mseqs.device))
+        assert torch.equal(mscores[4 * i:4 * i + 4], c.to(mscores.device))
+
+
+def test_kernel_on_a_second_card_from_a_thread_on_the_first(dev):
+    """A wrapper launches on its operands' card and that card's stream,
+    whatever device the calling thread has current; the thread's device is
+    left as it was."""
+    import threading
+
+    from vacnic_tpu_torch.kernels import primitives as K
+
+    two_cards()
+    d1 = torch.device("cuda", 1)
+    out = {}
+
+    def work():
+        torch.cuda.set_device(0)
+        g = torch.Generator(device=d1).manual_seed(3)
+        a = (torch.randn(160, 256, generator=g, device=d1)).to(torch.bfloat16)
+        w = (torch.randn(256, 384, generator=g, device=d1) * 0.05).to(torch.bfloat16)
+        r = torch.randn(160, 384, generator=g, device=d1)
+        gb = torch.stack([1 + 0.1 * torch.randn(384, generator=g, device=d1),
+                          0.1 * torch.randn(384, generator=g, device=d1)]).contiguous()
+        out["gemm"] = (K.gemm(a, w, residual=r), K.gemm_plain(a, w, residual=r))
+        out["ln"] = (K.layernorm(r, gb, torch.bfloat16)[0], K.layernorm_plain(r, gb,
+                                                                              torch.bfloat16)[0])
+        torch.cuda.synchronize(d1)
+        out["current"] = torch.cuda.current_device()
+
+    t = threading.Thread(target=work)
+    t.start()
+    t.join(timeout=300)
+    assert not t.is_alive() and out["current"] == 0
+    for got, want in (out["gemm"], out["ln"]):
+        assert got.device == d1
+        close(got, want, False)
+
+
+def test_two_rank_nccl_dp_step_equals_one_rank(dev, tmp_path):
+    """The data-parallel step in 2 NCCL ranks (chip_smoke.run_dp_group) on
+    card_config() in f32 with dropout 0.1: loss terms within 2e-5 of one
+    process on the same global batch of 8, each reduced gradient leaf within
+    1e-4 of that leaf's largest |gradient| (sum order on the card)."""
+    import dataclasses
+    import sys
+    from pathlib import Path
+
+    from vacnic_tpu_torch.core.rng import make_generator
+    from vacnic_tpu_torch.core.tree import leaves_with_path
+    from vacnic_tpu_torch.data.synthetic import synthetic_batch
+    from vacnic_tpu_torch.models.bart import bart_init
+    from vacnic_tpu_torch.models.fusion import multimodal_bart_init
+    from vacnic_tpu_torch.models.layers import split
+    from vacnic_tpu_torch.models.weights_io import tree_to
+    from vacnic_tpu_torch.train import train_step as TT
+
+    two_cards()
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    cfg = card_config()
+    cfg = dataclasses.replace(cfg, bart=dataclasses.replace(cfg.bart, dropout=0.1),
+                              train=dataclasses.replace(cfg.train, compute_dtype="float32"))
+    g = make_generator(0)
+    params = {"model": multimodal_bart_init(g, cfg.bart, cfg.fusion)}
+    teacher = bart_init(g, cfg.bart)
+    batch = {k: v.numpy() for k, v in synthetic_batch(cfg, 8, seed=1).items()}
+    (res,) = chip_smoke.run_dp_group(2, dict(device="cuda", params=params, teacher=teacher,
+                                             rng=5, batch=batch,
+                                             cases=[dict(cfg=cfg, steps=2, grads=True)]),
+                                     str(tmp_path), timeout_s=300)
+    init_fn, step_fn = TT.make_train_step(cfg, 100, device=dev)
+    state = init_fn(tree_to(params, dev), tree_to(teacher, dev), 5)
+    m, grads = TT.loss_and_grads(state.params, state.teacher, batch, cfg, split(state.rng)[1])
+    for k, v in m.items():
+        assert abs(res["grad_metrics"][k] - float(v)) <= 2e-5 * (1 + abs(float(v))), k
+    for path, got, want in zip(leaves_with_path(state.params), res["grads"], grads):
+        assert (got is None) == (want is None), path[0]
+        if want is not None:
+            tol = 1e-4 * float(want.abs().max()) + 1e-9
+            assert float((got.to(dev) - want).abs().max()) <= tol, path[0]
+    for i in range(2):
+        state, m = step_fn(state, batch)
+        for k, v in m.items():
+            assert abs(res["steps"][i][k] - float(v)) <= 2e-5 * (1 + abs(float(v))), (i, k)

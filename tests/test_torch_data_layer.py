@@ -15,7 +15,8 @@ writes itself (chip_smoke.py's writers, the data phase's):
   not deterministic for num_workers > 1, in JAX either: that case runs with
   num_workers=1;
 * the abandoned-iterator and producer-error cases, and the refusals
-  (`sharding=`, the default device without a card).
+  (`sharding=` beside a device, the default device without a card; the
+  sharded batches themselves: tests/test_torch_mesh.py).
 
 Tolerance: none; every comparison is exact."""
 
@@ -40,7 +41,9 @@ from vacnic_tpu.data.tokenize import HashWordTokenizer as JHash
 from vacnic_tpu_torch.data import collate as TCo
 from vacnic_tpu_torch.data import datasets as TD
 from vacnic_tpu_torch.data.clip_tokenize import ClipBpeTokenizer as TClip
-from vacnic_tpu_torch.data.pipeline import THREAD_NAME, PrefetchLoader
+from vacnic_tpu_torch.core.config import MeshConfig
+from vacnic_tpu_torch.core.mesh import make_mesh
+from vacnic_tpu_torch.data.pipeline import THREAD_NAME, PrefetchLoader, shard_for_data_parallel
 from vacnic_tpu_torch.data.preprocess import entity_ids as TE
 from vacnic_tpu_torch.data.tokenize import BartBpeTokenizer as TBpe
 from vacnic_tpu_torch.data.tokenize import HashWordTokenizer as THash
@@ -315,8 +318,10 @@ def test_producer_error_surfaces():
 
 
 def test_loader_refusals():
-    with pytest.raises(NotImplementedError, match="A.5"):
-        PrefetchLoader(Toy(), 4, toy_collate, sharding=object(), device="cpu")
+    mesh = make_mesh(MeshConfig(), devices=["cpu"] * 2)
+    with pytest.raises(ValueError, match="sharding= or device="):  # the mesh names the devices
+        PrefetchLoader(Toy(), 4, toy_collate, sharding=shard_for_data_parallel(mesh),
+                       device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             PrefetchLoader(Toy(), 4, toy_collate)  # the card by default, no fallback

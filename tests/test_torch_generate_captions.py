@@ -11,8 +11,8 @@ phase's, at 32 px and 8-wide faces):
   mode on the CPU), as tests/test_torch_generate.py does, the image
   features from each package's CLIP tower on the rows' pixels. The beam
   tokens are identical, and so are the `{step: {gt, gen}}` strings, the
-  metrics and the JSON file; `mesh=` and the default device without a card
-  raise;
+  metrics and the JSON file, and the same over a 2-way CPU mesh from a
+  `PrefetchLoader(sharding=)`; the default device without a card raises;
 * port `fit` over PrefetchLoader(device="cpu") batches with the teacher
   cache for 2 epochs: epoch 2 runs no teacher forward, every metric is
   finite, best/ last/ and val_outputs.json are written, and `sample_idx`
@@ -41,9 +41,11 @@ from vacnic_tpu.data.tokenize import BartBpeTokenizer as JBpe
 from vacnic_tpu.models import clip_vit as JV
 from vacnic_tpu.models import fusion as JF
 from vacnic_tpu.train import loop as JL
-from vacnic_tpu_torch.core.config import VacnicConfig as TCfg
+from vacnic_tpu_torch.core.config import MeshConfig, VacnicConfig as TCfg
+from vacnic_tpu_torch.core.mesh import make_mesh
 from vacnic_tpu_torch.core.rng import make_generator
 from vacnic_tpu_torch.data.datasets import ascii_fold
+from vacnic_tpu_torch.data.pipeline import shard_for_data_parallel
 from vacnic_tpu_torch.models import bart as B
 from vacnic_tpu_torch.models import fusion as F
 from vacnic_tpu_torch.models.clip_vit import clip_vision_init
@@ -132,8 +134,17 @@ def test_generate_captions_matches_jax(data, tmp_path, monkeypatch, threefry):
     om = tout["other metrics"]
     assert om["meteor_scorer"] == "meteor15_py(exact+stem)" and math.isfinite(om["cider"])
 
-    with pytest.raises(NotImplementedError, match="A.5"):
-        TL.generate_captions(tcfg, tparams, [], ttok, mesh=object(), device="cpu")
+    # over a 2-way CPU mesh, from a loader that puts each batch's row shards
+    # on their devices: the same captions, metrics and file
+    mesh = make_mesh(MeshConfig(), devices=["cpu"] * 2)
+    sloader = SMOKE["news_loader"](tcfg, ttok, base, dicts["test"], False,
+                                   sharding=shard_for_data_parallel(mesh))
+    mout = TL.generate_captions(tcfg, tparams, sloader, ttok, mesh=mesh,
+                                out_path=str(tmp_path / "mesh.json"))
+    assert mout == tout
+    assert (tmp_path / "mesh.json").read_text() == (tmp_path / "port.json").read_text()
+    with pytest.raises(ValueError, match="a mesh or a device, not both"):
+        TL.generate_captions(tcfg, tparams, [], ttok, mesh=mesh, device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             TL.generate_captions(tcfg, tparams, [], ttok)

@@ -17,8 +17,10 @@ subcommands exit non-zero with a message naming the device unless given
 `--device cpu`; nothing falls back. `generate` and `serve` read the port's
 own checkpoints (train/checkpoints.CheckpointManager), `--init-bart` and
 `--clip-ckpt` the .npz trees of `python -m vacnic_tpu_torch.convert_checkpoint`
-(the JAX package's format). `--sharded` is refused until multi-GPU
-(ROADMAP A.5); the JAX CLI's `quality-rehearsal` is not ported.
+(the JAX package's format). `generate --sharded` and `serve --sharded` run
+data-parallel over every visible card (with `--device cpu`, over the one
+CPU device), `serve` rounding its buckets up to multiples of the data axis;
+the JAX CLI's `quality-rehearsal` is not ported.
 """
 
 from __future__ import annotations
@@ -78,10 +80,21 @@ def _device(args):
         raise SystemExit(f"vacnic_tpu_torch.cli {args.cmd}: --device {args.device}: {e}")
 
 
-def _refuse_sharded(args) -> None:
-    if getattr(args, "sharded", False):
-        raise SystemExit(f"vacnic_tpu_torch.cli {args.cmd}: --sharded waits for multi-GPU "
-                         "decoding and serving (ROADMAP A.5)")
+def _mesh_devices(dev):
+    """What --sharded spreads over: every visible card for a "cuda" run
+    (None: make_mesh's default), the one CPU device for --device cpu."""
+    return None if dev.type == "cuda" else [dev]
+
+
+def _sharded_decode_mesh(dev, what: str):
+    """Data-parallel mesh over `_mesh_devices(dev)` (shared by the --sharded
+    paths of cmd_generate and cmd_serve)."""
+    from vacnic_tpu_torch.core.config import MeshConfig
+    from vacnic_tpu_torch.core.mesh import make_mesh
+
+    mesh = make_mesh(MeshConfig(), devices=_mesh_devices(dev))
+    print(f"sharded {what} over {mesh.size} devices", file=sys.stderr)
+    return mesh
 
 
 def _bart_tokenizer(vocab: str, merges: str):
@@ -401,12 +414,13 @@ def _restore_gen_params(ckpt_dir: str, set_overrides, device):
 def cmd_generate(args) -> int:
     from vacnic_tpu_torch.train.loop import generate_captions
 
-    _refuse_sharded(args)
     dev = _device(args)
     cfg, gen_params = _restore_gen_params(args.ckpt_dir, args.set, dev)
     tokenizer = _bart_tokenizer(args.vocab, args.merges)
+    mesh = _sharded_decode_mesh(dev, "decode") if args.sharded else None
     (loader,) = _make_loaders(cfg, tokenizer, [(args.data_dict, False)], device=dev)
-    out = generate_captions(cfg, gen_params, loader, tokenizer, out_path=args.out, device=dev)
+    out = generate_captions(cfg, gen_params, loader, tokenizer, out_path=args.out, mesh=mesh,
+                            device=None if mesh else dev)
     print(json.dumps({k: out[k] for k in ("bleu", "other metrics") if k in out}))
     return 0
 
@@ -459,7 +473,6 @@ def cmd_serve(args) -> int:
     only ships offline batch inference (utils/test_mmbart_clip_ddp.py)."""
     from vacnic_tpu_torch.serve import CaptionService, ServeConfig, http_serve
 
-    _refuse_sharded(args)
     dev = _device(args)
     if args.ckpt_dir:
         cfg, params = _restore_gen_params(args.ckpt_dir, args.set, dev)
@@ -477,15 +490,30 @@ def cmd_serve(args) -> int:
     if args.vocab and args.merges:
         tokenizer = _bart_tokenizer(args.vocab, args.merges)
 
+    buckets = tuple(int(b) for b in args.buckets.split(","))
+    mesh = None
+    if args.sharded:
+        mesh = _sharded_decode_mesh(dev, "serving")
+        # round buckets up to data-axis multiples so the documented default
+        # ladder starts on any device count instead of failing
+        # CaptionService's divisibility check
+        dp = mesh.shape["data"]
+        rounded = tuple(sorted({-(-b // dp) * dp for b in buckets}))
+        if rounded != buckets:
+            print(f"buckets {list(buckets)} -> {list(rounded)} "
+                  f"(rounded up to multiples of the {dp}-way data axis)",
+                  file=sys.stderr)
+            buckets = rounded
     scfg = ServeConfig(
-        buckets=tuple(int(b) for b in args.buckets.split(",")),
+        buckets=buckets,
         max_wait_ms=args.max_wait_ms,
         input_kind=args.input_kind,
         default_deadline_ms=args.default_deadline_ms,
         fill_to_stable=args.fill_to_stable,
         stable_margin=args.stable_margin,
     )
-    service = CaptionService(cfg, params, tokenizer=tokenizer, serve_cfg=scfg, device=dev)
+    service = CaptionService(cfg, params, tokenizer=tokenizer, serve_cfg=scfg,
+                             device=None if mesh else dev, mesh=mesh)
     if args.watch_ckpt_s:
         if not args.ckpt_dir:
             print("serve: --watch-ckpt-s needs --ckpt-dir", file=sys.stderr)
@@ -702,8 +730,7 @@ def main(argv=None) -> int:
     sp.add_argument("--out", required=True)
     sp.add_argument("--set", action="append")
     sp.add_argument("--sharded", action="store_true",
-                    help="shard the beam search over all visible devices "
-                         "(refused until multi-GPU, ROADMAP A.5)")
+                    help="shard the beam search over all visible devices")
     sp.set_defaults(fn=cmd_generate)
 
     sp = add("serve", help="online caption service (micro-batched HTTP)")
@@ -738,8 +765,7 @@ def main(argv=None) -> int:
                          "only if its measured capacity covers "
                          "arrival_rate * margin")
     sp.add_argument("--sharded", action="store_true",
-                    help="data-parallel serving over all visible devices "
-                         "(refused until multi-GPU, ROADMAP A.5)")
+                    help="data-parallel serving over all visible devices")
     sp.add_argument("--set", action="append", metavar="sec.field=val")
     sp.set_defaults(fn=cmd_serve)
 

@@ -13,9 +13,15 @@ numpy's (int32 ids, float32 features and pixels): the step sees the tensors
 that `core.device.as_tensor` would make.
 
 The loader runs on "cuda" unless the caller passes device="cpu" (then the
-arrays become CPU tensors, no copy); without a card it raises. `sharding=`
-and `shard_for_data_parallel` wait for multi-GPU data parallelism (ROADMAP
-A.5).
+arrays become CPU tensors, no copy); without a card it raises. With
+`sharding=` (`shard_for_data_parallel(mesh)`, or `core/mesh.batch_sharding`)
+each batch's arrays are cut into contiguous row shards, shard i copied from
+pinned memory to the i-th device of the mesh's data axis on that device's
+own copy stream, and come as `core/mesh.Sharded` values, which
+`infer/generate.generate_mm_sharded` takes where they lie. A batch whose
+rows do not divide by the axis (a last batch with drop_last=False) comes
+whole, as plain tensors on the axis's first device: JAX's device_put would
+refuse it, and `train/loop.generate_captions` decodes it on one device.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ import numpy as np
 import torch
 
 from vacnic_tpu_torch.core.device import resolve_device
+from vacnic_tpu_torch.core.mesh import ShardSpec, Sharded, batch_sharding
 
 THREAD_NAME = "PrefetchLoader"  # prefix of the producer's and the workers' thread names
 
@@ -45,13 +52,20 @@ class PrefetchLoader:
         num_workers: int = 8,
         prefetch: int = 2,
         drop_last: bool = True,
-        sharding=None,
+        sharding: ShardSpec | None = None,
         device_keys: Sequence[str] | None = None,
         device=None,
     ):
         if sharding is not None:
-            raise NotImplementedError("PrefetchLoader(sharding=...) waits for multi-GPU data "
-                                      "parallelism (ROADMAP A.5)")
+            if device is not None:
+                raise ValueError("PrefetchLoader: pass sharding= or device=, not both")
+            if sharding.dim != 0:
+                raise ValueError("PrefetchLoader: sharding= must cut the batch dimension "
+                                 "(shard_for_data_parallel(mesh))")
+            self.devices = sharding.mesh.data_devices(sharding.axis)
+        else:
+            self.devices = [resolve_device(device)]
+        self.sharding = sharding
         self.dataset = dataset
         self.batch_size = batch_size
         self.collate_fn = collate_fn
@@ -61,7 +75,7 @@ class PrefetchLoader:
         self.prefetch = prefetch
         self.drop_last = drop_last
         self.device_keys = device_keys
-        self.device = resolve_device(device)
+        self.device = self.devices[0]
         self.pinned_bytes = 0  # host bytes pinned for copies to the card, all epochs
         self._epoch = 0
 
@@ -82,32 +96,47 @@ class PrefetchLoader:
     def _on_device(self, k: str, v) -> bool:
         return isinstance(v, np.ndarray) and (self.device_keys is None or k in self.device_keys)
 
-    def _stage(self, batch: dict, dev: torch.device, stream):
-        """-> (the batch with its arrays as tensors on `dev`, the copy's event
-        or None, the pinned host tensors the copy reads)."""
-        if dev.type == "cpu":
-            return {k: torch.from_numpy(np.ascontiguousarray(v)) if self._on_device(k, v) else v
-                    for k, v in batch.items()}, None, []
+    def _stage(self, batch: dict, rows: int, devs: list[torch.device], streams: dict):
+        """-> (the batch with its arrays as tensors on devs[0], or as
+        `Sharded` row shards over `devs` when the loader shards and `rows`
+        divides by them; the copies' events [(device, event)]; the pinned
+        host tensors the copies read)."""
+        split = self.sharding is not None and rows % len(devs) == 0
+        on_card = devs[0].type == "cuda"
         out, pinned = {}, []
-        with torch.cuda.stream(stream):
-            for k, v in batch.items():
-                if self._on_device(k, v):
-                    host = torch.from_numpy(np.ascontiguousarray(v)).pin_memory()
-                    self.pinned_bytes += host.nbytes if host.is_pinned() else 0
-                    pinned.append(host)
-                    out[k] = host.to(dev, non_blocking=True)
-                else:
-                    out[k] = v
+        for k, v in batch.items():
+            if not self._on_device(k, v):
+                out[k] = v
+                continue
+            host = torch.from_numpy(np.ascontiguousarray(v))
+            if on_card:
+                host = host.pin_memory()
+                self.pinned_bytes += host.nbytes if host.is_pinned() else 0
+                pinned.append(host)
+            if not (split and host.ndim and host.shape[0] == rows):
+                parts = [(host, devs[0])]
+            else:
+                parts = list(zip(torch.chunk(host, len(devs)), devs))
+            moved = []
+            for part, dev in parts:
+                if on_card:
+                    with torch.cuda.stream(streams[dev]):
+                        part = part.to(dev, non_blocking=True)
+                moved.append(part)
+            out[k] = Sharded(tuple(moved)) if len(parts) > 1 else moved[0]
+        events = []
+        for dev, stream in streams.items():
             event = torch.cuda.Event()
             event.record(stream)
-        return out, event, pinned
+            events.append((dev, event))
+        return out, events, pinned
 
     def __iter__(self) -> Iterator[dict[str, Any]]:
         self._epoch += 1
         batches = self._batch_indices()
-        dev = self.device
-        if dev.type == "cuda" and dev.index is None:
-            dev = torch.device("cuda", torch.cuda.current_device())
+        devs = self.devices
+        if devs[0].type == "cuda" and devs[0].index is None:
+            devs = [torch.device("cuda", torch.cuda.current_device())]
         q: queue.Queue = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()
 
@@ -127,16 +156,19 @@ class PrefetchLoader:
             # a producer failure (bad image file, collate error) is re-raised
             # in the consumer instead of leaving it blocked on q.get()
             try:
-                stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
+                # a copy stream a device, the producer's own
+                streams = ({d: torch.cuda.Stream(d) for d in devs} if devs[0].type == "cuda"
+                           else {})
                 with ThreadPoolExecutor(self.num_workers,
                                         thread_name_prefix=f"{THREAD_NAME}.worker") as pool:
                     for binds in batches:
                         if stop.is_set():
                             return
                         samples = list(pool.map(self.dataset.__getitem__, binds))
-                        out, event, pinned = self._stage(self.collate_fn(samples), dev, stream)
-                        queued = put_or_stop((out, event))
-                        if event is not None:
+                        out, events, pinned = self._stage(self.collate_fn(samples), len(binds),
+                                                          devs, streams)
+                        queued = put_or_stop((out, events))
+                        for _, event in events:
                             event.synchronize()  # the copy has read the pinned memory
                         del pinned
                         if not queued:
@@ -154,13 +186,20 @@ class PrefetchLoader:
                     return
                 if isinstance(item, BaseException):
                     raise item
-                out, event = item
-                if event is not None:
+                out, events = item
+                for dev, event in events:
                     current = torch.cuda.current_stream(dev)
                     current.wait_event(event)
                     for v in out.values():
-                        if isinstance(v, torch.Tensor) and v.device.type == "cuda":
-                            v.record_stream(current)
+                        for t in (v.shards if isinstance(v, Sharded) else (v,)):
+                            if isinstance(t, torch.Tensor) and t.device == dev:
+                                t.record_stream(current)
                 yield out
         finally:
             stop.set()
+
+
+def shard_for_data_parallel(mesh) -> ShardSpec:
+    """The loader's `sharding=` for data parallelism over `mesh`: batch rows
+    cut over its first (data) axis."""
+    return batch_sharding(mesh)

@@ -30,19 +30,28 @@ vocab-padded head built once a call (kernels/lm_head; the JAX package's
 VACNIC_PLAN_NLM > 0). It excludes `lm_stats=True`: together they raise
 (the JAX package warns and runs without the stats head).
 
+`generate_mm_sharded` is the data-parallel decode over a `core/mesh.Mesh`:
+one parameter replica and one host thread a device of the data axis, each
+running the whole of `generate_mm` on its contiguous row shard.
+
 Entry points run on "cuda" unless the caller passes device="cpu"; without
 a card and without that argument they raise.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
+import threading
+from concurrent.futures import ThreadPoolExecutor
 from typing import NamedTuple
 
 import torch
 
 from vacnic_tpu_torch.core.config import BartConfig, DecodeConfig, FusionConfig
 from vacnic_tpu_torch.core.device import as_tensor, resolve_device
+from vacnic_tpu_torch.core.mesh import Mesh, Sharded
+from vacnic_tpu_torch.core.tree import leaves_with_path
 from vacnic_tpu_torch.infer import decode_fast as DF
 from vacnic_tpu_torch.infer.beam_search import beam_search, resolve_cand_mode, shortlist_c_width
 from vacnic_tpu_torch.kernels.lm_stats import VBLOCK
@@ -165,6 +174,116 @@ def generate_mm(params, input_ids, attention_mask, image_features, cfg: BartConf
                      name_mask=name_mask, add_ner_ffn=add_ner_ffn, dtype=dtype)
     return _decode_from_encoder(params, enc["last_hidden"], attention_mask, cfg, dcfg, dtype,
                                 mode, shortlist_c, plan, lm_head)
+
+
+# (mesh, data axis, id of the tree) -> (the tree, its leaves, their version
+# counters, one replica a data-axis device). The entry holds the tree, so
+# its id cannot be reused while the entry lives; the leaves' identities and
+# version counters tell a tree changed in place (an optimizer step) from
+# the one that was copied.
+_REPLICAS: collections.OrderedDict = collections.OrderedDict()
+_REPLICAS_MAX = 4
+_REPLICAS_LOCK = threading.Lock()
+
+
+def _stamp(leaves) -> tuple:
+    return tuple(t._version if isinstance(t, torch.Tensor) and not t.is_inference() else None
+                 for t in leaves)
+
+
+def replicate(params, mesh: Mesh, data_axis: str = "data") -> list:
+    """One copy of `params` on each device of the mesh's data axis (a leaf
+    already on a device is that device's copy, not copied again), made once
+    and kept in a small LRU keyed by the mesh and the tree's identity: a
+    tree whose leaves were replaced or changed in place since is copied
+    anew. `drop_replicas` forgets a tree's copies."""
+    devices = mesh.data_devices(data_axis)
+    key = (mesh, data_axis, id(params))
+    leaves = [leaf for _, leaf in leaves_with_path(params)]
+    stamp = _stamp(leaves)
+    with _REPLICAS_LOCK:
+        hit = _REPLICAS.get(key)
+        if (hit is not None and len(hit[1]) == len(leaves)
+                and all(a is b for a, b in zip(hit[1], leaves)) and hit[2] == stamp):
+            _REPLICAS.move_to_end(key)
+            return hit[3]
+    replicas = [tree_to(params, d) for d in devices]
+    with _REPLICAS_LOCK:
+        _REPLICAS[key] = (params, leaves, stamp, replicas)
+        _REPLICAS.move_to_end(key)
+        while len(_REPLICAS) > _REPLICAS_MAX:
+            _REPLICAS.popitem(last=False)
+    return replicas
+
+
+def drop_replicas(params) -> None:
+    """Forget every mesh's copies of `params` (a service swapping weights
+    frees the old ones)."""
+    with _REPLICAS_LOCK:
+        for key in [k for k, v in _REPLICAS.items() if v[0] is params]:
+            del _REPLICAS[key]
+
+
+def _row_shards(x, devices: list[torch.device]) -> list:
+    """x cut into len(devices) contiguous row shards, shard i on devices[i];
+    a `Sharded` batch keeps the shards it has (copied only if one lies
+    elsewhere); None stays None."""
+    n = len(devices)
+    if x is None:
+        return [None] * n
+    if isinstance(x, Sharded):
+        if len(x.shards) != n:
+            raise ValueError(f"a batch in {len(x.shards)} shards on a data axis of {n} devices")
+        return [s.to(d) for s, d in zip(x.shards, devices)]
+    x = torch.as_tensor(x)
+    return [c.to(d) for c, d in zip(torch.chunk(x, n), devices)]
+
+
+def generate_mm_sharded(mesh: Mesh, params, input_ids, attention_mask, image_features,
+                        cfg: BartConfig, fcfg: FusionConfig, dcfg: DecodeConfig, *,
+                        face_features=None, face_mask=None, name_ids=None, name_mask=None,
+                        add_ner_ffn: bool = True, dtype=torch.float32, data_axis: str = "data"):
+    """Data-parallel beam decode over the mesh's data axis (the counterpart
+    of JAX's shard_map: parameters replicated, the batch scattered, each
+    device running the whole search on its shard, no traffic between them
+    after the scatter) -> (sequences, scores) of the global batch in row
+    order, on the data axis's first device.
+
+    The batch must divide by the data axis's size (ValueError otherwise).
+    Contiguous row shards go to the axis's devices, to the first device of
+    each data row when the mesh has a model axis wider than 1. The inputs
+    are tensors, numpy arrays or `core/mesh.Sharded` batches (a
+    `data/pipeline.PrefetchLoader(sharding=)` batch), whose shards are
+    taken where they lie. The parameter replicas come from `replicate`.
+    One host thread a device makes its device current and runs
+    `generate_mm` on its shard under torch.inference_mode(); a worker's
+    exception is raised here."""
+    devices = mesh.data_devices(data_axis)
+    rows = (input_ids.shape if isinstance(input_ids, Sharded)
+            else torch.as_tensor(input_ids).shape)[0]
+    if rows % len(devices):
+        raise ValueError(f"generate_mm_sharded: batch of {rows} rows does not divide over the "
+                         f"{len(devices)}-device {data_axis!r} axis")
+    replicas = replicate(params, mesh, data_axis)
+    args = [_row_shards(x, devices) for x in (input_ids, attention_mask, image_features,
+                                              face_features, face_mask, name_ids, name_mask)]
+
+    def work(i: int):
+        dev = devices[i]
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+        ids, mask, img, face, fmask, names, nmask = (a[i] for a in args)
+        with torch.inference_mode():
+            return generate_mm(replicas[i], ids, mask, img, cfg, fcfg, dcfg, face_features=face,
+                               face_mask=fmask, name_ids=names, name_mask=nmask,
+                               add_ner_ffn=add_ner_ffn, dtype=dtype, device=dev)
+
+    with ThreadPoolExecutor(len(devices), thread_name_prefix="generate_mm_sharded") as pool:
+        futures = [pool.submit(work, i) for i in range(len(devices))]
+        outs = [f.result() for f in futures]
+    first = devices[0]
+    return (torch.cat([s.to(first) for s, _ in outs]),
+            torch.cat([s.to(first) for _, s in outs]))
 
 
 @torch.no_grad()

@@ -42,6 +42,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "device_state.cuh"
+
 namespace attn_tiles {
 
 constexpr int TILE_BYTES_PER_ROW = 128;  // 64 bf16
@@ -275,17 +277,7 @@ __device__ __forceinline__ void store_o_tile(__nv_bfloat16* out, long long strid
 
 // ---- host ----
 
-// SMs of the current device, asked once per device; 0 on an error.
-inline int sm_count() {
-  static int dev_seen = -1, sms = 0;
-  int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
-  if (dev != dev_seen) {
-    if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-      return 0;
-    dev_seen = dev;
-  }
-  return sms;
-}
+using device_state::allow_smem;
+using device_state::sm_count;
 
 }  // namespace attn_tiles

@@ -63,6 +63,8 @@
 #include <cuda_fp16.h>
 #include <cuda_fp8.h>
 
+#include "device_state.cuh"
+
 namespace {
 
 constexpr int HD = 64;
@@ -351,16 +353,10 @@ int launch(const void* qkv, const void* ck, const void* cv, const void* ks, cons
            const void* anc, void* out, int BK, int T, int H, int pos, float scaling,
            cudaStream_t stream) {
   auto kernel = dec_self_kernel<KT>;
-  static int configured_device = -1;  // the shared-memory limit is raised once per device
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
+  static device_state::PerDevice configured;  // the shared-memory limit, raised once a device
+  const cudaError_t e =
+      device_state::allow_smem(kernel, smem_bytes(MAX_T, sizeof(KT)), configured);
   if (e != cudaSuccess) return static_cast<int>(e);
-  if (dev != configured_device) {
-    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem_bytes(MAX_T, sizeof(KT)));
-    if (e != cudaSuccess) return static_cast<int>(e);
-    configured_device = dev;
-  }
   kernel<<<dim3(BK, H / HEADS), THREADS, smem_bytes(T, sizeof(KT)), stream>>>(
       reinterpret_cast<const __nv_bfloat16*>(qkv), reinterpret_cast<const KT*>(ck),
       reinterpret_cast<const KT*>(cv), reinterpret_cast<const float*>(ks),

@@ -390,15 +390,9 @@ int launch(const Args& a) {
   const long long smem = smem_bytes(NB, a.S, EB);
   if (smem > MAX_SMEM) return static_cast<int>(cudaErrorInvalidValue);
   auto kernel = dec_cross_kernel<KT, NB>;
-  static int configured_device = -1;  // the shared-memory limit is raised once per device
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
+  static device_state::PerDevice configured;  // the shared-memory limit, raised once a device
+  const cudaError_t e = device_state::allow_smem(kernel, MAX_SMEM, configured);
   if (e != cudaSuccess) return static_cast<int>(e);
-  if (dev != configured_device) {
-    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    configured_device = dev;
-  }
   const int vec = (a.S * EB) % 16 == 0 && reinterpret_cast<uintptr_t>(a.ck) % 16 == 0 &&
                   reinterpret_cast<uintptr_t>(a.cv) % 16 == 0 &&
                   reinterpret_cast<uintptr_t>(a.bias) % 16 == 0;

@@ -390,16 +390,9 @@ extern "C" int vt_enc_self_attention(const void* qkv, const void* bias, void* ou
                                      int H, float scaling, void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (S % KT || S > MAX_S) return static_cast<int>(cudaErrorInvalidValue);
-  static int configured_device = -1;  // the attribute is set once per device, not per launch
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
+  static device_state::PerDevice configured;  // the attribute is set once a device, not a launch
+  const cudaError_t e = allow_smem(enc_self_attn_kernel, SELF_SMEM_FIXED + MAX_S * 4, configured);
   if (e != cudaSuccess) return static_cast<int>(e);
-  if (dev != configured_device) {
-    e = cudaFuncSetAttribute(enc_self_attn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             SELF_SMEM_FIXED + MAX_S * 4);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    configured_device = dev;
-  }
   dim3 grid(S / QT, H, B);
   enc_self_attn_kernel<<<grid, SELF_THREADS, SELF_SMEM_FIXED + (size_t)S * 4, s>>>(
       reinterpret_cast<const __nv_bfloat16*>(qkv), reinterpret_cast<const float*>(bias),
@@ -416,16 +409,9 @@ extern "C" int vt_enc_cross_attention(const void* q, const void* ck, const void*
   if (B < 1 || S < 1 || H < 1 || KV < 1 || KV > MAX_KV) return invalid;
   for (const void* p : {q, cv, static_cast<const void*>(out)})
     if (reinterpret_cast<uintptr_t>(p) % 16) return invalid;
-  static int configured_device = -1;  // the attribute is set once per device, not per launch
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
+  static device_state::PerDevice configured;  // the attribute is set once a device, not a launch
+  const cudaError_t e = allow_smem(enc_cross_attn_kernel, CROSS_SMEM, configured);
   if (e != cudaSuccess) return static_cast<int>(e);
-  if (dev != configured_device) {
-    e = cudaFuncSetAttribute(enc_cross_attn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             CROSS_SMEM);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    configured_device = dev;
-  }
   // blocks an (item, head), each taking every groups-th q tile: as many as
   // fill the SMs' block slots, at least one and at most one a q tile
   const int sms = sm_count();

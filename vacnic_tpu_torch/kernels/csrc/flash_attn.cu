@@ -193,16 +193,9 @@ template <typename BiasT>
 int launch(const void* q, const void* k, const void* v, const void* bias, void* out, int B,
            int H, int T, int S, const long long* st, cudaStream_t stream) {
   constexpr int smem = 2 * Stage<BiasT>::BYTES + TILE_ALIGN;
-  static int configured_device = -1;  // the attribute is set once per device, not per launch
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
+  static device_state::PerDevice configured;  // the attribute is set once a device, not a launch
+  const cudaError_t e = allow_smem(flash_attn_kernel<BiasT>, smem, configured);
   if (e != cudaSuccess) return static_cast<int>(e);
-  if (dev != configured_device) {
-    e = cudaFuncSetAttribute(flash_attn_kernel<BiasT>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    configured_device = dev;
-  }
   const Strides qs{st[0], st[1], st[2]}, ks{st[3], st[4], st[5]}, vs{st[6], st[7], st[8]},
       bs{st[9], st[10], st[11]}, os{st[12], st[13], st[14]};
   dim3 grid(T / QT, B * H);

@@ -453,9 +453,9 @@ int launch_large(const GemmArgs& g) {
   constexpr int SMEM = large_smem<WGS, NA, STAGES>();
   constexpr int cn = CLUSTER_N;
   static_assert(T::BM % (8 * cn) == 0, "the A box a block fetches is whole 8-row groups");
-  static int configured_device = -1;
+  static device_state::PerDevice configured;
   auto kernel = gemm_large_kernel<WGS, NA, STAGES, MIN_BLOCKS>;
-  cudaError_t e = allow_smem(kernel, SMEM, &configured_device);
+  cudaError_t e = allow_smem(kernel, SMEM, configured);
   if (e != cudaSuccess) return static_cast<int>(e);
   CUtensorMap map_a, map_w;
   e = map_cache.get(g.a, g.M, g.K, T::BM / cn, &map_a);
@@ -492,9 +492,9 @@ template <int WGS, int NA>
 int launch_small(const GemmArgs& g, int split) {
   constexpr int STAGES = small_stages(WGS, NA);
   using T = Tile<WGS, NA, STAGES>;
-  static int configured_device = -1;
+  static device_state::PerDevice configured;
   auto kernel = gemm_small_kernel<WGS, NA, STAGES>;
-  cudaError_t e = allow_smem(kernel, T::SMEM_BYTES, &configured_device);
+  cudaError_t e = allow_smem(kernel, T::SMEM_BYTES, configured);
   if (e != cudaSuccess) return static_cast<int>(e);
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((g.N + T::BN - 1) / T::BN, split, 1);

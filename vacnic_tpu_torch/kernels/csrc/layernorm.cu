@@ -32,6 +32,8 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
+#include "device_state.cuh"
+
 namespace {
 
 constexpr int WARP_THREADS = 128;   // four warps a block, each on its own rows
@@ -209,29 +211,31 @@ layernorm_block_kernel(const float* x, const float* __restrict__ gb, float* y32,
   }
 }
 
-// Blocks of `kernel` that fit on the device at once; `device` and `blocks`
-// are the caller's cache (one per kernel instance), asked once per device.
+// Blocks of `kernel` that fit on the current device at once; `blocks` is
+// the caller's cache (one per kernel instance), asked once a device.
 template <typename Kernel>
-int resident_blocks(Kernel kernel, int threads, int* device, int* blocks) {
+int resident_blocks(Kernel kernel, int threads, device_state::PerDevice& blocks) {
   int dev = 0;
   if (cudaGetDevice(&dev) != cudaSuccess) return 0;
-  if (dev != *device) {
-    int sms = 0, per_sm = 0;
-    if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
+  int n = blocks.get(dev);
+  if (n == 0) {
+    int per_sm = 0;
+    const int sms = device_state::sm_count();
+    if (sms <= 0 ||
         cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, 0) != cudaSuccess)
       return 0;
-    *blocks = sms * per_sm;
-    *device = dev;
+    n = sms * per_sm;
+    blocks.set(dev, n);
   }
-  return *blocks;
+  return n;
 }
 
 template <int NV, bool VEC>
 int launch_warp(const float* x, const float* gb, float* y32, __nv_bfloat16* y16, int rows, int d,
                 float eps, cudaStream_t s) {
-  static int device = -1, blocks = 0;
+  static device_state::PerDevice blocks;  // resident blocks a wave, once a device
   auto kernel = layernorm_warp_kernel<NV, VEC>;
-  const int wave = resident_blocks(kernel, WARP_THREADS, &device, &blocks);
+  const int wave = resident_blocks(kernel, WARP_THREADS, blocks);
   if (wave <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const int need = (rows + WARP_THREADS / 32 - 1) / (WARP_THREADS / 32);
   kernel<<<need < wave ? need : wave, WARP_THREADS, 0, s>>>(x, gb, y32, y16, rows, d, eps);

@@ -386,12 +386,12 @@ template <int NB, bool STATS>
 int launch(const void* x, const void* w, const float* bias, float* logits, const Stats& stats,
            int BK, int Vp, int d, cudaStream_t stream) {
   using G = Geometry<NB, STATS>;
-  static int configured_device = -1;
+  static device_state::PerDevice configured;
   cudaError_t e;
   if constexpr (STATS)
-    e = allow_smem(lm_stats_kernel<NB>, G::SMEM, &configured_device);
+    e = allow_smem(lm_stats_kernel<NB>, G::SMEM, configured);
   else
-    e = allow_smem(lm_head_kernel<NB>, G::SMEM, &configured_device);
+    e = allow_smem(lm_head_kernel<NB>, G::SMEM, configured);
   if (e != cudaSuccess) return static_cast<int>(e);
   CUtensorMap map_w, map_x;
   e = map_cache.get(w, Vp, d, 64, &map_w);

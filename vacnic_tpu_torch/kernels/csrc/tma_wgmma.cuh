@@ -176,17 +176,6 @@ __device__ __forceinline__ void tma_load_multicast(uint32_t dst, const CUtensorM
 
 // ---- host ----
 
-// Raises the kernel's dynamic shared-memory limit once per device.
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, int bytes, int* configured_device) {
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess || dev == *configured_device) return e;
-  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (e == cudaSuccess) *configured_device = dev;
-  return e;
-}
-
 // Tensor maps of a row-major bf16 matrix [rows, cols] cut into boxes of
 // box_rows x 64 columns with the 128-byte swizzle, kept by (pointer, shape,
 // box): encoding is host work, and weights and activations come back at the

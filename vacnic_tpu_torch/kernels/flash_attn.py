@@ -92,7 +92,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for name, x in (("q", q), ("k", k), ("v", v), ("bias", bias), ("out", out)):
         strides += _strides(x, name)
     arr = (ctypes.c_longlong * 15)(*strides)
-    K._launch("flash_attention", "vt_flash_attention", K._p(q), K._p(k), K._p(v), K._p(bias),
-              K._p(out), b, h, t, s, d, int(bias.dtype == torch.bfloat16),
+    K._launch("flash_attention", "vt_flash_attention", q.device, K._p(q), K._p(k), K._p(v),
+              K._p(bias), K._p(out), b, h, t, s, d, int(bias.dtype == torch.bfloat16),
               ctypes.cast(arr, ctypes.c_void_p))
     return out

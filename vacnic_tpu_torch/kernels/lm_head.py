@@ -39,5 +39,6 @@ def lm_head(x: torch.Tensor, w_lm: torch.Tensor, b_lm: torch.Tensor) -> torch.Te
     if any(t.data_ptr() % 16 for t in (x, w_lm, b_lm)):
         raise ValueError("lm_head: x, w_lm and b_lm must start on 16 bytes")
     logits = torch.empty(bk, vp, dtype=torch.float32, device=x.device)
-    K._launch("lm_head", "vt_lm_head", K._p(x), K._p(w_lm), K._p(b_lm), K._p(logits), bk, vp, d)
+    K._launch("lm_head", "vt_lm_head", x.device, K._p(x), K._p(w_lm), K._p(b_lm), K._p(logits),
+              bk, vp, d)
     return logits

@@ -93,7 +93,7 @@ def lm_stats(x: torch.Tensor, w_lm: torch.Tensor, b_lm: torch.Tensor):
         bk * (vp + 2 * vp // UNIT + 2 * nv), dtype=torch.float32, device=x.device).split(
         [bk * vp, bk * vp // UNIT, bk * vp // UNIT, bk * nv, bk * nv])
     logits, m, s = logits.view(bk, vp), m.view(bk, nv), s.view(bk, nv)
-    K._launch("lm_stats", "vt_lm_stats", K._p(x), K._p(w_lm), K._p(b_lm), K._p(logits),
+    K._launch("lm_stats", "vt_lm_stats", x.device, K._p(x), K._p(w_lm), K._p(b_lm), K._p(logits),
               K._p(m), K._p(s), K._p(unit_m), K._p(unit_s), K._p(counters(x.device)), bk, vp, d)
     return logits, m, s
 

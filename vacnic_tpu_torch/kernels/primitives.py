@@ -3,9 +3,12 @@
 Every wrapper dispatches on the device of its tensors: CPU tensors take the
 `*_plain` twin; CUDA tensors are checked (device, dtype, shape, contiguity),
 outputs are allocated with torch.empty, the kernel is launched on the
-current stream and its launch count goes up by one; any other tensor
-raises. There is no fallback from a CUDA tensor to the plain twin. No
-kernel has a backward: every wrapper first refuses, on either device, a
+device of its first operand and that device's current stream, whatever
+device is current on the calling thread, and its launch count goes up by
+one; any other tensor raises. The counts are bumped under a lock: one host
+thread a card (infer/generate.generate_mm_sharded) launches at once.
+There is no fallback from a CUDA tensor to the plain twin. No kernel has a
+backward: every wrapper first refuses, on either device, a
 call under grad mode on a tensor that requires grad (`no_grad_guard`).
 
 The plain twins define the semantics the kernels are held to: the dtype of
@@ -18,6 +21,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from typing import NamedTuple
 
 import torch
@@ -39,17 +43,15 @@ DEC_SELF_VARIANTS = ("bf16", "int8", "fp8")
 DEC_SELF_VARIANT_LAUNCHES: dict[str, int] = {v: 0 for v in DEC_SELF_VARIANTS}
 
 GELU = "gelu"
+_COUNT_LOCK = threading.Lock()  # the counts above are bumped from one thread a card
 
 
 def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-    for v in GEMM_VARIANT_LAUNCHES:
-        GEMM_VARIANT_LAUNCHES[v] = 0
-    for v in LAYERNORM_VARIANT_LAUNCHES:
-        LAYERNORM_VARIANT_LAUNCHES[v] = 0
-    for v in DEC_SELF_VARIANT_LAUNCHES:
-        DEC_SELF_VARIANT_LAUNCHES[v] = 0
+    with _COUNT_LOCK:
+        for table in (LAUNCHES, GEMM_VARIANT_LAUNCHES, LAYERNORM_VARIANT_LAUNCHES,
+                      DEC_SELF_VARIANT_LAUNCHES):
+            for k in table:
+                table[k] = 0
 
 
 def launch_counts() -> dict[str, int]:
@@ -120,17 +122,30 @@ def _p(t: torch.Tensor | None) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr() if t is not None else None)
 
 
-def _stream() -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+def _stream(device: torch.device | None = None) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
-def _launch(name: str, fn: str, *args) -> None:
+def _launch(name: str, fn: str, device: torch.device, *args,
+            variant: tuple[dict[str, int], str] | None = None) -> None:
+    """Call the library's entry point `fn` on `device` (its first tensor
+    operand's) and that device's current stream; the entry points launch on
+    the calling thread's current device, so another one is made current for
+    the call. Counts one launch of `name`, and of `variant` = (table, key)."""
     from vacnic_tpu_torch.kernels._build import lib
 
-    rc = getattr(lib(), fn)(*args, _stream())
+    entry = getattr(lib(), fn)
+    if device.index == torch.cuda.current_device():
+        rc = entry(*args, _stream(device))
+    else:
+        with torch.cuda.device(device):
+            rc = entry(*args, _stream(device))
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {rc}")
-    LAUNCHES[name] += 1
+    with _COUNT_LOCK:
+        LAUNCHES[name] += 1
+        if variant is not None:
+            variant[0][variant[1]] += 1
 
 
 # ---------------------------------------------------------------------------
@@ -201,10 +216,9 @@ def gemm(a, w, bias=None, residual=None, act=None, out_dtype=torch.float32):
         raise ValueError(f"gemm: act {act!r}, out_dtype {out_dtype} not supported")
     plan = gemm_plan(m, n, k)
     out = torch.empty(m, n, dtype=out_dtype, device=a.device)
-    _launch("gemm_bf16", "vt_gemm_bf16", _p(a), _p(w), _p(bias), _p(residual), _p(out),
-            m, n, k, int(act == GELU), int(out_dtype == torch.bfloat16),
-            _VARIANT_ID[plan.variant], plan.split)
-    GEMM_VARIANT_LAUNCHES[plan.variant] += 1
+    _launch("gemm_bf16", "vt_gemm_bf16", a.device, _p(a), _p(w), _p(bias), _p(residual),
+            _p(out), m, n, k, int(act == GELU), int(out_dtype == torch.bfloat16),
+            _VARIANT_ID[plan.variant], plan.split, variant=(GEMM_VARIANT_LAUNCHES, plan.variant))
     return out
 
 
@@ -266,9 +280,9 @@ def layernorm(x, gb, mm_dtype, eps: float = 1e-5):
     plan = layernorm_plan(r, d)
     y32 = torch.empty_like(x)
     y16 = torch.empty(r, d, dtype=torch.bfloat16, device=x.device)
-    _launch("layernorm", "vt_layernorm", _p(x), _p(gb), _p(y32), _p(y16), r, d,
-            ctypes.c_float(eps), _LN_VARIANT_ID[plan.variant], plan.slots)
-    LAYERNORM_VARIANT_LAUNCHES[plan.variant] += 1
+    _launch("layernorm", "vt_layernorm", x.device, _p(x), _p(gb), _p(y32), _p(y16), r, d,
+            ctypes.c_float(eps), _LN_VARIANT_ID[plan.variant], plan.slots,
+            variant=(LAYERNORM_VARIANT_LAUNCHES, plan.variant))
     return y32, y16
 
 
@@ -300,8 +314,8 @@ def enc_self_attention(qkv, bias, batch: int, seq: int, heads: int):
         raise ValueError(f"enc_self_attention: needs head_dim 64 and S % 64 == 0, S <= 32768 "
                          f"(d={d}, heads={heads}, S={seq})")
     out = torch.empty(batch * seq, d, dtype=torch.bfloat16, device=qkv.device)
-    _launch("enc_self_attention", "vt_enc_self_attention", _p(qkv), _p(bias), _p(out),
-            batch, seq, heads, ctypes.c_float(64 ** -0.5))
+    _launch("enc_self_attention", "vt_enc_self_attention", qkv.device, _p(qkv), _p(bias),
+            _p(out), batch, seq, heads, ctypes.c_float(64 ** -0.5))
     return out
 
 
@@ -335,8 +349,8 @@ def enc_cross_attention(q, ck, cv, batch: int, seq: int, heads: int):
     if q.data_ptr() % 16 or cv.data_ptr() % 16:
         raise ValueError("enc_cross_attention: q and cv must start on 16 bytes")
     out = torch.empty_like(q)
-    _launch("enc_cross_attention", "vt_enc_cross_attention", _p(q), _p(ck), _p(cv), _p(out),
-            batch, seq, kv, heads, ctypes.c_float(64 ** -0.5))
+    _launch("enc_cross_attention", "vt_enc_cross_attention", q.device, _p(q), _p(ck), _p(cv),
+            _p(out), batch, seq, kv, heads, ctypes.c_float(64 ** -0.5))
     return out
 
 
@@ -420,10 +434,10 @@ def dec_self_attention(qkv, cache_k, cache_v, anc, pos: int, heads: int, k_scale
         raise ValueError("dec_self_attention: qkv, the cache and the scales must start on 16 "
                          "bytes")
     out = torch.empty(bk, d, dtype=torch.bfloat16, device=qkv.device)
-    _launch("dec_self_attention", "vt_dec_self_attention", _p(qkv), _p(cache_k), _p(cache_v),
-            _p(k_scale), _p(v_scale), _p(anc), _p(out), bk, t_len, heads, int(pos),
-            DEC_SELF_VARIANTS.index(kind), ctypes.c_float(64 ** -0.5))
-    DEC_SELF_VARIANT_LAUNCHES[kind] += 1
+    _launch("dec_self_attention", "vt_dec_self_attention", qkv.device, _p(qkv), _p(cache_k),
+            _p(cache_v), _p(k_scale), _p(v_scale), _p(anc), _p(out), bk, t_len, heads, int(pos),
+            DEC_SELF_VARIANTS.index(kind), ctypes.c_float(64 ** -0.5),
+            variant=(DEC_SELF_VARIANT_LAUNCHES, kind))
     return out
 
 
@@ -488,7 +502,7 @@ def dec_cross_attention(q, ck, cv, ck_scale, cv_scale, enc_bias, heads: int):
         raise ValueError(f"dec_cross_attention: S={s_len} with {bk // b} beams needs more "
                          "shared memory than a block has")
     out = torch.empty(bk, d, dtype=torch.bfloat16, device=q.device)
-    _launch("dec_cross_attention", "vt_dec_cross_attention", _p(q), _p(ck), _p(cv),
+    _launch("dec_cross_attention", "vt_dec_cross_attention", q.device, _p(q), _p(ck), _p(cv),
             _p(ck_scale), _p(cv_scale), _p(enc_bias), _p(out), b, bk // b, heads, s_len,
             int(is_int8), ctypes.c_float(64 ** -0.5))
     return out

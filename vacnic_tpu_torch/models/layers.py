@@ -10,7 +10,9 @@ Training: `dropout` takes a 63-bit seed where JAX takes a key, and
 `RngStream` / `fold_in` derive one seed per call site from (base seed,
 layer, site), as JAX's `fold_in` does. Each site draws its mask from a
 generator made for it from that seed alone, so a layer recomputed under
-`torch.utils.checkpoint` draws the masks of the forward that ran.
+`torch.utils.checkpoint` draws the masks of the forward that ran. A
+`RowShardSeed` (the data-parallel training step's) makes a rank's dropout
+draw its rows of the global batch's mask.
 """
 
 from __future__ import annotations
@@ -55,10 +57,32 @@ def _mix64(z: int) -> int:
     return z ^ (z >> 31)
 
 
+class RowShardSeed(int):
+    """A dropout seed for one rank's rows of a global batch: the batch is
+    cut into `world` equal contiguous shares and this rank holds share
+    `rank`. `dropout` under it draws the mask of the global batch (a
+    tensor's leading dimension times `world` rows) and keeps the rows
+    [rank * n, (rank + 1) * n) of its n, so each row gets the mask it gets
+    in one process. That costs `world` times the random bits of the rank's
+    own mask. `fold_in` and `split` keep the shard, so every seed derived
+    from this one is a RowShardSeed too; it travels with the value, into a
+    layer that torch.utils.checkpoint recomputes on autograd's thread."""
+
+    def __new__(cls, seed: int, rank: int, world: int):
+        if not 0 <= rank < world:
+            raise ValueError(f"RowShardSeed: rank {rank} of {world}")
+        obj = super().__new__(cls, seed)
+        obj.rank, obj.world = rank, world
+        return obj
+
+
 def fold_in(seed: int, data: int) -> int:
     """A new 63-bit seed from `seed` and the integer `data` (the port's
-    jax.random.fold_in)."""
-    return _mix64(_mix64(seed & _M64) ^ (data & _M64)) >> 1
+    jax.random.fold_in); a RowShardSeed stays one, of the same shard."""
+    out = _mix64(_mix64(seed & _M64) ^ (data & _M64)) >> 1
+    if isinstance(seed, RowShardSeed):
+        return RowShardSeed(out, seed.rank, seed.world)
+    return out
 
 
 def split(seed: int) -> tuple[int, int]:
@@ -72,14 +96,20 @@ def dropout(x: torch.Tensor, rate: float, seed: int | None) -> torch.Tensor:
     JAX's default keep rule (vacnic_tpu/models/layers.py:84-108): uniform
     16-bit integers compared against round(keep * 65536), so the keep
     probability is that threshold over 65536 (0.899994 at rate 0.1). The
-    bits come from a generator on x's device seeded with `seed` alone."""
+    bits come from a generator on x's device seeded with `seed` alone; under
+    a RowShardSeed, the rank's rows of the global batch's bits."""
     if seed is None or rate <= 0.0:
         return x
     keep = 1.0 - rate
     thresh = min(int(round(keep * 65536.0)), 65535)
     g = torch.Generator(device=x.device)
-    g.manual_seed(seed)
-    bits = torch.randint(0, 65536, x.shape, generator=g, device=x.device, dtype=torch.int32)
+    g.manual_seed(int(seed))
+    n = x.shape[0]
+    world = seed.world if isinstance(seed, RowShardSeed) else 1
+    bits = torch.randint(0, 65536, (n * world, *x.shape[1:]), generator=g, device=x.device,
+                         dtype=torch.int32)
+    if world > 1:
+        bits = bits[seed.rank * n:(seed.rank + 1) * n]
     return torch.where(bits < thresh, x / keep, torch.zeros_like(x))
 
 

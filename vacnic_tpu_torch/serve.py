@@ -12,14 +12,16 @@ Design points:
   only to its own history), so dummy rows cannot change real rows' tokens.
   tests/test_torch_serve.py pins this against a direct `generate_mm` of the
   same padded batch.
-- The parameter tree is moved to the service's device once, when the
-  service starts and when `update_params` swaps it, never per batch.
-- One batcher thread issues all device work, on one stream, and
-  `precompile` / `update_params` from a caller's thread take the same
-  device lock. So no two launches of a kernel ever run at once on the
-  device: the `lm_stats` arrival counters (`kernels/lm_stats.counters`)
-  exist once a device, and a service that ran batches on several streams
-  would need a set of them for each stream.
+- The parameter tree is moved to the service's device once (with a mesh,
+  to every device of its data axis), when the service starts and when
+  `update_params` swaps it, never per batch.
+- One batcher thread issues all device work (with a mesh, through one
+  worker thread a device), on one stream a device, and `precompile` /
+  `update_params` from a caller's thread take the same device lock. So no
+  two launches of a kernel ever run at once on a device: the `lm_stats`
+  arrival counters (`kernels/lm_stats.counters`) exist once a device, and
+  a service that ran batches on several streams would need a set of them
+  for each stream.
 - Fixed batch buckets keep every batch at a shape the service has run
   before (`precompile` runs each once): the kernels' launch plans, the
   caching allocator's blocks and the library handles are warm. Buckets
@@ -33,8 +35,12 @@ service (POST /v1/caption, GET /healthz, GET /v1/stats).
 newer steps into a running service (`cli serve --watch-ckpt-s`).
 
 The service runs on "cuda" unless it is given device="cpu"; without a card
-and without that argument it raises. Sharded serving over several cards
-waits for multi-GPU (ROADMAP A.5).
+and without that argument it raises. Given a `core/mesh.Mesh` instead, it
+serves data-parallel over the mesh's data axis: each bucket goes through
+`infer/generate.generate_mm_sharded` (one parameter replica and one host
+thread a device, each running the search on its row shard), and every
+bucket must divide by the axis's size. Beam search is row-independent, so
+a sharded service returns the tokens one device would.
 """
 
 from __future__ import annotations
@@ -150,11 +156,17 @@ class CaptionService:
     """
 
     def __init__(self, cfg: VacnicConfig, params: dict, *, tokenizer=None,
-                 serve_cfg: ServeConfig | None = None, device=None):
-        self.device = resolve_device(device)
+                 serve_cfg: ServeConfig | None = None, device=None, mesh=None,
+                 data_axis: str = "data"):
         self.cfg = cfg
         self.tokenizer = tokenizer
         self.scfg = serve_cfg or ServeConfig()
+        # With a mesh the batcher dispatches each bucket through
+        # generate_mm_sharded over `data_axis`; the batch is staged, and the
+        # CLIP tower (pixels) runs, on the axis's first device, as JAX's
+        # service runs them before the scatter.
+        self.mesh = mesh
+        self.data_axis = data_axis
         if not self.scfg.buckets or list(self.scfg.buckets) != sorted(
                 set(self.scfg.buckets)):
             raise ValueError(f"buckets must be ascending and unique, got "
@@ -162,11 +174,27 @@ class CaptionService:
         if self.scfg.buckets[0] < 1:
             raise ValueError(f"buckets must be positive, got "
                              f"{self.scfg.buckets}")
+        if mesh is not None:
+            axes = mesh.shape
+            if data_axis not in axes:
+                raise ValueError(f"mesh has no {data_axis!r} axis "
+                                 f"(axes: {sorted(axes)})")
+            dp = axes[data_axis]
+            bad = [b for b in self.scfg.buckets if b % dp]
+            if bad:
+                raise ValueError(
+                    f"sharded serving: buckets {bad} not divisible by the "
+                    f"{data_axis!r} mesh axis ({dp} devices)")
+            if device is not None:
+                raise ValueError("CaptionService: pass a mesh or a device, not both")
+            self.device = mesh.data_devices(data_axis)[0]
+        else:
+            self.device = resolve_device(device)
         if self.scfg.input_kind not in ("image_cls", "pixels"):
             raise ValueError(f"unknown input_kind {self.scfg.input_kind!r}")
         self._dtype = (torch.bfloat16 if cfg.train.compute_dtype == "bfloat16"
                        else torch.float32)
-        self.params = tree_to(params, self.device)
+        self.params = self._place(params)
         self._q: queue.Queue = queue.Queue(maxsize=self.scfg.max_queue)
         self._closed = threading.Event()
         self._lock = threading.Lock()
@@ -190,6 +218,14 @@ class CaptionService:
         self._worker = threading.Thread(target=self._run, daemon=True,
                                         name="vacnic-serve-batcher")
         self._worker.start()
+
+    def _place(self, params: dict) -> dict:
+        """The tree on the service's device and, with a mesh, its model's
+        replica on every device of the data axis (made here, once)."""
+        params = tree_to(params, self.device)
+        if self.mesh is not None:
+            G.replicate(params["model"], self.mesh, self.data_axis)
+        return params
 
     # -- request side --------------------------------------------------------
 
@@ -280,10 +316,12 @@ class CaptionService:
 
     def update_params(self, params: dict) -> int:
         """Hot-swap model weights without restarting the service (checkpoint
-        rollout). The new tree is moved to the device and swapped in under
-        the device lock, so it lands between batch dispatches -- in-flight
-        batches finish on the old weights, every later batch uses the new
-        ones. Returns the new weights version (also reported by stats()).
+        rollout). The new tree is moved to the device (with a mesh: to every
+        device of the data axis, the old replicas dropped) and swapped in
+        under the device lock, so it lands between batch dispatches --
+        in-flight batches finish on the old weights, every later batch uses
+        the new ones on every replica. Returns the new weights version (also
+        reported by stats()).
 
         The new tree must match the served one in structure and in every
         leaf's shape and dtype (a different dtype would change the batches'
@@ -301,7 +339,9 @@ class CaptionService:
                     f"update_params: leaf {path} mismatch "
                     f"(shape {ns} vs {os_}, dtype {nd} vs {od})")
         with self._device_lock:
-            self.params = tree_to(params, self.device)
+            old, self.params = self.params, self._place(params)
+            if self.mesh is not None:
+                G.drop_replicas(old["model"])
             with self._lock:
                 self._stats["weights_version"] += 1
                 return self._stats["weights_version"]
@@ -597,7 +637,8 @@ class CaptionService:
         """Stack sample rows, pad to `bucket` by repeating row 0 (results for
         pad rows are sliced off -- beam decode is row-independent so padding
         cannot perturb real rows), run the CLIP tower (pixels input) and one
-        `generate_mm` on the service's device. Holds _device_lock, under
+        `generate_mm` on the service's device (with a mesh, one
+        `generate_mm_sharded` over it). Holds _device_lock, under
         torch.inference_mode() (grad mode is a thread's own): precompile()
         (caller thread) and the batcher never issue device work
         concurrently."""
@@ -627,10 +668,16 @@ class CaptionService:
                     name_mask=create_mask(batch["names_art_ids"]),
                 )
             src = batch["article_ids"]
-            seqs, scores = G.generate_mm(
-                self.params["model"], src, create_mask(src), img_cls,
-                self.cfg.bart, self.cfg.fusion, self.cfg.decode,
-                dtype=self._dtype, device=self.device, **kwargs)
+            if self.mesh is not None:
+                seqs, scores = G.generate_mm_sharded(
+                    self.mesh, self.params["model"], src, create_mask(src),
+                    img_cls, self.cfg.bart, self.cfg.fusion, self.cfg.decode,
+                    dtype=self._dtype, data_axis=self.data_axis, **kwargs)
+            else:
+                seqs, scores = G.generate_mm(
+                    self.params["model"], src, create_mask(src), img_cls,
+                    self.cfg.bart, self.cfg.fusion, self.cfg.decode,
+                    dtype=self._dtype, device=self.device, **kwargs)
             seqs = seqs[:n].cpu().numpy()
             scores = scores[:n].float().cpu().numpy()
         out = []

@@ -7,8 +7,7 @@ as `{step: {gt, gen}}` + "bleu" + "other metrics").
 Batches may hold numpy arrays or tensors on any device, as
 data/pipeline.PrefetchLoader gives them; `sample_idx` is read back to the
 host with one copy. `generate_captions` runs on "cuda" unless the caller
-passes device="cpu"; its `mesh` argument waits for multi-GPU decoding
-(ROADMAP A.5).
+passes device="cpu", or over a `core/mesh.Mesh` when it is given one.
 """
 
 from __future__ import annotations
@@ -22,14 +21,15 @@ import numpy as np
 import torch
 
 from vacnic_tpu_torch.core.config import VacnicConfig, dtype_of
-from vacnic_tpu_torch.core.device import resolve_device
+from vacnic_tpu_torch.core.device import as_tensor, resolve_device
 from vacnic_tpu_torch.core.logging import MetricsLogger, get_logger
 from vacnic_tpu_torch.data.datasets import ascii_fold
 from vacnic_tpu_torch.eval.caption_metrics import compute_caption_metrics
-from vacnic_tpu_torch.infer.generate import generate_mm
+from vacnic_tpu_torch.core.mesh import Sharded
+from vacnic_tpu_torch.infer.generate import generate_mm, generate_mm_sharded
 from vacnic_tpu_torch.models.weights_io import tree_to
 from vacnic_tpu_torch.train.checkpoints import CheckpointManager
-from vacnic_tpu_torch.train.train_step import (TrainState, _feed, _image_features, create_mask,
+from vacnic_tpu_torch.train.train_step import (TrainState, _image_features, create_mask,
                                                device_of, eval_step, face_mask_from_emb)
 
 log = get_logger(__name__)
@@ -117,36 +117,65 @@ def fit(cfg: VacnicConfig, state: TrainState, step_fn, train_loader: Iterable,
     return state
 
 
+def _rowwise(fn, x):
+    """fn on a tensor, or on each shard of a `Sharded` batch."""
+    return x.map(fn) if isinstance(x, Sharded) else fn(x)
+
+
 @torch.no_grad()
 def generate_captions(cfg: VacnicConfig, params: dict, loader: Iterable, tokenizer, *,
                       out_path: str | None = None, compute_metrics: bool = True, mesh=None,
-                      device=None) -> dict:
+                      data_axis: str = "data", device=None) -> dict:
     """Beam-decode a loader -> `{step: {gt, gen}}` (+ metrics), written to
     `out_path` as JSON when given (gen_caption_from_loader_bart,
     train...match.py:480-559). Image features come from the batch's
     `image_cls`, else from params["clip"] on its `pixels`; the dtype is
     cfg.train.compute_dtype. The tree is moved to the device once, before
-    the loop."""
+    the loop.
+
+    With `mesh` (and no `device`), a batch whose rows divide the data axis
+    decodes through `generate_mm_sharded`, each device running the search on
+    its shard (the SPMD counterpart of the reference's per-rank DDP
+    inference), and any other batch (a tail) through `generate_mm` on the
+    axis's first device, as in JAX. Batches may be `Sharded`, as a
+    `PrefetchLoader(sharding=)` gives them; the CLIP tower (pixels) runs on
+    the first device."""
     if mesh is not None:
-        raise NotImplementedError("generate_captions(mesh=...) waits for multi-GPU decoding "
-                                  "(ROADMAP A.5)")
-    dev = resolve_device(device)
+        if device is not None:
+            raise ValueError("generate_captions: pass a mesh or a device, not both")
+        n_data = len(mesh.data_devices(data_axis))
+        dev = mesh.data_devices(data_axis)[0]
+    else:
+        dev = resolve_device(device)
     dtype = dtype_of(cfg.train.compute_dtype)
     params = tree_to(params, dev)
     out_dict: dict[Any, Any] = {}
     step_idx = 0
     for batch in loader:
-        feed = _feed(batch, dev)
+        feed = {k: v if isinstance(v, Sharded) else as_tensor(v, dev)
+                for k, v in batch.items() if not isinstance(v, (list, str))}
+        sharded = mesh is not None and feed["article_ids"].shape[0] % n_data == 0
+        if not sharded:
+            feed = {k: v.gather(dev) if isinstance(v, Sharded) else v for k, v in feed.items()}
+        if isinstance(feed.get("pixels"), Sharded):
+            feed["pixels"] = feed["pixels"].gather(dev)
         src_ids = feed["article_ids"]
         img_cls = _image_features(params, feed, cfg, dtype)
         kwargs = {}
         if not cfg.fusion.only_image:
             kwargs = dict(face_features=feed["face_emb"],
-                          face_mask=face_mask_from_emb(feed["face_emb"]),
+                          face_mask=_rowwise(face_mask_from_emb, feed["face_emb"]),
                           name_ids=feed["names_art_ids"],
-                          name_mask=create_mask(feed["names_art_ids"]))
-        seqs, _ = generate_mm(params["model"], src_ids, create_mask(src_ids), img_cls, cfg.bart,
-                              cfg.fusion, cfg.decode, dtype=dtype, device=dev, **kwargs)
+                          name_mask=_rowwise(create_mask, feed["names_art_ids"]))
+        if sharded:
+            seqs, _ = generate_mm_sharded(mesh, params["model"], src_ids,
+                                          _rowwise(create_mask, src_ids), img_cls, cfg.bart,
+                                          cfg.fusion, cfg.decode, dtype=dtype,
+                                          data_axis=data_axis, **kwargs)
+        else:
+            seqs, _ = generate_mm(params["model"], src_ids, create_mask(src_ids), img_cls,
+                                  cfg.bart, cfg.fusion, cfg.decode, dtype=dtype, device=dev,
+                                  **kwargs)
         seqs = seqs.cpu().numpy()
         gts = batch.get("caption", [""] * seqs.shape[0])
         for i in range(seqs.shape[0]):

@@ -4,11 +4,65 @@ CoLaM margin, SECLA face naming, the face-name and CLIP InfoNCE losses.
 total = txt_loss + mapping_loss_weight * face_name_loss + alpha * margin_loss
 (+ the optional CLIP contrastive loss). The contrastive losses are B x B
 over the whole batch. `.detach()` stands where JAX writes stop_gradient.
+
+Data parallel (`group`, a torch.distributed process group whose ranks each
+hold an equal contiguous share of the global batch): every loss returns
+this rank's share, such that the shares summed over the ranks are the loss
+of the global batch, and so are the gradients they give each rank summed
+(the training step all-reduces both with SUM). The token mean and the row
+mean divide the rank's sum by the global count; the contrastive losses see
+the global batch's rows through `gather_rows`, compute the global B x B
+loss on every rank, and return it over the world size, the gather's
+backward summing the ranks' gradients for this rank's rows.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
+
+
+# ---------------------------------------------------------------------------
+# Data parallel
+# ---------------------------------------------------------------------------
+
+class _GatherRows(torch.autograd.Function):
+    """all_gather of equal row shares in rank order; the backward sums the
+    incoming gradient over the ranks (every rank's loss reads every rank's
+    rows) and keeps this rank's rows."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        world, rank = dist.get_world_size(group), dist.get_rank(group)
+        ctx.group, ctx.rows = group, (rank * x.shape[0], (rank + 1) * x.shape[0])
+        parts = [torch.empty_like(x) for _ in range(world)]
+        dist.all_gather(parts, x.contiguous(), group=group)
+        return torch.cat(parts)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad, op=dist.ReduceOp.SUM, group=ctx.group)
+        return grad[ctx.rows[0]:ctx.rows[1]], None
+
+
+def gather_rows(x: torch.Tensor, group=None) -> torch.Tensor:
+    """The rows of every rank's `x` in rank order (x itself without a
+    group); differentiable where x requires grad."""
+    return x if group is None else _GatherRows.apply(x, group)
+
+
+def world_size(group=None) -> int:
+    return 1 if group is None else dist.get_world_size(group)
+
+
+def _global_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """x (no gradient) summed over the group's ranks; x without a group."""
+    if group is None:
+        return x
+    x = x.detach().clone()
+    dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
+    return x
 
 
 # ---------------------------------------------------------------------------
@@ -47,12 +101,13 @@ def l2_normalize(x: torch.Tensor, axis: int = -1, eps: float = 1e-12) -> torch.T
 # ---------------------------------------------------------------------------
 
 def lm_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                     ignore_index: int = 1) -> torch.Tensor:
-    """CrossEntropyLoss(ignore_index=pad): the mean NLL over non-pad labels."""
+                     ignore_index: int = 1, group=None) -> torch.Tensor:
+    """CrossEntropyLoss(ignore_index=pad): the mean NLL over non-pad labels
+    (with a group: this rank's NLL sum over the global count)."""
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -logp.gather(-1, labels.long()[..., None])[..., 0]
     valid = (labels != ignore_index).float()
-    return (nll * valid).sum() / torch.clamp(valid.sum(), min=1.0)
+    return (nll * valid).sum() / torch.clamp(_global_sum(valid.sum(), group), min=1.0)
 
 
 # ---------------------------------------------------------------------------
@@ -68,12 +123,15 @@ def colam_margin_loss(decoder_hidden: torch.Tensor, teacher_decoder_hidden: torc
 
 
 def colam_margin_from_pooled(decoder_hidden: torch.Tensor, teacher_pooled: torch.Tensor,
-                             caption_mask: torch.Tensor, margin: float) -> torch.Tensor:
+                             caption_mask: torch.Tensor, margin: float,
+                             group=None) -> torch.Tensor:
     """CoLaM against the teacher's pooled, L2-normalised [B, d] state (what
-    the training loop caches across epochs)."""
+    the training loop caches across epochs); with a group, this rank's sum
+    over the global rows."""
     h = l2_normalize(pool(decoder_hidden, caption_mask))
     sim = (h * teacher_pooled.detach()).sum(dim=-1)
-    return torch.clamp(margin - sim, min=0.0).mean()
+    hinge = torch.clamp(margin - sim, min=0.0)
+    return hinge.mean() if group is None else hinge.sum() / (sim.shape[0] * world_size(group))
 
 
 # ---------------------------------------------------------------------------
@@ -90,9 +148,15 @@ def _batch_softmax(match: torch.Tensor) -> torch.Tensor:
     return -torch.log_softmax(logits, dim=-1).diagonal().mean()
 
 
-def secla_loss(face_states: torch.Tensor, name_embeds: torch.Tensor) -> torch.Tensor:
+def secla_loss(face_states: torch.Tensor, name_embeds: torch.Tensor,
+               group=None) -> torch.Tensor:
     """Symmetric weakly supervised face naming: face_states [B, F, d] (the
-    fusion encoder's face stream), name_embeds [B, N, d] (no-grad)."""
+    fusion encoder's face stream), name_embeds [B, N, d] (no-grad), B x B
+    over the global batch."""
+    if group is not None:
+        face_states = gather_rows(face_states, group)
+        name_embeds = gather_rows(name_embeds.detach(), group)
+        return secla_loss(face_states, name_embeds) / world_size(group)
     face_ner = torch.einsum("and,bfd->abnf", name_embeds, face_states)
     ner_face = torch.einsum("afd,bnd->abfn", face_states, name_embeds)
     return _batch_softmax(face_ner) + _batch_softmax(ner_face)
@@ -112,15 +176,17 @@ def _sym_infonce(a: torch.Tensor, b: torch.Tensor, logit_scale) -> torch.Tensor:
 
 def face_name_infonce(face_states: torch.Tensor, face_mask: torch.Tensor,
                       name_states: torch.Tensor, name_mask: torch.Tensor,
-                      logit_scale) -> torch.Tensor:
+                      logit_scale, group=None) -> torch.Tensor:
     """The non-SECLA mapping loss: pooled, normalised face stream against the
     detached pooled flat-name stream, CLIP-style, scaled by logit_scale."""
-    f = l2_normalize(pool(face_states, face_mask))
-    n = l2_normalize(pool(name_states.detach(), name_mask))
-    return _sym_infonce(n, f, logit_scale)
+    f = gather_rows(l2_normalize(pool(face_states, face_mask)), group)
+    n = gather_rows(l2_normalize(pool(name_states.detach(), name_mask)), group)
+    return _sym_infonce(n, f, logit_scale) / world_size(group)
 
 
 def clip_contrastive_loss(image_embeds: torch.Tensor, text_embeds: torch.Tensor,
-                          logit_scale) -> torch.Tensor:
+                          logit_scale, group=None) -> torch.Tensor:
     """The optional CLIP image/caption loss."""
-    return _sym_infonce(l2_normalize(image_embeds), l2_normalize(text_embeds), logit_scale)
+    img = gather_rows(l2_normalize(image_embeds), group)
+    txt = gather_rows(l2_normalize(text_embeds), group)
+    return _sym_infonce(img, txt, logit_scale) / world_size(group)

@@ -15,6 +15,17 @@ Differences from JAX, by design:
   feature tower and `eval_step` run under torch.no_grad() and use the
   kernels on the card (flash attention in the teacher, the fused encoder
   stack in `eval_step`).
+
+Data parallel: `make_train_step(..., group=)` with a torch.distributed
+process group of N ranks, one process and one device each, every rank
+given the same global batch. Each rank takes its `local_batch_slice`, the
+losses return its share of the global batch's (train/losses), its dropout
+draws its rows of the global batch's masks (models/layers.RowShardSeed),
+and the gradients and the metrics are all-reduced with SUM before the
+gradient norm, the clipping and the update. So the step equals the
+one-process step on the global batch up to the order of sums, the
+invariant JAX's sharded step holds by construction. `fit` and `cli train`
+stay one process, as the JAX package's `fit` has no mesh.
 """
 
 from __future__ import annotations
@@ -22,16 +33,19 @@ from __future__ import annotations
 import dataclasses
 from typing import Any
 
+import numpy as np
 import torch
+import torch.distributed as dist
 from torch.profiler import record_function
 
 from vacnic_tpu_torch.core.config import VacnicConfig, dtype_of
 from vacnic_tpu_torch.core.device import as_tensor, resolve_device
+from vacnic_tpu_torch.core.distributed import local_batch_slice
 from vacnic_tpu_torch.core.tree import leaves_with_path
 from vacnic_tpu_torch.models import bart as B
 from vacnic_tpu_torch.models import fusion as F
 from vacnic_tpu_torch.models.clip_vit import clip_image_embed, clip_vision_fwd
-from vacnic_tpu_torch.models.layers import fold_in, split
+from vacnic_tpu_torch.models.layers import RowShardSeed, fold_in, split
 from vacnic_tpu_torch.models.weights_io import tree_to
 from vacnic_tpu_torch.train import losses as L
 from vacnic_tpu_torch.train.optim import global_norm, make_optimizer, trainable
@@ -115,9 +129,12 @@ def _mm_kwargs(feed: dict, fcfg) -> dict[str, Any]:
 
 
 def compute_losses(params: Params, teacher: Params, batch: dict, cfg: VacnicConfig,
-                   dropout_rng: int | None) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+                   dropout_rng: int | None, group=None
+                   ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """The reference's loss composition -> (total, metrics). Runs on the
-    device of params["model"]; the batch is moved there."""
+    device of params["model"]; the batch is moved there. With a process
+    group, `batch` is this rank's rows and every term is its share of the
+    global batch's (train/losses)."""
     bart_cfg, fcfg, tcfg = cfg.bart, cfg.fusion, cfg.train
     dtype = dtype_of(tcfg.compute_dtype)
     dev = device_of(params["model"])
@@ -135,7 +152,7 @@ def compute_losses(params: Params, teacher: Params, batch: dict, cfg: VacnicConf
                        dtype=dtype, remat=tcfg.grad_checkpoint, allow_fused_encoder=False,
                        device=dev, **_mm_kwargs(feed, fcfg))
 
-    txt_loss = L.lm_cross_entropy(out["logits"], tgt_ids, bart_cfg.pad_token_id)
+    txt_loss = L.lm_cross_entropy(out["logits"], tgt_ids, bart_cfg.pad_token_id, group=group)
     metrics = {"txt_loss": txt_loss}
     total = txt_loss
 
@@ -149,14 +166,14 @@ def compute_losses(params: Params, teacher: Params, batch: dict, cfg: VacnicConf
             if tcfg.teacher_cache:
                 metrics["teacher_pooled"] = t_pooled  # popped by the loop before logging
         margin_loss = L.colam_margin_from_pooled(out["decoder_hidden"].float(), t_pooled,
-                                                 tgt_mask, tcfg.margin)
+                                                 tgt_mask, tcfg.margin, group=group)
         metrics["margin_loss"] = margin_loss
         total = total + tcfg.alpha * margin_loss
 
     if not fcfg.only_image and not tcfg.no_mapping:  # face-name mapping loss
         if tcfg.use_secla:
             name_embeds = embed_names_3d(params["model"], feed["names_ids"], bart_cfg)
-            fn_loss = L.secla_loss(out["hidden_states_face"].float(), name_embeds)
+            fn_loss = L.secla_loss(out["hidden_states_face"].float(), name_embeds, group=group)
         else:
             flat_ids = feed["names_ids_flatten"]
             flat_mask = create_mask(flat_ids)
@@ -173,7 +190,7 @@ def compute_losses(params: Params, teacher: Params, batch: dict, cfg: VacnicConf
                 log_scale = torch.log(torch.tensor(100.0, device=dev))
             fn_loss = L.face_name_infonce(
                 out["hidden_states_face"].float(), face_mask_from_emb(feed["face_emb"]),
-                aux["ner"].float(), flat_mask, torch.exp(log_scale))
+                aux["ner"].float(), flat_mask, torch.exp(log_scale), group=group)
         metrics["face_name_loss"] = fn_loss
         total = total + tcfg.mapping_loss_weight * fn_loss
 
@@ -190,7 +207,8 @@ def compute_losses(params: Params, teacher: Params, batch: dict, cfg: VacnicConf
         txt_emb = clip_text_fwd(params["clip_text"], feed["caption_ids_clip"], dtype,
                                 num_heads=cfg.clip.text_heads)
         clip_loss = L.clip_contrastive_loss(img_emb, txt_emb,
-                                            torch.exp(params["clip_text"]["logit_scale"]))
+                                            torch.exp(params["clip_text"]["logit_scale"]),
+                                            group=group)
         metrics["clip_loss"] = clip_loss
         total = total + clip_loss
 
@@ -210,45 +228,118 @@ def perturb_bos(params: Params, generator: torch.Generator, scale: float = 1.0) 
     return out
 
 
+def local_rows(batch: dict, group) -> dict:
+    """This rank's contiguous share of every array, tensor and list of the
+    global batch whose leading dimension is the batch's rows (those of
+    article_ids); anything else is kept whole. The rows must divide by the
+    group's size."""
+    rows = len(batch["article_ids"])
+    if rows % dist.get_world_size(group):
+        raise ValueError(f"data-parallel step: a global batch of {rows} rows does not divide "
+                         f"over {dist.get_world_size(group)} ranks")
+    sl = local_batch_slice(rows, group)
+
+    def cut(v):
+        if (isinstance(v, (np.ndarray, torch.Tensor, list)) and getattr(v, "ndim", 1)
+                and len(v) == rows):
+            return v[sl]
+        return v
+
+    return {k: cut(v) for k, v in batch.items()}
+
+
+def _all_reduce_sum(tensors: list, group) -> list:
+    """The tensors (None kept) summed over the group's ranks, through one
+    flat buffer a dtype: one collective a dtype instead of one a leaf."""
+    out = list(tensors)
+    by_dtype: dict[torch.dtype, list[int]] = {}
+    for i, t in enumerate(tensors):
+        if t is not None:
+            by_dtype.setdefault(t.dtype, []).append(i)
+    for idx in by_dtype.values():
+        flat = torch.cat([tensors[i].reshape(-1) for i in idx])
+        dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+        for i, part in zip(idx, flat.split([tensors[i].numel() for i in idx])):
+            out[i] = part.view_as(tensors[i])
+    return out
+
+
+def loss_and_grads(params: Params, teacher: Params, batch: dict, cfg: VacnicConfig,
+                   dropout_rng: int | None, group=None):
+    """-> (metrics, grads): the detached metrics of compute_losses and the
+    gradient of the total loss for each leaf of `params` (None where the
+    leaf is not trained). With a group, of the global batch: this rank's
+    rows are taken from `batch` (the global one), its dropout draws its rows
+    of the global masks, and the gradients and the metrics but
+    "teacher_pooled" (this rank's rows) come back summed over the ranks."""
+    leaves = [p for _, p in leaves_with_path(params)]
+    wrt = [trainable(p) and p.requires_grad for p in leaves]
+    if group is not None:
+        batch = local_rows(batch, group)
+        if dropout_rng is not None:
+            dropout_rng = RowShardSeed(dropout_rng, dist.get_rank(group),
+                                       dist.get_world_size(group))
+    with record_function("train_step.forward"):
+        loss, metrics = compute_losses(params, teacher, batch, cfg, dropout_rng, group=group)
+    with record_function("train_step.backward"):
+        got = iter(torch.autograd.grad(loss, [p for p, w in zip(leaves, wrt) if w],
+                                       allow_unused=True))
+    grads = [next(got) if w else None for w in wrt]
+    metrics = {k: v.detach() for k, v in metrics.items()}
+    if group is not None:
+        with record_function("train_step.all_reduce"):
+            grads = _all_reduce_sum(grads, group)
+            keys = [k for k in metrics if k != "teacher_pooled"]
+            summed = _all_reduce_sum([torch.stack([metrics[k].float() for k in keys])], group)
+            metrics.update(zip(keys, summed[0].unbind()))
+    return metrics, grads
+
+
 def make_train_step(cfg: VacnicConfig, num_training_steps: int, mu_dtype=None, nu_dtype=None,
-                    device=None):
+                    device=None, group=None):
     """-> (init_fn, step_fn). init_fn(params, teacher, rng: int) moves the
     trees to `device` ("cuda" by default; leaves already there are kept, not
     copied) and marks params' floating leaves as requiring grad.
     step_fn(state, batch) -> (state, metrics) updates the state in place and
     returns it; metrics are detached 0-d tensors on the device (and
-    "teacher_pooled" [B, d] when the teacher cache asks for it). Its three
-    parts run under the profiler ranges "train_step.forward", ".backward"
-    and ".optimizer" (the backward's ops run on autograd's own thread on
-    the card, outside its range)."""
+    "teacher_pooled" [B, d] when the teacher cache asks for it). Its parts
+    run under the profiler ranges "train_step.forward", ".backward",
+    ".all_reduce" (with a group) and ".optimizer" (the backward's ops run on
+    autograd's own thread on the card, outside its range).
+
+    `group`: a torch.distributed process group, each rank a process on its
+    own device (`core/distributed.initialize`). Every rank calls step_fn
+    with the same global batch; the step is that batch's one-process step
+    (module docstring). init_fn then also broadcasts the first rank's trees
+    to the others, in place, so every rank starts from the same weights."""
     tx = make_optimizer(cfg.train, num_training_steps, train_clip=not cfg.train.freeze_clip,
                         mu_dtype=mu_dtype, nu_dtype=nu_dtype)
     dev = resolve_device(device)
 
     def init_fn(params: Params, teacher: Params, rng: int) -> TrainState:
-        params = tree_to(params, dev)
+        params, teacher = tree_to(params, dev), tree_to(teacher, dev)
+        if group is not None:
+            src = dist.get_global_rank(group, 0)
+            with torch.no_grad():
+                for _, t in leaves_with_path(params) + leaves_with_path(teacher):
+                    if isinstance(t, torch.Tensor):
+                        dist.broadcast(t, src=src, group=group)
         for _, p in leaves_with_path(params):
             if trainable(p):
                 p.requires_grad_(True)
-        return TrainState(step=0, params=params, teacher=tree_to(teacher, dev),
+        return TrainState(step=0, params=params, teacher=teacher,
                           opt_state=tx.init(params), rng=int(rng))
 
     def step_fn(state: TrainState, batch: dict):
         rng, dropout_rng = split(state.rng)
-        leaves = [p for _, p in leaves_with_path(state.params)]
-        wrt = [trainable(p) and p.requires_grad for p in leaves]
-        with record_function("train_step.forward"):
-            loss, metrics = compute_losses(state.params, state.teacher, batch, cfg, dropout_rng)
-        with record_function("train_step.backward"):
-            got = iter(torch.autograd.grad(loss, [p for p, w in zip(leaves, wrt) if w],
-                                           allow_unused=True))
-        grads = [next(got) if w else None for w in wrt]
+        metrics, grads = loss_and_grads(state.params, state.teacher, batch, cfg, dropout_rng,
+                                        group)
         with record_function("train_step.optimizer"):
             metrics["grad_norm"] = global_norm(grads)  # a leaf without a gradient counts as 0
             tx.step_(state.params, grads, state.opt_state)
         state.step += 1
         state.rng = rng
-        return state, {k: v.detach() for k, v in metrics.items()}
+        return state, metrics
 
     return init_fn, step_fn
 
