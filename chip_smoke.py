@@ -122,6 +122,18 @@ Phases:
            over the first 1, 2, 4 cards at 32 rows a card (the switch
            interval at its default and at 1e-4 s) beside one card's
            generate_mm and the shards run in turn from one thread.
+  tp       the dp x tp training step (run_tp_phase, core/tensor_parallel) at
+           full_train() widths and depth, batch 32, computed in f32
+           (tp_config), against one process on the
+           same batch and trees: two ranks sharing the card over gloo (on
+           four cards dp 2 x tp 2 and tp 4 over NCCL), each making the whole
+           trees from the seed and keeping its shards; 2 steps: loss terms
+           within 2e-5, the gradient norm within 2e-3, named column-,
+           row-parallel and replicated leaves of BART, fusion and the teacher
+           gathered after the update, shard bytes, flash_attention on the
+           head shards, then gather_params and a batch-32 decode over a data
+           mesh identical to generate_mm. Readings: step ms, samples/s, peak
+           GB a rank against one process.
   train    the training step at full width (VacnicConfig.full_train() as
            released: batch 32, S 512, caption 100, bf16 over f32, remat,
            dropout 0.1, CoLaM with the teacher's forward, SECLA, CLIP frozen
@@ -193,6 +205,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -550,6 +563,21 @@ def kernel_cases():
                   4 * B3 * H * T3 * 64 * 2 + fbias.numel() * 2, 4.0 * B3 * H * T3 * T3 * 64,
                   PEAK_BF16_FLOPS,
                   lambda: Fn.scaled_dot_product_attention(fq, fk, fv, attn_mask=fbias, scale=1.0)))
+    # the tensor-parallel step's head shards (the teacher's encoder on a model
+    # rank: tp 2 gives H 8, tp 4 gives H 4): timed at H 8, held to the twin at H 4
+    for h_tp, timed in ((8, True), (4, False)):
+        def shard(h_tp=h_tp):
+            return rn(B3, T3, h_tp * 64, dtype=bf).view(B3, T3, h_tp, 64).permute(0, 2, 1, 3)
+
+        sq, sk, sv = (shard().float() * 64 ** -0.5).to(bf), shard(), shard()
+        cases.append((f"flash_attention B={B3} H={h_tp} T=S={T3} D=64 bias [B,1,T,S] bf16 "
+                      "(tp head shard)", "flash_attention:tp",
+                      lambda a=(sq, sk, sv): FA.flash_attention(*a, fbias),
+                      lambda a=(sq, sk, sv): FA.flash_attention_plain(*a, fbias),
+                      4 * B3 * h_tp * T3 * 64 * 2 + fbias.numel() * 2 if timed else None,
+                      4.0 * B3 * h_tp * T3 * T3 * 64, PEAK_BF16_FLOPS,
+                      lambda a=(sq, sk, sv): Fn.scaled_dot_product_attention(
+                          *a, attn_mask=fbias, scale=1.0)))
     # correctness only: T != S, an f32 per-head bias, non-contiguous head-split views
     B4, T4, S4 = 2, 256, 512
     hq = (rn(B4, T4, d).view(B4, T4, H, 64).permute(0, 2, 1, 3) * 64 ** -0.5).to(bf)
@@ -3187,22 +3215,87 @@ def run_cli_phase(gpu: str) -> dict:
 DP_SPEC, DP_OUT, DP_STORE = "dp_spec.pt", "dp_out.pt", "dp_store"
 
 
+def _grid_worker_groups(world: int, grid, timeout_s: float, cache: dict):
+    """(data group, model group) of a (dp, tp) grid over the world, made once
+    a grid (every rank makes every group, in the order of the cases): the
+    whole world and no model group for (world, 1)."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from vacnic_tpu_torch.core import distributed as D
+
+    if tuple(grid) == (world, 1):
+        return dist.group.WORLD, None
+    if tuple(grid) not in cache:
+        cache[tuple(grid)] = D.grid_groups(*grid, timeout=datetime.timedelta(seconds=timeout_s))
+    return cache[tuple(grid)]
+
+
+def _tp_decode(cfg, model, dev, spec: dict) -> dict:
+    """The decode after training (rank 0 of a tensor-parallel group, on the
+    gathered tree): generate_mm_sharded over a data mesh of this rank's
+    device, as JAX's _dryrun_body decodes the trained params over its data
+    mesh, against generate_mm of the same tree."""
+    import torch
+
+    from vacnic_tpu_torch.core.config import MeshConfig
+    from vacnic_tpu_torch.core.mesh import make_mesh
+    from vacnic_tpu_torch.data.synthetic import synthetic_batch
+    from vacnic_tpu_torch.infer.generate import drop_replicas, generate_mm, generate_mm_sharded
+    from vacnic_tpu_torch.train.train_step import create_mask, face_mask_from_emb
+
+    b = {k: v.to(dev) for k, v in synthetic_batch(cfg, spec["batch"], seed=spec["seed"]).items()}
+    x = dict(input_ids=b["article_ids"], attention_mask=create_mask(b["article_ids"]),
+             image_features=b["image_cls"], face_features=b["face_emb"],
+             face_mask=face_mask_from_emb(b["face_emb"]), name_ids=b["names_art_ids"],
+             name_mask=create_mask(b["names_art_ids"]))
+    kw = dict(cfg=cfg.bart, fcfg=cfg.fusion, dcfg=cfg.decode, dtype=spec["dtype"])
+    mesh = make_mesh(MeshConfig(model_parallel=1), devices=[dev])
+    with torch.no_grad():
+        seqs, scores = generate_mm_sharded(mesh, model, **kw, **x)
+        want_seqs, want_scores = generate_mm(model, device=dev, **kw, **x)
+    drop_replicas(model)  # the next grid's memory readings hold no copy of this tree
+    seqs, scores = seqs.cpu(), scores.float().cpu()
+    return {"tokens": seqs, "scores": scores,
+            "identical": bool(torch.equal(seqs, want_seqs.cpu())
+                              and torch.equal(scores, want_scores.float().cpu())),
+            "finite": bool(torch.isfinite(scores).all())}
+
+
 def dp_step_worker(rank: int, world: int, work_dir: str, timeout_s: float) -> None:
-    """One rank of a data-parallel group (spawned by run_dp_group; also by
-    tests/test_torch_distributed.py on the CPU): joins the group through a
-    file store in `work_dir`, then for each case of the spec there runs
-    make_train_step(group=WORLD) on the spec's global batch and trees (or
-    the case's own "batch" and "params"). A case gives the config, `steps`
-    steps (their metrics), and with `grads` first one loss_and_grads at step
-    1's dropout seed (the reduced gradients). Rank 0 saves [{"steps":
-    [metrics], "grads": [...], "grad_metrics": {...}}] a case."""
+    """One rank of a group of processes (spawned by run_dp_group; also by
+    tests/test_torch_distributed.py and tests/test_torch_tensor_parallel.py
+    on the CPU): joins the group through a file store in `work_dir` (the
+    spec's backend, else nccl on cards and gloo on the CPU), then for each
+    case of the spec there runs make_train_step on a (dp, tp) grid of the
+    world (the case's "grid", (world, 1) by default: data parallel only;
+    core/distributed.grid_groups) on the spec's global batch and trees (the
+    case's own "batch" and "params"; or, with spec "build" = (fn, kwargs),
+    fn(device, **kwargs) -> (params, teacher), whole trees every rank makes
+    on its device and checks equal across the world). A case gives the
+    config, `steps` steps (their metrics), and with `grads` first one
+    loss_and_grads at step 1's dropout seed (the reduced gradients, the
+    cut ones gathered whole). Under a model group also: "tp" (the storage
+    bytes of the rank's params against the sum of its shard shapes, whether
+    every replicated leaf's gradient is bit-identical across the model
+    ranks (with `grads`), whether gather_params of the teacher gives back
+    the whole teacher bit for bit), the named `leaves` gathered after the
+    steps, and with `decode` ({"batch", "seed", "dtype"}) the decode after
+    training (_tp_decode, rank 0). Every rank's step ms, peak memory and
+    flash_attention launches of the last step go to "ranks". Rank 0 saves
+    [{"steps": [metrics], "grads": [...], "grad_metrics": {...}, ...}] a
+    case."""
     import datetime
 
     import torch
     import torch.distributed as dist
 
     from vacnic_tpu_torch.core import distributed as D
-    from vacnic_tpu_torch.core.tree import tree_map
+    from vacnic_tpu_torch.core import tensor_parallel as TP
+    from vacnic_tpu_torch.core.mesh import param_dim
+    from vacnic_tpu_torch.core.tree import leaves_with_path, tree_map
+    from vacnic_tpu_torch.kernels import primitives as K
     from vacnic_tpu_torch.models.layers import split
     from vacnic_tpu_torch.train import train_step as TT
 
@@ -3210,31 +3303,98 @@ def dp_step_worker(rank: int, world: int, work_dir: str, timeout_s: float) -> No
         return tree_map(lambda _, t: t.detach().to(dev, copy=True)
                         if isinstance(t, torch.Tensor) else t, tree)
 
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
     spec = torch.load(os.path.join(work_dir, DP_SPEC), weights_only=False)
     if spec["device"] == "cpu":
         torch.set_num_threads(spec.get("threads", 1))
     D.initialize("file://" + os.path.join(work_dir, DP_STORE), world, rank,
-                 device=spec["device"], timeout=datetime.timedelta(seconds=timeout_s))
+                 backend=spec.get("backend"), device=spec["device"],
+                 timeout=datetime.timedelta(seconds=timeout_s))
     try:
         dev = (torch.device("cuda", torch.cuda.current_device()) if spec["device"] == "cuda"
                else torch.device("cpu"))
+        groups: dict = {}
         results = []
         for case in spec["cases"]:
             cfg = case["cfg"]
             batch = case.get("batch", spec["batch"])
-            init_fn, step_fn = TT.make_train_step(cfg, 100, device=dev, group=dist.group.WORLD)
-            state = init_fn(fresh(case.get("params", spec["params"])), fresh(spec["teacher"]),
-                            spec["rng"])
+            data_group, model_group = _grid_worker_groups(world, case.get("grid", (world, 1)),
+                                                          timeout_s, groups)
+            tp = TP.model_shard(model_group)
+            if "build" in spec:  # made here, a case at a time: the shards replace them
+                fn, kwargs = spec["build"]
+                params, teacher = fn(dev, **kwargs)
+                fp = torch.stack([t.double().sum() for tree in (params, teacher)
+                                  for _, t in leaves_with_path(tree)]).sum().reshape(1)
+                if len({float(f) for f in TP.all_gather(fp, dist.group.WORLD)}) != 1:
+                    raise RuntimeError("the ranks built different trees from one seed")
+            else:
+                params = fresh(case.get("params", spec["params"]))
+                teacher = fresh(spec["teacher"])
+            init_fn, step_fn = TT.make_train_step(cfg, 100, device=dev, group=data_group,
+                                                  model_group=model_group)
+            state = init_fn(params, teacher, spec["rng"])
             out: dict = {"steps": []}
+            if tp is not None:
+                storages = {id(t.untyped_storage()): t.untyped_storage().nbytes()
+                            for _, t in leaves_with_path(state.params)
+                            if isinstance(t, torch.Tensor)}
+                shards = sum(math.prod(TP.shard_shape(p, tuple(t.shape), tp.size))
+                             * t.element_size() for p, t in leaves_with_path(params)
+                             if isinstance(t, torch.Tensor))
+                whole = TP.gather_params(state.teacher, tp)
+                out["tp"] = {"param_bytes": sum(storages.values()), "shard_bytes": shards,
+                             "teacher_gathered": all(
+                                 torch.equal(a, b) for (_, a), (_, b) in zip(
+                                     leaves_with_path(teacher), leaves_with_path(whole)))}
+                del whole
+            del params, teacher
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats(dev)
             if case.get("grads"):
                 m, grads = TT.loss_and_grads(state.params, state.teacher, batch, cfg,
-                                             split(state.rng)[1], dist.group.WORLD)
+                                             split(state.rng)[1], data_group, tp)
+                if tp is not None:
+                    paths = leaves_with_path(state.params)
+                    cut = [TP.is_cut(p, t) for p, t in paths]
+                    rep = torch.cat([g.reshape(-1) for g, c in zip(grads, cut)
+                                     if g is not None and not c])
+                    parts = TP.all_gather(rep, tp.group)
+                    out["tp"]["replicated_grads_agree"] = all(torch.equal(parts[0], q)
+                                                              for q in parts[1:])
+                    grads = [torch.cat(TP.all_gather(g, tp.group), dim=param_dim(p, t))
+                             if g is not None and c else g
+                             for g, c, (p, t) in zip(grads, cut, paths)]
                 out["grads"] = [None if g is None else g.cpu() for g in grads]
                 out["grad_metrics"] = {k: float(v) for k, v in m.items()
                                        if k != "teacher_pooled"}
+            step_ms = []
             for _ in range(case["steps"]):
+                sync()
+                K.reset_launch_counts()
+                t0 = time.perf_counter()
                 state, m = step_fn(state, batch)
+                sync()
+                step_ms.append((time.perf_counter() - t0) * 1e3)
                 out["steps"].append({k: float(v) for k, v in m.items() if k != "teacher_pooled"})
+            mine = {"step_ms": step_ms, "flash_attention": K.launch_counts()["flash_attention"],
+                    "peak_gb": (torch.cuda.max_memory_allocated(dev) / 1e9
+                                if dev.type == "cuda" else None)}
+            if tp is not None:
+                out["leaves"] = {k: _whole_leaf(state.params, state.teacher, k, tp).cpu()
+                                 for k in case.get("leaves", ())}
+            if tp is not None and case.get("decode"):
+                model = TP.gather_params(state.params["model"], tp)
+                if rank == 0:
+                    out["decode"] = _tp_decode(cfg, model, dev, case["decode"])
+                del model
+            ranks = [None] * world
+            dist.all_gather_object(ranks, mine)
+            out["ranks"] = ranks
             results.append(out)
             del state
         if rank == 0:
@@ -3243,12 +3403,48 @@ def dp_step_worker(rank: int, world: int, work_dir: str, timeout_s: float) -> No
         dist.destroy_process_group()
 
 
+def _at(tree, path: str):
+    """The leaf of `tree` at a "/"-joined path (list indices as integers)."""
+    for k in path.split("/"):
+        tree = tree[int(k)] if isinstance(tree, (list, tuple)) else tree[k]
+    return tree
+
+
+def _whole_leaf(params, teacher, name: str, tp):
+    """A named leaf ("teacher/..." in the teacher, else in params) of a
+    model rank's trees, gathered whole over the model group where it is
+    cut (a collective: every rank of the group calls it); with tp None, of
+    whole trees."""
+    import torch
+
+    from vacnic_tpu_torch.core import tensor_parallel as TP
+    from vacnic_tpu_torch.core.mesh import param_dim
+
+    head, _, rest = name.partition("/")
+    tree, name = (teacher, rest) if head == "teacher" else (params, name)
+    leaf = _at(tree, name).detach()
+    path = tuple(int(k) if k.isdigit() else k for k in name.split("/"))
+    if tp is None or not TP.is_cut(path, leaf):
+        return leaf
+    return torch.cat(TP.all_gather(leaf, tp.group), dim=param_dim(path, leaf))
+
+
+def grid_backend(device: str, world: int) -> str:
+    """gloo on the CPU and where the ranks outnumber the cards (NCCL refuses
+    two ranks on one device), else nccl."""
+    import torch
+
+    if device == "cpu" or world > torch.cuda.device_count():
+        return "gloo"
+    return "nccl"
+
+
 def run_dp_group(world: int, spec: dict, work_dir: str, timeout_s: float = 300) -> list:
-    """dp_step_worker in `world` spawned processes (spec: device "cpu" for
-    gloo, "cuda" for NCCL ranks, one card each; params, teacher, rng, batch,
-    cases), each joined within `timeout_s` of the start; a rank still alive
-    then is killed, and any rank that failed fails the run -> rank 0's
-    results."""
+    """dp_step_worker in `world` spawned processes (spec: device "cpu" or
+    "cuda", the rank's card its rank modulo the cards; "backend", else
+    grid_backend's; params and teacher, or "build"; rng, batch, cases), each
+    joined within `timeout_s` of the start; a rank still alive then is
+    killed, and any rank that failed fails the run -> rank 0's results."""
     import multiprocessing
 
     import torch
@@ -3257,6 +3453,7 @@ def run_dp_group(world: int, spec: dict, work_dir: str, timeout_s: float = 300) 
     for name in (DP_STORE, DP_OUT):
         if os.path.exists(os.path.join(work_dir, name)):
             os.remove(os.path.join(work_dir, name))
+    spec = dict(spec, backend=spec.get("backend") or grid_backend(spec["device"], world))
     torch.save(spec, os.path.join(work_dir, DP_SPEC))
     ctx = multiprocessing.get_context("spawn")
     procs = [ctx.Process(target=dp_step_worker, args=(r, world, work_dir, timeout_s),
@@ -3273,7 +3470,7 @@ def run_dp_group(world: int, spec: dict, work_dir: str, timeout_s: float = 300) 
             p.join()
     failed = [(r, p.exitcode) for r, p in enumerate(procs) if p.exitcode != 0]
     if hung or failed:
-        raise RuntimeError(f"data-parallel group of {world}: ranks {hung} still running after "
+        raise RuntimeError(f"group of {world} processes: ranks {hung} still running after "
                            f"{timeout_s} s, (rank, exit code) {failed}")
     return torch.load(os.path.join(work_dir, DP_OUT), weights_only=False)
 
@@ -3593,6 +3790,208 @@ def run_mesh_phase(cfg, params, batch_size: int, slice_counts: dict, gpu: str) -
     return counts
 
 
+# ---------------------------------------------------------------------------
+# tp phase: the dp x tp training step (core/tensor_parallel)
+# ---------------------------------------------------------------------------
+
+TP_LAYERS = 12  # encoder and decoder layers of the tp phase: full_train()'s 12 + 12
+TP_STEPS = 2    # step 0's warmup lr is 0: step 1 moves the leaves
+# (a column-parallel, a row-parallel and a replicated leaf) of BART, of the
+# fusion encoder and of the teacher
+TP_LEAVES = ("model/decoder/layers/0/fc1/kernel", "model/decoder/layers/0/self_attn/out_proj/kernel",
+             "model/decoder/layers/0/final_layer_norm/scale",
+             "model/encoder/layers/0/img_up/kernel", "model/encoder/layers/0/face_down/kernel",
+             "model/encoder/layers/0/img_layer_norm/scale",
+             "teacher/encoder/layers/0/self_attn/q_proj/kernel",
+             "teacher/decoder/layers/0/fc2/kernel", "teacher/shared/weight")
+TP_LEAF_TOL = 1e-2  # |update - one process's update| over |one process's update|, by norm
+
+
+def tp_config(layers: int = TP_LAYERS):
+    """VacnicConfig.full_train() as released (batch 32, f32 trees, remat,
+    dropout 0.1, CoLaM, SECLA, CLIP frozen on pixels), `layers` + `layers`,
+    but computed in f32: in bf16 a rank's products round at other points
+    than one process's (a row-parallel sum, another product shape), the
+    rare bf16 rounding that flips grows through the layers and SECLA's
+    large logits, and the loss terms part by up to 1.4e-3 (PERF.md §6),
+    where f32 holds the step to the mesh phase's 2e-5."""
+    from vacnic_tpu_torch.core.config import VacnicConfig
+
+    cfg = VacnicConfig.full_train()
+    return dataclasses.replace(
+        cfg, bart=dataclasses.replace(cfg.bart, encoder_layers=layers, decoder_layers=layers),
+        fusion=dataclasses.replace(cfg.fusion, fusion_layers=tuple(range(layers))),
+        train=dataclasses.replace(cfg.train, compute_dtype="float32"))
+
+
+def tp_trees(device, cfg, seed: int = 0):
+    """The whole f32 trees of `cfg` from `seed` on `device`: ({"model",
+    "clip"}, teacher), what every rank of the tp phase makes for itself."""
+    from vacnic_tpu_torch.core.rng import make_generator
+    from vacnic_tpu_torch.models import fusion as F
+    from vacnic_tpu_torch.models.bart import bart_init
+    from vacnic_tpu_torch.models.clip_vit import clip_vision_init
+
+    g = make_generator(seed, device)
+    params = {"model": F.multimodal_bart_init(g, cfg.bart, cfg.fusion, device=device),
+              "clip": clip_vision_init(g, cfg.clip, device=device)}
+    return params, bart_init(g, cfg.bart, device=device)
+
+
+def tp_grids(cards: int) -> list[tuple[int, int]]:
+    """The (dp, tp) grids of the phase: tp 2 as two ranks sharing one card;
+    on four cards dp 2 x tp 2 and dp 1 x tp 4; else tp over every card."""
+    if cards == 1:
+        return [(1, 2)]
+    if cards == 4:
+        return [(2, 2), (1, 4)]
+    return [(1, cards)]
+
+
+def run_tp_phase(gpu: str) -> int:
+    """The dp x tp training step (core/tensor_parallel, make_train_step(
+    group=, model_group=)) at full width (tp_config(): full_train() at
+    TP_LAYERS + TP_LAYERS layers, batch 32, dropout on, f32), against the
+    one-process step on the same batch and trees. First the one process:
+    TP_STEPS steps (metrics, the step's ms and peak memory, the named
+    leaves), then its memory freed. Then one group of spawned processes
+    (run_dp_group; each rank makes the whole trees from the seed on its
+    card, checked equal across ranks, and keeps its shards) over every grid
+    of tp_grids: on one card two ranks sharing it over gloo (NCCL refuses
+    two ranks a device; core/tensor_parallel stages gloo's CUDA tensors
+    through host memory), on several cards NCCL. Gated for each grid: the
+    loss terms of every step within 2e-5 (relative to 1 + |value|) of one
+    process, the gradient norm within 2e-3 (the mesh phase's levels); the
+    named leaves after the steps, gathered whole: the teacher's bit-identical
+    to one process's, the others' updates within TP_LEAF_TOL by norm; every
+    rank's parameter storage equal to the bytes of its shard shapes;
+    gather_params of the teacher bit-identical to the whole teacher;
+    flash_attention launched by the teacher on the head shards in every
+    rank's step; the decode after training (gather_params, then
+    generate_mm_sharded at batch 32 over a data mesh, rank 0) token- and
+    score-identical to generate_mm of the same tree. Readings: step ms,
+    samples/s and peak GB a rank against one process. -> flash_attention's
+    launches in rank 0's last step of the first grid."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from vacnic_tpu_torch.core.tree import leaves_with_path
+    from vacnic_tpu_torch.data.synthetic import synthetic_batch
+    from vacnic_tpu_torch.kernels import primitives as K
+    from vacnic_tpu_torch.train.train_step import make_train_step
+
+    t_phase = time.perf_counter()
+    cfg = tp_config()
+    bsz = cfg.train.train_batch_size
+    batch = {k: v.numpy() for k, v in synthetic_batch(cfg, bsz, seed=0, with_pixels=True).items()}
+
+    params, teacher = tp_trees("cuda", cfg)
+    before = {k: _whole_leaf(params, teacher, k, None).cpu().clone() for k in TP_LEAVES}
+    init_fn, step_fn = make_train_step(cfg, 100, device="cuda")
+    state = init_fn(params, teacher, cfg.train.seed)
+    del params, teacher
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    one_steps, one_ms = [], []
+    for _ in range(TP_STEPS):
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batch)
+        torch.cuda.synchronize()
+        one_ms.append((time.perf_counter() - t0) * 1e3)
+        one_steps.append({k: float(v) for k, v in m.items() if k != "teacher_pooled"})
+    one_flash = K.launch_counts()["flash_attention"]
+    one_peak = torch.cuda.max_memory_allocated() / 1e9
+    one_leaves = {k: _whole_leaf(state.params, state.teacher, k, None).cpu().clone()
+                  for k in TP_LEAVES}
+    del state
+    torch.cuda.empty_cache()
+    log(f"tp: one process, full_train() widths at {TP_LAYERS} + {TP_LAYERS} layers, batch {bsz}: "
+        f"step ms {[round(v, 1) for v in one_ms]}, {bsz / one_ms[-1] * 1e3:.2f} samples/s, "
+        f"peak {one_peak:.2f} GB, flash_attention {one_flash} launches a step; metrics "
+        f"{one_steps} ({gpu})")
+
+    cards = torch.cuda.device_count()
+    grids = tp_grids(cards)
+    world = grids[0][0] * grids[0][1]
+    backend = grid_backend("cuda", world)
+    decode = dict(batch=bsz, seed=1, dtype=torch.bfloat16)
+    work = tempfile.mkdtemp(prefix="tp_")
+    try:
+        t0 = time.perf_counter()
+        res = run_dp_group(world, dict(
+            device="cuda", backend=backend, build=(tp_trees, {"cfg": cfg}), rng=cfg.train.seed,
+            batch=batch, cases=[dict(cfg=cfg, steps=TP_STEPS, grid=grid, leaves=TP_LEAVES,
+                                     decode=decode) for grid in grids]), work, timeout_s=900)
+        group_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"tp: {world} spawned ranks on {cards} card(s), backend {backend}"
+        + (" (CUDA tensors of the model group's collectives staged through host memory)"
+           if backend == "gloo" else "") + f", grids {grids}: {group_s:.1f} s wall (spawn, "
+        f"every rank's trees, {TP_STEPS} steps a grid, gathers, decodes)")
+
+    failures = []
+    for grid, r in zip(grids, res):
+        tag = f"tp grid dp {grid[0]} x tp {grid[1]}"
+        for i, (got, want) in enumerate(zip(r["steps"], one_steps)):
+            if set(got) != set(want):
+                failures.append(f"{tag} step {i}: metrics {sorted(got)} vs {sorted(want)}")
+                continue
+            for k in want:
+                tol = 2e-3 if k == "grad_norm" else 2e-5
+                if not (np.isfinite(got[k]) and abs(got[k] - want[k]) <= tol * (1 + abs(want[k]))):
+                    failures.append(f"{tag} step {i}: {k} {got[k]!r} against {want[k]!r}")
+        errs = {}
+        for k in TP_LEAVES:
+            g, w, b = r["leaves"][k], one_leaves[k], before[k]
+            if g.shape != w.shape:
+                failures.append(f"{tag}: leaf {k} gathered as {tuple(g.shape)}")
+                continue
+            if k.startswith("teacher/"):
+                errs[k] = 0.0 if torch.equal(g, w) and torch.equal(w, b) else float("inf")
+            else:
+                upd = float((w - b).norm())
+                errs[k] = float((g - w).norm()) / max(upd, 1e-30)
+                if upd == 0.0:
+                    failures.append(f"{tag}: leaf {k} not moved by the update")
+            if not errs[k] <= (0.0 if k.startswith("teacher/") else TP_LEAF_TOL):
+                failures.append(f"{tag}: leaf {k} off by {errs[k]:.3e} of its update")
+        t = r["tp"]
+        if t["param_bytes"] != t["shard_bytes"] or not t["teacher_gathered"]:
+            failures.append(f"{tag}: rank 0 holds {t['param_bytes']} parameter bytes against "
+                            f"{t['shard_bytes']} of its shards; teacher gathered whole "
+                            f"{t['teacher_gathered']}")
+        flash = [q["flash_attention"] for q in r["ranks"]]
+        if not all(flash):
+            failures.append(f"{tag}: flash_attention launches a rank {flash}")
+        d = r["decode"]
+        if not (d["identical"] and d["finite"]):
+            failures.append(f"{tag}: the decode after training: identical {d['identical']}, "
+                            f"finite {d['finite']}")
+        ms = [q["step_ms"][-1] for q in r["ranks"]]
+        peaks = [q["peak_gb"] for q in r["ranks"]]
+        log(f"{tag} ({world} ranks on {cards} card(s), {backend}): metrics {r['steps']}; "
+            f"named leaves off by { {k: f'{v:.2e}' for k, v in errs.items()} } of the update; "
+            f"rank 0's parameters {t['param_bytes'] / 1e9:.3f} GB = its shard shapes "
+            f"{t['param_bytes'] == t['shard_bytes']}, teacher gathered whole "
+            f"{t['teacher_gathered']}; flash_attention a step by rank {flash}; last step ms "
+            f"by rank {[round(v, 1) for v in ms]} ({bsz / max(ms) * 1e3:.2f} samples/s against "
+            f"{bsz / one_ms[-1] * 1e3:.2f} in one process), peak GB by rank "
+            f"{[round(v, 2) for v in peaks]} (one process {one_peak:.2f}); decode at batch "
+            f"{bsz} over a data mesh identical to generate_mm {d['identical']}, tokens "
+            f"{tuple(d['tokens'].shape)} ({gpu})")
+        TOKENS[f"tp_{grid[0]}x{grid[1]}"] = d["tokens"]
+    log(f"tp: phase {time.perf_counter() - t_phase:.1f} s wall")
+    if failures:
+        raise RuntimeError("tp: " + "; ".join(failures))
+    return res[0]["ranks"][0]["flash_attention"]
+
+
 def compare_tokens(ref: dict, gpu: str) -> None:
     """Every path run here against the captions another tree saved with
     --tokens-out on the same seeds: token agreement printed, and any
@@ -3619,7 +4018,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
                     default="build,kernels,accuracy,dispatch,stacks,slice,selfkv,stats,stackhead,"
-                            "layerwise,serve,profile,mesh,train,data,cli")
+                            "layerwise,serve,profile,mesh,train,tp,data,cli")
     ap.add_argument("--batch", type=int, default=32)
     ap.add_argument("--tokens-out", metavar="FILE",
                     help="save each path's captions (torch.save of {path: tokens})")
@@ -3698,6 +4097,9 @@ def main() -> int:
     if "train" in phases:
         torch.cuda.empty_cache()
         launches.setdefault("flash_attention", run_train_phase(gpu)["flash_attention"])
+    if "tp" in phases:
+        torch.cuda.empty_cache()
+        launches["flash_attention:tp"] = run_tp_phase(gpu)
     if "data" in phases:
         torch.cuda.empty_cache()
         counts = run_data_phase(gpu)

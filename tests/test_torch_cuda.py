@@ -1061,3 +1061,93 @@ def test_two_rank_nccl_dp_step_equals_one_rank(dev, tmp_path):
         state, m = step_fn(state, batch)
         for k, v in m.items():
             assert abs(res["steps"][i][k] - float(v)) <= 2e-5 * (1 + abs(float(v))), (i, k)
+
+
+@pytest.mark.parametrize("heads", [8, 4])
+def test_flash_attention_on_head_shards(dev, heads):
+    """The teacher's encoder self-attention on a model rank (tp 2: 8 of 16
+    heads, tp 4: 4): head-split views of [B, T, heads*64] projections with a
+    [B, 1, T, S] bias of padded keys, at T = S = 512, against the plain
+    twin; attention_core takes the kernel at these shapes (flash_eligible)."""
+    from vacnic_tpu_torch.kernels import flash_attn as FA
+    from vacnic_tpu_torch.kernels import primitives as K
+    from vacnic_tpu_torch.models import layers as TL
+
+    g = torch.Generator(device=dev).manual_seed(heads)
+    B, T, d = 4, 512, 64
+    bf = torch.bfloat16
+
+    def shard():
+        return rn(g, B, T, heads * d, dtype=bf).view(B, T, heads, d).permute(0, 2, 1, 3)
+
+    q = (shard().float() * d ** -0.5).to(bf)
+    k, v = shard(), shard()
+    bias = torch.zeros(B, 1, T, T, device=dev)
+    bias[1, :, :, 300:] = torch.finfo(torch.float32).min
+    bias = bias.to(bf)
+    assert FA.flash_eligible(q, k, bias)
+    before = K.launch_counts()["flash_attention"]
+    out = TL.attention_core(q, k, v, bias)
+    assert K.launch_counts()["flash_attention"] == before + 1
+    assert out.shape == (B, heads, T, d) and bool(torch.isfinite(out.float()).all())
+    close(out, FA.flash_attention_plain(q, k, v, bias), True)
+
+
+def test_two_rank_tp_step_on_one_card(dev, tmp_path):
+    """The tensor-parallel step in 2 ranks (chip_smoke.run_dp_group, grid dp 1
+    x tp 2: gloo when the ranks share one card, NCCL on two) on
+    card_config() in f32 with dropout 0.1: loss terms within 2e-5 of one
+    process on the same global batch of 8, each gradient leaf (the cut ones
+    gathered whole) within 1e-4 of that leaf's largest |gradient| (sum order
+    on the card; a key bias: of its attention's largest), the replicated leaves' gradients bit-identical across the
+    two ranks, each rank's storage its shards'."""
+    import dataclasses
+    import sys
+    from pathlib import Path
+
+    from vacnic_tpu_torch.core.rng import make_generator
+    from vacnic_tpu_torch.core.tree import leaves_with_path
+    from vacnic_tpu_torch.data.synthetic import synthetic_batch
+    from vacnic_tpu_torch.models.bart import bart_init
+    from vacnic_tpu_torch.models.fusion import multimodal_bart_init
+    from vacnic_tpu_torch.models.layers import split
+    from vacnic_tpu_torch.models.weights_io import tree_to
+    from vacnic_tpu_torch.train import train_step as TT
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    cfg = card_config()
+    cfg = dataclasses.replace(cfg, bart=dataclasses.replace(cfg.bart, dropout=0.1),
+                              train=dataclasses.replace(cfg.train, compute_dtype="float32"))
+    g = make_generator(0)
+    params = {"model": multimodal_bart_init(g, cfg.bart, cfg.fusion)}
+    teacher = bart_init(g, cfg.bart)
+    batch = {k: v.numpy() for k, v in synthetic_batch(cfg, 8, seed=1).items()}
+    (res,) = chip_smoke.run_dp_group(2, dict(device="cuda", params=params, teacher=teacher,
+                                             rng=5, batch=batch,
+                                             cases=[dict(cfg=cfg, steps=2, grads=True,
+                                                         grid=(1, 2))]),
+                                     str(tmp_path), timeout_s=300)
+    assert res["tp"]["replicated_grads_agree"]
+    assert res["tp"]["param_bytes"] == res["tp"]["shard_bytes"] and res["tp"]["teacher_gathered"]
+    init_fn, step_fn = TT.make_train_step(cfg, 100, device=dev)
+    state = init_fn(tree_to(params, dev), tree_to(teacher, dev), 5)
+    m, grads = TT.loss_and_grads(state.params, state.teacher, batch, cfg, split(state.rng)[1])
+    for k, v in m.items():
+        assert abs(res["grad_metrics"][k] - float(v)) <= 2e-5 * (1 + abs(float(v))), k
+    paths = [p for p, _ in leaves_with_path(state.params)]
+    attn_max: dict = {}  # a key bias's gradient is f32 noise around 0: its attention's scale
+    for path, want in zip(paths, grads):
+        if want is not None:
+            attn_max[path[:-2]] = max(attn_max.get(path[:-2], 0.0), float(want.abs().max()))
+    for path, got, want in zip(paths, res["grads"], grads):
+        assert (got is None) == (want is None), path
+        if want is not None:
+            scale = (attn_max[path[:-2]] if path[-2:] == ("k_proj", "bias")
+                     else float(want.abs().max()))
+            assert float((got.to(dev) - want).abs().max()) <= 1e-4 * scale + 1e-9, path
+    for i in range(2):
+        state, m = step_fn(state, batch)
+        for k, v in m.items():
+            assert abs(res["steps"][i][k] - float(v)) <= 2e-5 * (1 + abs(float(v))), (i, k)

@@ -6,7 +6,9 @@ torchrun's LOCAL_RANK (train...match.py:616-629); JAX's is
 process a card, NCCL between cards, gloo between CPU processes (the tests'
 4-process groups). The data-parallel training step
 (`train/train_step.make_train_step(group=)`) takes its rank's rows of the
-global batch with `local_batch_slice`.
+global batch with `local_batch_slice`; `grid_groups` cuts the world into
+the data and model groups of a dp x tp grid (`make_train_step(group=,
+model_group=)`, core/tensor_parallel).
 """
 
 from __future__ import annotations
@@ -82,3 +84,29 @@ def local_batch_slice(global_batch: int, group=None) -> slice:
     per = global_batch // process_count(group)
     start = per * process_index(group)
     return slice(start, start + per)
+
+
+def grid_groups(data_parallel: int, model_parallel: int, *,
+                timeout: datetime.timedelta | None = None):
+    """(data_group, model_group) of this process in a data_parallel x
+    model_parallel grid over the world, in JAX's mesh order
+    (`np.asarray(devices).reshape(dp, mp)`, vacnic_tpu/core/mesh.py:36):
+    rank = d * model_parallel + m; the data group holds the ranks of one m,
+    the model group those of one d. Every rank creates every group, in the
+    same order (torch.distributed's rule: a rank that skips one hangs the
+    others), each with the collectives' `timeout`."""
+    world = dist.get_world_size()
+    if data_parallel * model_parallel != world:
+        raise ValueError(f"grid {data_parallel}x{model_parallel} does not cover {world} ranks")
+    rank = dist.get_rank()
+    kwargs = {} if timeout is None else {"timeout": timeout}
+    mine = []
+    for rows in ([[d * model_parallel + m for d in range(data_parallel)]
+                  for m in range(model_parallel)],
+                 [[d * model_parallel + m for m in range(model_parallel)]
+                  for d in range(data_parallel)]):
+        for ranks in rows:
+            group = dist.new_group(ranks, **kwargs)
+            if rank in ranks:
+                mine.append(group)
+    return mine[0], mine[1]

@@ -5,7 +5,8 @@ JAX's single-controller `Mesh` names a grid of devices with axes:
   * ``data``  -- data parallelism: the batch is cut into contiguous row
     shards, one a data row of the mesh, and the parameters are replicated;
   * ``model`` -- tensor parallelism for the big BART products (the rule
-    `param_shardings` gives; nothing executes it yet, ROADMAP A.6).
+    `param_shardings` gives; `core/tensor_parallel` executes it across
+    processes, one a device).
 
 Here a `Mesh` is a plain description of that grid of `torch.device`s. One
 process drives every device of it: `infer/generate.generate_mm_sharded`
@@ -52,7 +53,9 @@ class Mesh:
     def data_devices(self, data_axis: str = "data") -> list[torch.device]:
         """The first device of every row along `data_axis`: where the row
         shards of a batch go (with a model axis wider than 1, the row's
-        other devices hold nothing until tensor parallelism, A.6)."""
+        other devices take no part: the decode and the service are data
+        parallel only, as in JAX, and the tensor-parallel step runs in
+        processes, `core/tensor_parallel`)."""
         if data_axis not in self.axis_names:
             raise ValueError(f"mesh has no {data_axis!r} axis (axes: {list(self.axis_names)})")
         grid = np.moveaxis(self.devices, self.axis_names.index(data_axis), 0)
@@ -133,7 +136,7 @@ class Sharded:
 
 
 # ---------------------------------------------------------------------------
-# Parameter sharding rules (tensor parallelism, ROADMAP A.6)
+# Parameter sharding rules (tensor parallelism, core/tensor_parallel)
 # ---------------------------------------------------------------------------
 # The Megatron layout of vacnic_tpu/core/mesh.py: q/k/v and fc1 column-
 # parallel (the output dimension cut), out_proj and fc2 row-parallel (the
@@ -144,7 +147,10 @@ _COL_PARALLEL = ("q_proj", "k_proj", "v_proj", "fc1", "up")  # output dim cut
 _ROW_PARALLEL = ("out_proj", "fc2", "down")  # input dim cut
 
 
-def _param_dim(path: tuple, leaf) -> int | None:
+def param_dim(path: tuple, leaf) -> int | None:
+    """The dimension the rule cuts for a leaf at `path` (None: replicated),
+    before the divisibility test: 1 for a column-parallel kernel, 0 for a
+    row-parallel one."""
     name = str(path[-1]) if path else ""
     parent = str(path[-2]) if len(path) >= 2 else ""
     if name not in ("kernel", "weight") or getattr(leaf, "ndim", 0) != 2:
@@ -160,13 +166,13 @@ def param_shardings(params: Any, mesh: Mesh) -> Any:
     """One ShardSpec a leaf of `params`, the tree's structure kept: the
     split dimension over the mesh's model axis, or replicated where the
     rule names no dimension, the model axis has one device, or the
-    dimension does not divide by it. A plain function of paths and shapes:
-    nothing executes it until tensor parallelism (ROADMAP A.6)."""
+    dimension does not divide by it. A plain function of paths and shapes;
+    `core/tensor_parallel.shard_params` places a tree by the same rule."""
     model_axis = mesh.axis_names[1] if len(mesh.axis_names) > 1 else None
     msize = mesh.shape.get(model_axis, 1) if model_axis else 1
 
     def spec_for(path, leaf):
-        dim = _param_dim(path, leaf) if msize > 1 else None
+        dim = param_dim(path, leaf) if msize > 1 else None
         if dim is None or leaf.shape[dim] % msize:
             return replicated(mesh)
         return ShardSpec(mesh, dim, model_axis)

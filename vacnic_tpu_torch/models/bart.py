@@ -10,7 +10,12 @@ backward through torch.utils.checkpoint) replays the forward's masks. JAX's
 decoder derives per-layer keys only under remat; the masks themselves are
 not JAX's in either case. JAX's remat policies (VACNIC_REMAT_POLICY) are a
 TPU-compiler knob and are not carried over: the port's one policy is
-"recompute the layer"."""
+"recompute the layer".
+
+Tensor parallelism (`tp`, core/tensor_parallel): the layers run on a model
+rank's shard, attention by heads and fc1/fc2 as a column/row pair, with
+the activation dropout drawing the rank's columns of the one-process mask
+(models/layers.column_seed)."""
 
 from __future__ import annotations
 
@@ -18,12 +23,15 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from vacnic_tpu_torch.core.config import BartConfig
+from vacnic_tpu_torch.core.tensor_parallel import ModelShard, copy_to_model_parallel
 from vacnic_tpu_torch.models.layers import (
     ACT2FN,
     NO_DROPOUT,
     Params,
     RngStream,
     causal_mask,
+    column_linear,
+    column_seed,
     dropout,
     embed,
     embedding_init,
@@ -31,10 +39,10 @@ from vacnic_tpu_torch.models.layers import (
     fold_in,
     layernorm,
     layernorm_init,
-    linear,
     linear_init,
     mha,
     mha_init,
+    row_linear,
     split,
 )
 
@@ -57,31 +65,39 @@ def embed_and_norm(shared: Params, pos: Params, ln: Params, ids: torch.Tensor,
     return dropout(x, cfg.dropout, rngs.next())
 
 
+def residual_ffn(up: Params, down: Params, ln: Params, x: torch.Tensor, act, cfg: BartConfig,
+                 rngs: RngStream = NO_DROPOUT, tp: ModelShard | None = None) -> torch.Tensor:
+    """LN(x + dropout(down(dropout(act(up(x)))))): the layers' FFN, fusion's
+    residual stream FFNs too; under `tp`, up column- and down row-parallel."""
+    h = column_linear(up, copy_to_model_parallel(x, tp), tp)
+    h = dropout(act(h), cfg.activation_dropout, column_seed(rngs.next(), tp))
+    h = dropout(row_linear(down, h, tp), cfg.dropout, rngs.next())
+    return layernorm(ln, x + h)
+
+
 def encoder_layer_fwd(p: Params, x: torch.Tensor, attn_mask, cfg: BartConfig,
-                      rngs: RngStream = NO_DROPOUT) -> torch.Tensor:
+                      rngs: RngStream = NO_DROPOUT,
+                      tp: ModelShard | None = None) -> torch.Tensor:
     """Vanilla post-LN BART encoder layer."""
     act = ACT2FN[cfg.activation_function]
-    h = mha(p["self_attn"], x, mask=attn_mask, num_heads=cfg.encoder_attention_heads)
+    h = mha(p["self_attn"], x, mask=attn_mask, num_heads=cfg.encoder_attention_heads, tp=tp)
     x = layernorm(p["self_attn_layer_norm"], x + dropout(h, cfg.dropout, rngs.next()))
-    h = dropout(act(linear(p["fc1"], x)), cfg.activation_dropout, rngs.next())
-    h = dropout(linear(p["fc2"], h), cfg.dropout, rngs.next())
-    return layernorm(p["final_layer_norm"], x + h)
+    return residual_ffn(p["fc1"], p["fc2"], p["final_layer_norm"], x, act, cfg, rngs, tp)
 
 
 def decoder_layer_fwd(p: Params, x: torch.Tensor, self_mask, enc_out: torch.Tensor | None,
                       cross_mask, cfg: BartConfig,
-                      rngs: RngStream = NO_DROPOUT) -> torch.Tensor:
+                      rngs: RngStream = NO_DROPOUT,
+                      tp: ModelShard | None = None) -> torch.Tensor:
     """BART decoder layer over a whole (teacher-forced) sequence."""
     act = ACT2FN[cfg.activation_function]
-    h = mha(p["self_attn"], x, mask=self_mask, num_heads=cfg.decoder_attention_heads)
+    h = mha(p["self_attn"], x, mask=self_mask, num_heads=cfg.decoder_attention_heads, tp=tp)
     x = layernorm(p["self_attn_layer_norm"], x + dropout(h, cfg.dropout, rngs.next()))
     if enc_out is not None:
         h = mha(p["encoder_attn"], x, key_value=enc_out, mask=cross_mask,
-                num_heads=cfg.decoder_attention_heads)
+                num_heads=cfg.decoder_attention_heads, tp=tp)
         x = layernorm(p["encoder_attn_layer_norm"], x + dropout(h, cfg.dropout, rngs.next()))
-    h = dropout(act(linear(p["fc1"], x)), cfg.activation_dropout, rngs.next())
-    h = dropout(linear(p["fc2"], h), cfg.dropout, rngs.next())
-    return layernorm(p["final_layer_norm"], x + h)
+    return residual_ffn(p["fc1"], p["fc2"], p["final_layer_norm"], x, act, cfg, rngs, tp)
 
 
 def layer_seed(base: int | None, i: int) -> int | None:
@@ -98,18 +114,18 @@ def run_layer(fn, remat: bool, *args):
     return fn(*args)
 
 
-def _decoder_layer(p, x, self_mask, enc_out, cross_mask, cfg, seed):
-    return decoder_layer_fwd(p, x, self_mask, enc_out, cross_mask, cfg, RngStream(seed))
+def _decoder_layer(p, x, self_mask, enc_out, cross_mask, cfg, seed, tp):
+    return decoder_layer_fwd(p, x, self_mask, enc_out, cross_mask, cfg, RngStream(seed), tp)
 
 
-def _encoder_layer(p, x, mask, cfg, seed):
-    return encoder_layer_fwd(p, x, mask, cfg, RngStream(seed))
+def _encoder_layer(p, x, mask, cfg, seed, tp):
+    return encoder_layer_fwd(p, x, mask, cfg, RngStream(seed), tp)
 
 
 def decoder_fwd(params: Params, decoder_input_ids: torch.Tensor, enc_out: torch.Tensor,
                 enc_attention_mask: torch.Tensor, cfg: BartConfig,
                 dtype=torch.float32, *, dropout_rng: int | None = None,
-                remat: bool = False) -> torch.Tensor:
+                remat: bool = False, tp: ModelShard | None = None) -> torch.Tensor:
     """Teacher-forced decoder stack (causal self mask, padded cross mask)."""
     dec = params["decoder"]
     t = decoder_input_ids.shape[-1]
@@ -119,34 +135,34 @@ def decoder_fwd(params: Params, decoder_input_ids: torch.Tensor, enc_out: torch.
     cross_mask = expand_mask(enc_attention_mask, t, dtype)
     for i, p in enumerate(dec["layers"]):
         x = run_layer(_decoder_layer, remat, p, x, self_mask, enc_out, cross_mask, cfg,
-                      layer_seed(dropout_rng, i))
+                      layer_seed(dropout_rng, i), tp)
     return x
 
 
 def encoder_fwd(params: Params, input_ids: torch.Tensor, attention_mask: torch.Tensor,
                 cfg: BartConfig, dtype=torch.float32, *, dropout_rng: int | None = None,
-                remat: bool = False) -> torch.Tensor:
+                remat: bool = False, tp: ModelShard | None = None) -> torch.Tensor:
     """Text-only encoder (the CoLaM teacher's) -> [B, S, d]."""
     enc = params["encoder"]
     x = embed_and_norm(params["shared"], enc["embed_positions"], enc["layernorm_embedding"],
                        input_ids, cfg, dtype, rngs=RngStream(dropout_rng))
     mask = expand_mask(attention_mask, dtype=dtype)
     for i, p in enumerate(enc["layers"]):
-        x = run_layer(_encoder_layer, remat, p, x, mask, cfg, layer_seed(dropout_rng, i))
+        x = run_layer(_encoder_layer, remat, p, x, mask, cfg, layer_seed(dropout_rng, i), tp)
     return x
 
 
 def bart_forward(params: Params, input_ids: torch.Tensor, attention_mask: torch.Tensor,
                  decoder_input_ids: torch.Tensor, cfg: BartConfig,
                  dtype=torch.float32, *, dropout_rng: int | None = None,
-                 remat: bool = False) -> dict[str, torch.Tensor]:
+                 remat: bool = False, tp: ModelShard | None = None) -> dict[str, torch.Tensor]:
     """Teacher-forced seq2seq forward -> {"logits", "decoder_hidden",
     "encoder_hidden"}."""
     rng_e, rng_d = split(dropout_rng) if dropout_rng is not None else (None, None)
     enc_out = encoder_fwd(params, input_ids, attention_mask, cfg, dtype,
-                          dropout_rng=rng_e, remat=remat)
+                          dropout_rng=rng_e, remat=remat, tp=tp)
     dec_out = decoder_fwd(params, decoder_input_ids, enc_out, attention_mask, cfg, dtype,
-                          dropout_rng=rng_d, remat=remat)
+                          dropout_rng=rng_d, remat=remat, tp=tp)
     return {"logits": lm_logits(params, dec_out), "decoder_hidden": dec_out,
             "encoder_hidden": enc_out}
 

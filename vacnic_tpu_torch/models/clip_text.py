@@ -5,7 +5,9 @@ OpenAI CLIP's text encoder: token embedding + positions -> causal pre-LN
 transformer (quick-gelu MLP) -> ln_final -> the features at each row's
 highest id (the EOT token) -> text projection. It runs as library products,
 as JAX computes it outside any Pallas kernel; 77 tokens are not
-`flash_eligible`.
+`flash_eligible`. Under tensor parallelism (`tp`, core/tensor_parallel) the
+attention runs a model rank's heads and the MLP stays whole, as JAX's
+sharding rule leaves it.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ import math
 
 import torch
 
+from vacnic_tpu_torch.core.tensor_parallel import ModelShard
 from vacnic_tpu_torch.models.layers import (
     ACT2FN,
     Params,
@@ -87,7 +90,7 @@ def convert_clip_text_openai(sd, layers: int = 12, heads: int = 8, device="cpu")
 
 
 def clip_text_fwd(params: Params, token_ids, dtype=torch.float32,
-                  num_heads: int | None = None) -> torch.Tensor:
+                  num_heads: int | None = None, tp: ModelShard | None = None) -> torch.Tensor:
     """[B, T] CLIP-BPE ids -> [B, output_dim] f32 text features, computed in
     `dtype`. `num_heads` is read from the tree's "heads" leaf when not given."""
     heads = num_heads if num_heads is not None else int(params["heads"])
@@ -99,7 +102,7 @@ def clip_text_fwd(params: Params, token_ids, dtype=torch.float32,
     causal = torch.triu(torch.full((t, t), torch.finfo(torch.float32).min, device=x.device),
                         diagonal=1)[None, None]
     for p in params["layers"]:
-        x = x + mha(p["attn"], layernorm(p["ln_1"], x), mask=causal, num_heads=heads)
+        x = x + mha(p["attn"], layernorm(p["ln_1"], x), mask=causal, num_heads=heads, tp=tp)
         y = layernorm(p["ln_2"], x)
         x = x + linear(p["mlp"]["c_proj"], ACT2FN["quick_gelu"](linear(p["mlp"]["c_fc"], y)))
     x = layernorm(params["ln_final"], x)

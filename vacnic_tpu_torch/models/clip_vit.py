@@ -16,7 +16,9 @@ ViT-B/16 at 224 has 197 tokens and no mask, so `attention_core` takes
 `attention_plain` (`flash_eligible` refuses it), as JAX does.
 
 The tower runs where its parameters are; `pixels` (a tensor or an array) is
-moved there.
+moved there. Under tensor parallelism (`tp`, core/tensor_parallel) the
+attention runs a model rank's heads; the MLP (c_fc, c_proj) stays whole,
+as JAX's sharding rule leaves it.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from __future__ import annotations
 import torch
 
 from vacnic_tpu_torch.core.config import ClipVisionConfig
+from vacnic_tpu_torch.core.tensor_parallel import ModelShard
 from vacnic_tpu_torch.models.layers import (
     ACT2FN,
     Params,
@@ -61,8 +64,9 @@ def clip_vision_init(g: torch.Generator, cfg: ClipVisionConfig, device=None) -> 
     return p
 
 
-def _resblock(p: Params, x: torch.Tensor, heads: int) -> torch.Tensor:
-    x = x + mha(p["attn"], layernorm(p["ln_1"], x), num_heads=heads)
+def _resblock(p: Params, x: torch.Tensor, heads: int,
+              tp: ModelShard | None = None) -> torch.Tensor:
+    x = x + mha(p["attn"], layernorm(p["ln_1"], x), num_heads=heads, tp=tp)
     y = layernorm(p["ln_2"], x)
     y = linear(p["mlp"]["c_proj"], ACT2FN["quick_gelu"](linear(p["mlp"]["c_fc"], y)))
     return x + y
@@ -84,7 +88,8 @@ def patch_embed(kernel: torch.Tensor, x: torch.Tensor, patch: int) -> torch.Tens
 
 
 def clip_vision_fwd(params: Params, pixels, cfg: ClipVisionConfig,
-                    dtype=torch.float32) -> tuple[torch.Tensor, torch.Tensor]:
+                    dtype=torch.float32,
+                    tp: ModelShard | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """pixels [B, H, W, 3] (CLIP-normalised) -> (patch_tokens [B, G^2, width],
     cls [B, width]), both float32, computed in `dtype`."""
     w = params["conv1"]["kernel"]
@@ -96,14 +101,14 @@ def clip_vision_fwd(params: Params, pixels, cfg: ClipVisionConfig,
     x = x + params["positional_embedding"].to(dtype)[None]
     x = layernorm(params["ln_pre"], x)
     for p in params["layers"]:
-        x = _resblock(p, x, cfg.heads)
+        x = _resblock(p, x, cfg.heads, tp)
     cls = layernorm(params["ln_post"], x[:, 0, :])
     patches = layernorm(params["ln_post"], x[:, 1:, :])
     return patches.float(), cls.float()
 
 
 def clip_image_embed(params: Params, pixels, cfg: ClipVisionConfig,
-                     dtype=torch.float32) -> torch.Tensor:
+                     dtype=torch.float32, tp: ModelShard | None = None) -> torch.Tensor:
     """CLS -> the joint-embedding projection (OpenAI `visual.proj`) [B, output_dim] f32."""
-    _, cls = clip_vision_fwd(params, pixels, cfg, dtype)
+    _, cls = clip_vision_fwd(params, pixels, cfg, dtype, tp)
     return cls @ params["proj"].float()

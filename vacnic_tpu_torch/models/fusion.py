@@ -17,6 +17,12 @@ kernels/encoder_stack.encoder_text_stack (CUDA on the card, its plain twin on
 the CPU), which has no backward. `mm_forward` is the teacher-forced forward
 of the whole model (encoder, decoder, tied LM head), an entry point like
 infer/generate's.
+
+Tensor parallelism (`tp`, core/tensor_parallel) runs the layer-by-layer
+encoder on a model rank's shard: the attentions by heads, the img/face/text
+FFNs and ner_map_up/down as column/row pairs, the clipcap mapper's
+prompt_fc1/prompt_fc2 likewise. The fused encoder takes whole weights only
+(it serves inference, where the tree is whole).
 """
 
 from __future__ import annotations
@@ -28,12 +34,15 @@ import torch
 
 from vacnic_tpu_torch.core.config import BartConfig, FusionConfig
 from vacnic_tpu_torch.core.device import as_tensor, resolve_device
+from vacnic_tpu_torch.core.tensor_parallel import ModelShard, copy_to_model_parallel
 from vacnic_tpu_torch.models import bart as B
 from vacnic_tpu_torch.models.layers import (
     ACT2FN,
     NO_DROPOUT,
     Params,
     RngStream,
+    column_linear,
+    column_seed,
     dropout,
     embedding_init,
     expand_mask,
@@ -43,6 +52,7 @@ from vacnic_tpu_torch.models.layers import (
     linear_init,
     mha,
     mha_init,
+    row_linear,
     split,
 )
 from vacnic_tpu_torch.models.weights_io import tree_to
@@ -53,22 +63,22 @@ from vacnic_tpu_torch.models.weights_io import tree_to
 # ---------------------------------------------------------------------------
 
 def prompt_mlp_clipcap_fwd(p: Params, cls_feat: torch.Tensor, img_size: int,
-                           prompt_size: int) -> torch.Tensor:
+                           prompt_size: int, tp: ModelShard | None = None) -> torch.Tensor:
     """[B, img_size] -> [B, prompt_size, img_size]."""
-    h = torch.tanh(linear(p["prompt_fc1"], cls_feat))
-    h = linear(p["prompt_fc2"], h)
+    h = torch.tanh(column_linear(p["prompt_fc1"], copy_to_model_parallel(cls_feat, tp), tp))
+    h = row_linear(p["prompt_fc2"], h, tp)
     return h.reshape(h.shape[0], prompt_size, img_size)
 
 
 def map_image_prompt(enc: Params, image_features: torch.Tensor, cfg: BartConfig,
-                     fcfg: FusionConfig) -> torch.Tensor:
+                     fcfg: FusionConfig, tp: ModelShard | None = None) -> torch.Tensor:
     """CLIP features -> prompt tokens [B, P, d_model]."""
     if fcfg.prompt_mlp_type != "clipcap":
         raise NotImplementedError(
             f"prompt_mlp_type={fcfg.prompt_mlp_type!r}: the port carries the "
             "released clipcap mapper only")
     img = prompt_mlp_clipcap_fwd(enc["prompt_mlp"], image_features, fcfg.img_size,
-                                 fcfg.prompt_size)
+                                 fcfg.prompt_size, tp)
     if cfg.d_model == 1024:
         img = linear(enc["visual_map"], img)
     return img
@@ -85,43 +95,38 @@ def embed_ner_stream(enc: Params, name_ids: torch.Tensor, cfg: BartConfig,
 # Layer-by-layer encoder (reference path)
 # ---------------------------------------------------------------------------
 
-def _residual_ffn(up: Params, down: Params, ln: Params, x, act, cfg: BartConfig,
-                  rngs: RngStream = NO_DROPOUT):
-    h = dropout(act(linear(up, x)), cfg.activation_dropout, rngs.next())
-    h = dropout(linear(down, h), cfg.dropout, rngs.next())
-    return layernorm(ln, x + h)
-
-
 def _ner_prefix(p: Params, ner: torch.Tensor, act, cfg: BartConfig, fcfg: FusionConfig,
-                rngs: RngStream = NO_DROPOUT) -> torch.Tensor:
+                rngs: RngStream = NO_DROPOUT, tp: ModelShard | None = None) -> torch.Tensor:
     bsz, ner_len, d = ner.shape
     t = ner.reshape(bsz, d, ner_len)  # the reference reshapes, not transposes
-    t = dropout(act(linear(p["ner_map_up"], t)), cfg.activation_dropout, rngs.next())
-    t = dropout(linear(p["ner_map_down"], t), cfg.dropout, rngs.next())
+    t = column_linear(p["ner_map_up"], copy_to_model_parallel(t, tp), tp)
+    t = dropout(act(t), cfg.activation_dropout, column_seed(rngs.next(), tp))
+    t = dropout(row_linear(p["ner_map_down"], t, tp), cfg.dropout, rngs.next())
     return layernorm(p["ner_map_layer_norm"], t.reshape(bsz, fcfg.max_ner_type_len_gt, d))
 
 
 def fusion_encoder_layer_fwd(p: Params, x: torch.Tensor, attn_mask: torch.Tensor,
                              streams: dict[str, Any], masks: dict[str, Any],
                              cfg: BartConfig, fcfg: FusionConfig, fused: bool,
-                             add_ner_ffn: bool = True, rngs: RngStream = NO_DROPOUT):
+                             add_ner_ffn: bool = True, rngs: RngStream = NO_DROPOUT,
+                             tp: ModelShard | None = None):
     """One encoder layer; `streams` = {"img", "face", "ner"} threaded between
     layers. Returns (x, streams). Dropout draws from `rngs` in JAX's order."""
     act = ACT2FN[cfg.activation_function]
     if not fused:
-        return B.encoder_layer_fwd(p, x, attn_mask, cfg, rngs), streams
+        return B.encoder_layer_fwd(p, x, attn_mask, cfg, rngs, tp), streams
 
-    img = _residual_ffn(p["img_up"], p["img_down"], p["img_layer_norm"], streams["img"], act,
-                        cfg, rngs)
+    img = B.residual_ffn(p["img_up"], p["img_down"], p["img_layer_norm"], streams["img"], act,
+                         cfg, rngs, tp)
     face, ner = streams.get("face"), streams.get("ner")
     if not fcfg.only_image:
-        face = _residual_ffn(p["face_up"], p["face_down"], p["face_layer_norm"], face, act,
-                             cfg, rngs)
+        face = B.residual_ffn(p["face_up"], p["face_down"], p["face_layer_norm"], face, act,
+                              cfg, rngs, tp)
         if add_ner_ffn:
             h = mha(p["self_attn_img_name"], ner, key_value=torch.cat([face, ner], dim=1),
-                    mask=masks["face_name"], num_heads=cfg.encoder_attention_heads)
+                    mask=masks["face_name"], num_heads=cfg.encoder_attention_heads, tp=tp)
             ner = layernorm(p["img_name_attn_layer_norm"], ner + h)
-            kv = torch.cat([img, _ner_prefix(p, ner, act, cfg, fcfg, rngs)], dim=1)
+            kv = torch.cat([img, _ner_prefix(p, ner, act, cfg, fcfg, rngs, tp)], dim=1)
             cross_mask = masks["img_ner"]
         else:
             kv = torch.cat([img, ner, x], dim=1)
@@ -130,12 +135,12 @@ def fusion_encoder_layer_fwd(p: Params, x: torch.Tensor, attn_mask: torch.Tensor
         kv = img
         cross_mask = masks["img_ner"]
 
-    h = mha(p["self_attn"], x, mask=attn_mask, num_heads=cfg.encoder_attention_heads)
+    h = mha(p["self_attn"], x, mask=attn_mask, num_heads=cfg.encoder_attention_heads, tp=tp)
     x = layernorm(p["self_attn_layer_norm"], x + dropout(h, cfg.dropout, rngs.next()))
     h = mha(p["cross_attn_img_ner"], x, key_value=kv, mask=cross_mask,
-            num_heads=cfg.encoder_attention_heads)
+            num_heads=cfg.encoder_attention_heads, tp=tp)
     x = layernorm(p["img_ner_attn_layer_norm"], x + dropout(h, cfg.dropout, rngs.next()))
-    x = _residual_ffn(p["fc1"], p["fc2"], p["final_layer_norm"], x, act, cfg, rngs)
+    x = B.residual_ffn(p["fc1"], p["fc2"], p["final_layer_norm"], x, act, cfg, rngs, tp)
     return x, {"img": img, "face": face, "ner": ner}
 
 
@@ -143,19 +148,20 @@ def _prompt_len(fcfg: FusionConfig) -> int:
     return fcfg.prompt_size if fcfg.prompt_mlp_type == "clipcap" else fcfg.map_size[-1]
 
 
-def _fusion_layer(p, x, attn_mask, streams, masks, cfg, fcfg, fused, add_ner_ffn, seed):
+def _fusion_layer(p, x, attn_mask, streams, masks, cfg, fcfg, fused, add_ner_ffn, seed, tp):
     return fusion_encoder_layer_fwd(p, x, attn_mask, streams, masks, cfg, fcfg, fused,
-                                    add_ner_ffn, RngStream(seed))
+                                    add_ner_ffn, RngStream(seed), tp)
 
 
 def mm_encoder_fwd(params: Params, input_ids, attention_mask, image_features,
                    cfg: BartConfig, fcfg: FusionConfig, *, face_features=None,
                    face_mask=None, name_ids=None, name_mask=None,
                    add_ner_ffn: bool = True, dtype=torch.float32,
-                   dropout_rng: int | None = None, remat: bool = False) -> dict[str, Any]:
+                   dropout_rng: int | None = None, remat: bool = False,
+                   tp: ModelShard | None = None) -> dict[str, Any]:
     """Modified BartEncoder.forward -> {"last_hidden", "img", "ner", "face"}.
     `dropout_rng` seeds dropout (None: none); `remat` recomputes each layer
-    in the backward (models/bart.run_layer)."""
+    in the backward (models/bart.run_layer); `tp` runs a model rank's shard."""
     enc = params["encoder"]
     bsz, src_len = input_ids.shape
     dev = input_ids.device
@@ -179,13 +185,13 @@ def mm_encoder_fwd(params: Params, input_ids, attention_mask, image_features,
     else:
         masks["img_ner"] = expand_mask(torch.ones(bsz, plen, dtype=dtype, device=dev),
                                        src_len, dtype)
-    streams["img"] = map_image_prompt(enc, image_features, cfg, fcfg).to(dtype)
+    streams["img"] = map_image_prompt(enc, image_features, cfg, fcfg, tp).to(dtype)
     attn_mask = expand_mask(attention_mask, dtype=dtype)
     fused_set = set(fcfg.fusion_layers)
     for i, p in enumerate(enc["layers"]):
         x, streams = B.run_layer(_fusion_layer, remat, p, x, attn_mask, streams, masks, cfg,
                                  fcfg, i in fused_set, add_ner_ffn,
-                                 B.layer_seed(dropout_rng, i))
+                                 B.layer_seed(dropout_rng, i), tp)
     return {"last_hidden": x, "img": streams.get("img"), "ner": streams.get("ner"),
             "face": streams.get("face")}
 
@@ -254,10 +260,10 @@ def _fused_encoder_prologue(params: Params, input_ids, attention_mask, image_fea
 
     img_states, ner_states = [], []
     for p in layers:
-        img = _residual_ffn(p["img_up"], p["img_down"], p["img_layer_norm"], img, act, cfg)
+        img = B.residual_ffn(p["img_up"], p["img_down"], p["img_layer_norm"], img, act, cfg)
         if not fcfg.only_image:
-            face = _residual_ffn(p["face_up"], p["face_down"], p["face_layer_norm"], face, act,
-                                 cfg)
+            face = B.residual_ffn(p["face_up"], p["face_down"], p["face_layer_norm"], face, act,
+                                  cfg)
             h = mha(p["self_attn_img_name"], ner, key_value=torch.cat([face, ner], dim=1),
                     mask=fn_mask_bias, num_heads=cfg.encoder_attention_heads)
             ner = layernorm(p["img_name_attn_layer_norm"], ner + h)
@@ -348,7 +354,8 @@ def mm_forward(params: Params, input_ids, attention_mask, decoder_input_ids, ima
                cfg: BartConfig, fcfg: FusionConfig, *, face_features=None, face_mask=None,
                name_ids=None, name_mask=None, add_ner_ffn: bool = True, dtype=torch.float32,
                dropout_rng: int | None = None, remat: bool = False,
-               allow_fused_encoder: bool = True, device=None) -> dict[str, Any]:
+               allow_fused_encoder: bool = True, device=None,
+               tp: ModelShard | None = None) -> dict[str, Any]:
     """BartForMultiModalGeneration.forward, teacher-forced: multimodal
     encoder, BART decoder, tied LM head + final_logits_bias ->
     {"logits", "decoder_hidden", "encoder_hidden", "hidden_states_img",
@@ -360,7 +367,9 @@ def mm_forward(params: Params, input_ids, attention_mask, decoder_input_ids, ima
     only when allow_fused_encoder is true, there is no dropout and no remat,
     and the config is eligible. Its kernels have no backward: a
     differentiated forward passes allow_fused_encoder=False, as JAX
-    training does, or runs with dropout or remat."""
+    training does, or runs with dropout or remat. `tp` (a model rank's
+    shard of the tree, core/tensor_parallel) runs the layer-by-layer
+    encoder."""
     dev = resolve_device(device)
     params = tree_to(params, dev)
     (input_ids, attention_mask, decoder_input_ids, image_features, face_features, face_mask,
@@ -368,15 +377,15 @@ def mm_forward(params: Params, input_ids, attention_mask, decoder_input_ids, ima
         input_ids, attention_mask, decoder_input_ids, image_features, face_features, face_mask,
         name_ids, name_mask))
     rng_e, rng_d = split(dropout_rng) if dropout_rng is not None else (None, None)
-    fused = (allow_fused_encoder and dropout_rng is None and not remat
+    fused = (allow_fused_encoder and dropout_rng is None and not remat and tp is None
              and fused_encoder_eligible(fcfg, cfg, add_ner_ffn))
     enc_fwd = mm_encoder_fwd_fused if fused else mm_encoder_fwd
-    enc_kw = {} if fused else dict(dropout_rng=rng_e, remat=remat)
+    enc_kw = {} if fused else dict(dropout_rng=rng_e, remat=remat, tp=tp)
     enc_out = enc_fwd(params, input_ids, attention_mask, image_features, cfg, fcfg,
                       face_features=face_features, face_mask=face_mask, name_ids=name_ids,
                       name_mask=name_mask, add_ner_ffn=add_ner_ffn, dtype=dtype, **enc_kw)
     dec_out = B.decoder_fwd(params, decoder_input_ids, enc_out["last_hidden"], attention_mask,
-                            cfg, dtype, dropout_rng=rng_d, remat=remat)
+                            cfg, dtype, dropout_rng=rng_d, remat=remat, tp=tp)
     return {"logits": B.lm_logits(params, dec_out), "decoder_hidden": dec_out,
             "encoder_hidden": enc_out["last_hidden"], "hidden_states_img": enc_out["img"],
             "hidden_states_ner": enc_out["ner"], "hidden_states_face": enc_out["face"]}

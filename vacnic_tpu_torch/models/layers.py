@@ -12,7 +12,12 @@ layer, site), as JAX's `fold_in` does. Each site draws its mask from a
 generator made for it from that seed alone, so a layer recomputed under
 `torch.utils.checkpoint` draws the masks of the forward that ran. A
 `RowShardSeed` (the data-parallel training step's) makes a rank's dropout
-draw its rows of the global batch's mask.
+draw its rows of the global batch's mask, a `ColShardSeed` (the
+tensor-parallel step's) its columns of a cut activation's.
+
+Tensor parallelism (`tp`, a core/tensor_parallel.ModelShard; None is the
+one-process path): `column_linear` and `row_linear` are the Megatron pair,
+and `mha` runs this rank's heads, read from the shard's width.
 """
 
 from __future__ import annotations
@@ -21,6 +26,12 @@ from typing import Any, Callable
 
 import torch
 
+from vacnic_tpu_torch.core.tensor_parallel import (
+    ModelShard,
+    column_slice,
+    copy_to_model_parallel,
+    reduce_from_model_parallel,
+)
 from vacnic_tpu_torch.kernels.flash_attn import flash_attention, flash_eligible
 from vacnic_tpu_torch.kernels.primitives import differentiated
 
@@ -76,6 +87,33 @@ class RowShardSeed(int):
         return obj
 
 
+class ColShardSeed(RowShardSeed):
+    """A dropout seed for one model rank's slice of a cut activation: its
+    dimension `dim` is cut into `col_world` equal slices and this rank holds
+    slice `col_rank`. `dropout` under it draws the mask of the whole
+    activation and keeps that slice, so each column gets its one-process
+    mask; the rows stay those of `seed`'s RowShardSeed, if it is one. Made
+    at the call site (`column_seed`) and consumed there: `fold_in` keeps the
+    row shard only."""
+
+    def __new__(cls, seed: int, col_rank: int, col_world: int, dim: int = -1):
+        if not 0 <= col_rank < col_world:
+            raise ValueError(f"ColShardSeed: rank {col_rank} of {col_world}")
+        rank, world = (seed.rank, seed.world) if isinstance(seed, RowShardSeed) else (0, 1)
+        obj = super().__new__(cls, seed, rank, world)
+        obj.col_rank, obj.col_world, obj.dim = col_rank, col_world, dim
+        return obj
+
+
+def column_seed(seed: int | None, tp: ModelShard | None, dim: int = -1) -> int | None:
+    """The seed of a dropout on an activation cut over the model group along
+    `dim` (the output of a column-parallel product); `seed` itself without
+    tensor parallelism or without dropout."""
+    if seed is None or tp is None:
+        return seed
+    return ColShardSeed(seed, tp.rank, tp.size, dim)
+
+
 def fold_in(seed: int, data: int) -> int:
     """A new 63-bit seed from `seed` and the integer `data` (the port's
     jax.random.fold_in); a RowShardSeed stays one, of the same shard."""
@@ -97,7 +135,8 @@ def dropout(x: torch.Tensor, rate: float, seed: int | None) -> torch.Tensor:
     16-bit integers compared against round(keep * 65536), so the keep
     probability is that threshold over 65536 (0.899994 at rate 0.1). The
     bits come from a generator on x's device seeded with `seed` alone; under
-    a RowShardSeed, the rank's rows of the global batch's bits."""
+    a RowShardSeed, the rank's rows of the global batch's bits, under a
+    ColShardSeed also its slice of the whole activation's."""
     if seed is None or rate <= 0.0:
         return x
     keep = 1.0 - rate
@@ -106,10 +145,18 @@ def dropout(x: torch.Tensor, rate: float, seed: int | None) -> torch.Tensor:
     g.manual_seed(int(seed))
     n = x.shape[0]
     world = seed.world if isinstance(seed, RowShardSeed) else 1
-    bits = torch.randint(0, 65536, (n * world, *x.shape[1:]), generator=g, device=x.device,
-                         dtype=torch.int32)
+    shape = [n * world, *x.shape[1:]]
+    col = isinstance(seed, ColShardSeed)
+    if col:
+        dim = seed.dim % x.dim()
+        if dim == 0:
+            raise ValueError("ColShardSeed: the leading (row) dimension is not a column")
+        shape[dim] *= seed.col_world
+    bits = torch.randint(0, 65536, shape, generator=g, device=x.device, dtype=torch.int32)
     if world > 1:
         bits = bits[seed.rank * n:(seed.rank + 1) * n]
+    if col:
+        bits = bits.narrow(dim, seed.col_rank * x.shape[dim], x.shape[dim])
     return torch.where(bits < thresh, x / keep, torch.zeros_like(x))
 
 
@@ -135,6 +182,32 @@ def linear(p: Params, x: torch.Tensor) -> torch.Tensor:
     """x @ kernel (+ bias) with the kernel rounded to x.dtype first, a
     float32 accumulator, cast back to x.dtype."""
     y = torch.matmul(x.float(), p["kernel"].to(x.dtype).float())
+    if "bias" in p:
+        y = y + p["bias"].float()
+    return y.to(x.dtype)
+
+
+def column_linear(p: Params, x: torch.Tensor, tp: ModelShard | None = None) -> torch.Tensor:
+    """`linear` with this rank's output columns of the kernel and its slice
+    of the (replicated) bias: the rank's columns of the one-process output.
+    x is whole on every rank; the caller passes it through
+    copy_to_model_parallel once for all the products that read it."""
+    if tp is None:
+        return linear(p, x)
+    y = torch.matmul(x.float(), p["kernel"].to(x.dtype).float())
+    if "bias" in p:
+        y = y + column_slice(p["bias"], tp).float()
+    return y.to(x.dtype)
+
+
+def row_linear(p: Params, x: torch.Tensor, tp: ModelShard | None = None) -> torch.Tensor:
+    """`linear` of a cut input x (this rank's columns) with this rank's input
+    rows of the kernel: the f32 partial products are summed over the model
+    group, then the bias is added once and the sum rounded once to x.dtype,
+    as the one-process product is."""
+    if tp is None:
+        return linear(p, x)
+    y = reduce_from_model_parallel(torch.matmul(x.float(), p["kernel"].to(x.dtype).float()), tp)
     if "bias" in p:
         y = y + p["bias"].float()
     return y.to(x.dtype)
@@ -221,17 +294,28 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def mha(p: Params, hidden: torch.Tensor, key_value: torch.Tensor | None = None,
-        mask: torch.Tensor | None = None, *, num_heads: int) -> torch.Tensor:
+        mask: torch.Tensor | None = None, *, num_heads: int,
+        tp: ModelShard | None = None) -> torch.Tensor:
     """HF BartAttention without a cache: q scaled by head_dim**-0.5;
-    key_value=None is self-attention."""
+    key_value=None is self-attention. `num_heads` is the layer's whole head
+    count, which fixes head_dim = d // num_heads; the heads run here are as
+    many as the q projection's columns hold (all of them in one process, a
+    model rank's share of them under `tp`: q/k/v column-parallel, out_proj
+    row-parallel)."""
     d = hidden.shape[-1]
-    scaling = (d // num_heads) ** -0.5
-    q = _split_heads(linear(p["q_proj"], hidden) * scaling, num_heads)
-    src = hidden if key_value is None else key_value
-    k = _split_heads(linear(p["k_proj"], src), num_heads)
-    v = _split_heads(linear(p["v_proj"], src), num_heads)
+    head_dim = d // num_heads
+    width = p["q_proj"]["kernel"].shape[1]
+    if width % head_dim:
+        raise ValueError(f"mha: {width} projection columns are not whole heads of {head_dim}")
+    heads = width // head_dim
+    scaling = head_dim ** -0.5
+    hidden = copy_to_model_parallel(hidden, tp)
+    src = hidden if key_value is None else copy_to_model_parallel(key_value, tp)
+    q = _split_heads(column_linear(p["q_proj"], hidden, tp) * scaling, heads)
+    k = _split_heads(column_linear(p["k_proj"], src, tp), heads)
+    v = _split_heads(column_linear(p["v_proj"], src, tp), heads)
     out = attention_core(q, k, v, mask)
-    return linear(p["out_proj"], _merge_heads(out))
+    return row_linear(p["out_proj"], _merge_heads(out), tp)
 
 
 def normal_(shape, generator: torch.Generator, std: float = 0.02,

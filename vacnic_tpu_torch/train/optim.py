@@ -16,6 +16,12 @@ place: each operation elementwise, in optax's order, over lists of leaves
 (torch._foreach_*), which round as the same operation leaf by leaf does.
 Its state is a tree of tensors (and the step count) that a checkpoint saves
 as it is.
+
+Under tensor parallelism the update runs on each rank's shards (the moments
+take their shapes; everything but the norm is elementwise), and the norms
+(`global_norm(cut=, tp=)`: the clipping's and the step's metric) sum the cut
+leaves' squares over the model group and count the replicated leaves once,
+so every rank clips by the one-process norm.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ import numpy as np
 import torch
 
 from vacnic_tpu_torch.core.config import TrainConfig
+from vacnic_tpu_torch.core.tensor_parallel import ModelShard, all_reduce_
 from vacnic_tpu_torch.core.tree import leaves_with_path, tree_map
 
 CLIP_KEYS = ("clip", "clip_text")
@@ -64,11 +71,23 @@ def trainable(leaf: Any) -> bool:
     return isinstance(leaf, torch.Tensor) and leaf.is_floating_point()
 
 
-def global_norm(tensors) -> torch.Tensor:
+def global_norm(tensors, cut=None, tp: ModelShard | None = None) -> torch.Tensor:
     """sqrt of the sum of squares over every tensor given (None skipped):
-    each tensor's norm in one list call, then the norm of those."""
-    norms = torch._foreach_norm([t.float() for t in tensors if t is not None])
-    return torch.linalg.vector_norm(torch.stack(norms))
+    each tensor's norm in one list call, then the norm of those. Under `tp`,
+    `cut[i]` says that tensors[i] is this rank's slice of a cut leaf: those
+    squares are summed over the model group, the others counted once."""
+    if tp is None:
+        norms = torch._foreach_norm([t.float() for t in tensors if t is not None])
+        return torch.linalg.vector_norm(torch.stack(norms))
+    dev = next(t.device for t in tensors if t is not None)
+    sq = []
+    for part in (True, False):
+        ts = [t.float() for t, c in zip(tensors, cut) if t is not None and c == part]
+        sq.append(torch.linalg.vector_norm(torch.stack(torch._foreach_norm(ts))).square()
+                  if ts else torch.zeros((), device=dev))
+    if tp.group is not None:
+        all_reduce_(sq[0], tp.group)
+    return torch.sqrt(sq[0] + sq[1])
 
 
 _add, _mul = torch._foreach_add, torch._foreach_mul
@@ -99,18 +118,19 @@ class _Group:
         return {"count": 0, "mu": zeros(self.mu_dtype), "nu": zeros(self.nu_dtype)}
 
     @torch.no_grad()
-    def step_(self, params, grads, state) -> None:
+    def step_(self, params, grads, state, cut=None, tp: ModelShard | None = None) -> None:
         c = self.cfg
         b1, b2, eps, wd = c.adam_b1, c.adam_b2, c.adam_eps, c.weight_decay
         mus = leaves_with_path(state["mu"])
         nus = leaves_with_path(state["nu"])
         ps = [p for _, p in leaves_with_path(params)]
-        rows = [(p, g, m, n) for p, g, (_, m), (_, n) in zip(ps, grads, mus, nus)
-                if m is not None]
+        cut = cut or [False] * len(ps)
+        member = [m is not None for _, m in mus]
         rows = [(p, torch.zeros_like(p) if g is None else g.float(), m, n)
-                for p, g, m, n in rows]
+                for p, g, (_, m), (_, n), k in zip(ps, grads, mus, nus, member) if k]
         if self.clip_norm is not None:
-            g_norm = global_norm([g for _, g, _, _ in rows])
+            g_norm = global_norm([g for _, g, _, _ in rows],
+                                 [c_ for c_, k in zip(cut, member) if k], tp)
             keep = g_norm < self.clip_norm
             rows = [(p, torch.where(keep, g, (g / g_norm) * self.clip_norm), m, n)
                     for p, g, m, n in rows]
@@ -155,10 +175,12 @@ class Optimizer:
             state["clip"] = self.clip.init(params, is_clip)
         return state
 
-    def step_(self, params, grads: list, state: dict) -> None:
-        self.bart.step_(params, grads, state["bart"])
+    def step_(self, params, grads: list, state: dict, cut=None,
+              tp: ModelShard | None = None) -> None:
+        """`cut` and `tp` as global_norm's, for the clipping's norm."""
+        self.bart.step_(params, grads, state["bart"], cut, tp)
         if self.clip is not None:
-            self.clip.step_(params, grads, state["clip"])
+            self.clip.step_(params, grads, state["clip"], cut, tp)
 
 
 def make_optimizer(cfg: TrainConfig, num_training_steps: int, train_clip: bool = False,

@@ -26,6 +26,17 @@ gradient norm, the clipping and the update. So the step equals the
 one-process step on the global batch up to the order of sums, the
 invariant JAX's sharded step holds by construction. `fit` and `cli train`
 stay one process, as the JAX package's `fit` has no mesh.
+
+Tensor parallel: `make_train_step(..., model_group=)` (the dp x tp step of
+JAX's `__graft_entry__._dryrun_body`, its groups from
+core/distributed.grid_groups). `init_fn` keeps each rank's shard of the
+params and the teacher by core/mesh's rule (core/tensor_parallel.
+shard_params); the forwards take the rank's `ModelShard` and issue the
+model group's collectives themselves; every gradient leaf, shard or
+whole, is then summed over the data group only (a replicated leaf's
+gradient is already the same on every model rank); the gradient norm and
+the clipping sum the cut leaves' squares over the model group. A data group
+of one process is no group.
 """
 
 from __future__ import annotations
@@ -38,6 +49,7 @@ import torch
 import torch.distributed as dist
 from torch.profiler import record_function
 
+from vacnic_tpu_torch.core import tensor_parallel as TP
 from vacnic_tpu_torch.core.config import VacnicConfig, dtype_of
 from vacnic_tpu_torch.core.device import as_tensor, resolve_device
 from vacnic_tpu_torch.core.distributed import local_batch_slice
@@ -112,11 +124,12 @@ def get_hidden_states_ner(model_params: Params, src_ids, src_mask, img_feat, nam
     return out["ner"]
 
 
-def _image_features(params: Params, feed: dict, cfg: VacnicConfig, dtype) -> torch.Tensor:
+def _image_features(params: Params, feed: dict, cfg: VacnicConfig, dtype,
+                    tp: TP.ModelShard | None = None) -> torch.Tensor:
     if "image_cls" in feed:
         return feed["image_cls"]
     with torch.no_grad():  # frozen CLIP: torch.no_grad in the reference
-        return clip_vision_fwd(params["clip"], feed["pixels"], cfg.clip, dtype)[1]
+        return clip_vision_fwd(params["clip"], feed["pixels"], cfg.clip, dtype, tp)[1]
 
 
 def _mm_kwargs(feed: dict, fcfg) -> dict[str, Any]:
@@ -129,12 +142,13 @@ def _mm_kwargs(feed: dict, fcfg) -> dict[str, Any]:
 
 
 def compute_losses(params: Params, teacher: Params, batch: dict, cfg: VacnicConfig,
-                   dropout_rng: int | None, group=None
+                   dropout_rng: int | None, group=None, tp: TP.ModelShard | None = None
                    ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """The reference's loss composition -> (total, metrics). Runs on the
     device of params["model"]; the batch is moved there. With a process
     group, `batch` is this rank's rows and every term is its share of the
-    global batch's (train/losses)."""
+    global batch's (train/losses). With `tp`, params and teacher are this
+    model rank's shards and every term is whole on each model rank."""
     bart_cfg, fcfg, tcfg = cfg.bart, cfg.fusion, cfg.train
     dtype = dtype_of(tcfg.compute_dtype)
     dev = device_of(params["model"])
@@ -143,14 +157,14 @@ def compute_losses(params: Params, teacher: Params, batch: dict, cfg: VacnicConf
     src_ids, tgt_ids = feed["article_ids"], feed["caption_ids"]
     src_mask, tgt_mask = create_mask(src_ids), create_mask(tgt_ids)
     tgt_input = B.shift_tokens_right(tgt_ids, bart_cfg.pad_token_id, bart_cfg.eos_token_id)
-    img_feat_cls = _image_features(params, feed, cfg, dtype)
+    img_feat_cls = _image_features(params, feed, cfg, dtype, tp)
 
     # the differentiated forward: never the fused encoder (its kernels have
     # no backward), as in JAX
     out = F.mm_forward(params["model"], src_ids, src_mask, tgt_input, img_feat_cls, bart_cfg,
                        fcfg, dropout_rng=None if dropout_rng is None else fold_in(dropout_rng, 0),
                        dtype=dtype, remat=tcfg.grad_checkpoint, allow_fused_encoder=False,
-                       device=dev, **_mm_kwargs(feed, fcfg))
+                       device=dev, tp=tp, **_mm_kwargs(feed, fcfg))
 
     txt_loss = L.lm_cross_entropy(out["logits"], tgt_ids, bart_cfg.pad_token_id, group=group)
     metrics = {"txt_loss": txt_loss}
@@ -161,7 +175,8 @@ def compute_losses(params: Params, teacher: Params, batch: dict, cfg: VacnicConf
             t_pooled = feed["teacher_pooled"].float()
         else:
             with torch.no_grad():  # deterministic teacher: no dropout, no grad
-                t_out = B.bart_forward(teacher, src_ids, src_mask, tgt_input, bart_cfg, dtype)
+                t_out = B.bart_forward(teacher, src_ids, src_mask, tgt_input, bart_cfg, dtype,
+                                       tp=tp)
                 t_pooled = L.l2_normalize(L.pool(t_out["decoder_hidden"].float(), tgt_mask))
             if tcfg.teacher_cache:
                 metrics["teacher_pooled"] = t_pooled  # popped by the loop before logging
@@ -181,7 +196,8 @@ def compute_losses(params: Params, teacher: Params, batch: dict, cfg: VacnicConf
                 aux = F.mm_encoder_fwd(
                     params["model"], src_ids, src_mask, img_feat_cls, bart_cfg, fcfg,
                     face_features=feed["face_emb"], face_mask=face_mask_from_emb(feed["face_emb"]),
-                    name_ids=flat_ids, name_mask=flat_mask, add_ner_ffn=False, dtype=dtype)
+                    name_ids=flat_ids, name_mask=flat_mask, add_ner_ffn=False, dtype=dtype,
+                    tp=tp)
             # exp(logit_scale) of the text tower when one is loaded, else of
             # the vision tree, else OpenAI CLIP's trained exp(ln 100) = 100
             scale_src = params.get("clip_text") or params.get("clip") or {}
@@ -203,9 +219,9 @@ def compute_losses(params: Params, teacher: Params, batch: dict, cfg: VacnicConf
                              "params['clip_text'] with clip_text_init or "
                              "convert_clip_text_openai; params['clip'] holds only the "
                              "vision tower")
-        img_emb = clip_image_embed(params["clip"], feed["pixels"], cfg.clip, dtype)
+        img_emb = clip_image_embed(params["clip"], feed["pixels"], cfg.clip, dtype, tp)
         txt_emb = clip_text_fwd(params["clip_text"], feed["caption_ids_clip"], dtype,
-                                num_heads=cfg.clip.text_heads)
+                                num_heads=cfg.clip.text_heads, tp=tp)
         clip_loss = L.clip_contrastive_loss(img_emb, txt_emb,
                                             torch.exp(params["clip_text"]["logit_scale"]),
                                             group=group)
@@ -265,13 +281,15 @@ def _all_reduce_sum(tensors: list, group) -> list:
 
 
 def loss_and_grads(params: Params, teacher: Params, batch: dict, cfg: VacnicConfig,
-                   dropout_rng: int | None, group=None):
+                   dropout_rng: int | None, group=None, tp: TP.ModelShard | None = None):
     """-> (metrics, grads): the detached metrics of compute_losses and the
     gradient of the total loss for each leaf of `params` (None where the
     leaf is not trained). With a group, of the global batch: this rank's
     rows are taken from `batch` (the global one), its dropout draws its rows
     of the global masks, and the gradients and the metrics but
-    "teacher_pooled" (this rank's rows) come back summed over the ranks."""
+    "teacher_pooled" (this rank's rows) come back summed over the ranks.
+    With `tp` (the model group's), params and teacher are this rank's
+    shards, and so are the gradients of the cut leaves."""
     leaves = [p for _, p in leaves_with_path(params)]
     wrt = [trainable(p) and p.requires_grad for p in leaves]
     if group is not None:
@@ -280,7 +298,8 @@ def loss_and_grads(params: Params, teacher: Params, batch: dict, cfg: VacnicConf
             dropout_rng = RowShardSeed(dropout_rng, dist.get_rank(group),
                                        dist.get_world_size(group))
     with record_function("train_step.forward"):
-        loss, metrics = compute_losses(params, teacher, batch, cfg, dropout_rng, group=group)
+        loss, metrics = compute_losses(params, teacher, batch, cfg, dropout_rng, group=group,
+                                       tp=tp)
     with record_function("train_step.backward"):
         got = iter(torch.autograd.grad(loss, [p for p, w in zip(leaves, wrt) if w],
                                        allow_unused=True))
@@ -295,8 +314,23 @@ def loss_and_grads(params: Params, teacher: Params, batch: dict, cfg: VacnicConf
     return metrics, grads
 
 
+def heads_of(cfg: VacnicConfig):
+    """path of an attention in the params or the teacher tree -> its head
+    count (core/tensor_parallel.check_heads)."""
+    def heads(path: tuple) -> int:
+        if path[0] == "clip":
+            return cfg.clip.heads
+        if path[0] == "clip_text":
+            return cfg.clip.text_heads
+        if "decoder" in path:
+            return cfg.bart.decoder_attention_heads
+        return cfg.bart.encoder_attention_heads
+
+    return heads
+
+
 def make_train_step(cfg: VacnicConfig, num_training_steps: int, mu_dtype=None, nu_dtype=None,
-                    device=None, group=None):
+                    device=None, group=None, model_group=None):
     """-> (init_fn, step_fn). init_fn(params, teacher, rng: int) moves the
     trees to `device` ("cuda" by default; leaves already there are kept, not
     copied) and marks params' floating leaves as requiring grad.
@@ -311,13 +345,28 @@ def make_train_step(cfg: VacnicConfig, num_training_steps: int, mu_dtype=None, n
     own device (`core/distributed.initialize`). Every rank calls step_fn
     with the same global batch; the step is that batch's one-process step
     (module docstring). init_fn then also broadcasts the first rank's trees
-    to the others, in place, so every rank starts from the same weights."""
+    to the others, in place, so every rank starts from the same weights.
+
+    `model_group`: the process's model group of a dp x tp grid (`group` is
+    then its data group). init_fn takes the whole trees, the same on every
+    rank of a model group (made from one seed), keeps this rank's shards
+    (refusing a group size that does not divide an attention's heads or a
+    cut dimension) and broadcasts the shards over the data group; the
+    state then holds shards, which `core/tensor_parallel.gather_params`
+    makes whole again. A group of one process is no group."""
     tx = make_optimizer(cfg.train, num_training_steps, train_clip=not cfg.train.freeze_clip,
                         mu_dtype=mu_dtype, nu_dtype=nu_dtype)
     dev = resolve_device(device)
+    if group is not None and dist.get_world_size(group) == 1:
+        group = None
+    tp = TP.model_shard(model_group)
 
     def init_fn(params: Params, teacher: Params, rng: int) -> TrainState:
         params, teacher = tree_to(params, dev), tree_to(teacher, dev)
+        if tp is not None:
+            for tree in (params, teacher):
+                TP.check_heads(tree, tp.size, heads_of(cfg))
+            params, teacher = TP.shard_params(params, tp), TP.shard_params(teacher, tp)
         if group is not None:
             src = dist.get_global_rank(group, 0)
             with torch.no_grad():
@@ -333,10 +382,13 @@ def make_train_step(cfg: VacnicConfig, num_training_steps: int, mu_dtype=None, n
     def step_fn(state: TrainState, batch: dict):
         rng, dropout_rng = split(state.rng)
         metrics, grads = loss_and_grads(state.params, state.teacher, batch, cfg, dropout_rng,
-                                        group)
+                                        group, tp)
+        cut = [TP.is_cut(path, p) for path, p in leaves_with_path(state.params)] if tp else None
+        # a leaf without a gradient counts as 0; under tp the model group's sum
+        with record_function("train_step.all_reduce" if tp else "train_step.optimizer"):
+            metrics["grad_norm"] = global_norm(grads, cut, tp)
         with record_function("train_step.optimizer"):
-            metrics["grad_norm"] = global_norm(grads)  # a leaf without a gradient counts as 0
-            tx.step_(state.params, grads, state.opt_state)
+            tx.step_(state.params, grads, state.opt_state, cut, tp)
         state.step += 1
         state.rng = rng
         return state, metrics
