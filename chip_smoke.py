@@ -3276,8 +3276,9 @@ def dp_step_worker(rank: int, world: int, work_dir: str, timeout_s: float) -> No
     on its device and checks equal across the world). A case gives the
     config, `steps` steps (their metrics), and with `grads` first one
     loss_and_grads at step 1's dropout seed (the reduced gradients, the
-    cut ones gathered whole). Under a model group also: "tp" (the storage
-    bytes of the rank's params against the sum of its shard shapes, whether
+    cut ones gathered whole; host copies on rank 0 only), freed before the
+    steps. Under a model group also: "tp" (the storage bytes of the rank's
+    params against the sum of its shard shapes, whether
     every replicated leaf's gradient is bit-identical across the model
     ranks (with `grads`), whether gather_params of the teacher gives back
     the whole teacher bit for bit), the named `leaves` gathered after the
@@ -3293,7 +3294,6 @@ def dp_step_worker(rank: int, world: int, work_dir: str, timeout_s: float) -> No
 
     from vacnic_tpu_torch.core import distributed as D
     from vacnic_tpu_torch.core import tensor_parallel as TP
-    from vacnic_tpu_torch.core.mesh import param_dim
     from vacnic_tpu_torch.core.tree import leaves_with_path, tree_map
     from vacnic_tpu_torch.kernels import primitives as K
     from vacnic_tpu_torch.models.layers import split
@@ -3352,9 +3352,6 @@ def dp_step_worker(rank: int, world: int, work_dir: str, timeout_s: float) -> No
                                      leaves_with_path(teacher), leaves_with_path(whole)))}
                 del whole
             del params, teacher
-            if dev.type == "cuda":
-                torch.cuda.empty_cache()
-                torch.cuda.reset_peak_memory_stats(dev)
             if case.get("grads"):
                 m, grads = TT.loss_and_grads(state.params, state.teacher, batch, cfg,
                                              split(state.rng)[1], data_group, tp)
@@ -3366,12 +3363,17 @@ def dp_step_worker(rank: int, world: int, work_dir: str, timeout_s: float) -> No
                     parts = TP.all_gather(rep, tp.group)
                     out["tp"]["replicated_grads_agree"] = all(torch.equal(parts[0], q)
                                                               for q in parts[1:])
-                    grads = [torch.cat(TP.all_gather(g, tp.group), dim=param_dim(p, t))
-                             if g is not None and c else g
-                             for g, c, (p, t) in zip(grads, cut, paths)]
-                out["grads"] = [None if g is None else g.cpu() for g in grads]
+                    del rep, parts
+                    grads = [None if g is None else TP.gather_leaf(p, g, tp)
+                             for g, (p, _) in zip(grads, paths)]
+                    del paths  # it holds this case's parameters
+                out["grads"] = [None if g is None or rank else g.cpu() for g in grads]
                 out["grad_metrics"] = {k: float(v) for k, v in m.items()
                                        if k != "teacher_pooled"}
+                del grads, m
+            if dev.type == "cuda":  # the steps' peak: of the state and the steps alone
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats(dev)
             step_ms = []
             for _ in range(case["steps"]):
                 sync()
@@ -3415,18 +3417,12 @@ def _whole_leaf(params, teacher, name: str, tp):
     model rank's trees, gathered whole over the model group where it is
     cut (a collective: every rank of the group calls it); with tp None, of
     whole trees."""
-    import torch
-
     from vacnic_tpu_torch.core import tensor_parallel as TP
-    from vacnic_tpu_torch.core.mesh import param_dim
 
     head, _, rest = name.partition("/")
     tree, name = (teacher, rest) if head == "teacher" else (params, name)
-    leaf = _at(tree, name).detach()
     path = tuple(int(k) if k.isdigit() else k for k in name.split("/"))
-    if tp is None or not TP.is_cut(path, leaf):
-        return leaf
-    return torch.cat(TP.all_gather(leaf, tp.group), dim=param_dim(path, leaf))
+    return TP.gather_leaf(path, _at(tree, name).detach(), tp)
 
 
 def grid_backend(device: str, world: int) -> str:
@@ -3656,17 +3652,17 @@ def run_mesh_cli(cfg, params, mesh, gpu: str) -> None:
 def run_mesh_train(gpu: str) -> None:
     """(4) of the mesh phase: the data-parallel training step in a group of
     torch.cuda.device_count() NCCL ranks (run_dp_group: spawned processes,
-    one card each) at full_train() widths cut to DATA_FIT_LAYERS + DATA_FIT_LAYERS
-    layers, as released otherwise (bf16 over f32, remat, dropout 0.1, CoLaM
-    with the teacher's forward, SECLA, CLIP frozen on pixels), batch 32,
-    random f32 trees from seed 0, one step; its loss terms equal to a
-    one-process step on the same global batch within 2e-5 (the CPU tests'
-    tolerance; bit for bit on one card, 1.1e-5 relative at most over four
-    H100s at 700 W: a rank's rows meet products of another batch size), the
-    gradient norm
-    within 2e-3: the bf16 gradients of each rank's rows round before the
-    ranks' sum (2e-4 seen over 2 CPU ranks), and the backward's atomics sum
-    in another order from run to run."""
+    one card each; on one card two ranks sharing it over gloo, so that the
+    group's collectives run there too) at full_train() widths cut to
+    DATA_FIT_LAYERS + DATA_FIT_LAYERS layers, as released otherwise (bf16
+    over f32, remat, dropout 0.1, CoLaM with the teacher's forward, SECLA,
+    CLIP frozen on pixels), batch 32, random f32 trees from seed 0, one
+    step; its loss terms equal to a one-process step on the same global
+    batch within 2e-5 (the CPU tests' tolerance; 1.1e-5 relative at most
+    over four H100s at 700 W: a rank's rows meet products of another batch
+    size), the gradient norm within 2e-3: the bf16 gradients of each rank's
+    rows round before the ranks' sum (2e-4 seen over 2 CPU ranks), and the
+    backward's atomics sum in another order from run to run."""
     import shutil
     import tempfile
 
@@ -3693,7 +3689,8 @@ def run_mesh_train(gpu: str) -> None:
                       "clip": clip_vision_init(g, cfg.clip, device="cuda")}, "cpu")
     teacher = tree_to(bart_init(g, cfg.bart, device="cuda"), "cpu")
     batch = {k: v.numpy() for k, v in synthetic_batch(cfg, bsz, seed=0, with_pixels=True).items()}
-    world = torch.cuda.device_count()
+    world = max(2, torch.cuda.device_count())
+    backend = grid_backend("cuda", world)
     work = tempfile.mkdtemp(prefix="mesh_dp_")
     try:
         t0 = time.perf_counter()
@@ -3708,9 +3705,10 @@ def run_mesh_train(gpu: str) -> None:
     _, m = step_fn(state, batch)
     want = {k: float(v) for k, v in m.items() if k != "teacher_pooled"}
     got = res["steps"][0]
-    log(f"mesh train: {world} NCCL rank(s), full_train() widths at {DATA_FIT_LAYERS} + "
-        f"{DATA_FIT_LAYERS} layers, batch {bsz} (each rank {bsz // world} rows): the group "
-        f"{group_s:.2f} s (spawn, NCCL, one step); its metrics {got}; one process {want} ({gpu})")
+    log(f"mesh train: {world} ranks on {torch.cuda.device_count()} card(s) over {backend}, "
+        f"full_train() widths at {DATA_FIT_LAYERS} + {DATA_FIT_LAYERS} layers, batch {bsz} "
+        f"(each rank {bsz // world} rows): the group {group_s:.2f} s (spawn, {backend}, one "
+        f"step); its metrics {got}; one process {want} ({gpu})")
     if set(got) != set(want):
         raise RuntimeError(f"mesh train: metrics {sorted(got)} vs {sorted(want)}")
     for k in want:
@@ -3804,24 +3802,92 @@ TP_LEAVES = ("model/decoder/layers/0/fc1/kernel", "model/decoder/layers/0/self_a
              "model/encoder/layers/0/img_layer_norm/scale",
              "teacher/encoder/layers/0/self_attn/q_proj/kernel",
              "teacher/decoder/layers/0/fc2/kernel", "teacher/shared/weight")
-TP_LEAF_TOL = 1e-2  # |update - one process's update| over |one process's update|, by norm
+# f32 levels, between the f32 readings and the bf16 control (PERF.md §6)
+TP_NORM_TOL = 1e-4  # the gradient norm, relative to 1 + |one process's|
+TP_LEAF_TOL = 1e-3  # |update - one process's update| over |one process's update|, by norm
+TP_GRAD_TOL = 1e-4  # |gradient - one process's| over the leaf's largest |gradient|
+# the bf16 witness: a bf16 tp step's whole gradient and loss terms no further from
+# the f32 one-process step than TP_BF16_RATIO times one bf16 process's, each
+# gradient leaf than TP_BF16_LEAF_RATIO times (read at full width: the whole
+# gradient 1.00-1.14x, a term at most 1.60x, a leaf at most 3.34x, where a
+# missing sum reads tens; PERF.md §6)
+TP_BF16_RATIO = 3.0
+TP_BF16_LEAF_RATIO = 6.0
 
 
-def tp_config(layers: int = TP_LAYERS):
+def tp_config(layers: int = TP_LAYERS, dtype: str = "float32"):
     """VacnicConfig.full_train() as released (batch 32, f32 trees, remat,
     dropout 0.1, CoLaM, SECLA, CLIP frozen on pixels), `layers` + `layers`,
-    but computed in f32: in bf16 a rank's products round at other points
-    than one process's (a row-parallel sum, another product shape), the
-    rare bf16 rounding that flips grows through the layers and SECLA's
-    large logits, and the loss terms part by up to 1.4e-3 (PERF.md §6),
-    where f32 holds the step to the mesh phase's 2e-5."""
+    computed in `dtype`. The phase holds the tp step to one process in f32:
+    in bf16 a rank's products sum in another order (narrower products, a
+    row-parallel sum), a bf16 rounding flips here and there, and SECLA's
+    loss moves by as much as bf16 itself moves it (PERF.md §6); bf16 is
+    held by bf16_witness instead."""
     from vacnic_tpu_torch.core.config import VacnicConfig
 
     cfg = VacnicConfig.full_train()
     return dataclasses.replace(
         cfg, bart=dataclasses.replace(cfg.bart, encoder_layers=layers, decoder_layers=layers),
         fusion=dataclasses.replace(cfg.fusion, fusion_layers=tuple(range(layers))),
-        train=dataclasses.replace(cfg.train, compute_dtype="float32"))
+        train=dataclasses.replace(cfg.train, compute_dtype=dtype))
+
+
+def _key_bias(path: tuple) -> bool:
+    """A key projection's bias: its gradient is zero but for rounding noise
+    (softmax ignores a shift of the scores)."""
+    return tuple(path[-2:]) == ("k_proj", "bias")
+
+
+def grad_errors(paths, got, want) -> dict:
+    """path -> max |got - want| over the largest |want| of the leaf (of a key
+    bias: of its attention's q/v/out leaves), for every leaf with a
+    gradient in `want`; `got` must have one exactly there."""
+    import torch
+
+    attn_max: dict = {}
+    for path, w in zip(paths, want):
+        if w is not None and not _key_bias(path):
+            attn_max[path[:-2]] = max(attn_max.get(path[:-2], 0.0), float(w.abs().max()))
+    out = {}
+    for path, g, w in zip(paths, got, want):
+        if (g is None) != (w is None) or (w is not None and g.shape != w.shape):
+            out[path] = float("inf")
+        elif w is not None:
+            scale = attn_max[path[:-2]] if _key_bias(path) else float(w.abs().max())
+            out[path] = float((g.float() - w.float()).abs().max()) / max(scale, 1e-30)
+    return out
+
+
+def bf16_witness(paths, g32, g16, t16, m32: dict, m16: dict, mt16: dict) -> dict:
+    """Whether a bf16 tensor-parallel step is rounding and not a fault: its
+    distance from the f32 one-process step (g32, m32) against one bf16
+    process's (g16, m16), the same trees, batch and dropout. Gradients by
+    norm, over every leaf ("all") and leaf by leaf (key biases left out:
+    their f32 gradient is noise around zero), each as (one bf16 process, tp
+    bf16); the loss terms and the gradient norm relative to 1 + |f32|.
+    "ok": the whole gradient and every term within TP_BF16_RATIO times one
+    bf16 process's distance (a term also within 2e-5), every leaf within
+    TP_BF16_LEAF_RATIO times."""
+    sq = [0.0] * 5  # |g32|^2, |g16|^2, |t16|^2, |g16 - g32|^2, |t16 - g32|^2 over every leaf
+    leaves = {}
+    for p, a, b, c in zip(paths, g32, g16, t16):
+        if a is None:
+            continue
+        a, b, c = a.double(), b.double(), c.double()
+        mine = [float(x.square().sum()) for x in (a, b, c, b - a, c - a)]
+        sq = [u + v for u, v in zip(sq, mine)]
+        if not _key_bias(p):
+            leaves[p] = ((mine[3] / max(mine[0], 1e-60)) ** 0.5,
+                         (mine[4] / max(mine[0], 1e-60)) ** 0.5)
+    out = {"all": ((sq[3] / sq[0]) ** 0.5, (sq[4] / sq[0]) ** 0.5), "leaves": leaves}
+    terms = {k: (m32[k], m16[k], mt16[k]) for k in m32}
+    terms["grad_norm"] = tuple(v ** 0.5 for v in sq[:3])
+    out["terms"] = {k: (abs(b - a) / (1 + abs(a)), abs(c - a) / (1 + abs(a)))
+                    for k, (a, b, c) in terms.items()}
+    out["ok"] = (out["all"][1] <= TP_BF16_RATIO * out["all"][0]
+                 and all(t <= TP_BF16_LEAF_RATIO * o for o, t in out["leaves"].values())
+                 and all(t <= TP_BF16_RATIO * o + 2e-5 for o, t in out["terms"].values()))
+    return out
 
 
 def tp_trees(device, cfg, seed: int = 0):
@@ -3848,53 +3914,73 @@ def tp_grids(cards: int) -> list[tuple[int, int]]:
     return [(1, cards)]
 
 
+def _one_process_grads(cfg, batch) -> tuple:
+    """One process's loss_and_grads at step 1's dropout seed on tp_trees(cfg),
+    as dp_step_worker's `grads` takes it -> (the state, (paths, host
+    gradients, metrics)); the caller goes on stepping the state or drops it."""
+    from vacnic_tpu_torch.core.tree import leaves_with_path
+    from vacnic_tpu_torch.models.layers import split
+    from vacnic_tpu_torch.train.train_step import loss_and_grads, make_train_step
+
+    params, teacher = tp_trees("cuda", cfg)
+    init_fn, step_fn = make_train_step(cfg, 100, device="cuda")
+    state = init_fn(params, teacher, cfg.train.seed)
+    m, grads = loss_and_grads(state.params, state.teacher, batch, cfg, split(state.rng)[1])
+    paths = [p for p, _ in leaves_with_path(state.params)]
+    host = [None if g is None else g.cpu() for g in grads]
+    return state, step_fn, (paths, host, {k: float(v) for k, v in m.items()
+                                          if k != "teacher_pooled"})
+
+
 def run_tp_phase(gpu: str) -> int:
     """The dp x tp training step (core/tensor_parallel, make_train_step(
     group=, model_group=)) at full width (tp_config(): full_train() at
     TP_LAYERS + TP_LAYERS layers, batch 32, dropout on, f32), against the
     one-process step on the same batch and trees. First the one process:
-    TP_STEPS steps (metrics, the step's ms and peak memory, the named
-    leaves), then its memory freed. Then one group of spawned processes
-    (run_dp_group; each rank makes the whole trees from the seed on its
-    card, checked equal across ranks, and keeps its shards) over every grid
-    of tp_grids: on one card two ranks sharing it over gloo (NCCL refuses
+    its gradients (loss_and_grads at step 1's seed), then TP_STEPS steps
+    (metrics, the step's ms and peak memory, the named leaves); then the
+    gradients of one bf16 process; each process's memory freed after it.
+    Then one group of spawned processes (run_dp_group; each rank makes the
+    whole trees from the seed on its card, checked equal across ranks, and
+    keeps its shards) over every grid of tp_grids, then a bf16 case on the
+    first grid: on one card two ranks sharing it over gloo (NCCL refuses
     two ranks a device; core/tensor_parallel stages gloo's CUDA tensors
     through host memory), on several cards NCCL. Gated for each grid: the
     loss terms of every step within 2e-5 (relative to 1 + |value|) of one
-    process, the gradient norm within 2e-3 (the mesh phase's levels); the
-    named leaves after the steps, gathered whole: the teacher's bit-identical
-    to one process's, the others' updates within TP_LEAF_TOL by norm; every
-    rank's parameter storage equal to the bytes of its shard shapes;
-    gather_params of the teacher bit-identical to the whole teacher;
-    flash_attention launched by the teacher on the head shards in every
-    rank's step; the decode after training (gather_params, then
-    generate_mm_sharded at batch 32 over a data mesh, rank 0) token- and
-    score-identical to generate_mm of the same tree. Readings: step ms,
-    samples/s and peak GB a rank against one process. -> flash_attention's
-    launches in rank 0's last step of the first grid."""
+    process, the gradient norm within TP_NORM_TOL; the named leaves after
+    the steps, gathered whole: the teacher's bit-identical to one
+    process's, the others' updates within TP_LEAF_TOL by norm; every rank's
+    parameter storage equal to the bytes of its shard shapes; gather_params
+    of the teacher bit-identical to the whole teacher; flash_attention
+    launched by the teacher on the head shards in every rank's step; the
+    decode after training (gather_params, then generate_mm_sharded at batch
+    32 over a data mesh, rank 0) token- and score-identical to generate_mm
+    of the same tree. On the first grid also its gradients: every
+    replicated leaf's bit-identical across the model ranks, every leaf
+    within TP_GRAD_TOL (grad_errors) and the loss terms within 2e-5 of one
+    process's. The bf16 case: bf16_witness. Readings: step ms, samples/s
+    and peak GB a rank against one process. -> flash_attention's launches
+    in rank 0's last step of the first grid."""
     import shutil
     import tempfile
 
     import numpy as np
     import torch
 
-    from vacnic_tpu_torch.core.tree import leaves_with_path
     from vacnic_tpu_torch.data.synthetic import synthetic_batch
     from vacnic_tpu_torch.kernels import primitives as K
-    from vacnic_tpu_torch.train.train_step import make_train_step
 
     t_phase = time.perf_counter()
-    cfg = tp_config()
+    cfg, cfg16 = tp_config(), tp_config(dtype="bfloat16")
     bsz = cfg.train.train_batch_size
     batch = {k: v.numpy() for k, v in synthetic_batch(cfg, bsz, seed=0, with_pixels=True).items()}
 
-    params, teacher = tp_trees("cuda", cfg)
-    before = {k: _whole_leaf(params, teacher, k, None).cpu().clone() for k in TP_LEAVES}
-    init_fn, step_fn = make_train_step(cfg, 100, device="cuda")
-    state = init_fn(params, teacher, cfg.train.seed)
-    del params, teacher
+    state, step_fn, (paths, one_grads, one_gm) = _one_process_grads(cfg, batch)
+    before = {k: _whole_leaf(state.params, state.teacher, k, None).cpu().clone()
+              for k in TP_LEAVES}
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    one_base = torch.cuda.memory_allocated() / 1e9
     one_steps, one_ms = [], []
     for _ in range(TP_STEPS):
         torch.cuda.synchronize()
@@ -3908,44 +3994,53 @@ def run_tp_phase(gpu: str) -> int:
     one_peak = torch.cuda.max_memory_allocated() / 1e9
     one_leaves = {k: _whole_leaf(state.params, state.teacher, k, None).cpu().clone()
                   for k in TP_LEAVES}
-    del state
+    del state, step_fn
+    torch.cuda.empty_cache()
+    state, step_fn, (_, one16_grads, one16_gm) = _one_process_grads(cfg16, batch)
+    del state, step_fn
     torch.cuda.empty_cache()
     log(f"tp: one process, full_train() widths at {TP_LAYERS} + {TP_LAYERS} layers, batch {bsz}: "
         f"step ms {[round(v, 1) for v in one_ms]}, {bsz / one_ms[-1] * 1e3:.2f} samples/s, "
-        f"peak {one_peak:.2f} GB, flash_attention {one_flash} launches a step; metrics "
+        f"peak {one_peak:.2f} GB ({one_base:.2f} GB held before the steps), "
+        f"flash_attention {one_flash} launches a step; metrics "
         f"{one_steps} ({gpu})")
 
     cards = torch.cuda.device_count()
     grids = tp_grids(cards)
     world = grids[0][0] * grids[0][1]
-    backend = grid_backend("cuda", world)
     decode = dict(batch=bsz, seed=1, dtype=torch.bfloat16)
+    cases = [dict(cfg=cfg, steps=TP_STEPS, grid=grid, leaves=TP_LEAVES, decode=decode,
+                  grads=i == 0) for i, grid in enumerate(grids)]
+    cases.append(dict(cfg=cfg16, steps=0, grid=grids[0], grads=True))
     work = tempfile.mkdtemp(prefix="tp_")
     try:
         t0 = time.perf_counter()
-        res = run_dp_group(world, dict(
-            device="cuda", backend=backend, build=(tp_trees, {"cfg": cfg}), rng=cfg.train.seed,
-            batch=batch, cases=[dict(cfg=cfg, steps=TP_STEPS, grid=grid, leaves=TP_LEAVES,
-                                     decode=decode) for grid in grids]), work, timeout_s=900)
+        res = run_dp_group(world, dict(device="cuda", build=(tp_trees, {"cfg": cfg}),
+                                       rng=cfg.train.seed, batch=batch, cases=cases),
+                           work, timeout_s=900)
         group_s = time.perf_counter() - t0
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    res, res16 = res[:-1], res[-1]
+    backend = grid_backend("cuda", world)
     log(f"tp: {world} spawned ranks on {cards} card(s), backend {backend}"
         + (" (CUDA tensors of the model group's collectives staged through host memory)"
            if backend == "gloo" else "") + f", grids {grids}: {group_s:.1f} s wall (spawn, "
-        f"every rank's trees, {TP_STEPS} steps a grid, gathers, decodes)")
+        f"every rank's trees, {TP_STEPS} steps a grid, gathers, decodes, the gradients of the "
+        f"first grid and of the bf16 case)")
+
+    def within(got: dict, want: dict, tag: str) -> list:
+        if set(got) != set(want):
+            return [f"{tag}: metrics {sorted(got)} vs {sorted(want)}"]
+        return [f"{tag}: {k} {got[k]!r} against {want[k]!r}" for k in want
+                if not (np.isfinite(got[k]) and abs(got[k] - want[k])
+                        <= (TP_NORM_TOL if k == "grad_norm" else 2e-5) * (1 + abs(want[k])))]
 
     failures = []
     for grid, r in zip(grids, res):
         tag = f"tp grid dp {grid[0]} x tp {grid[1]}"
         for i, (got, want) in enumerate(zip(r["steps"], one_steps)):
-            if set(got) != set(want):
-                failures.append(f"{tag} step {i}: metrics {sorted(got)} vs {sorted(want)}")
-                continue
-            for k in want:
-                tol = 2e-3 if k == "grad_norm" else 2e-5
-                if not (np.isfinite(got[k]) and abs(got[k] - want[k]) <= tol * (1 + abs(want[k]))):
-                    failures.append(f"{tag} step {i}: {k} {got[k]!r} against {want[k]!r}")
+            failures += within(got, want, f"{tag} step {i}")
         errs = {}
         for k in TP_LEAVES:
             g, w, b = r["leaves"][k], one_leaves[k], before[k]
@@ -3966,6 +4061,18 @@ def run_tp_phase(gpu: str) -> int:
             failures.append(f"{tag}: rank 0 holds {t['param_bytes']} parameter bytes against "
                             f"{t['shard_bytes']} of its shards; teacher gathered whole "
                             f"{t['teacher_gathered']}")
+        grad_line = ""
+        if "grads" in r:
+            failures += within(r["grad_metrics"], one_gm, f"{tag} gradients")
+            gerr = grad_errors(paths, r["grads"], one_grads)
+            worst = max(gerr, key=gerr.get)
+            if not t["replicated_grads_agree"]:
+                failures.append(f"{tag}: replicated leaves' gradients differ across model ranks")
+            failures += [f"{tag}: gradient of {'/'.join(map(str, p))} off by {e:.3e} of its "
+                         f"largest" for p, e in gerr.items() if not e <= TP_GRAD_TOL]
+            grad_line = (f"; gradients of {len(gerr)} leaves within {gerr[worst]:.2e} of the "
+                         f"largest (worst {'/'.join(map(str, worst))}), replicated ones "
+                         f"bit-identical across model ranks {t['replicated_grads_agree']}")
         flash = [q["flash_attention"] for q in r["ranks"]]
         if not all(flash):
             failures.append(f"{tag}: flash_attention launches a rank {flash}")
@@ -3976,9 +4083,9 @@ def run_tp_phase(gpu: str) -> int:
         ms = [q["step_ms"][-1] for q in r["ranks"]]
         peaks = [q["peak_gb"] for q in r["ranks"]]
         log(f"{tag} ({world} ranks on {cards} card(s), {backend}): metrics {r['steps']}; "
-            f"named leaves off by { {k: f'{v:.2e}' for k, v in errs.items()} } of the update; "
-            f"rank 0's parameters {t['param_bytes'] / 1e9:.3f} GB = its shard shapes "
-            f"{t['param_bytes'] == t['shard_bytes']}, teacher gathered whole "
+            f"named leaves off by { {k: f'{v:.2e}' for k, v in errs.items()} } of the update"
+            f"{grad_line}; rank 0's parameters {t['param_bytes'] / 1e9:.3f} GB = its shard "
+            f"shapes {t['param_bytes'] == t['shard_bytes']}, teacher gathered whole "
             f"{t['teacher_gathered']}; flash_attention a step by rank {flash}; last step ms "
             f"by rank {[round(v, 1) for v in ms]} ({bsz / max(ms) * 1e3:.2f} samples/s against "
             f"{bsz / one_ms[-1] * 1e3:.2f} in one process), peak GB by rank "
@@ -3986,6 +4093,26 @@ def run_tp_phase(gpu: str) -> int:
             f"{bsz} over a data mesh identical to generate_mm {d['identical']}, tokens "
             f"{tuple(d['tokens'].shape)} ({gpu})")
         TOKENS[f"tp_{grid[0]}x{grid[1]}"] = d["tokens"]
+
+    w = bf16_witness(paths, one_grads, one16_grads, res16["grads"], one_gm, one16_gm,
+                     res16["grad_metrics"])
+    ratios = sorted(((t / max(o, 1e-30), "/".join(map(str, p)), o, t)
+                     for p, (o, t) in w["leaves"].items()), reverse=True)
+    worst = "; ".join(f"{name} {o:.2e} against {t:.2e} ({r:.2f}x)"
+                      for r, name, o, t in ratios[:3])
+    apart = {k: f"{abs(res16['grad_metrics'][k] - v) / (1 + abs(v)):.2e}"
+             for k, v in one16_gm.items()}
+    log(f"tp bf16 witness (grid dp {grids[0][0]} x tp {grids[0][1]}, {backend}): distance "
+        f"from the f32 one-process step, one bf16 process against the bf16 tp step: "
+        f"gradients by norm {w['all'][0]:.3e} against {w['all'][1]:.3e}; by leaf "
+        f"{sum(r > 1 for r, *_ in ratios)} of {len(ratios)} leaves further in the tp step, "
+        f"{sum(r > 2 for r, *_ in ratios)} over 2x, the three furthest {worst}; terms "
+        f"{ {k: f'{o:.2e} against {t:.2e}' for k, (o, t) in w['terms'].items()} }; the tp "
+        f"step's terms against one bf16 process, relative {apart} ({gpu})")
+    if not w["ok"]:
+        failures.append(f"tp bf16: the tp step further from the f32 step than one bf16 "
+                        f"process by more than {TP_BF16_RATIO}x (whole gradient {w['all']}, "
+                        f"terms {w['terms']}) or {TP_BF16_LEAF_RATIO}x (leaves: {worst})")
     log(f"tp: phase {time.perf_counter() - t_phase:.1f} s wall")
     if failures:
         raise RuntimeError("tp: " + "; ".join(failures))

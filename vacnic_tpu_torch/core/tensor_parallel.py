@@ -42,6 +42,7 @@ from typing import Any, Callable
 
 import torch
 import torch.distributed as dist
+from torch.profiler import record_function
 
 from vacnic_tpu_torch.core.mesh import param_dim
 from vacnic_tpu_torch.core.tree import leaves_with_path, tree_map
@@ -73,24 +74,29 @@ def _through_host(t: torch.Tensor, group) -> bool:
 
 
 def all_reduce_(t: torch.Tensor, group) -> torch.Tensor:
-    """t summed over the group's ranks, in place; returned."""
-    if _through_host(t, group):
-        host = t.cpu()
-        dist.all_reduce(host, op=dist.ReduceOp.SUM, group=group)
-        t.copy_(host)
-    else:
-        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
+    """t summed over the group's ranks, in place; returned. Under the
+    profiler range "tensor_parallel.all_reduce", so a trace shows the model
+    group's traffic apart from the compute around it."""
+    with record_function("tensor_parallel.all_reduce"):
+        if _through_host(t, group):
+            host = t.cpu()
+            dist.all_reduce(host, op=dist.ReduceOp.SUM, group=group)
+            t.copy_(host)
+        else:
+            dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
     return t
 
 
 def all_gather(t: torch.Tensor, group) -> list[torch.Tensor]:
-    """Every rank's t (of one shape), in rank order, on t's device."""
-    src = t.detach().contiguous()
-    if _through_host(src, group):
-        src = src.cpu()
-    parts = [torch.empty_like(src) for _ in range(dist.get_world_size(group))]
-    dist.all_gather(parts, src, group=group)
-    return [p.to(t.device) for p in parts]
+    """Every rank's t (of one shape), in rank order, on t's device (under
+    the profiler range "tensor_parallel.all_gather")."""
+    with record_function("tensor_parallel.all_gather"):
+        src = t.detach().contiguous()
+        if _through_host(src, group):
+            src = src.cpu()
+        parts = [torch.empty_like(src) for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, src, group=group)
+        return [p.to(t.device) for p in parts]
 
 
 class _CopyToModelParallel(torch.autograd.Function):
@@ -217,16 +223,19 @@ def is_cut(path: tuple, leaf) -> bool:
     return isinstance(leaf, torch.Tensor) and param_dim(path, leaf) is not None
 
 
+def gather_leaf(path: tuple, leaf, tp: ModelShard | None):
+    """The whole leaf at `path` from every rank's slice of it (a leaf of a
+    sharded tree, or its gradient; a collective where the leaf is cut), on
+    leaf's device; a replicated leaf as it is."""
+    if tp is None or not is_cut(path, leaf):
+        return leaf
+    return torch.cat(all_gather(leaf, tp.group), dim=param_dim(path, leaf))
+
+
 def gather_params(params: Any, tp: ModelShard | None) -> Any:
     """The whole tree from every rank's shards (a collective: every rank of
     the group calls it), on each rank's device; replicated leaves are kept
     as they are."""
     if tp is None:
         return params
-
-    def whole(path, leaf):
-        if not is_cut(path, leaf):
-            return leaf
-        return torch.cat(all_gather(leaf, tp.group), dim=param_dim(path, leaf))
-
-    return tree_map(whole, params)
+    return tree_map(lambda path, leaf: gather_leaf(path, leaf, tp), params)

@@ -192,12 +192,9 @@ def column_linear(p: Params, x: torch.Tensor, tp: ModelShard | None = None) -> t
     of the (replicated) bias: the rank's columns of the one-process output.
     x is whole on every rank; the caller passes it through
     copy_to_model_parallel once for all the products that read it."""
-    if tp is None:
-        return linear(p, x)
-    y = torch.matmul(x.float(), p["kernel"].to(x.dtype).float())
-    if "bias" in p:
-        y = y + column_slice(p["bias"], tp).float()
-    return y.to(x.dtype)
+    if tp is not None and "bias" in p:
+        p = {**p, "bias": column_slice(p["bias"], tp)}
+    return linear(p, x)
 
 
 def row_linear(p: Params, x: torch.Tensor, tp: ModelShard | None = None) -> torch.Tensor:

@@ -35,8 +35,8 @@ shard_params); the forwards take the rank's `ModelShard` and issue the
 model group's collectives themselves; every gradient leaf, shard or
 whole, is then summed over the data group only (a replicated leaf's
 gradient is already the same on every model rank); the gradient norm and
-the clipping sum the cut leaves' squares over the model group. A data group
-of one process is no group.
+the clipping sum the cut leaves' squares over the model group. Under a
+model group, a data group of one process (a dp 1 grid) is no group.
 """
 
 from __future__ import annotations
@@ -339,7 +339,9 @@ def make_train_step(cfg: VacnicConfig, num_training_steps: int, mu_dtype=None, n
     "teacher_pooled" [B, d] when the teacher cache asks for it). Its parts
     run under the profiler ranges "train_step.forward", ".backward",
     ".all_reduce" (with a group) and ".optimizer" (the backward's ops run on
-    autograd's own thread on the card, outside its range).
+    autograd's own thread on the card, outside its range); the model
+    group's collectives run under "tensor_parallel.all_reduce" (and
+    ".all_gather"), inside those.
 
     `group`: a torch.distributed process group, each rank a process on its
     own device (`core/distributed.initialize`). Every rank calls step_fn
@@ -353,11 +355,12 @@ def make_train_step(cfg: VacnicConfig, num_training_steps: int, mu_dtype=None, n
     (refusing a group size that does not divide an attention's heads or a
     cut dimension) and broadcasts the shards over the data group; the
     state then holds shards, which `core/tensor_parallel.gather_params`
-    makes whole again. A group of one process is no group."""
+    makes whole again; a data group of one process (a dp 1 grid) is then
+    no group, and a model group of one process is none either."""
     tx = make_optimizer(cfg.train, num_training_steps, train_clip=not cfg.train.freeze_clip,
                         mu_dtype=mu_dtype, nu_dtype=nu_dtype)
     dev = resolve_device(device)
-    if group is not None and dist.get_world_size(group) == 1:
+    if model_group is not None and group is not None and dist.get_world_size(group) == 1:
         group = None
     tp = TP.model_shard(model_group)
 
@@ -384,10 +387,9 @@ def make_train_step(cfg: VacnicConfig, num_training_steps: int, mu_dtype=None, n
         metrics, grads = loss_and_grads(state.params, state.teacher, batch, cfg, dropout_rng,
                                         group, tp)
         cut = [TP.is_cut(path, p) for path, p in leaves_with_path(state.params)] if tp else None
-        # a leaf without a gradient counts as 0; under tp the model group's sum
-        with record_function("train_step.all_reduce" if tp else "train_step.optimizer"):
-            metrics["grad_norm"] = global_norm(grads, cut, tp)
         with record_function("train_step.optimizer"):
+            # a leaf without a gradient counts as 0; under tp the model group's sum
+            metrics["grad_norm"] = global_norm(grads, cut, tp)
             tx.step_(state.params, grads, state.opt_state, cut, tp)
         state.step += 1
         state.rng = rng
