@@ -32,8 +32,10 @@ Phases:
            lm_stats (timed at BK 160, 5 and 640) at BK 1, 5, 37, 160, 320,
            640 x Vp 1024, 4096 and 53248, where m must equal the max of the
            kernel's own logits bit for bit and the arrival counters read
-           zero after the launch; enc_cross_attention (timed at B 8 and 32)
-           at KV 1, 8, 40, 64 x S 1, 63, 64, 130, 512. The rows of the two
+           zero after the launch; enc_cross_attention (timed at B 8 and 32
+           at KV 40, the slice's, and at B 32 at KV 20 and 36, the onlyvis
+           and mlp paths') at KV 1, 8, 16, 20, 36, 40, 64 x S 1, 63, 64,
+           130, 512. The rows of the two
            kernels redesigned in this slice log the times of the kernels
            before them (EARLIER), outside the kernels line. layernorm,
            dec_cross_attention, dec_self_attention, lm_head,
@@ -56,10 +58,11 @@ Phases:
            fused encoder and the decode stack must have launched, gemm_bf16's
            large-M kernel six times an encoder layer and its small-M kernel
            for every other product, layernorm once a layer norm (1800, all
-           on the warp kernel), dec_cross_attention and dec_self_attention
-           once a decoder layer a step (588, dec_self all on the bf16
-           cache's kernel). Checks finite scores and a mean caption length
-           >= 45.
+           on the warp kernel), enc_self_attention and enc_cross_attention
+           once an encoder layer (12, enc_cross all at KV 40),
+           dec_cross_attention and dec_self_attention once a decoder layer a
+           step (588, dec_self all on the bf16 cache's kernel). Checks
+           finite scores and a mean caption length >= 45.
   selfkv   the same run with self_kv="int8" and with self_kv="fp8" (the
            quantized self cache): dec_self_attention must launch 588 times
            on that cache's kernel; finite scores, mean length >= 45; token
@@ -134,6 +137,33 @@ Phases:
            head shards, then gather_params and a batch-32 decode over a data
            mesh identical to generate_mm. Readings: step ms, samples/s, peak
            GB a rank against one process.
+  onlyvis  VacnicConfig.onlyvis_train() (the visual-prompt-only model:
+           clipcap prompt alone, KV 20) at full width, random bf16 weights
+           from seed 0, after the slice's tree is freed: the fused encoder
+           against the layer-by-layer one at batch 32 (rel 5e-2);
+           generate_mm at the slice's decode, batch 32, launches zeroed
+           just before and read just after: the slice's counts, with
+           enc_self_attention 12 and enc_cross_attention 12, all at KV 20;
+           mean length >= 45; CaptionService answering 8 requests without
+           faces or names token- and score-identical to a direct
+           generate_mm; then, that tree freed, 3 training steps at batch 32
+           (f32 trees, bf16 compute, remat, CoLaM with the teacher's
+           forward, CLIP frozen on pixels) under the train phase's gates
+           (finite metrics, lr 0 at step 0, the bart group moved at step 1,
+           CLIP and teacher bit-unchanged, flash_attention 12 and no other
+           kernel in step 1, eval_step fused against unfused within 5e-2).
+           Readings: captions/s, step ms, samples/s, peak GB.
+  mlp      full_train() with prompt_mlp_type="mlp" (the patch-token mapper,
+           map_size (196, 256, 64, 16): KV 16 + 20 = 36) at full width,
+           random bf16 weights from seed 0: the CLIP tower (ViT-B/16, seed
+           0) on pixels gives patch tokens [32, 196, 768]; the fused encoder
+           against the layer-by-layer one on them (rel 5e-2); generate_mm
+           at the slice's decode, batch 32: the slice's counts with
+           enc_cross_attention 12, all at KV 36; mean length >= 45. Then the
+           general KV-cached decoder (models/bart.init_cache +
+           decoder_fwd(cache=)) at full width in f32, batch 8: 16
+           teacher-forced steps, each step's logits within 1e-4 of its
+           largest |logit| of the uncached decoder_fwd at that position.
   train    the training step at full width (VacnicConfig.full_train() as
            released: batch 32, S 512, caption 100, bf16 over f32, remat,
            dropout 0.1, CoLaM with the teacher's forward, SECLA, CLIP frozen
@@ -249,6 +279,10 @@ SLICE_KERNELS = ("gemm_bf16", "layernorm", "enc_self_attention", "enc_cross_atte
                  "dec_self_attention", "dec_cross_attention")
 DECODE_KERNELS = ("gemm_bf16", "layernorm", "dec_self_attention", "dec_cross_attention")
 SELF_KV_KINDS = ("int8", "fp8")
+# enc_cross_attention's KV on each model's path: the slice's full_train()
+# (clipcap, 20 prompt rows + 20 NER rows), onlyvis_train() (only_image: 20
+# prompt rows) and the mlp mapper's (16 prompt rows + 20 NER rows)
+ENC_CROSS_KV = {"slice": 40, "onlyvis": 20, "mlp": 36}
 # the slice's kernels, and the splits of those that are several __global__ kernels
 SLICE_COUNTED = SLICE_KERNELS + ("gemm_bf16:large_m", "gemm_bf16:small_m", "layernorm:warp",
                                  "dec_self_attention:bf16")
@@ -391,7 +425,7 @@ def kernel_cases():
               for rows in (1, 37, 160)]
     cases += [ln_case(6000, 1024), ln_case(6000, 384)]
 
-    H, B, S, KV = 16, 8, 512, 40
+    H, B, S, KV = 16, 8, 512, ENC_CROSS_KV["slice"]
 
     def enc_self_case(bsz, seq, timed=True):  # B=32 is the slice's own shape
         qkv = rn(bsz * seq, 3 * d, dtype=bf)
@@ -413,20 +447,24 @@ def kernel_cases():
     cases += [enc_self_case(B, S), enc_self_case(32, S), enc_self_case(3, 64, timed=False),
               enc_self_case(3, 192, timed=False)]
 
-    def enc_cross_case(bsz):  # B = 32 is the slice's own shape
+    def enc_cross_case(bsz, kv=KV, kern="enc_cross_attention"):  # B = 32: the paths' own
         q = rn(bsz * S, d, dtype=bf)
-        ck, cv = rn(bsz, d, KV, dtype=bf), rn(bsz, KV, d, dtype=bf)
-        return (f"enc_cross_attention B={bsz} S={S} KV={KV}", "enc_cross_attention",
+        ck, cv = rn(bsz, d, kv, dtype=bf), rn(bsz, kv, d, dtype=bf)
+        return (f"enc_cross_attention B={bsz} S={S} KV={kv}", kern,
                 lambda: K.enc_cross_attention(q, ck, cv, bsz, S, H),
                 lambda: K.enc_cross_attention_plain(q, ck, cv, bsz, S, H),
-                (2 * bsz * S * d + 2 * bsz * KV * d) * 2, 4.0 * bsz * S * KV * d, PEAK_BF16_FLOPS,
+                (2 * bsz * S * d + 2 * bsz * kv * d) * 2, 4.0 * bsz * S * kv * d, PEAK_BF16_FLOPS,
                 lambda: Fn.scaled_dot_product_attention(
-                    q.view(bsz, S, H, 64).transpose(1, 2), ck.view(bsz, H, 64, KV).transpose(2, 3),
-                    cv.view(bsz, KV, H, 64).transpose(1, 2)))
+                    q.view(bsz, S, H, 64).transpose(1, 2), ck.view(bsz, H, 64, kv).transpose(2, 3),
+                    cv.view(bsz, kv, H, 64).transpose(1, 2)))
 
+    # each path's KV (ENC_CROSS_KV); a row's launches are its own path's
     cases += [enc_cross_case(B), enc_cross_case(32)]
-    # correctness only: KV 1 ... 64 x S 1 ... 512 (ragged last q tiles)
-    for kv_c, s_c in itertools.product((1, 8, 40, 64), (1, 63, 64, 130, 512)):
+    cases += [enc_cross_case(32, ENC_CROSS_KV[p], f"enc_cross_attention:kv{ENC_CROSS_KV[p]}")
+              for p in ("onlyvis", "mlp")]
+    # correctness only: KV 1 ... 64 (16 the mlp mapper's under only_image)
+    # x S 1 ... 512 (ragged last q tiles)
+    for kv_c, s_c in itertools.product((1, 8, 16, 20, 36, 40, 64), (1, 63, 64, 130, 512)):
         cases.append(enc_cross_sweep_case(rn, 3, s_c, kv_c))
 
     BK, T, B2, beams = 160, 64, 32, 5
@@ -974,7 +1012,10 @@ def run_dispatch_phase() -> None:
 # stacks + slice phases
 # ---------------------------------------------------------------------------
 
-def full_model(seed: int = 0):
+def full_model(seed: int = 0, cfg=None):
+    """`cfg` (VacnicConfig.full_train() by default) decoding every step
+    (min_length = max_length - 1) and its random bf16 tree from `seed`, on
+    the card."""
     import torch
 
     from vacnic_tpu_torch.core.config import VacnicConfig
@@ -982,7 +1023,7 @@ def full_model(seed: int = 0):
     from vacnic_tpu_torch.models.fusion import multimodal_bart_init
     from vacnic_tpu_torch.models.weights_io import tree_to
 
-    cfg = VacnicConfig.full_train()
+    cfg = cfg or VacnicConfig.full_train()
     cfg = dataclasses.replace(cfg, decode=dataclasses.replace(
         cfg.decode, min_length=cfg.decode.max_length - 1))
     params = multimodal_bart_init(make_generator(seed, "cuda"), cfg.bart, cfg.fusion,
@@ -995,10 +1036,12 @@ def batch_inputs(cfg, batch_size: int):
     from vacnic_tpu_torch.train.train_step import create_mask, face_mask_from_emb
 
     b = {k: v.cuda() for k, v in synthetic_batch(cfg, batch_size=batch_size, seed=0).items()}
-    return dict(input_ids=b["article_ids"], attention_mask=create_mask(b["article_ids"]),
-                image_features=b["image_cls"], face_features=b["face_emb"],
-                face_mask=face_mask_from_emb(b["face_emb"]), name_ids=b["names_art_ids"],
-                name_mask=create_mask(b["names_art_ids"]))
+    x = dict(input_ids=b["article_ids"], attention_mask=create_mask(b["article_ids"]),
+             image_features=b["image_cls"])
+    if not cfg.fusion.only_image:
+        x.update(face_features=b["face_emb"], face_mask=face_mask_from_emb(b["face_emb"]),
+                 name_ids=b["names_art_ids"], name_mask=create_mask(b["names_art_ids"]))
+    return x
 
 
 def rel_err(a, b) -> float:
@@ -1063,36 +1106,6 @@ def check_launched(tag: str, counts: dict, names) -> None:
     missing = [k for k in names if counts[k] == 0]
     if missing:
         raise RuntimeError(f"{tag}: kernels of this path never launched: {missing}")
-
-
-def run_slice_phase(cfg, params, batch_size: int):
-    import torch
-
-    from vacnic_tpu_torch.infer.generate import generate_mm
-    from vacnic_tpu_torch.kernels import primitives as K
-
-    x = batch_inputs(cfg, batch_size)
-
-    def run():
-        seqs, scores = generate_mm(params, cfg=cfg.bart, fcfg=cfg.fusion, dcfg=cfg.decode,
-                                   dtype=torch.bfloat16, device="cuda", **x)
-        torch.cuda.synchronize()
-        return seqs, scores
-
-    run()  # warm-up: allocator, cuBLAS handles
-    K.reset_launch_counts()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    seqs, scores = run()
-    dt = time.perf_counter() - t0
-    nonpad = check_captions("slice", cfg, seqs, scores, batch_size)
-    TOKENS["slice"], SCORES["slice"] = seqs.cpu(), scores.float().cpu()
-    log(f"slice: full_train beam {cfg.decode.num_beams} x {cfg.decode.max_length} x lp "
-        f"{cfg.decode.length_penalty}, batch {batch_size}: {dt:.3f} s, "
-        f"{batch_size / dt:.2f} captions/s, mean non-pad length {nonpad:.1f}, "
-        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
-        f"{K.launch_counts()}")
-    return check_slice_counts("slice", cfg), seqs
 
 
 def counts_by_kernel() -> dict:
@@ -1528,7 +1541,9 @@ def sample_rows(cfg, n: int, seed: int, with_pixels: bool = False) -> list[dict]
     from vacnic_tpu_torch.data.synthetic import synthetic_batch
 
     b = synthetic_batch(cfg, n, seed=seed, with_pixels=with_pixels)
-    keys = ("article_ids", "pixels" if with_pixels else "image_cls", "face_emb", "names_art_ids")
+    keys = ("article_ids", "pixels" if with_pixels else "image_cls")
+    if not cfg.fusion.only_image:
+        keys += ("face_emb", "names_art_ids")
     return [{k: b[k][i].numpy() for k in keys} for i in range(n)]
 
 
@@ -1542,12 +1557,13 @@ def direct_generate(cfg, model, rows, img_cls=None):
     from vacnic_tpu_torch.train.train_step import create_mask, face_mask_from_emb
 
     b = {k: torch.from_numpy(np.stack([r[k] for r in rows])).cuda() for k in rows[0]}
+    streams = {} if cfg.fusion.only_image else dict(
+        face_features=b["face_emb"], face_mask=face_mask_from_emb(b["face_emb"]),
+        name_ids=b["names_art_ids"], name_mask=create_mask(b["names_art_ids"]))
     seqs, scores = generate_mm(
         model, b["article_ids"], create_mask(b["article_ids"]),
         b["image_cls"] if img_cls is None else img_cls, cfg.bart, cfg.fusion, cfg.decode,
-        face_features=b["face_emb"], face_mask=face_mask_from_emb(b["face_emb"]),
-        name_ids=b["names_art_ids"], name_mask=create_mask(b["names_art_ids"]),
-        dtype=torch.bfloat16, device="cuda")
+        dtype=torch.bfloat16, device="cuda", **streams)
     torch.cuda.synchronize()
     return seqs.cpu(), scores.float().cpu()
 
@@ -1958,6 +1974,98 @@ def replay_grads(cfg, state, batch, remat: bool, seed: int):
     return loss.detach(), torch.autograd.grad(loss, leaves, allow_unused=True)
 
 
+def train_setup(cfg):
+    """`cfg`'s training state on the card (random f32 trees from seed 0: the
+    model, the CLIP tower, the teacher; make_train_step(cfg, 20)), its step
+    function and synthetic_batch(train_batch_size, with_pixels) there."""
+    from vacnic_tpu_torch.core.rng import make_generator
+    from vacnic_tpu_torch.data.synthetic import synthetic_batch
+    from vacnic_tpu_torch.models import fusion as F
+    from vacnic_tpu_torch.models.bart import bart_init
+    from vacnic_tpu_torch.models.clip_vit import clip_vision_init
+    from vacnic_tpu_torch.train.train_step import make_train_step
+
+    g = make_generator(0, "cuda")
+    model = F.multimodal_bart_init(g, cfg.bart, cfg.fusion, device="cuda")
+    clip = clip_vision_init(g, cfg.clip, device="cuda")
+    teacher = bart_init(g, cfg.bart, device="cuda")
+    init_fn, step_fn = make_train_step(cfg, 20)
+    state = init_fn({"model": model, "clip": clip}, teacher, cfg.train.seed)
+    batch = synthetic_batch(cfg, cfg.train.train_batch_size, seed=0, with_pixels=True)
+    return state, step_fn, {k: v.cuda() for k, v in batch.items()}
+
+
+def gate_train_step(tag: str, cfg, i: int, state, m: dict, frozen0, bart0, counts: dict,
+                    ms: float, gpu: str) -> None:
+    """The gates on training step i: every metric finite; the CLIP tower
+    and the teacher bit-unchanged (`frozen0`); after step 0 (lr 0) the bart
+    group bit-unchanged (`bart0`) and its moments moved; after step 1 the
+    bart group moved and the step's launches (`counts`) flash_attention once
+    a teacher encoder layer (the teacher's forward) and no other kernel
+    (the differentiated forward reaches none)."""
+    check_train_metrics(f"{tag} step {i}", m)
+    log(f"{tag}: step {i}: {ms:.1f} ms, " + ", ".join(
+        f"{k} {float(v):.4f}" for k, v in m.items()))
+    if not same(frozen0, frozen_leaves(state)):
+        raise RuntimeError(f"{tag} step {i}: the CLIP tower or the teacher changed")
+    if i == 0:
+        mu = state.opt_state["bart"]["mu"]["model"]["shared"]["weight"]
+        nu = state.opt_state["bart"]["nu"]["model"]["shared"]["weight"]
+        if not same(bart0, bart_leaves(state)) or not (mu.any() and nu.any()):
+            raise RuntimeError(f"{tag} step 0 (lr 0): the bart group moved or its moments "
+                               "did not")
+    if i == 1:
+        if same(bart0, bart_leaves(state)):
+            raise RuntimeError(f"{tag} step 1: the bart group did not move")
+        others = {k: n for k, n in counts.items() if k != "flash_attention" and n}
+        log(f"{tag}: step 1 launches {counts} ({gpu})")
+        if counts["flash_attention"] != cfg.bart.encoder_layers or others:
+            raise RuntimeError(f"{tag}: a step must launch flash_attention once per teacher "
+                               f"encoder layer and no other kernel, got {counts}")
+
+
+def check_eval_fused(tag: str, cfg, state, batch) -> None:
+    """eval_step, whose encoder is the fused one (its kernels must launch),
+    against mm_forward with allow_fused_encoder=False on the same CLIP
+    features: val_loss and logits within 5e-2 relative (the stacks phase's
+    bf16 tolerance)."""
+    import torch
+
+    from vacnic_tpu_torch.kernels import primitives as K
+    from vacnic_tpu_torch.models import fusion as F
+    from vacnic_tpu_torch.models.bart import shift_tokens_right
+    from vacnic_tpu_torch.models.clip_vit import clip_vision_fwd
+    from vacnic_tpu_torch.train import losses as L
+    from vacnic_tpu_torch.train.train_step import create_mask, eval_step, face_mask_from_emb
+
+    K.reset_launch_counts()
+    ev = eval_step(state.params, batch, cfg)
+    torch.cuda.synchronize()
+    ev_counts = K.launch_counts()
+    check_launched(f"{tag} eval_step", ev_counts, SLICE_KERNELS[:4])
+    with torch.no_grad():
+        dt = torch.bfloat16
+        _, img = clip_vision_fwd(state.params["clip"], batch["pixels"], cfg.clip, dt)
+        tgt_in = shift_tokens_right(batch["caption_ids"], cfg.bart.pad_token_id,
+                                    cfg.bart.eos_token_id)
+        kw = {} if cfg.fusion.only_image else dict(
+            face_features=batch["face_emb"], face_mask=face_mask_from_emb(batch["face_emb"]),
+            name_ids=batch["names_art_ids"], name_mask=create_mask(batch["names_art_ids"]))
+        args = (state.params["model"], batch["article_ids"], create_mask(batch["article_ids"]),
+                tgt_in, img, cfg.bart, cfg.fusion)
+        fused = F.mm_forward(*args, dtype=dt, **kw)["logits"]
+        ref = F.mm_forward(*args, dtype=dt, allow_fused_encoder=False, **kw)["logits"]
+        ref_loss = L.lm_cross_entropy(ref, batch["caption_ids"], cfg.bart.pad_token_id)
+    e_logits = rel_err(fused, ref)
+    e_loss = abs(float(ev["val_loss"]) - float(ref_loss)) / abs(float(ref_loss))
+    agree = float((ev["argmax_ids"] == ref.argmax(-1)).float().mean())
+    log(f"{tag}: eval_step val_loss {float(ev['val_loss']):.5f} (fused encoder) vs "
+        f"{float(ref_loss):.5f} (allow_fused_encoder=False): rel {e_loss:.3e}; logits rel err "
+        f"{e_logits:.3e}; argmax agreement {agree:.4f} (tol rel 5e-2); launches {ev_counts}")
+    if not (e_loss <= 5e-2 and e_logits <= 5e-2):
+        raise RuntimeError(f"{tag}: eval_step through the fused encoder disagrees")
+
+
 def run_train_phase(gpu: str) -> dict:
     """The training step at full width: VacnicConfig.full_train() as released
     (bf16 compute over f32 parameters, grad_checkpoint, dropout 0.1, CoLaM
@@ -1989,27 +2097,13 @@ def run_train_phase(gpu: str) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     from vacnic_tpu_torch.core.config import VacnicConfig
-    from vacnic_tpu_torch.core.rng import make_generator
-    from vacnic_tpu_torch.data.synthetic import synthetic_batch
     from vacnic_tpu_torch.kernels import primitives as K
-    from vacnic_tpu_torch.models import fusion as F
-    from vacnic_tpu_torch.models.bart import bart_init, shift_tokens_right
-    from vacnic_tpu_torch.models.clip_vit import clip_vision_fwd, clip_vision_init
-    from vacnic_tpu_torch.train import losses as L
     from vacnic_tpu_torch.train.checkpoints import CheckpointManager
-    from vacnic_tpu_torch.train.train_step import (create_mask, eval_step, face_mask_from_emb,
-                                                   make_train_step)
+    from vacnic_tpu_torch.train.train_step import make_train_step
 
     cfg = VacnicConfig.full_train()
     bsz = cfg.train.train_batch_size
-    g = make_generator(0, "cuda")
-    model = F.multimodal_bart_init(g, cfg.bart, cfg.fusion, device="cuda")
-    clip = clip_vision_init(g, cfg.clip, device="cuda")
-    teacher = bart_init(g, cfg.bart, device="cuda")
-    init_fn, step_fn = make_train_step(cfg, 20)
-    state = init_fn({"model": model, "clip": clip}, teacher, cfg.train.seed)
-    del model, clip, teacher
-    batch = {k: v.cuda() for k, v in synthetic_batch(cfg, bsz, seed=0, with_pixels=True).items()}
+    state, step_fn, batch = train_setup(cfg)
     m_bytes, c_bytes, t_bytes = (tree_bytes(state.params["model"]),
                                  tree_bytes(state.params["clip"]), tree_bytes(state.teacher))
     o_bytes = tree_bytes(state.opt_state)
@@ -2033,29 +2127,17 @@ def run_train_phase(gpu: str) -> dict:
     try:
         mgr = CheckpointManager(ckpt_dir, cfg, max_to_keep=1)
         for i in range(TRAIN_STEPS):
-            if i == 1:
-                K.reset_launch_counts()
+            K.reset_launch_counts()
             t0 = time.perf_counter()
             state, m = step_fn(state, batch)
             torch.cuda.synchronize()
             step_s.append(time.perf_counter() - t0)
             if i == 1:
                 counts = K.launch_counts()
-            check_train_metrics(f"train step {i}", m)
-            log(f"train: step {i}: {step_s[-1] * 1e3:.1f} ms, " + ", ".join(
-                f"{k} {float(v):.4f}" for k, v in m.items()))
-            if not same(frozen0, frozen_leaves(state)):
-                raise RuntimeError(f"train step {i}: the CLIP tower or the teacher changed")
-            if i == 0:
-                mu = state.opt_state["bart"]["mu"]["model"]["shared"]["weight"]
-                nu = state.opt_state["bart"]["nu"]["model"]["shared"]["weight"]
-                if not same(bart0, bart_leaves(state)) or not (mu.any() and nu.any()):
-                    raise RuntimeError("train step 0 (lr 0): the bart group moved or its "
-                                       "moments did not")
+            gate_train_step("train", cfg, i, state, m, frozen0, bart0, K.launch_counts(),
+                            step_s[-1] * 1e3, gpu)
             if i == 1:
-                if same(bart0, bart_leaves(state)):
-                    raise RuntimeError("train step 1: the bart group did not move")
-                del bart0
+                bart0 = None
             if i == 2:
                 t0 = time.perf_counter()
                 mgr.save(state.step, state, {"loss": float(m["loss"])})
@@ -2063,11 +2145,6 @@ def run_train_phase(gpu: str) -> dict:
         peak = torch.cuda.max_memory_allocated()
         ms = sorted(s * 1e3 for s in step_s[2:])
         med = ms[len(ms) // 2] if len(ms) % 2 else sum(ms[len(ms) // 2 - 1:len(ms) // 2 + 1]) / 2
-        others = {k: n for k, n in counts.items() if k != "flash_attention" and n}
-        log(f"train: step 1 launches {counts} ({gpu})")
-        if counts["flash_attention"] != cfg.bart.encoder_layers or others:
-            raise RuntimeError(f"train: a step must launch flash_attention once per teacher "
-                               f"encoder layer and no other kernel, got {counts}")
         log(f"train: step wall ms {[round(s * 1e3, 1) for s in step_s]}; median of steps "
             f"2..{TRAIN_STEPS - 1} {med:.1f} ms, {bsz / (med / 1e3):.2f} samples/s; peak "
             f"memory {peak / 1e9:.2f} GB (torch.cuda.max_memory_allocated) ({gpu})")
@@ -2117,33 +2194,7 @@ def run_train_phase(gpu: str) -> dict:
     del g_on, g_off
     torch.cuda.empty_cache()
 
-    # eval_step: the fused encoder (kernels) against allow_fused_encoder=False
-    K.reset_launch_counts()
-    ev = eval_step(state.params, batch, cfg)
-    torch.cuda.synchronize()
-    ev_counts = K.launch_counts()
-    check_launched("train eval_step", ev_counts, SLICE_KERNELS[:4])
-    with torch.no_grad():
-        dt = torch.bfloat16
-        _, img = clip_vision_fwd(state.params["clip"], batch["pixels"], cfg.clip, dt)
-        tgt_in = shift_tokens_right(batch["caption_ids"], cfg.bart.pad_token_id,
-                                    cfg.bart.eos_token_id)
-        kw = dict(face_features=batch["face_emb"], face_mask=face_mask_from_emb(batch["face_emb"]),
-                  name_ids=batch["names_art_ids"], name_mask=create_mask(batch["names_art_ids"]))
-        args = (state.params["model"], batch["article_ids"], create_mask(batch["article_ids"]),
-                tgt_in, img, cfg.bart, cfg.fusion)
-        fused = F.mm_forward(*args, dtype=dt, **kw)["logits"]
-        ref = F.mm_forward(*args, dtype=dt, allow_fused_encoder=False, **kw)["logits"]
-        ref_loss = L.lm_cross_entropy(ref, batch["caption_ids"], cfg.bart.pad_token_id)
-    e_logits = rel_err(fused, ref)
-    e_loss = abs(float(ev["val_loss"]) - float(ref_loss)) / abs(float(ref_loss))
-    agree = float((ev["argmax_ids"] == ref.argmax(-1)).float().mean())
-    log(f"train: eval_step val_loss {float(ev['val_loss']):.5f} (fused encoder) vs "
-        f"{float(ref_loss):.5f} (allow_fused_encoder=False): rel {e_loss:.3e}; logits rel err "
-        f"{e_logits:.3e}; argmax agreement {agree:.4f} (tol rel 5e-2); launches {ev_counts}")
-    if not (e_loss <= 5e-2 and e_logits <= 5e-2):
-        raise RuntimeError("train: eval_step through the fused encoder disagrees")
-    del fused, ref
+    check_eval_fused("train", cfg, state, batch)
 
     # where one step's device time goes
     torch.cuda.synchronize()
@@ -2214,6 +2265,255 @@ def run_train_phase(gpu: str) -> dict:
     log(f"train: one step's library products, counted by torch.utils.flop_counter: "
         f"{flops / 1e12:.2f} TFLOP; over the profiled step's aten mm + bmm + addmm device time "
         f"({mm_ms:.1f} ms): {rate} ({gpu})")
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# onlyvis + mlp phases: the visual-prompt-only model and the mlp prompt mapper
+# ---------------------------------------------------------------------------
+
+ONLYVIS_SERVE_ROWS = 8
+ONLYVIS_TRAIN_STEPS = 3  # step 0's warmup lr is 0: step 1 moves the bart group
+CACHED_BATCH = 8
+CACHED_STEPS = 16
+CACHED_TOL = 1e-4  # of a step's largest |logit|: f32 sums in another order
+
+
+def mlp_config():
+    """full_train() with the mlp prompt mapper over CLIP's patch tokens
+    (FusionConfig.map_size (196, 256, 64, 16): 16 prompt rows)."""
+    from vacnic_tpu_torch.core.config import VacnicConfig
+
+    cfg = VacnicConfig.full_train()
+    return dataclasses.replace(cfg, fusion=dataclasses.replace(cfg.fusion,
+                                                               prompt_mlp_type="mlp"))
+
+
+def check_fused_encoder(tag: str, cfg, params, x: dict) -> float:
+    """The fused encoder (CUDA text stack) against the layer-by-layer one on
+    the path's own batch, both bf16 on the card: relative error within the
+    stacks phase's 5e-2 -> that error."""
+    import torch
+
+    from vacnic_tpu_torch.models import fusion as F
+
+    streams = {k: v for k, v in x.items()
+               if k not in ("input_ids", "attention_mask", "image_features")}
+    args = (params, x["input_ids"], x["attention_mask"], x["image_features"], cfg.bart,
+            cfg.fusion)
+    with torch.no_grad():
+        fused = F.mm_encoder_fwd_fused(*args, dtype=torch.bfloat16, **streams)["last_hidden"]
+        ref = F.mm_encoder_fwd(*args, dtype=torch.bfloat16, **streams)["last_hidden"]
+    err = rel_err(fused, ref)
+    log(f"{tag}: fused encoder vs layer-by-layer at batch {x['input_ids'].shape[0]}: rel err "
+        f"{err:.3e} (tol rel 5e-2)")
+    if not err <= 5e-2:
+        raise RuntimeError(f"{tag}: the fused encoder disagrees with the layer-by-layer one")
+    return err
+
+
+def run_model_path(tag: str, cfg, params, x: dict, gpu: str):
+    """generate_mm at the slice's decode (beam 5 x 50 x lp 2.0, every step)
+    on `cfg`'s model, through the fused encoder; launches zeroed just before
+    the run and read just after: the slice's counts (check_slice_counts:
+    gemm_bf16 large_m six an encoder layer, the decode's every step), and
+    enc_self_attention and enc_cross_attention once an encoder layer, the
+    latter all at the path's KV (ENC_CROSS_KV[tag]); finite scores, mean
+    length >= 45 -> (the counts, the captions on the card)."""
+    import torch
+
+    from vacnic_tpu_torch.infer.generate import generate_mm
+    from vacnic_tpu_torch.kernels import primitives as K
+
+    batch_size, kv = x["input_ids"].shape[0], ENC_CROSS_KV[tag]
+
+    def run():
+        seqs, scores = generate_mm(params, cfg=cfg.bart, fcfg=cfg.fusion, dcfg=cfg.decode,
+                                   dtype=torch.bfloat16, device="cuda", **x)
+        torch.cuda.synchronize()
+        return seqs, scores
+
+    run()  # warm-up: allocator, cuBLAS handles
+    K.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    seqs, scores = run()
+    dt = time.perf_counter() - t0
+    by_kv = K.enc_cross_kv_counts()
+    nonpad = check_captions(tag, cfg, seqs, scores, batch_size)
+    TOKENS[tag], SCORES[tag] = seqs.cpu(), scores.float().cpu()
+    log(f"{tag}: beam {cfg.decode.num_beams} x {cfg.decode.max_length} x lp "
+        f"{cfg.decode.length_penalty}, batch {batch_size}: {dt:.3f} s, "
+        f"{batch_size / dt:.2f} captions/s, mean non-pad length {nonpad:.1f}, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; enc_cross_attention by KV "
+        f"{by_kv}; launches {K.launch_counts()} ({gpu})")
+    counts = check_slice_counts(tag, cfg)
+    layers = cfg.bart.encoder_layers
+    if counts["enc_self_attention"] != layers or by_kv != {kv: layers}:
+        raise RuntimeError(f"{tag}: enc_self_attention {counts['enc_self_attention']} and "
+                           f"enc_cross_attention by KV {by_kv}: expected {layers} each, all "
+                           f"at KV {kv}")
+    return counts, seqs
+
+
+def run_onlyvis_train(gpu: str) -> None:
+    """The training step of VacnicConfig.onlyvis_train() at full width
+    (batch 32, S 512, caption 100, bf16 over f32, remat, dropout 0.1, CoLaM
+    alpha 0.5 with the teacher's forward, CLIP frozen on pixels; random f32
+    trees from seed 0): ONLYVIS_TRAIN_STEPS steps under the train phase's
+    gates (finite metrics; after step 0, lr 0, the bart group bit-unchanged
+    and its moments moved; after step 1 the bart group moved; the CLIP tower
+    and the teacher bit-unchanged after every step; step 1 launches
+    flash_attention once a teacher encoder layer and no other kernel), then
+    eval_step through the fused encoder against allow_fused_encoder=False.
+    Readings: each step's ms, samples/s of the last, peak GB."""
+    import torch
+
+    from vacnic_tpu_torch.core.config import VacnicConfig
+    from vacnic_tpu_torch.kernels import primitives as K
+
+    cfg = VacnicConfig.onlyvis_train()
+    bsz = cfg.train.train_batch_size
+    state, step_fn, batch = train_setup(cfg)
+    frozen0 = [t.detach().clone() for t in frozen_leaves(state)]
+    bart0 = [t.detach().clone() for t in bart_leaves(state)]
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = []
+    for i in range(ONLYVIS_TRAIN_STEPS):
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        gate_train_step("onlyvis train", cfg, i, state, m, frozen0, bart0, K.launch_counts(),
+                        step_ms[-1], gpu)
+    del bart0
+    peak = torch.cuda.max_memory_allocated()
+    log(f"onlyvis train: onlyvis_train, batch {bsz} x S {cfg.data.article_max_length} x "
+        f"caption {cfg.data.caption_max_length}, {cfg.train.compute_dtype} over f32, remat "
+        f"{cfg.train.grad_checkpoint}, alpha {cfg.train.alpha}, CLIP frozen on pixels: step "
+        f"wall ms {[round(t, 1) for t in step_ms]}; step {ONLYVIS_TRAIN_STEPS - 1} "
+        f"{step_ms[-1]:.1f} ms, {bsz / (step_ms[-1] / 1e3):.2f} samples/s; peak memory "
+        f"{peak / 1e9:.2f} GB (torch.cuda.max_memory_allocated) ({gpu})")
+    check_eval_fused("onlyvis train", cfg, state, batch)
+
+
+def run_onlyvis_phase(batch_size: int, gpu: str) -> dict:
+    """VacnicConfig.onlyvis_train() (only_image: the clipcap prompt alone,
+    KV 20) at full width, random bf16 weights from seed 0: the fused encoder
+    against the layer-by-layer one at the path's batch; generate_mm at the
+    slice's decode held to the slice's counts with enc_cross_attention 12
+    at KV 20; CaptionService answering ONLYVIS_SERVE_ROWS requests (no faces
+    or names) identically to a direct generate_mm; then, that tree freed,
+    the training step (run_onlyvis_train) -> the decode's counts."""
+    import torch
+
+    from vacnic_tpu_torch.core.config import VacnicConfig
+    from vacnic_tpu_torch.serve import CaptionService, ServeConfig
+
+    t_phase = time.perf_counter()
+    cfg, params = full_model(cfg=VacnicConfig.onlyvis_train())
+    x = batch_inputs(cfg, batch_size)
+    check_fused_encoder("onlyvis", cfg, params, x)
+    counts, _ = run_model_path("onlyvis", cfg, params, x, gpu)
+
+    rows = sample_rows(cfg, ONLYVIS_SERVE_ROWS, seed=0)
+    svc = CaptionService(cfg, {"model": params}, device="cuda",
+                         serve_cfg=ServeConfig(buckets=(ONLYVIS_SERVE_ROWS,), max_wait_ms=5000))
+    try:
+        t0 = time.perf_counter()
+        results = [f.result(timeout=600) for f in [svc.submit(r) for r in rows]]
+        dt = time.perf_counter() - t0
+        seqs, scores = direct_generate(cfg, svc.params["model"], rows)
+    finally:
+        svc.close()
+    check_identical("onlyvis serve", results, seqs, scores)
+    TOKENS["onlyvis serve"] = seqs
+    log(f"onlyvis serve: {ONLYVIS_SERVE_ROWS} requests without faces or names in {dt:.3f} s, "
+        "token- and score-identical to a direct generate_mm of the same rows")
+    del params, svc
+    torch.cuda.empty_cache()
+    run_onlyvis_train(gpu)
+    torch.cuda.empty_cache()
+    log(f"onlyvis: phase wall {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
+def run_cached_decoder_check(cfg, gpu: str) -> None:
+    """The general KV-cached decoder (models/bart.init_cache +
+    decoder_fwd(cache=, cache_index=)) at full width in f32 (a random
+    bart_init tree from seed 0), batch CACHED_BATCH over the encoder output
+    of a synthetic batch: CACHED_STEPS teacher-forced steps, each step's
+    logits within CACHED_TOL of its largest |logit| of the uncached
+    decoder_fwd at that position."""
+    import torch
+
+    from vacnic_tpu_torch.core.rng import make_generator
+    from vacnic_tpu_torch.data.synthetic import synthetic_batch
+    from vacnic_tpu_torch.models import bart as B
+    from vacnic_tpu_torch.train.train_step import create_mask
+
+    params = B.bart_init(make_generator(0, "cuda"), cfg.bart, device="cuda")
+    b = synthetic_batch(cfg, CACHED_BATCH, seed=0)
+    ids = b["article_ids"].cuda()
+    mask = create_mask(ids)
+    tgt = b["caption_ids"][:, :CACHED_STEPS].cuda()
+    worst = 0.0
+    with torch.no_grad():
+        enc = B.encoder_fwd(params, ids, mask, cfg.bart)
+        full = B.lm_logits(params, B.decoder_fwd(params, tgt, enc, mask, cfg.bart))
+        cache = B.init_cache(params, CACHED_BATCH, CACHED_STEPS, enc, cfg.bart)
+        t0 = time.perf_counter()
+        for t in range(CACHED_STEPS):
+            h = B.decoder_fwd(params, tgt[:, t:t + 1], enc, mask, cfg.bart, cache=cache,
+                              cache_index=t)
+            step = B.lm_logits(params, h)[:, 0]
+            ref = full[:, t]
+            worst = max(worst, float((step - ref).abs().max() / ref.abs().max()))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    log(f"mlp cached decoder: init_cache + decoder_fwd(cache=) at d {cfg.bart.d_model}, "
+        f"{cfg.bart.decoder_layers} layers, f32, batch {CACHED_BATCH}: {CACHED_STEPS} steps in "
+        f"{dt:.3f} s; worst step {worst:.3e} of its largest |logit| against the uncached "
+        f"decoder_fwd (tol {CACHED_TOL}) ({gpu})")
+    if not worst <= CACHED_TOL:
+        raise RuntimeError("the cached decoder disagrees with the uncached one")
+
+
+def run_mlp_phase(batch_size: int, gpu: str) -> dict:
+    """full_train() with the mlp prompt mapper (mlp_config) at full width,
+    random bf16 weights from seed 0: the CLIP tower (ViT-B/16, seed 0, bf16)
+    on pixels gives the patch tokens [batch, 196, 768]; the fused encoder
+    against the layer-by-layer one on them; generate_mm at the slice's
+    decode held to the slice's counts with enc_cross_attention 12 at KV 36
+    (16 prompt rows + 20 NER rows); then, that tree freed, the general
+    cached decoder (run_cached_decoder_check) -> the decode's counts."""
+    import torch
+
+    from vacnic_tpu_torch.core.rng import make_generator
+    from vacnic_tpu_torch.data.synthetic import synthetic_batch
+    from vacnic_tpu_torch.models.clip_vit import clip_vision_fwd, clip_vision_init
+
+    t_phase = time.perf_counter()
+    cfg, params = full_model(cfg=mlp_config())
+    clip = clip_vision_init(make_generator(0, "cuda"), cfg.clip, device="cuda")
+    px = synthetic_batch(cfg, batch_size, seed=0, with_pixels=True)["pixels"].cuda()
+    with torch.no_grad():
+        patches = clip_vision_fwd(clip, px, cfg.clip, torch.bfloat16)[0]
+    del clip, px
+    want = (batch_size, cfg.fusion.map_size[0], cfg.clip.width)
+    if tuple(patches.shape) != want or not bool(torch.isfinite(patches).all()):
+        raise RuntimeError(f"mlp: CLIP patch tokens of shape {tuple(patches.shape)} (want "
+                           f"{want}), finite {bool(torch.isfinite(patches).all())}")
+    log(f"mlp: CLIP patch tokens {tuple(patches.shape)} from pixels, finite")
+    x = dict(batch_inputs(cfg, batch_size), image_features=patches)
+    check_fused_encoder("mlp", cfg, params, x)
+    counts, _ = run_model_path("mlp", cfg, params, x, gpu)
+    del params, x, patches
+    torch.cuda.empty_cache()
+    run_cached_decoder_check(cfg, gpu)
+    torch.cuda.empty_cache()
+    log(f"mlp: phase wall {time.perf_counter() - t_phase:.1f} s")
     return counts
 
 
@@ -4145,7 +4445,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
                     default="build,kernels,accuracy,dispatch,stacks,slice,selfkv,stats,stackhead,"
-                            "layerwise,serve,profile,mesh,train,tp,data,cli")
+                            "layerwise,serve,profile,mesh,onlyvis,mlp,train,tp,data,cli")
     ap.add_argument("--batch", type=int, default=32)
     ap.add_argument("--tokens-out", metavar="FILE",
                     help="save each path's captions (torch.save of {path: tokens})")
@@ -4195,10 +4495,12 @@ def main() -> int:
             run_stacks_phase(cfg, params)
         slice_seqs = counts = None
         if "slice" in phases:
-            counts, slice_seqs = run_slice_phase(cfg, params, args.batch)
+            counts, slice_seqs = run_model_path("slice", cfg, params,
+                                                batch_inputs(cfg, args.batch), gpu)
             launches.update({k: counts[k] for k in SLICE_COUNTED})
         if phases & {"selfkv", "stats", "stackhead", "mesh"} and slice_seqs is None:
-            counts, slice_seqs = run_slice_phase(cfg, params, args.batch)
+            counts, slice_seqs = run_model_path("slice", cfg, params,
+                                                batch_inputs(cfg, args.batch), gpu)
         if "selfkv" in phases:
             launches.update(run_selfkv_phase(cfg, params, args.batch, slice_seqs, gpu))
         if "stats" in phases:
@@ -4221,6 +4523,15 @@ def main() -> int:
         if "meshscale" in phases:
             run_meshscale_phase(cfg, params, gpu)
         del params  # the train phase builds its own f32 trees
+    for phase, run_phase in (("onlyvis", run_onlyvis_phase), ("mlp", run_mlp_phase)):
+        if phase in phases:
+            torch.cuda.empty_cache()
+            counts = run_phase(args.batch, gpu)
+            launches[f"enc_cross_attention:kv{ENC_CROSS_KV[phase]}"] = counts[
+                "enc_cross_attention"]
+            for k in SLICE_COUNTED:  # the KV 40 rows' launches are the slice's alone
+                if k != "enc_cross_attention":
+                    launches.setdefault(k, counts[k])
     if "train" in phases:
         torch.cuda.empty_cache()
         launches.setdefault("flash_attention", run_train_phase(gpu)["flash_attention"])

@@ -690,13 +690,15 @@ def test_enc_cross_smem_from_the_library(dev):
     assert 4 * (smem + 1024) <= 228 * 1024
 
 
-@pytest.mark.parametrize("kv", [1, 8, 40, 64])
+@pytest.mark.parametrize("kv", [1, 8, 16, 20, 36, 40, 64])
 @pytest.mark.parametrize("s_len", [1, 63, 64, 130, 512])
 def test_enc_cross_tiles(dev, s_len, kv):
     """The tensor-core cross-attention against its twin at every KV <= 64
-    and ragged S (a last q tile of 1, 63, 2 rows), bit-identical over two
-    calls; and at batch 32, whose one (item, head) block walks all eight q
-    tiles of S 512, and batch 1, eight blocks of one q tile each."""
+    (the configs' 40, 20, 36 and 16 among them: K rows 80, 40, 72 and 32
+    bytes apart) and ragged S (a last q tile of 1, 63, 2 rows),
+    bit-identical over two calls, each launch counted under its KV; and at
+    batch 32, whose one (item, head) block walks all eight q tiles of S
+    512, and batch 1, eight blocks of one q tile each."""
     from vacnic_tpu_torch.kernels import primitives as K
 
     g = torch.Generator(device=dev).manual_seed(s_len * 100 + kv)
@@ -708,8 +710,10 @@ def test_enc_cross_tiles(dev, s_len, kv):
         q = rn(g, b_sz * s_len, d, dtype=bf)
         ck, cv = rn(g, b_sz, d, kv, dtype=bf), rn(g, b_sz, kv, d, dtype=bf)
         before = K.launch_counts()["enc_cross_attention"]
+        before_kv = K.enc_cross_kv_counts().get(kv, 0)
         out = K.enc_cross_attention(q, ck, cv, b_sz, s_len, heads)
         assert K.launch_counts()["enc_cross_attention"] == before + 1
+        assert K.enc_cross_kv_counts()[kv] == before_kv + 1
         close(out, K.enc_cross_attention_plain(q, ck, cv, b_sz, s_len, heads), True)
         assert torch.equal(out, K.enc_cross_attention(q, ck, cv, b_sz, s_len, heads))
 

@@ -15,7 +15,7 @@ import pytest
 import torch
 
 from vacnic_tpu.core.config import (BartConfig as JBart, ClipVisionConfig as JClip,
-                                    FusionConfig as JFusion)
+                                    FusionConfig as JFusion, VacnicConfig as JC)
 from vacnic_tpu.models import fusion as JF
 from vacnic_tpu.models import weights_io as JW
 from vacnic_tpu.models.clip_vit import clip_vision_init as j_clip_init
@@ -125,6 +125,27 @@ def test_convert_multimodal_bart_matches_jax(case):
     assert_same_tree(ours, jtree)
     if case == "full_mlp_mapper":
         assert len(ours["encoder"]["prompt_mlp"]["stages"]) == 3
+        # the converted tree runs: the port's forward on patch tokens equals JAX's
+        from vacnic_tpu.data.synthetic import synthetic_batch as j_batch
+        from vacnic_tpu.train.train_step import create_mask, face_mask_from_emb
+        from vacnic_tpu_torch.models.fusion import mm_forward
+
+        jcfg = JC.tiny()
+        b = {k: np.array(v) for k, v in j_batch(jcfg, 2, seed=0).items()}
+        patches = np.random.RandomState(1).randn(2, 4, 32).astype(np.float32)
+        dec_in = b["caption_ids"][:, :5]
+        streams = dict(face_features=b["face_emb"],
+                       face_mask=np.array(face_mask_from_emb(b["face_emb"])),
+                       name_ids=b["names_art_ids"],
+                       name_mask=np.array(create_mask(b["names_art_ids"])))
+        mask = np.array(create_mask(b["article_ids"]))
+        want = JF.mm_forward(jtree, b["article_ids"], mask, dec_in, patches, JBart.tiny(),
+                             JFusion.tiny(**kw), **streams)
+        got = mm_forward(ours, b["article_ids"], mask, dec_in, patches, BartConfig.tiny(),
+                         FusionConfig.tiny(**kw), device="cpu", **streams)
+        for k in ("logits", "hidden_states_img"):
+            np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]), rtol=1e-4,
+                                       atol=1e-4, err_msg=k)
 
 
 def test_convert_multimodal_bart_bare_keys_and_device():

@@ -41,6 +41,9 @@ LAYERNORM_VARIANT_LAUNCHES: dict[str, int] = {v: 0 for v in LAYERNORM_VARIANTS}
 # and dec_self_attention, one instance for each self-cache type
 DEC_SELF_VARIANTS = ("bf16", "int8", "fp8")
 DEC_SELF_VARIANT_LAUNCHES: dict[str, int] = {v: 0 for v in DEC_SELF_VARIANTS}
+# enc_cross_attention's launches by their KV (the prompt rows, + the NER
+# prefix's without only_image: 40 and 20 under clipcap, 36 and 16 under mlp)
+ENC_CROSS_KV_LAUNCHES: dict[int, int] = {kv: 0 for kv in range(1, 65)}
 
 GELU = "gelu"
 _COUNT_LOCK = threading.Lock()  # the counts above are bumped from one thread a card
@@ -49,7 +52,7 @@ _COUNT_LOCK = threading.Lock()  # the counts above are bumped from one thread a 
 def reset_launch_counts() -> None:
     with _COUNT_LOCK:
         for table in (LAUNCHES, GEMM_VARIANT_LAUNCHES, LAYERNORM_VARIANT_LAUNCHES,
-                      DEC_SELF_VARIANT_LAUNCHES):
+                      DEC_SELF_VARIANT_LAUNCHES, ENC_CROSS_KV_LAUNCHES):
             for k in table:
                 table[k] = 0
 
@@ -72,6 +75,12 @@ def dec_self_variant_counts() -> dict[str, int]:
     """Launches of dec_self_attention by self-cache type: they add up to
     LAUNCHES["dec_self_attention"]."""
     return dict(DEC_SELF_VARIANT_LAUNCHES)
+
+
+def enc_cross_kv_counts() -> dict[int, int]:
+    """Launches of enc_cross_attention by KV, the KVs launched only: they add
+    up to LAUNCHES["enc_cross_attention"]."""
+    return {kv: n for kv, n in ENC_CROSS_KV_LAUNCHES.items() if n}
 
 
 # ---------------------------------------------------------------------------
@@ -350,7 +359,8 @@ def enc_cross_attention(q, ck, cv, batch: int, seq: int, heads: int):
         raise ValueError("enc_cross_attention: q and cv must start on 16 bytes")
     out = torch.empty_like(q)
     _launch("enc_cross_attention", "vt_enc_cross_attention", q.device, _p(q), _p(ck), _p(cv),
-            _p(out), batch, seq, kv, heads, ctypes.c_float(64 ** -0.5))
+            _p(out), batch, seq, kv, heads, ctypes.c_float(64 ** -0.5),
+            variant=(ENC_CROSS_KV_LAUNCHES, kv))
     return out
 
 

@@ -1,7 +1,7 @@
 """BART backbone (port of vacnic_tpu/models/bart.py): embeddings, the
-encoder and decoder layers over a whole sequence, the text-only encoder and
-teacher-forced seq2seq forward, the tied LM head, label shifting and the
-parameter init.
+encoder and decoder layers, the text-only encoder and teacher-forced
+seq2seq forward, the general KV-cached decoder, the tied LM head, label
+shifting and the parameter init.
 
 Training: dropout at JAX's sites, from a seed (`dropout_rng`; None is the
 eval path). Every layer draws its masks from its own seed, fold_in(base, i),
@@ -11,6 +11,10 @@ decoder derives per-layer keys only under remat; the masks themselves are
 not JAX's in either case. JAX's remat policies (VACNIC_REMAT_POLICY) are a
 TPU-compiler knob and are not carried over: the port's one policy is
 "recompute the layer".
+
+Decoding with the general KV cache (`init_cache`, `decoder_fwd(cache=,
+cache_index=)`): HF's incremental decode, the step-by-step reference the
+kernel decode (infer/decode_fast) is held to. The cache is written in place.
 
 Tensor parallelism (`tp`, core/tensor_parallel): the layers run on a model
 rank's shard, attention by heads and fc1/fc2 as a column/row pair, with
@@ -29,6 +33,7 @@ from vacnic_tpu_torch.models.layers import (
     NO_DROPOUT,
     Params,
     RngStream,
+    _split_heads,
     causal_mask,
     column_linear,
     column_seed,
@@ -39,6 +44,7 @@ from vacnic_tpu_torch.models.layers import (
     fold_in,
     layernorm,
     layernorm_init,
+    linear,
     linear_init,
     mha,
     mha_init,
@@ -88,14 +94,20 @@ def encoder_layer_fwd(p: Params, x: torch.Tensor, attn_mask, cfg: BartConfig,
 def decoder_layer_fwd(p: Params, x: torch.Tensor, self_mask, enc_out: torch.Tensor | None,
                       cross_mask, cfg: BartConfig,
                       rngs: RngStream = NO_DROPOUT,
-                      tp: ModelShard | None = None) -> torch.Tensor:
-    """BART decoder layer over a whole (teacher-forced) sequence."""
+                      tp: ModelShard | None = None, cache: Params | None = None,
+                      cache_index: int | torch.Tensor | None = None) -> torch.Tensor:
+    """BART decoder layer over a whole (teacher-forced) sequence, or with
+    `cache` ({"self", "cross"} of init_cache's layer) a decode step at
+    `cache_index`: the self K/V rows written into the cache in place, the
+    cross K/V read from it."""
     act = ACT2FN[cfg.activation_function]
-    h = mha(p["self_attn"], x, mask=self_mask, num_heads=cfg.decoder_attention_heads, tp=tp)
+    h = mha(p["self_attn"], x, mask=self_mask, num_heads=cfg.decoder_attention_heads, tp=tp,
+            cache=cache["self"] if cache else None, cache_index=cache_index)
     x = layernorm(p["self_attn_layer_norm"], x + dropout(h, cfg.dropout, rngs.next()))
     if enc_out is not None:
         h = mha(p["encoder_attn"], x, key_value=enc_out, mask=cross_mask,
-                num_heads=cfg.decoder_attention_heads, tp=tp)
+                num_heads=cfg.decoder_attention_heads, tp=tp,
+                cache=cache["cross"] if cache else None)
         x = layernorm(p["encoder_attn_layer_norm"], x + dropout(h, cfg.dropout, rngs.next()))
     return residual_ffn(p["fc1"], p["fc2"], p["final_layer_norm"], x, act, cfg, rngs, tp)
 
@@ -114,8 +126,10 @@ def run_layer(fn, remat: bool, *args):
     return fn(*args)
 
 
-def _decoder_layer(p, x, self_mask, enc_out, cross_mask, cfg, seed, tp):
-    return decoder_layer_fwd(p, x, self_mask, enc_out, cross_mask, cfg, RngStream(seed), tp)
+def _decoder_layer(p, x, self_mask, enc_out, cross_mask, cfg, seed, tp, cache=None,
+                   cache_index=None):
+    return decoder_layer_fwd(p, x, self_mask, enc_out, cross_mask, cfg, RngStream(seed), tp,
+                             cache, cache_index)
 
 
 def _encoder_layer(p, x, mask, cfg, seed, tp):
@@ -124,18 +138,38 @@ def _encoder_layer(p, x, mask, cfg, seed, tp):
 
 def decoder_fwd(params: Params, decoder_input_ids: torch.Tensor, enc_out: torch.Tensor,
                 enc_attention_mask: torch.Tensor, cfg: BartConfig,
-                dtype=torch.float32, *, dropout_rng: int | None = None,
-                remat: bool = False, tp: ModelShard | None = None) -> torch.Tensor:
-    """Teacher-forced decoder stack (causal self mask, padded cross mask)."""
+                dtype=torch.float32, *, decoder_attention_mask: torch.Tensor | None = None,
+                dropout_rng: int | None = None, remat: bool = False,
+                tp: ModelShard | None = None, cache: Params | None = None,
+                cache_index: int | torch.Tensor | None = None) -> torch.Tensor:
+    """The decoder stack over a whole sequence (teacher-forced: causal self
+    mask, plus `decoder_attention_mask`'s padding when given; padded cross
+    mask), or with `cache` (init_cache's) a decode step: decoder_input_ids
+    [B, t] at positions cache_index.., attending to the cache's rows <=
+    cache_index (the JAX mask: one step's tokens see each other whole), the
+    cache updated in place; remat is off there, as in JAX. The JAX function
+    also returns the updated cache; here the hidden states alone."""
     dec = params["decoder"]
     t = decoder_input_ids.shape[-1]
+    pos_offset = int(cache_index) if cache is not None else 0
     x = embed_and_norm(params["shared"], dec["embed_positions"], dec["layernorm_embedding"],
-                       decoder_input_ids, cfg, dtype, rngs=RngStream(dropout_rng))
-    self_mask = causal_mask(t, dtype, device=x.device)
+                       decoder_input_ids, cfg, dtype, pos_offset=pos_offset,
+                       rngs=RngStream(dropout_rng))
+    if cache is not None:
+        n_max = cache["layers"][0]["self"]["k"].shape[2]
+        pos = torch.arange(n_max, device=x.device)[None, None, None, :]
+        self_mask = torch.where(pos <= pos_offset, torch.zeros((), dtype=dtype, device=x.device),
+                                torch.full((), torch.finfo(dtype).min, dtype=dtype,
+                                           device=x.device))
+    else:
+        self_mask = causal_mask(t, dtype, device=x.device)
+        if decoder_attention_mask is not None:
+            self_mask = self_mask + expand_mask(decoder_attention_mask, t, dtype)
     cross_mask = expand_mask(enc_attention_mask, t, dtype)
     for i, p in enumerate(dec["layers"]):
-        x = run_layer(_decoder_layer, remat, p, x, self_mask, enc_out, cross_mask, cfg,
-                      layer_seed(dropout_rng, i), tp)
+        layer_cache = cache["layers"][i] if cache is not None else None
+        x = run_layer(_decoder_layer, remat and cache is None, p, x, self_mask, enc_out,
+                      cross_mask, cfg, layer_seed(dropout_rng, i), tp, layer_cache, pos_offset)
     return x
 
 
@@ -180,6 +214,31 @@ def lm_logits(params: Params, hidden: torch.Tensor) -> torch.Tensor:
     w = params["shared"]["weight"].to(hidden.dtype)
     logits = torch.matmul(hidden.float(), w.float().t())
     return logits + params["final_logits_bias"].float()
+
+
+# ---------------------------------------------------------------------------
+# Decode-time cache of the general decoder (decoder_fwd(cache=))
+# ---------------------------------------------------------------------------
+
+def init_cache(params: Params, batch: int, max_len: int, enc_out: torch.Tensor,
+               cfg: BartConfig, dtype=torch.float32) -> Params:
+    """{"layers": ({"self": {"k", "v"}, "cross": {"k", "v"}}, ...)}: the self
+    K/V zeros of [batch, H, max_len, hd] in `dtype`, written by the decode
+    steps; the cross K/V projected from enc_out [batch, S, d] once a
+    sequence (in enc_out's dtype), as HF computes them at step 0 and
+    reuses them."""
+    h = cfg.decoder_attention_heads
+    hd = cfg.d_model // h
+    dev = enc_out.device
+    layers = []
+    for p in params["decoder"]["layers"]:
+        layers.append({
+            "self": {"k": torch.zeros(batch, h, max_len, hd, dtype=dtype, device=dev),
+                     "v": torch.zeros(batch, h, max_len, hd, dtype=dtype, device=dev)},
+            "cross": {"k": _split_heads(linear(p["encoder_attn"]["k_proj"], enc_out), h),
+                      "v": _split_heads(linear(p["encoder_attn"]["v_proj"], enc_out), h)},
+        })
+    return {"layers": tuple(layers)}
 
 
 # ---------------------------------------------------------------------------

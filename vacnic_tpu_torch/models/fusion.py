@@ -1,5 +1,9 @@
-"""Multimodal BART fusion encoder (port of vacnic_tpu/models/fusion.py), the
-pieces the released configurations run at inference.
+"""Multimodal BART fusion encoder (port of vacnic_tpu/models/fusion.py).
+
+The image prompt comes from the CLS feature through the clipcap mapper (the
+released configurations') or from the patch tokens through the mlp mapper
+(`prompt_mlp_type="mlp"`, KV = map_size[-1] prompt rows);
+`extract_visual_prompt` is the mapping alone, without a gradient.
 
 Per fusion layer, with streams threaded layer to layer:
   img  : residual FFN (d -> ffn_dim -> d) + LN
@@ -21,8 +25,9 @@ infer/generate's.
 Tensor parallelism (`tp`, core/tensor_parallel) runs the layer-by-layer
 encoder on a model rank's shard: the attentions by heads, the img/face/text
 FFNs and ner_map_up/down as column/row pairs, the clipcap mapper's
-prompt_fc1/prompt_fc2 likewise. The fused encoder takes whole weights only
-(it serves inference, where the tree is whole).
+prompt_fc1/prompt_fc2 likewise; the mlp mapper's stages run whole. The
+fused encoder takes whole weights only (it serves inference, where the tree
+is whole).
 """
 
 from __future__ import annotations
@@ -59,8 +64,16 @@ from vacnic_tpu_torch.models.weights_io import tree_to
 
 
 # ---------------------------------------------------------------------------
-# Prompt mapper (clipcap; the released config's prompt_mlp_type)
+# Prompt mappers: clipcap (the released configs') and mlp (over patch tokens)
 # ---------------------------------------------------------------------------
+
+def prompt_mlp_clipcap_init(g: torch.Generator, img_size: int, prompt_size: int,
+                            device=None) -> Params:
+    """ClipCap mapper: Linear(img -> img*P/2) -> tanh -> Linear(-> img*P)."""
+    mid = (img_size * prompt_size) // 2
+    return {"prompt_fc1": linear_init(g, img_size, mid, device),
+            "prompt_fc2": linear_init(g, mid, img_size * prompt_size, device)}
+
 
 def prompt_mlp_clipcap_fwd(p: Params, cls_feat: torch.Tensor, img_size: int,
                            prompt_size: int, tp: ModelShard | None = None) -> torch.Tensor:
@@ -70,18 +83,60 @@ def prompt_mlp_clipcap_fwd(p: Params, cls_feat: torch.Tensor, img_size: int,
     return h.reshape(h.shape[0], prompt_size, img_size)
 
 
+def prompt_mlp_patch_init(g: torch.Generator, map_size: tuple[int, ...],
+                          device=None) -> Params:
+    """The mlp mapper: one linear map_size[i] -> map_size[i + 1] a stage,
+    over the patch dimension."""
+    return {"stages": tuple(linear_init(g, map_size[i], map_size[i + 1], device)
+                            for i in range(len(map_size) - 1))}
+
+
+def prompt_mlp_patch_fwd(p: Params, patch_feat: torch.Tensor) -> torch.Tensor:
+    """[B, n_patches, width] -> [B, map_size[-1], width]: the stages with
+    tanh between them (none after the last). The reference reshapes the
+    patch tokens to [B, width, n_patches], a reinterpretation of the
+    row-major memory that mixes patch and channel axes, not a transpose;
+    torch.reshape has numpy's row-major semantics whatever the strides, so
+    converted checkpoints of this mapper match."""
+    b, n_patches, width = patch_feat.shape
+    x = patch_feat.reshape(b, width, n_patches)
+    n = len(p["stages"])
+    for i, stage in enumerate(p["stages"]):
+        x = linear(stage, x)
+        if i < n - 1:
+            x = torch.tanh(x)
+    return x.reshape(b, -1, width)
+
+
 def map_image_prompt(enc: Params, image_features: torch.Tensor, cfg: BartConfig,
                      fcfg: FusionConfig, tp: ModelShard | None = None) -> torch.Tensor:
-    """CLIP features -> prompt tokens [B, P, d_model]."""
-    if fcfg.prompt_mlp_type != "clipcap":
-        raise NotImplementedError(
-            f"prompt_mlp_type={fcfg.prompt_mlp_type!r}: the port carries the "
-            "released clipcap mapper only")
-    img = prompt_mlp_clipcap_fwd(enc["prompt_mlp"], image_features, fcfg.img_size,
-                                 fcfg.prompt_size, tp)
+    """CLIP features -> prompt tokens [B, P, d_model]: the CLS feature
+    [B, img_size] through clipcap, or patch tokens [B, n_patches, width]
+    through the mlp mapper, then visual_map (768 -> 1024) at d_model 1024.
+    Under `tp` the clipcap pair runs column/row-parallel; the mlp stages
+    are replicated (their parent is a tuple index, which the sharding rule
+    does not cut) and run whole on every rank."""
+    if fcfg.prompt_mlp_type == "clipcap":
+        img = prompt_mlp_clipcap_fwd(enc["prompt_mlp"], image_features, fcfg.img_size,
+                                     fcfg.prompt_size, tp)
+    else:
+        img = prompt_mlp_patch_fwd(enc["prompt_mlp"], image_features)
     if cfg.d_model == 1024:
         img = linear(enc["visual_map"], img)
     return img
+
+
+@torch.no_grad()
+def extract_visual_prompt(params: Params, image_features, cfg: BartConfig,
+                          fcfg: FusionConfig, device=None) -> torch.Tensor:
+    """The prompt tokens of `image_features` without a gradient (the
+    reference's prompt-representation analysis): map_image_prompt on the
+    mapper's and visual_map's leaves, moved to `device` ("cuda" by
+    default) with the features."""
+    dev = resolve_device(device)
+    enc = tree_to({k: v for k, v in params["encoder"].items()
+                   if k in ("prompt_mlp", "visual_map")}, dev)
+    return map_image_prompt(enc, as_tensor(image_features, dev), cfg, fcfg)
 
 
 def embed_ner_stream(enc: Params, name_ids: torch.Tensor, cfg: BartConfig,
@@ -435,13 +490,10 @@ def multimodal_bart_init(g: torch.Generator, cfg: BartConfig, fcfg: FusionConfig
     fused_set = set(fcfg.fusion_layers)
     enc["layers"] = tuple(fusion_encoder_layer_init(g, cfg, fcfg, i in fused_set, device)
                           for i in range(cfg.encoder_layers))
-    if fcfg.prompt_mlp_type != "clipcap":
-        raise NotImplementedError("the port carries the released clipcap mapper only")
-    mid = (fcfg.img_size * fcfg.prompt_size) // 2
-    enc["prompt_mlp"] = {
-        "prompt_fc1": linear_init(g, fcfg.img_size, mid, device),
-        "prompt_fc2": linear_init(g, mid, fcfg.img_size * fcfg.prompt_size, device),
-    }
+    if fcfg.prompt_mlp_type == "clipcap":
+        enc["prompt_mlp"] = prompt_mlp_clipcap_init(g, fcfg.img_size, fcfg.prompt_size, device)
+    else:
+        enc["prompt_mlp"] = prompt_mlp_patch_init(g, fcfg.map_size, device)
     if cfg.d_model == 1024:
         enc["visual_map"] = linear_init(g, 768, 1024, device)
     if not fcfg.only_image:

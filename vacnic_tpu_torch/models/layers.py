@@ -292,13 +292,23 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def mha(p: Params, hidden: torch.Tensor, key_value: torch.Tensor | None = None,
         mask: torch.Tensor | None = None, *, num_heads: int,
-        tp: ModelShard | None = None) -> torch.Tensor:
-    """HF BartAttention without a cache: q scaled by head_dim**-0.5;
-    key_value=None is self-attention. `num_heads` is the layer's whole head
-    count, which fixes head_dim = d // num_heads; the heads run here are as
-    many as the q projection's columns hold (all of them in one process, a
-    model rank's share of them under `tp`: q/k/v column-parallel, out_proj
-    row-parallel)."""
+        tp: ModelShard | None = None, cache: Params | None = None,
+        cache_index: int | torch.Tensor | None = None) -> torch.Tensor:
+    """HF BartAttention: q scaled by head_dim**-0.5; key_value=None is
+    self-attention. `num_heads` is the layer's whole head count, which fixes
+    head_dim = d // num_heads; the heads run here are as many as the q
+    projection's columns hold (all of them in one process, a model rank's
+    share of them under `tp`: q/k/v column-parallel, out_proj row-parallel).
+
+    `cache` (the general decoder's, models/bart.init_cache): {"k", "v"} of
+    [B, H, L_max, hd]. Self-attention writes its new k/v rows at
+    `cache_index` into the cache, in place, and attends over all L_max rows
+    (the caller's mask hides those past the step); cross-attention reads the
+    cache's K/V, projected once, and ignores key_value's values. The JAX
+    function returns the updated cache beside the output; here the output
+    alone. A cache takes whole weights: with `tp` it raises."""
+    if cache is not None and tp is not None:
+        raise ValueError("mha: cache= runs on whole weights; tp= is not supported with it")
     d = hidden.shape[-1]
     head_dim = d // num_heads
     width = p["q_proj"]["kernel"].shape[1]
@@ -307,10 +317,18 @@ def mha(p: Params, hidden: torch.Tensor, key_value: torch.Tensor | None = None,
     heads = width // head_dim
     scaling = head_dim ** -0.5
     hidden = copy_to_model_parallel(hidden, tp)
-    src = hidden if key_value is None else copy_to_model_parallel(key_value, tp)
     q = _split_heads(column_linear(p["q_proj"], hidden, tp) * scaling, heads)
-    k = _split_heads(column_linear(p["k_proj"], src, tp), heads)
-    v = _split_heads(column_linear(p["v_proj"], src, tp), heads)
+    if cache is not None and key_value is not None:  # cross K/V projected once a sequence
+        k, v = cache["k"], cache["v"]
+    else:
+        src = hidden if key_value is None else copy_to_model_parallel(key_value, tp)
+        k = _split_heads(column_linear(p["k_proj"], src, tp), heads)
+        v = _split_heads(column_linear(p["v_proj"], src, tp), heads)
+        if cache is not None:  # a decode step of the cached self-attention
+            idx = int(cache_index)
+            cache["k"][:, :, idx:idx + k.shape[2]] = k
+            cache["v"][:, :, idx:idx + v.shape[2]] = v
+            k, v = cache["k"], cache["v"]
     out = attention_core(q, k, v, mask)
     return row_linear(p["out_proj"], _merge_heads(out), tp)
 
