@@ -17,8 +17,9 @@ Phases:
            regimes (M = 16384: the TMA kernel, M = 160: the split-K kernel;
            each row names its plan) and ragged shapes untimed. Untimed too:
            layernorm at d 32 ... 2048 (both kernels, a scalar tail) and
-           rows 1 to 6000; dec_cross_attention at beams 1, 5, 8 x S 1, 40,
-           130, 512, int8 and bf16, with an item whose keys are all masked;
+           rows 1 to 6000; dec_cross_attention at beams 1, 5, 8, 9, 11, 16,
+           17 x S 1, 40 (to 8 beams), 130, 512, int8 and bf16, with an item
+           whose keys are all masked;
            dec_self_attention (timed at pos 0, 31, 49 for each of its bf16,
            int8 and fp8 self caches) at BK 1, 5, 8, 37, 160, 640 x heads 4
            and 16, pos = T - 1 and a middle pos, a random ancestry, and int8
@@ -35,11 +36,17 @@ Phases:
            zero after the launch; enc_cross_attention (timed at B 8 and 32
            at KV 40, the slice's, and at B 32 at KV 20 and 36, the onlyvis
            and mlp paths') at KV 1, 8, 16, 20, 36, 40, 64 x S 1, 63, 64,
-           130, 512. The rows of the two
-           kernels redesigned in this slice log the times of the kernels
-           before them (EARLIER), outside the kernels line. layernorm,
-           dec_cross_attention, dec_self_attention, lm_head,
-           enc_cross_attention and lm_stats must repeat bit-identically.
+           130, 512. The ladder phase's shapes, timed: dec_cross_attention
+           at B 32 x beams 11 and 16 (groups of 8 beams) and B 256 x beam 5,
+           int8 and bf16 (bf16 beside SDPA); the decoder's five products at
+           M 320, 640, 1280 (batch 64-256 x beam 5, large_m) beside addmm;
+           lm_head at BK 1280 beside addmm. Past 8 beams each group's rows
+           must be bit-identical to the kernel of that many beams on those q
+           rows alone. The rows of the two kernels redesigned last log
+           the times of the kernels before them (EARLIER), outside the
+           kernels line. layernorm, dec_cross_attention, dec_self_attention,
+           lm_head, enc_cross_attention and lm_stats must repeat
+           bit-identically.
   accuracy enc_cross_attention at the slice's shape on three seeds against
            a float64 reference with the twin's rounding points, beside the
            plain twin and an emulation of the kernel's order of work: the
@@ -56,13 +63,16 @@ Phases:
            x length penalty 2.0 with min_length 49. Launch counts are zeroed
            just before this run and read just after; the six kernels of the
            fused encoder and the decode stack must have launched, gemm_bf16's
-           large-M kernel six times an encoder layer and its small-M kernel
-           for every other product, layernorm once a layer norm (1800, all
-           on the warp kernel), enc_self_attention and enc_cross_attention
-           once an encoder layer (12, enc_cross all at KV 40),
-           dec_cross_attention and dec_self_attention once a decoder layer a
-           step (588, dec_self all on the bf16 cache's kernel). Checks
-           finite scores and a mean caption length >= 45.
+           two kernels as kernels/primitives.gemm_plan places the six
+           products of an encoder layer (M = batch x 512: large_m) and of a
+           decoder layer a step (M = batch x beams: small_m up to 256 rows,
+           large_m above; at batch 32, 72 large_m and 3528 small_m),
+           layernorm once a layer norm (1800, all on the warp kernel),
+           enc_self_attention and enc_cross_attention once an encoder layer
+           (12, enc_cross all at KV 40), dec_cross_attention and
+           dec_self_attention once a decoder layer a step (588, dec_self all
+           on the bf16 cache's kernel, dec_cross all at the path's beam
+           count). Checks finite scores and a mean caption length >= 45.
   selfkv   the same run with self_kv="int8" and with self_kv="fp8" (the
            quantized self cache): dec_self_attention must launch 588 times
            on that cache's kernel; finite scores, mean length >= 45; token
@@ -103,6 +113,20 @@ Phases:
            (median, p95 of 10 sequential requests), captions/s of a burst of
            256 requests over HTTP, of the same rows submitted in-process and
            of eight direct generate_mm calls of 32 on them, and stats().
+  ladder   the slice's model and tree past the slice's beam count and batch
+           (run_ladder_phase): generate_mm at batch 8 x 11 beams (BK 88,
+           small_m) and batch 32 x 16 beams (BK 512, large_m), then at
+           batches 64, 128 and 256 x beam 5 (BK 320-1280: every decoder
+           product on large_m, the encoder at up to 131072 rows), each with
+           the slice's gates at its batch and beam count (launch counts as
+           gemm_plan says, dec_cross_attention counted by beams, mean length
+           >= 45, finite scores) and readings (wall, captions/s, peak
+           memory); rows 0-31 of batch 256 decoded at batch 32, token
+           agreement read, not gated; then CaptionService with the default
+           ServeConfig() (buckets up to 256): a burst of 256 rows queued
+           behind one b1 request must decode as one batch of the 256 bucket,
+           each response token- and score-identical to a direct generate_mm
+           of the same rows.
   profile  the fused encoder alone, then one more run of each of the slice,
            selfkv (int8, fp8), stats, stackhead and layerwise paths under
            torch.profiler: device time by kernel family (dec_self_attention
@@ -210,13 +234,16 @@ Phases:
            smoke (the six slice kernels launched). One line a subcommand
            with its wall seconds; logs in chiprun_out/chip_smoke/cli_*.log.
 
+--batch N (32 by default) is the batch of the slice and of the paths run
+beside it; their launch gates follow gemm_plan at that batch.
 --tokens-out FILE saves every path's captions; --tokens-ref FILE holds every
 path of this run token-identical to captions another tree saved (copy this
 file into that tree and run it there with --tokens-out first).
 
 Prints the registers, spills and shared memory of the two 512-token
 self-attention kernels, the encoder's cross-attention, the two gemm_bf16,
-two layernorm, two dec_cross_attention, three dec_self_attention, four
+two layernorm, four dec_cross_attention (beam 5 and groups of 8, int8 and
+bf16), three dec_self_attention, four
 lm_head and four lm_stats kernels (from nvcc's output of this build; a spill
 in any but the 512-token self-attention kernels fails the run), a JSON line
 with
@@ -269,7 +296,8 @@ REPLACES = {
     "enc_cross_attention": "vacnic_tpu/kernels/encoder_stack.py:197 (cross-attention)",
     "dec_self_attention": "vacnic_tpu/kernels/decode_layer.py:314 (_self_attn; int8 self "
                           "cache :393-409, :454-462; fp8 store :330-339)",
-    "dec_cross_attention": "vacnic_tpu/kernels/decode_layer.py:499 (_cross_attn)",
+    "dec_cross_attention": "vacnic_tpu/kernels/decode_layer.py:499 (_cross_attn; beam pad to "
+                           "ceil8(beams) :508-521)",
     "lm_stats": "vacnic_tpu/kernels/lm_stats.py:76 (lm_stats; _kernel :44)",
     "flash_attention": "vacnic_tpu/kernels/flash_attn.py:65 (flash_attention; _flash_kernel :28)",
     "lm_head": "vacnic_tpu/kernels/decode_layer.py:643-650 (_lm_head, the n_lm > 0 grid "
@@ -373,7 +401,11 @@ def kernel_cases():
     products = (("qkv", d, 3 * d, None, False, bf), ("self_out", d, d, None, True, torch.float32),
                 ("cross_q", d, d, None, False, bf), ("fc1", d, F, K.GELU, False, bf),
                 ("fc2", F, d, None, True, torch.float32))  # cross_out is self_out's product
-    for tag, m in (("enc", 32 * 512), ("dec", 160)):
+
+    def gemm_cases(tag: str, m: int, kern_suffix: str = ""):
+        """A layer's five products at M = m, timed beside addmm. A row's
+        launches are its kernel's in the slice's run, or with a suffix
+        (":b64") in that ladder run's."""
         for sub, k, n, act, res, out in products:
             a, w, b = rn(m, k, dtype=bf), rn(k, n, std=0.02, dtype=bf), rn(n, std=0.02)
             r = rn(m, n) if res else None
@@ -384,12 +416,15 @@ def kernel_cases():
             epi = "".join((" +gelu" if act else "", " +res" if res else "",
                            " f32" if out == torch.float32 else " bf16"))
             cases.append((f"gemm_bf16 {tag} {sub} M={m} K={k} N={n}{epi} [{how}]",
-                          f"gemm_bf16:{plan.variant}",  # its launches are its own kernel's
+                          f"gemm_bf16:{plan.variant}{kern_suffix}",
                           lambda a=a, w=w, b=b, r=r, act=act, out=out: K.gemm(a, w, b, r, act, out),
                           lambda a=a, w=w, b=b, r=r, act=act, out=out:
                           K.gemm_plain(a, w, b, r, act, out),
                           byts, 2.0 * m * n * k, PEAK_BF16_FLOPS,
                           lambda a=a, w=w, b16=b16: torch.addmm(b16, a, w)))
+
+    gemm_cases("enc", 32 * 512)
+    gemm_cases("dec", 160)
     # correctness only: ragged rows in both kernels, every epilogue combination
     for m in (1, 37, 161, 1280):
         a, w = rn(m, 256, dtype=bf), rn(256, 384, std=0.05, dtype=bf)
@@ -627,6 +662,31 @@ def kernel_cases():
                   "flash_attention", lambda: FA.flash_attention(hq, hk, hv, hbias),
                   lambda: FA.flash_attention_plain(hq, hk, hv, hbias), None, 0.0,
                   PEAK_BF16_FLOPS, None))
+
+    # the ladder phase's shapes (a row's launches are its own ladder run's):
+    # dec_cross_attention past 8 beams (groups of 8) and at batch 256
+    for beams_w in (11, 16):
+        cases += [dec_cross_timed(rn, g, 32, beams_w, S, kind,
+                                  f"dec_cross_attention:beams{beams_w}")
+                  for kind in ("int8", "bf16")]
+    cases += [dec_cross_timed(rn, g, 256, beams, S, kind, "dec_cross_attention:b256")
+              for kind in ("int8", "bf16")]
+    # the decoder's products at batch 64, 128, 256 x beam 5: M 320 (ragged:
+    # 256 + 64), 640 and 1280 rows, all on the TMA kernel
+    for batch in (64, 128, 256):
+        gemm_cases("dec", batch * beams, f":b{batch}")
+    # the LM head at batch 256 x beam 5, five passes of 256 rows: a shape no
+    # path runs (the ladder decodes with the library head), so no launches
+    x1280 = rn(1280, d, dtype=bf)
+    cases.append((f"lm_head BK=1280 d={d} Vp={Vp} (no path: the ladder's head is the library's)",
+                  "lm_head:unpathed",
+                  lambda: LH.lm_head(x1280, w_lm, b_lm), lambda: LH.lm_head_plain(x1280, w_lm, b_lm),
+                  1280 * d * 2 + Vp * d * 2 + Vp * 4 + 1280 * Vp * 4, 2.0 * 1280 * Vp * d,
+                  PEAK_BF16_FLOPS, lambda: torch.addmm(b_lm, x1280.float(), w32.t())))
+    # correctness only: groups of 8 with a ragged last one (9, 11, 17) and
+    # whole ones (16) x S 1, 130, 512 x int8 and bf16
+    for beams_c, s_c, kind in itertools.product((9, 11, 16, 17), (1, 130, 512), ("int8", "bf16")):
+        cases.append(dec_cross_case(rn, g, B5, H5, beams_c, s_c, kind))
     return cases
 
 
@@ -728,16 +788,47 @@ def dec_self_pow2_identity() -> str | None:
     return None
 
 
-def dec_cross_case(rn, g, items: int, heads: int, beams: int, s_len: int, kind: str):
-    """A correctness-only dec_cross_attention case: item 0 has every key
-    masked (the twin's softmax is uniform there), item 1 the first half of
-    them, the others none."""
+def dec_cross_group_identity() -> str | None:
+    """dec_cross_attention past 8 beams (B 32 x beams 11 and 16 x heads 16,
+    S 512, int8 and bf16, item 0's keys all masked): each group's rows
+    bit-identical to the kernel of that many beams on those q rows alone,
+    so a beam's sums do not depend on the beams beside it. -> None, or what
+    differed."""
+    import itertools
+
     import torch
 
     from vacnic_tpu_torch.kernels import primitives as K
 
-    keep = torch.full((items, 1), s_len, device="cuda")
-    keep[0], keep[1] = 0, (s_len + 1) // 2
+    g = torch.Generator(device="cuda").manual_seed(78)
+
+    def rn(*shape, std=1.0, dtype=torch.float32):
+        return (torch.randn(shape, generator=g, device="cuda") * std).to(dtype)
+
+    for beams, kind in itertools.product((11, 16), ("int8", "bf16")):
+        q, kk, vv, ks, vs, ebias = dec_cross_inputs(rn, g, 32, 16, beams, 512, kind)
+        out = K.dec_cross_attention(q, kk, vv, ks, vs, ebias, 16).view(32, beams, -1)
+        q3 = q.view(32, beams, -1)
+        for lo in range(0, beams, 8):
+            n = min(8, beams - lo)
+            alone = K.dec_cross_attention(q3[:, lo:lo + n].reshape(32 * n, -1).contiguous(), kk,
+                                          vv, ks, vs, ebias, 16)
+            if not torch.equal(out[:, lo:lo + n].reshape(32 * n, -1), alone):
+                return f"beams {beams} {kind}: group of beams {lo}..{lo + n - 1} differs"
+    return None
+
+
+def dec_cross_inputs(rn, g, items: int, heads: int, beams: int, s_len: int, kind: str,
+                     keep=None):
+    """q, K, V, their scales (int8) and the pad bias of a dec_cross_attention
+    call: each item's keys kept up to `keep` [items, 1], by default none
+    for item 0 (the twin's softmax is uniform there), the first half for
+    item 1 and all for the others."""
+    import torch
+
+    if keep is None:
+        keep = torch.full((items, 1), s_len, device="cuda")
+        keep[0], keep[1] = 0, (s_len + 1) // 2
     ebias = torch.where(torch.arange(s_len, device="cuda")[None, :] < keep, 0.0,
                         torch.finfo(torch.float32).min).float().contiguous()
     q = rn(items * beams, heads * 64, dtype=torch.bfloat16)
@@ -749,11 +840,46 @@ def dec_cross_case(rn, g, items: int, heads: int, beams: int, s_len: int, kind: 
     else:
         kk, vv = rn(*shape, dtype=torch.bfloat16), rn(*shape, dtype=torch.bfloat16)
         ks = vs = None
+    return q, kk, vv, ks, vs, ebias
+
+
+def dec_cross_case(rn, g, items: int, heads: int, beams: int, s_len: int, kind: str):
+    """A correctness-only dec_cross_attention case (dec_cross_inputs)."""
+    from vacnic_tpu_torch.kernels import primitives as K
+
+    args = dec_cross_inputs(rn, g, items, heads, beams, s_len, kind)
     return (f"dec_cross_attention {kind} B={items} beams={beams} S={s_len}",
-            "dec_cross_attention",
+            "dec_cross_attention", lambda: K.dec_cross_attention(*args, heads),
+            lambda: K.dec_cross_attention_plain(*args, heads), None, 0.0, PEAK_BF16_FLOPS, None)
+
+
+def dec_cross_timed(rn, g, items: int, beams: int, s_len: int, kind: str, kern: str,
+                    heads: int = 16):
+    """A timed dec_cross_attention case: q of items x beams rows, K/V of
+    `kind`, each item's keys masked past a random point in [S/2, S]. The
+    bound counts each K/V element once an item (read by every beam group of
+    it); bf16 also against SDPA over [items, H, beams, 64] queries."""
+    import torch
+    import torch.nn.functional as Fn
+
+    from vacnic_tpu_torch.kernels import primitives as K
+
+    d, bk = heads * 64, items * beams
+    q, kk, vv, ks, vs, ebias = dec_cross_inputs(
+        rn, g, items, heads, beams, s_len, kind,
+        torch.randint(s_len // 2, s_len + 1, (items, 1), device="cuda", generator=g))
+    lib = None
+    if kind != "int8":
+        emask = (ebias > -1)[:, None, None, :]
+        lib = (lambda: Fn.scaled_dot_product_attention(
+            q.view(items, beams, heads, 64).transpose(1, 2), kk.transpose(2, 3),
+            vv.transpose(2, 3), attn_mask=emask))
+    byts = bk * d * 2 * 2 + 2 * kk.numel() * kk.element_size() + items * s_len * 4 + (
+        2 * items * heads * 64 * 4 if ks is not None else 0)
+    return (f"dec_cross_attention {kind} B={items} beams={beams} S={s_len}", kern,
             lambda: K.dec_cross_attention(q, kk, vv, ks, vs, ebias, heads),
             lambda: K.dec_cross_attention_plain(q, kk, vv, ks, vs, ebias, heads),
-            None, 0.0, PEAK_BF16_FLOPS, None)
+            byts, 4.0 * bk * s_len * d, PEAK_BF16_FLOPS, lib)
 
 
 def tolerance(out) -> tuple[float, float]:
@@ -842,6 +968,12 @@ def run_kernels_phase():
         f"cache, BK=160 H=16 T=64 pos 0/1/31/49/63: {pow2 or 'bit-identical ok'}")
     if pow2:
         failures.append("dec_self_attention int8 power-of-two identity")
+    groups = dec_cross_group_identity()
+    log("kernel dec_cross_attention past 8 beams, B=32 x beams 11 / 16 x H=16 S=512, int8 and "
+        "bf16: each group of 8 beams vs the kernel of that many beams on its q rows alone: "
+        f"{groups or 'bit-identical ok'}")
+    if groups:
+        failures.append("dec_cross_attention group identity")
     if failures:
         raise RuntimeError(f"kernels disagree with their plain twins: {failures}")
     return rows
@@ -1055,9 +1187,7 @@ def run_stacks_phase(cfg, params):
     <= 5% of the reference's max magnitude (a bf16 model run two ways)."""
     import torch
 
-    from vacnic_tpu_torch.infer import decode_fast as DF
     from vacnic_tpu_torch.models import fusion as F
-    from vacnic_tpu_torch.models.layers import expand_mask
 
     bf = torch.bfloat16
     x = batch_inputs(cfg, 2)
@@ -1068,24 +1198,42 @@ def run_stacks_phase(cfg, params):
         fused = F.mm_encoder_fwd_fused(*args, dtype=bf, **kw)["last_hidden"]
         ref = F.mm_encoder_fwd(*args, dtype=bf, **kw)["last_hidden"]
         e_enc = rel_err(fused, ref)
-        enc = ref
+    e_dec, agree = decode_steps_error(cfg, params, x, ref)
+    log(f"stacks: fused encoder vs layer-by-layer rel err {e_enc:.3e}; kernel decode step vs "
+        f"reference rel err {e_dec:.3e}, argmax agreement {agree:.3f} (tol rel 5e-2)")
+    if not (e_enc <= 5e-2 and e_dec <= 5e-2):
+        raise RuntimeError("full-width stacks disagree with their references")
+
+
+def decode_steps_error(cfg, params, x: dict, enc, steps: int = 3) -> tuple[float, float]:
+    """`steps` kernel decode steps (decode_step_kernel: the CUDA decoder
+    stack at BK = batch x cfg's beams, on the time-major cache) against the
+    reference step (plain PyTorch, batch-major cache), both bf16 on the card
+    from the same encoder output `enc`, each step's tokens the reference's
+    argmax -> (the largest relative error of the logits, the lowest argmax
+    agreement)."""
+    import torch
+
+    from vacnic_tpu_torch.infer import decode_fast as DF
+    from vacnic_tpu_torch.models.layers import expand_mask
+
+    bf, beams, length = torch.bfloat16, cfg.decode.num_beams, cfg.decode.max_length
+    with torch.no_grad():
         dp = DF.build_decode_params(params, bf)
-        c_ref = DF.build_decode_cache(params, enc, 5, 50, cfg.bart, bf, pad_to=16)
-        c_ker = DF.build_decode_cache(params, enc, 5, 50, cfg.bart, bf, pad_to=16,
+        c_ref = DF.build_decode_cache(params, enc, beams, length, cfg.bart, bf, pad_to=16)
+        c_ker = DF.build_decode_cache(params, enc, beams, length, cfg.bart, bf, pad_to=16,
                                       time_major=True)
         bias = expand_mask(x["attention_mask"], 1)
-        tok = torch.full((10, 1), cfg.bart.decoder_start_token_id, device="cuda")
+        tok = torch.full((enc.shape[0] * beams, 1), cfg.bart.decoder_start_token_id,
+                         device="cuda")
         e_dec, agree = 0.0, 1.0
-        for pos in range(3):
+        for pos in range(steps):
             lr, c_ref = DF.decode_step(dp, params, c_ref, tok, pos, bias, cfg.bart, bf)
             lk, c_ker = DF.decode_step_kernel(dp, params, c_ker, tok, pos, bias, cfg.bart, bf)
             e_dec = max(e_dec, rel_err(lk, lr))
             agree = min(agree, float((lk.argmax(-1) == lr.argmax(-1)).float().mean()))
             tok = lr.argmax(-1, keepdim=True)
-    log(f"stacks: fused encoder vs layer-by-layer rel err {e_enc:.3e}; kernel decode step vs "
-        f"reference rel err {e_dec:.3e}, argmax agreement {agree:.3f} (tol rel 5e-2)")
-    if not (e_enc <= 5e-2 and e_dec <= 5e-2):
-        raise RuntimeError("full-width stacks disagree with their references")
+    return e_dec, agree
 
 
 def check_captions(tag: str, cfg, seqs, scores, batch_size: int) -> float:
@@ -1110,32 +1258,69 @@ def check_launched(tag: str, counts: dict, names) -> None:
 
 def counts_by_kernel() -> dict:
     """The launch counts since the last reset, with gemm_bf16's, layernorm's
-    and dec_self_attention's split by kernel ("gemm_bf16:small_m", ...)."""
+    and dec_self_attention's split by kernel ("gemm_bf16:small_m", ...) and
+    dec_cross_attention's by the beams of an item ("dec_cross_attention:beams5")."""
     from vacnic_tpu_torch.kernels import primitives as K
 
     counts = K.launch_counts()
     counts.update({f"gemm_bf16:{v}": n for v, n in K.gemm_variant_counts().items()})
     counts.update({f"layernorm:{v}": n for v, n in K.layernorm_variant_counts().items()})
     counts.update({f"dec_self_attention:{v}": n for v, n in K.dec_self_variant_counts().items()})
+    counts.update({f"dec_cross_attention:beams{b}": n
+                   for b, n in K.dec_cross_beam_counts().items()})
     return counts
 
 
-def check_slice_counts(tag: str, cfg) -> dict:
-    """The launch counts since the last reset, held to one batch of the
-    slice's path (the fused encoder, then every decode step on the bf16
-    self cache) -> the counts with the per-kernel splits added."""
+def gemm_plan_counts(cfg, batch_size: int) -> dict:
+    """gemm_bf16's launches by kernel in one generate_mm of `batch_size` rows
+    on `cfg`, as kernels/primitives.gemm_plan places the six products of a
+    layer (fused qkv, self out, cross q, cross out, fc1, fc2): the encoder's
+    once an encoder layer at M = batch x the article's tokens, the decoder's
+    once a decoder layer a step at M = batch x beams (every step runs:
+    min_length = max_length - 1)."""
+    from vacnic_tpu_torch.kernels import primitives as K
+
+    b, d = cfg.bart, cfg.bart.d_model
+    steps = cfg.decode.max_length - 1
+    out = {v: 0 for v in K.GEMM_VARIANTS}
+    for m, ffn, times in ((batch_size * cfg.data.article_max_length, b.encoder_ffn_dim,
+                           b.encoder_layers),
+                          (batch_size * cfg.decode.num_beams, b.decoder_ffn_dim,
+                           b.decoder_layers * steps)):
+        for k, n in ((d, 3 * d), (d, d), (d, d), (d, d), (d, ffn), (ffn, d)):
+            out[K.gemm_plan(m, n, k).variant] += times
+    return out
+
+
+def check_slice_counts(tag: str, cfg, batch_size: int) -> dict:
+    """The launch counts since the last reset, held to one batch of
+    `batch_size` rows of the slice's path (the fused encoder, then every
+    decode step on the bf16 self cache) -> the counts with the per-kernel
+    splits added."""
     from vacnic_tpu_torch.kernels import primitives as K
 
     counts = counts_by_kernel()
     by_kernel = K.gemm_variant_counts()
     ln_by_kernel = K.layernorm_variant_counts()
     self_by_kind = K.dec_self_variant_counts()
+    cross_by_beams = K.dec_cross_beam_counts()
     check_launched(tag, counts, SLICE_KERNELS)
-    log(f"{tag}: gemm_bf16 by kernel {by_kernel}")
-    enc_products = 6 * cfg.bart.encoder_layers  # M = batch x 512 rows; decode has batch x 5
-    if by_kernel != {"large_m": enc_products, "small_m": counts["gemm_bf16"] - enc_products}:
-        raise RuntimeError(f"{tag}: gemm_bf16 kernels {by_kernel}: expected {enc_products} "
-                           "large_m launches (the encoder's) and small_m for the rest")
+    planned = gemm_plan_counts(cfg, batch_size)
+    # the same placement stated apart from gemm_plan: every encoder product
+    # on large_m at any batch (M = batch x the article's tokens), the
+    # decoder's on small_m up to 256 rows (batch x beams) and on large_m past
+    enc = 6 * cfg.bart.encoder_layers
+    dec = 6 * cfg.bart.decoder_layers * (cfg.decode.max_length - 1)
+    wide = batch_size * cfg.decode.num_beams > 256
+    stated = {"large_m": enc + (dec if wide else 0), "small_m": 0 if wide else dec}
+    if planned != stated:
+        raise RuntimeError(f"{tag}: gemm_plan places the products as {planned}, not as stated "
+                           f"({stated}) at batch {batch_size} x {cfg.decode.num_beams} beams")
+    log(f"{tag}: gemm_bf16 by kernel {by_kernel}, gemm_plan's {planned}")
+    if by_kernel != planned:
+        raise RuntimeError(f"{tag}: gemm_bf16 kernels {by_kernel}: expected {planned}, as "
+                           f"gemm_plan places the encoder's and the decoder's products at "
+                           f"batch {batch_size}")
     # one launch a call: three layer norms an encoder layer and a decoder
     # layer a step, one cross-attention a decoder layer a step; d = 1024 is
     # the register-resident kernel's
@@ -1143,14 +1328,17 @@ def check_slice_counts(tag: str, cfg) -> dict:
     dec_layers = cfg.bart.decoder_layers
     want = {"layernorm": 3 * cfg.bart.encoder_layers + 3 * dec_layers * steps,
             "dec_cross_attention": dec_layers * steps, "dec_self_attention": dec_layers * steps}
-    log(f"{tag}: layernorm by kernel {ln_by_kernel}, dec_self_attention by cache {self_by_kind}; "
-        f"expected {want}")
+    log(f"{tag}: layernorm by kernel {ln_by_kernel}, dec_self_attention by cache {self_by_kind}, "
+        f"dec_cross_attention by beams {cross_by_beams}; expected {want}")
     if any(counts[k] != n for k, n in want.items()) or ln_by_kernel != {
             "warp": want["layernorm"], "block": 0} or self_by_kind != {
-            "bf16": want["dec_self_attention"], "int8": 0, "fp8": 0}:
+            "bf16": want["dec_self_attention"], "int8": 0, "fp8": 0} or cross_by_beams != {
+            cfg.decode.num_beams: want["dec_cross_attention"]}:
         raise RuntimeError(f"{tag}: launches {counts}, layernorm by kernel {ln_by_kernel}, "
-                           f"dec_self_attention by cache {self_by_kind}: expected {want}, all "
-                           "layernorm launches the warp kernel's, all dec_self the bf16 cache's")
+                           f"dec_self_attention by cache {self_by_kind}, dec_cross_attention "
+                           f"by beams {cross_by_beams}: expected {want}, all layernorm launches "
+                           "the warp kernel's, all dec_self the bf16 cache's, all dec_cross at "
+                           f"{cfg.decode.num_beams} beams")
     return counts
 
 
@@ -1661,7 +1849,7 @@ def run_serve_phase(cfg, params, batch_size: int, gpu: str, slice_counts=None) -
         dt = time.perf_counter() - t0
         log(f"serve: {batch_size} HTTP requests from {batch_size} threads: {dt:.3f} s; "
             f"stats {svc.stats()}; launches {K.launch_counts()}")
-        counts = check_slice_counts("serve", cfg)
+        counts = check_slice_counts("serve", cfg, batch_size)
         if slice_counts is not None:
             differ = {k: (counts[k], slice_counts[k]) for k in slice_counts if k in counts
                       and counts[k] != slice_counts[k]}
@@ -1759,11 +1947,148 @@ def run_serve_phase(cfg, params, batch_size: int, gpu: str, slice_counts=None) -
         f"({gpu})")
 
 
+LADDER_BATCHES = (64, 128, 256)  # beam 5: BK 320, 640, 1280, every decoder product on large_m
+WIDE_BEAMS = ((8, 11), (32, 16))  # (batch, beams): BK 88 (small_m) and 512 (large_m)
+ROWS_AT = 32  # the ladder's encoder output held row by row against these many items at a time
+
+
+def check_ladder_numbers(tag: str, cfg, params, x: dict) -> None:
+    """The numbers of one ladder run, on its own inputs `x`, at its batch
+    and beam count: (1) the fused encoder against the layer-by-layer one
+    (check_fused_encoder, 5e-2); (2) past ROWS_AT items, every item of the
+    fused output against the same items encoded ROWS_AT at a time (M 16384,
+    large_m as at any batch; at batch 256 the encoder's products reach 131072
+    rows and fc1's output 2^31 bytes as f32, so a 32-bit offset would break
+    the high rows): each item within 5e-2 of its own largest magnitude (the
+    prologue's PyTorch products may sum in other orders at another batch);
+    (3) three kernel decode steps at BK = batch x beams against the
+    reference step from the layer-by-layer output (decode_steps_error,
+    5e-2)."""
+    import torch
+
+    from vacnic_tpu_torch.models import fusion as F
+
+    fused, ref = check_fused_encoder(tag, cfg, params, x)
+    batch = x["input_ids"].shape[0]
+    if batch > ROWS_AT:
+        streams = {k: v for k, v in x.items()
+                   if k not in ("input_ids", "attention_mask", "image_features")}
+        with torch.no_grad():
+            parts = [F.mm_encoder_fwd_fused(
+                params, x["input_ids"][lo:lo + ROWS_AT], x["attention_mask"][lo:lo + ROWS_AT],
+                x["image_features"][lo:lo + ROWS_AT], cfg.bart, cfg.fusion,
+                dtype=torch.bfloat16, **{k: v[lo:lo + ROWS_AT] for k, v in streams.items()}
+            )["last_hidden"] for lo in range(0, batch, ROWS_AT)]
+        alone = torch.cat(parts)
+        diff = (fused.float() - alone.float()).flatten(1).abs().amax(1)
+        item_err = float((diff / alone.float().flatten(1).abs().amax(1).clamp(min=1e-6)).max())
+        same = int((diff == 0).sum())
+        log(f"{tag}: fused encoder at batch {batch} vs its items encoded {ROWS_AT} at a time: "
+            f"worst item rel err {item_err:.3e}, {same} of {batch} items bit-identical "
+            f"(tol rel 5e-2 an item)")
+        if not item_err <= 5e-2:
+            raise RuntimeError(f"{tag}: the fused encoder's items at batch {batch} disagree "
+                               f"with the same items encoded {ROWS_AT} at a time")
+        del parts, alone
+    del fused
+    e_dec, agree = decode_steps_error(cfg, params, x, ref)
+    log(f"{tag}: kernel decode step vs reference at BK {batch * cfg.decode.num_beams}: rel err "
+        f"{e_dec:.3e}, argmax agreement {agree:.3f} (tol rel 5e-2)")
+    if not e_dec <= 5e-2:
+        raise RuntimeError(f"{tag}: the kernel decode step disagrees with the reference step "
+                           f"at BK {batch * cfg.decode.num_beams}")
+
+
+def run_ladder_phase(cfg, params, gpu: str) -> dict:
+    """Decoding at the beam counts and batches the slice does not take, on
+    the slice's model and tree (full_train(), random bf16 weights from seed
+    0, uncut; lp 2.0, length 50, min_length 49). (1) generate_mm at batch 8
+    x 11 beams and batch 32 x 16 beams (dec_cross_attention in groups of 8
+    beams), (2) at batches 64, 128 and 256 x beam 5: each through
+    run_model_path, so with the slice's gates at that batch and beam count
+    (every slice kernel launched, gemm_bf16's kernels as gemm_plan places
+    the encoder's and the decoder's products, dec_cross_attention counted by
+    beams, mean length >= 45, finite scores) and its readings (wall,
+    captions/s, peak memory), then each with check_ladder_numbers on its own
+    inputs (the fused encoder against the layer-by-layer one and, past 32
+    items, against its items encoded 32 at a time; kernel decode steps at
+    its BK against the reference step). (3) A reading: rows 0-31 of the batch-256
+    inputs decoded at batch 32, token agreement with their batch-256
+    captions (small_m and large_m sum in other orders, and random weights
+    have near-ties everywhere). (4) CaptionService with the default
+    ServeConfig() (buckets up to 256): one request takes the batcher, then a
+    burst of 256 rows queues behind it; the 256 must decode as one batch of
+    the 256 bucket, each response token- and score-identical to a direct
+    generate_mm of the same 256 rows. -> the launches of the rows of the
+    kernels line that these runs measure."""
+    import torch
+
+    from vacnic_tpu_torch.serve import CaptionService, ServeConfig
+
+    launches = {}
+    kv = ENC_CROSS_KV["slice"]
+    for batch, beams in WIDE_BEAMS:
+        wcfg = dataclasses.replace(cfg, decode=dataclasses.replace(cfg.decode, num_beams=beams))
+        x = batch_inputs(wcfg, batch)
+        tag = f"ladder b{batch} x {beams} beams"
+        counts, _ = run_model_path(tag, wcfg, params, x, gpu, kv=kv)
+        launches[f"dec_cross_attention:beams{beams}"] = counts[f"dec_cross_attention:beams{beams}"]
+        check_ladder_numbers(tag, wcfg, params, x)
+    for batch in LADDER_BATCHES:
+        x = batch_inputs(cfg, batch)
+        counts, seqs = run_model_path(f"ladder b{batch}", cfg, params, x, gpu, kv=kv)
+        launches[f"gemm_bf16:large_m:b{batch}"] = counts["gemm_bf16:large_m"]
+        launches[f"dec_cross_attention:b{batch}"] = counts["dec_cross_attention"]
+        check_ladder_numbers(f"ladder b{batch}", cfg, params, x)
+        torch.cuda.empty_cache()
+    run_model_path("ladder b256 rows 0-31 at batch 32", cfg, params,
+                              {k: v[:32] for k, v in x.items()}, gpu, kv=kv)
+    agree = float((TOKENS["ladder b256 rows 0-31 at batch 32"] == seqs[:32].cpu()).float().mean())
+    log(f"ladder: rows 0-31 of batch 256 decoded at batch 32 against their batch-256 captions: "
+        f"token agreement {agree:.4f} (a reading: the decoder's products sum in other orders "
+        f"at BK 160 and 1280)")
+
+    rows = sample_rows(cfg, LADDER_BATCHES[-1], seed=0)
+    svc = CaptionService(cfg, {"model": params}, device="cuda")
+    try:
+        if svc.scfg != ServeConfig() or svc.scfg.buckets[-1] != len(rows):
+            raise RuntimeError(f"ladder service: not the default buckets ending at "
+                               f"{len(rows)}: {svc.scfg}")
+        first = svc.submit(sample_rows(cfg, 1, seed=4)[0])  # one b1 batch takes the batcher
+        time.sleep(0.1)  # past its collect window (max_wait_ms 10): the b1 decode has started
+        t0 = time.perf_counter()
+        futs = [svc.submit(r) for r in rows]
+        t_submit = time.perf_counter() - t0
+        first.result(timeout=600)
+        results = [f.result(timeout=600) for f in futs]
+        t_burst = time.perf_counter() - t0
+        st = svc.stats()
+        seqs, scores = direct_generate(cfg, svc.params["model"], rows)
+    finally:
+        svc.close()
+    log(f"ladder service: default ServeConfig() buckets {svc.scfg.buckets}; {len(rows)} rows "
+        f"submitted in {t_submit * 1e3:.1f} ms behind one b1 request, answered after "
+        f"{t_burst:.3f} s; batches by bucket {st['bucket_counts']}, bucket_decode_ms "
+        f"{st['bucket_decode_ms']} ({gpu})")
+    if st["bucket_counts"] != {b: int(b in (1, len(rows))) for b in svc.scfg.buckets} or st[
+            "errors"]:
+        raise RuntimeError(f"ladder service: the burst did not decode as one batch of the 256 "
+                           f"bucket: {st}")
+    check_identical("ladder service", results, seqs, scores)
+    TOKENS["ladder service b256"] = seqs
+    log(f"ladder service: {len(rows)} responses decoded in the 256 bucket, token- and "
+        f"score-identical to a direct generate_mm of the same rows; the same rows' captions "
+        f"as the ladder's batch 256 decoded them: "
+        f"{'identical' if torch.equal(seqs, TOKENS['ladder b256']) else 'DIFFERENT'}")
+    return launches
+
+
 def build_lines() -> list[str]:
     """Registers a thread, spill bytes and shared memory of the two 512-token
     self-attention kernels, the encoder's cross-attention kernel, the two
     gemm_bf16 kernels, the two layernorm kernels, the int8 and bf16
-    dec_cross_attention kernels, the bf16, int8 and fp8 dec_self_attention
+    dec_cross_attention kernels at five beams and at groups of 8 beams (past
+    8), the bf16, int8 and fp8 dec_self_attention
     kernels at the slice's plans and the four lm_head and four lm_stats
     kernels (N = 64, 128, 192, 256 x rows a pass; BK 160 takes 192), from
     nvcc's -Xptxas -v output of this build. The dynamic shared memory is the
@@ -1793,6 +2118,9 @@ def build_lines() -> list[str]:
                # int8 (signed char, "a") and bf16 K/V, five beams, S = 512
                "dec_cross_kernelIaLi5E": K.dec_cross_smem_bytes(5, 512, 1),
                "dec_cross_kernelI13__nv_bfloat16Li5E": K.dec_cross_smem_bytes(5, 512, 2),
+               # past 8 beams: blocks of a group of 8, S = 512
+               "dec_cross_kernel_groupedIaE": K.dec_cross_plan(16, 512, 1).smem,
+               "dec_cross_kernel_groupedI13__nv_bfloat16E": K.dec_cross_plan(16, 512, 2).smem,
                # bf16, int8 (signed char) and fp8 self caches, T = 64
                "dec_self_kernelI13__nv_bfloat16E": K.dec_self_smem_bytes(64, 2),
                "dec_self_kernelIaE": K.dec_self_smem_bytes(64, 1),
@@ -2289,10 +2617,10 @@ def mlp_config():
                                                                prompt_mlp_type="mlp"))
 
 
-def check_fused_encoder(tag: str, cfg, params, x: dict) -> float:
+def check_fused_encoder(tag: str, cfg, params, x: dict):
     """The fused encoder (CUDA text stack) against the layer-by-layer one on
     the path's own batch, both bf16 on the card: relative error within the
-    stacks phase's 5e-2 -> that error."""
+    stacks phase's 5e-2 -> (the fused output, the layer-by-layer one)."""
     import torch
 
     from vacnic_tpu_torch.models import fusion as F
@@ -2309,23 +2637,25 @@ def check_fused_encoder(tag: str, cfg, params, x: dict) -> float:
         f"{err:.3e} (tol rel 5e-2)")
     if not err <= 5e-2:
         raise RuntimeError(f"{tag}: the fused encoder disagrees with the layer-by-layer one")
-    return err
+    return fused, ref
 
 
-def run_model_path(tag: str, cfg, params, x: dict, gpu: str):
-    """generate_mm at the slice's decode (beam 5 x 50 x lp 2.0, every step)
-    on `cfg`'s model, through the fused encoder; launches zeroed just before
-    the run and read just after: the slice's counts (check_slice_counts:
-    gemm_bf16 large_m six an encoder layer, the decode's every step), and
-    enc_self_attention and enc_cross_attention once an encoder layer, the
-    latter all at the path's KV (ENC_CROSS_KV[tag]); finite scores, mean
-    length >= 45 -> (the counts, the captions on the card)."""
+def run_model_path(tag: str, cfg, params, x: dict, gpu: str, kv: int | None = None):
+    """generate_mm at `cfg`'s decode (the slice's: beam 5 x 50 x lp 2.0,
+    every step) on its model, through the fused encoder; launches zeroed
+    just before the run and read just after: the slice's counts at the
+    batch of `x` (check_slice_counts: gemm_bf16's kernels as gemm_plan
+    places the encoder's and the decoder's products, the decode's every
+    step), and enc_self_attention and enc_cross_attention once an encoder
+    layer, the latter all at the path's KV (`kv`, ENC_CROSS_KV[tag] by
+    default); finite scores, mean length >= 45 -> (the counts, the captions
+    on the card)."""
     import torch
 
     from vacnic_tpu_torch.infer.generate import generate_mm
     from vacnic_tpu_torch.kernels import primitives as K
 
-    batch_size, kv = x["input_ids"].shape[0], ENC_CROSS_KV[tag]
+    batch_size, kv = x["input_ids"].shape[0], kv or ENC_CROSS_KV[tag]
 
     def run():
         seqs, scores = generate_mm(params, cfg=cfg.bart, fcfg=cfg.fusion, dcfg=cfg.decode,
@@ -2347,7 +2677,7 @@ def run_model_path(tag: str, cfg, params, x: dict, gpu: str):
         f"{batch_size / dt:.2f} captions/s, mean non-pad length {nonpad:.1f}, peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; enc_cross_attention by KV "
         f"{by_kv}; launches {K.launch_counts()} ({gpu})")
-    counts = check_slice_counts(tag, cfg)
+    counts = check_slice_counts(tag, cfg, batch_size)
     layers = cfg.bart.encoder_layers
     if counts["enc_self_attention"] != layers or by_kv != {kv: layers}:
         raise RuntimeError(f"{tag}: enc_self_attention {counts['enc_self_attention']} and "
@@ -3027,7 +3357,7 @@ def run_data_generate(tok, base: str, dicts: dict, out_path: str, gpu: str) -> d
         caps = loop.generate_captions(cfg, params, tapped(test_loader), tok, out_path=out_path)
         torch.cuda.synchronize()
         gen_s = time.perf_counter() - t0
-        counts = check_slice_counts("data generate_captions", cfg)
+        counts = check_slice_counts("data generate_captions", cfg, DATA_BATCH)
     finally:
         loop.generate_mm = generate_mm
     if len(seen_batches) != 1 or len(seen_seqs) != 1:
@@ -3307,7 +3637,7 @@ def run_cli_generate(root: str, vocab: str, merges: str, tok, base: str, dicts: 
                  "--merges", merges, "--out", out_path, "--set",
                  f"train.val_batch_size={DATA_BATCH}"])
         torch.cuda.synchronize()
-        counts = check_slice_counts("cli generate", cfg)
+        counts = check_slice_counts("cli generate", cfg, DATA_BATCH)
     finally:
         loop.generate_mm = generate_mm
     with open(ref_path) as f, open(out_path) as g:
@@ -4445,7 +4775,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
                     default="build,kernels,accuracy,dispatch,stacks,slice,selfkv,stats,stackhead,"
-                            "layerwise,serve,profile,mesh,onlyvis,mlp,train,tp,data,cli")
+                            "layerwise,serve,ladder,profile,mesh,onlyvis,mlp,train,tp,data,cli")
     ap.add_argument("--batch", type=int, default=32)
     ap.add_argument("--tokens-out", metavar="FILE",
                     help="save each path's captions (torch.save of {path: tokens})")
@@ -4489,7 +4819,7 @@ def main() -> int:
         run_dispatch_phase()
     launches = {}  # kernel -> launches in the run of the path that names it
     if phases & {"stacks", "slice", "selfkv", "stats", "stackhead", "layerwise", "serve",
-                  "profile", "mesh", "meshscale"}:
+                  "ladder", "profile", "mesh", "meshscale"}:
         cfg, params = full_model()
         if "stacks" in phases:
             run_stacks_phase(cfg, params)
@@ -4514,6 +4844,9 @@ def main() -> int:
                 cfg, params, args.batch)["flash_attention"]
         if "serve" in phases:
             run_serve_phase(cfg, params, args.batch, gpu, counts)
+        if "ladder" in phases:
+            launches.update(run_ladder_phase(cfg, params, gpu))
+            torch.cuda.empty_cache()
         if "profile" in phases:
             run_profile_phase(cfg, params, args.batch)
         if "mesh" in phases:

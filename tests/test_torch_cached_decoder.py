@@ -218,3 +218,27 @@ def test_cache_with_tp_is_refused(setup):
         B.decoder_fwd(TP.shard_params(tp, shard), torch.from_numpy(tgt[:, :1]),
                       torch.from_numpy(enc), torch.from_numpy(mask),
                       tcfg, cache=cache, cache_index=0, tp=shard)
+
+
+@pytest.mark.parametrize("t_len,index", [(1, 6), (2, 5)], ids=["one_token_at_end",
+                                                                "two_tokens_straddling"])
+def test_step_past_the_cache_end_is_refused(t_len, index):
+    """A cached self step that would end past L_max: a one-token step at
+    cache_index == L_max (the slice write would broadcast into nothing and
+    attend without its own K/V) and a two-token step straddling the end.
+    Both raise a ValueError naming cache_index, t and L_max before anything
+    is written; JAX's dynamic_update_slice clamps the start instead."""
+    from vacnic_tpu.models import layers as JL
+
+    rng = np.random.RandomState(6)
+    d, h, l_max = 16, 4, 6
+    tp = params_from_jax(jax.tree_util.tree_map(np.asarray, JL.mha_init(jax.random.PRNGKey(2), d)))
+    ck = rng.randn(2, h, l_max, d // h).astype(np.float32)
+    cv = rng.randn(2, h, l_max, d // h).astype(np.float32)
+    tc = {"k": torch.from_numpy(ck.copy()), "v": torch.from_numpy(cv.copy())}
+    x = torch.from_numpy(rng.randn(2, t_len, d).astype(np.float32))
+    with pytest.raises(ValueError, match=rf"t={t_len}\b.*cache_index={index}\b.*L_max={l_max}\b"):
+        L.mha(tp, x, num_heads=h, cache=tc, cache_index=index)
+    assert np.array_equal(tc["k"].numpy(), ck) and np.array_equal(tc["v"].numpy(), cv)
+    L.mha(tp, x, num_heads=h, cache=tc, cache_index=l_max - t_len)  # the last step that fits
+    assert not np.array_equal(tc["k"].numpy()[:, :, l_max - t_len:], ck[:, :, l_max - t_len:])

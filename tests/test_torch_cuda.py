@@ -432,6 +432,76 @@ def test_dec_cross_attention_long_s(dev, beams, s_len, kind):
     assert torch.equal(out, K.dec_cross_attention(*args, 2))
 
 
+@pytest.mark.parametrize("kind", ["int8", "bf16"])
+@pytest.mark.parametrize("items,heads,s_len", [(3, 4, 130), (3, 4, 512), (32, 16, 512)])
+@pytest.mark.parametrize("beams", [9, 11, 16, 17])
+def test_dec_cross_attention_wide_beams(dev, beams, items, heads, s_len, kind):
+    """Past 8 beams the kernel runs in groups of 8 (a ragged last group at 9,
+    11 and 17), counted by beams: against the twin, repeatable, and each
+    group's rows bit-identical to the kernel of that many beams on those q
+    rows alone (a beam's sums do not depend on the beams beside it)."""
+    from vacnic_tpu_torch.kernels import primitives as K
+
+    g = torch.Generator(device=dev).manual_seed(beams * 7 + s_len + items)
+    q, *rest = cross_case(g, items, heads, beams, s_len, kind)
+    before = K.dec_cross_beam_counts().get(beams, 0)
+    out = K.dec_cross_attention(q, *rest, heads)
+    assert K.dec_cross_beam_counts()[beams] == before + 1
+    assert bool(torch.isfinite(out.float()).all())
+    close(out, K.dec_cross_attention_plain(q, *rest, heads), True)
+    assert torch.equal(out, K.dec_cross_attention(q, *rest, heads))
+    q3, o3 = q.view(items, beams, -1), out.view(items, beams, -1)
+    for lo in range(0, beams, 8):
+        n = min(8, beams - lo)
+        alone = K.dec_cross_attention(q3[:, lo:lo + n].reshape(items * n, -1).contiguous(),
+                                      *rest, heads)
+        assert torch.equal(o3[:, lo:lo + n].reshape(items * n, -1), alone), (lo, n)
+
+
+@pytest.mark.parametrize("kind,s_len", [("bf16", 1472), ("int8", 3008)])
+def test_dec_cross_attention_wide_beams_long_s(dev, kind, s_len):
+    """16 beams keep the limit on S of 8 (a block holds 8 beams): S 1472 in
+    bf16 and 3008 in int8 run, and one tile more is refused."""
+    from vacnic_tpu_torch.kernels import primitives as K
+
+    g = torch.Generator(device=dev).manual_seed(s_len)
+    args = cross_case(g, 2, 2, 16, s_len, kind)
+    out = K.dec_cross_attention(*args, 2)
+    close(out, K.dec_cross_attention_plain(*args, 2), True)
+    s_next = s_len + 64
+    while K.dec_cross_smem_bytes(8, s_next, 2 if kind == "bf16" else 1) <= K.SMEM_MAX:
+        s_next += 64
+    with pytest.raises(ValueError, match="shared memory"):
+        K.dec_cross_attention(*cross_case(g, 2, 2, 16, s_next, kind), 2)
+
+
+@pytest.mark.parametrize("beams", [5, 11, 16])
+def test_dec_cross_launcher_takes_only_its_plan(dev, beams):
+    """The launcher makes its grid of dec_cross_plan's groups and its shared
+    memory of the plan's bytes: the plan itself launches, a group more or
+    less, or other bytes, are refused before any launch."""
+    from vacnic_tpu_torch.kernels import _build
+    from vacnic_tpu_torch.kernels import primitives as K
+
+    g = torch.Generator(device=dev).manual_seed(beams)
+    q, k, v, ks, vs, bias = cross_case(g, 2, 2, beams, 130, "int8")
+    out = torch.empty_like(q)
+    plan = K.dec_cross_plan(beams, 130, 1)
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+    def launch(groups, smem):
+        return _build.lib().vt_dec_cross_attention(
+            *(ctypes.c_void_p(t.data_ptr()) for t in (q, k, v, ks, vs, bias, out)), 2, beams,
+            groups, smem, 2, 130, 1, ctypes.c_float(64 ** -0.5), stream)
+
+    assert launch(plan.groups, plan.smem) == 0
+    torch.cuda.synchronize()
+    close(out, K.dec_cross_attention_plain(q, k, v, ks, vs, bias, 2), True)
+    for groups, smem in ((plan.groups + 1, plan.smem), (plan.groups - 1, plan.smem),
+                         (plan.groups, plan.smem + 16)):
+        assert launch(groups, smem) != 0, (groups, smem)
+
+
 def test_variant_counters_add_up(dev):
     """Launches by kernel add up to the family's count, for gemm_bf16 and
     layernorm."""

@@ -38,6 +38,14 @@
 //   past S (the last tile's tail) are zero in shared memory and masked out of
 //   the softmax. A head whose rows are not 16-byte aligned in device memory
 //   (S * element bytes % 16 != 0) is copied element by element.
+// More than 8 beams: the beams of an item go in groups of 8 (the n8 operand
+//   of mma.sync), one block a (group, head, item), the group index fastest
+//   in launch order, so the groups of one (item, head) run side by side and
+//   all but the first find its K/V in L2 (64 KB a head in int8). Each block
+//   keeps the shared memory of 8 beams, so S's limit does not fall with the
+//   beam count; the last group's beams past the item's end are zero q rows,
+//   as beams past NB are below 8. Every beam's sums are those of a block of
+//   <= 8 beams: the same order and bits at any beam count.
 // Measured against it and not kept (PERF.md): S split over a thread
 //   block cluster of 2 or 4 blocks, the ranges' softmax statistics and
 //   outputs combined in rank order through distributed shared memory --
@@ -60,7 +68,7 @@ using attn_tiles::smem_u32;
 constexpr int HD = 64;
 constexpr int THREADS = 128;  // four warps
 constexpr int TP = 64;        // positions a tile
-constexpr int MAX_BEAMS = 8;
+constexpr int MAX_BEAMS = 8;  // a block's beams: the n8 operand of mma.sync
 constexpr int MAX_SMEM = 232448;
 constexpr int QSW = HD + 4;   // floats a row of q in shared memory
 constexpr int STRIP = 3072;   // bytes of a warp's bf16 strip of an int8 tile
@@ -161,13 +169,15 @@ __host__ __device__ constexpr long long smem_bytes(int beams, int S, int elem_by
          4LL * ((S + TP - 1) / TP * TP) + 4LL * HD + 8LL * MAX_BEAMS;
 }
 
-// grid (H, B), block 128.
-template <typename KT, int NB>
-__global__ void __launch_bounds__(THREADS)
-dec_cross_kernel(const __nv_bfloat16* __restrict__ q, const KT* __restrict__ ck,
-                 const KT* __restrict__ cv, const float* __restrict__ ks,
-                 const float* __restrict__ vs, const float* __restrict__ bias,
-                 __nv_bfloat16* __restrict__ out, int H, int S, int vec, float scaling) {
+// A block's work: the NB beams of an (item, head), or (GROUPED, NB = 8)
+// one group of 8 beams of it.
+template <typename KT, int NB, bool GROUPED>
+__device__ __forceinline__ void
+dec_cross_block(const __nv_bfloat16* __restrict__ q, const KT* __restrict__ ck,
+                const KT* __restrict__ cv, const float* __restrict__ ks,
+                const float* __restrict__ vs, const float* __restrict__ bias,
+                __nv_bfloat16* __restrict__ out, int H, int S, int beams, int vec,
+                float scaling) {
   constexpr int EB = sizeof(KT);
   constexpr bool INT8 = EB == 1;
   constexpr int R = ring_slots(EB);
@@ -176,7 +186,10 @@ dec_cross_kernel(const __nv_bfloat16* __restrict__ q, const KT* __restrict__ ck,
   constexpr int SLOT = HD * RB;
   constexpr int SROW = row_bytes(16, 2);  // a row of a scores strip: 16 positions
   extern __shared__ __align__(16) unsigned char smem[];
-  const int h = blockIdx.x, b = blockIdx.y;
+  const int h = GROUPED ? blockIdx.y : blockIdx.x, b = GROUPED ? blockIdx.z : blockIdx.y;
+  const int grp = GROUPED ? blockIdx.x : 0;
+  const int nb = GROUPED ? min(NB, beams - NB * grp) : NB;  // this block's beams
+  const size_t row0 = static_cast<size_t>(b) * (GROUPED ? beams : NB) + NB * grp;  // its first q row
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;   // mma lane naming
   const int mi = lane >> 3, r = lane & 7;  // the ldmatrix matrix and row this lane points at
@@ -248,8 +261,8 @@ dec_cross_kernel(const __nv_bfloat16* __restrict__ q, const KT* __restrict__ ck,
   const int qb = tid >> 4, qc = 4 * (tid & 15);  // thread t: four channels of beam t / 16
   uint2 q4 = make_uint2(0u, 0u);
   float4 k4s = make_float4(1.0f, 1.0f, 1.0f, 1.0f), v4s = k4s;
-  if (qb < NB) {
-    q4 = *reinterpret_cast<const uint2*>(q + (static_cast<size_t>(b) * NB + qb) * D + h * HD + qc);
+  if (qb < nb) {
+    q4 = *reinterpret_cast<const uint2*>(q + (row0 + qb) * D + h * HD + qc);
     if (ks != nullptr) k4s = *reinterpret_cast<const float4*>(ks + head * HD + qc);
   }
   if (tid < HD / 4 && vs != nullptr) v4s = *reinterpret_cast<const float4*>(vs + head * HD + 4 * tid);
@@ -259,7 +272,7 @@ dec_cross_kernel(const __nv_bfloat16* __restrict__ q, const KT* __restrict__ ck,
                          __uint_as_float(q4.y << 16), __uint_as_float(q4.y & 0xFFFF0000u)};
     const float kv[4] = {k4s.x, k4s.y, k4s.z, k4s.w};
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {  // beams past NB: q = 0
+    for (int i = 0; i < 4; ++i) {  // beams past nb: q = 0
       float v = bf16_round(qv[i] * scaling);
       if (ks != nullptr) v = bf16_round(v * kv[i]);
       qs[qb * QSW + qc + i] = v;
@@ -274,8 +287,8 @@ dec_cross_kernel(const __nv_bfloat16* __restrict__ q, const KT* __restrict__ ck,
     qf[kk][0] = pack_bf16(qr[0], qr[1]);  // bf16 values already: exact
     qf[kk][1] = pack_bf16(qr[8], qr[9]);
   }
-  // B of P V: the probabilities of beam r, or a zero row past NB
-  const bool real = r < NB;
+  // B of P V: the probabilities of beam r, or a zero row past nb
+  const bool real = r < nb;
   const uint32_t pbase = real ? smem_u32(pt) + (r * PW + 8 * (mi & 1)) * 2 : smem_u32(zero16);
 
   // 2. the tiles, one block barrier each
@@ -312,12 +325,12 @@ dec_cross_kernel(const __nv_bfloat16* __restrict__ q, const KT* __restrict__ ck,
         const int pos = j * TP + 16 * warp + g + 8 * hh;
         const bool inside = pos < S;
         const float bb = inside ? bs[pos] : 0.0f;
-        if (2 * t < NB) sc[2 * t * SCW + pos] = inside ? d[2 * hh] + bb : -INFINITY;
-        if (2 * t + 1 < NB) sc[(2 * t + 1) * SCW + pos] = inside ? d[2 * hh + 1] + bb : -INFINITY;
+        if (2 * t < nb) sc[2 * t * SCW + pos] = inside ? d[2 * hh] + bb : -INFINITY;
+        if (2 * t + 1 < nb) sc[(2 * t + 1) * SCW + pos] = inside ? d[2 * hh + 1] + bb : -INFINITY;
       }
       if (j == nt - 1) {  // 3. softmax over all S, a warp a beam
         __syncthreads();
-        for (int bm = warp; bm < NB; bm += THREADS / 32) {
+        for (int bm = warp; bm < nb; bm += THREADS / 32) {
           const float* row = sc + bm * SCW;
           float m = -INFINITY;
           for (int p = lane; p < S; p += 32) m = fmaxf(m, row[p]);
@@ -330,6 +343,7 @@ dec_cross_kernel(const __nv_bfloat16* __restrict__ q, const KT* __restrict__ ck,
         __syncthreads();
 #pragma unroll
         for (int bm = 0; bm < NB; ++bm) {  // normalised, then rounded to bf16; 0 past S
+          if (bm >= nb) break;
           const float2 ml = gst[bm];
           for (int pos = tid; pos < sp; pos += THREADS)
             pt[bm * PW + pos] =
@@ -364,41 +378,83 @@ dec_cross_kernel(const __nv_bfloat16* __restrict__ q, const KT* __restrict__ ck,
   // 5. the head output, times the V scale (int8)
   const int ch = 16 * warp + g;
   const float s0 = vs != nullptr ? vss[ch] : 1.0f, s8 = vs != nullptr ? vss[ch + 8] : 1.0f;
-  __nv_bfloat16* ob = out + static_cast<size_t>(b) * NB * D + h * HD + ch;
-  if (2 * t < NB) {
+  __nv_bfloat16* ob = out + row0 * D + h * HD + ch;
+  if (2 * t < nb) {
     ob[2 * t * D] = __float2bfloat16(o[0] * s0);
     ob[2 * t * D + 8] = __float2bfloat16(o[2] * s8);
   }
-  if (2 * t + 1 < NB) {
+  if (2 * t + 1 < nb) {
     ob[(2 * t + 1) * D] = __float2bfloat16(o[1] * s0);
     ob[(2 * t + 1) * D + 8] = __float2bfloat16(o[3] * s8);
   }
+}
+
+// grid (H, B), block 128: NB beams an item.
+template <typename KT, int NB>
+__global__ void __launch_bounds__(THREADS)
+dec_cross_kernel(const __nv_bfloat16* __restrict__ q, const KT* __restrict__ ck,
+                 const KT* __restrict__ cv, const float* __restrict__ ks,
+                 const float* __restrict__ vs, const float* __restrict__ bias,
+                 __nv_bfloat16* __restrict__ out, int H, int S, int vec, float scaling) {
+  dec_cross_block<KT, NB, false>(q, ck, cv, ks, vs, bias, out, H, S, NB, vec, scaling);
+}
+
+// grid (groups, H, B), block 128: block (g, h, b) takes beams 8g ..
+// min(8g + 8, beams) - 1 of item b. Three blocks a SM hold 8 beams' shared
+// memory at S = 512; told so, ptxas keeps every value in registers (without
+// it the int8 instance spilled).
+template <typename KT>
+__global__ void __launch_bounds__(THREADS, 3)
+dec_cross_kernel_grouped(const __nv_bfloat16* __restrict__ q, const KT* __restrict__ ck,
+                         const KT* __restrict__ cv, const float* __restrict__ ks,
+                         const float* __restrict__ vs, const float* __restrict__ bias,
+                         __nv_bfloat16* __restrict__ out, int H, int S, int beams, int vec,
+                         float scaling) {
+  dec_cross_block<KT, MAX_BEAMS, true>(q, ck, cv, ks, vs, bias, out, H, S, beams, vec, scaling);
 }
 
 struct Args {
   const void *q, *ck, *cv;
   const float *ks, *vs, *bias;
   __nv_bfloat16* out;
-  int B, H, S;
+  int B, beams, groups, H, S;
+  long long smem;  // the plan's bytes a block
   float scaling;
   cudaStream_t stream;
 };
 
-template <typename KT, int NB>
+// NB beams an item (GROUPED: groups of NB = 8 beams, a block a group). The
+// launch is the caller's plan (kernels/primitives.dec_cross_plan): its
+// groups make the grid and its bytes the block's shared memory, refused
+// where they are not this instance's.
+template <typename KT, int NB, bool GROUPED = false>
 int launch(const Args& a) {
   constexpr int EB = sizeof(KT);
   const long long smem = smem_bytes(NB, a.S, EB);
-  if (smem > MAX_SMEM) return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = dec_cross_kernel<KT, NB>;
+  if (smem > MAX_SMEM || a.smem != smem || a.groups != (a.beams + NB - 1) / NB ||
+      (!GROUPED && a.groups != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
   static device_state::PerDevice configured;  // the shared-memory limit, raised once a device
-  const cudaError_t e = device_state::allow_smem(kernel, MAX_SMEM, configured);
-  if (e != cudaSuccess) return static_cast<int>(e);
   const int vec = (a.S * EB) % 16 == 0 && reinterpret_cast<uintptr_t>(a.ck) % 16 == 0 &&
                   reinterpret_cast<uintptr_t>(a.cv) % 16 == 0 &&
                   reinterpret_cast<uintptr_t>(a.bias) % 16 == 0;
-  kernel<<<dim3(a.H, a.B), THREADS, static_cast<size_t>(smem), a.stream>>>(
-      reinterpret_cast<const __nv_bfloat16*>(a.q), reinterpret_cast<const KT*>(a.ck),
-      reinterpret_cast<const KT*>(a.cv), a.ks, a.vs, a.bias, a.out, a.H, a.S, vec, a.scaling);
+  const auto* q = reinterpret_cast<const __nv_bfloat16*>(a.q);
+  const auto* ck = reinterpret_cast<const KT*>(a.ck);
+  const auto* cv = reinterpret_cast<const KT*>(a.cv);
+  if constexpr (GROUPED) {
+    auto kernel = dec_cross_kernel_grouped<KT>;
+    const cudaError_t e = device_state::allow_smem(kernel, MAX_SMEM, configured);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    kernel<<<dim3(a.groups, a.H, a.B), THREADS, static_cast<size_t>(smem),
+             a.stream>>>(q, ck, cv, a.ks, a.vs, a.bias, a.out, a.H, a.S, a.beams, vec,
+                         a.scaling);
+  } else {
+    auto kernel = dec_cross_kernel<KT, NB>;
+    const cudaError_t e = device_state::allow_smem(kernel, MAX_SMEM, configured);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    kernel<<<dim3(a.H, a.B), THREADS, static_cast<size_t>(smem), a.stream>>>(
+        q, ck, cv, a.ks, a.vs, a.bias, a.out, a.H, a.S, vec, a.scaling);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -413,7 +469,9 @@ int launch_beams(int beams, const Args& a) {
     case 6: return launch<KT, 6>(a);
     case 7: return launch<KT, 7>(a);
     case 8: return launch<KT, 8>(a);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    default:  // groups of 8 (kernels/primitives.dec_cross_plan states the same)
+      return beams > MAX_BEAMS ? launch<KT, MAX_BEAMS, true>(a)
+                               : static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
@@ -421,21 +479,25 @@ int launch_beams(int beams, const Args& a) {
 
 // q [B*beams, H*64] bf16, ck/cv [B, H, 64, S] int8 (is_int8) or bf16,
 // ks/vs [B, H, 64] f32 (int8 only, else NULL), bias [B, S] f32,
-// out [B*beams, H*64] bf16. beams 1..8; q 8-byte and the scales 16-byte
-// aligned. A shape whose block would need more than 227 KB of shared memory
-// (kernels/primitives.dec_cross_smem_bytes), or anything else out of range,
-// is refused with cudaErrorInvalidValue.
+// out [B*beams, H*64] bf16. beams >= 1 (past 8 in groups of 8, a block a
+// group); q 8-byte and the scales 16-byte aligned. groups and smem are
+// kernels/primitives.dec_cross_plan's: ceil(beams / 8) blocks an (item,
+// head) and the dynamic shared memory of a block of min(beams, 8) beams. A
+// plan that is not the instance's, a block that would need more than 227 KB
+// of shared memory, or anything else out of range, is refused with
+// cudaErrorInvalidValue.
 extern "C" int vt_dec_cross_attention(const void* q, const void* ck, const void* cv,
                                       const void* ks, const void* vs, const void* bias, void* out,
-                                      int B, int beams, int H, int S, int is_int8, float scaling,
-                                      void* stream) {
+                                      int B, int beams, int groups, int smem, int H, int S,
+                                      int is_int8, float scaling, void* stream) {
   const int invalid = static_cast<int>(cudaErrorInvalidValue);
-  if (B < 1 || H < 1 || S < 1 || B > 65535) return invalid;
+  if (B < 1 || H < 1 || S < 1 || beams < 1 || groups < 1 || B > 65535 || H > 65535)
+    return invalid;
   if (reinterpret_cast<uintptr_t>(q) % 8 || reinterpret_cast<uintptr_t>(ks) % 16 ||
       reinterpret_cast<uintptr_t>(vs) % 16)
     return invalid;
   const Args a = {q, ck, cv, reinterpret_cast<const float*>(ks), reinterpret_cast<const float*>(vs),
                   reinterpret_cast<const float*>(bias), reinterpret_cast<__nv_bfloat16*>(out),
-                  B, H, S, scaling, reinterpret_cast<cudaStream_t>(stream)};
+                  B, beams, groups, H, S, smem, scaling, reinterpret_cast<cudaStream_t>(stream)};
   return is_int8 ? launch_beams<int8_t>(beams, a) : launch_beams<__nv_bfloat16>(beams, a);
 }

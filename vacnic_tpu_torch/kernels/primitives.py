@@ -19,6 +19,7 @@ probabilities before the value product. In f32 every rounding is a no-op.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import threading
@@ -44,6 +45,8 @@ DEC_SELF_VARIANT_LAUNCHES: dict[str, int] = {v: 0 for v in DEC_SELF_VARIANTS}
 # enc_cross_attention's launches by their KV (the prompt rows, + the NER
 # prefix's without only_image: 40 and 20 under clipcap, 36 and 16 under mlp)
 ENC_CROSS_KV_LAUNCHES: dict[int, int] = {kv: 0 for kv in range(1, 65)}
+# dec_cross_attention's launches by the beams of an item (any count >= 1)
+DEC_CROSS_BEAM_LAUNCHES: collections.Counter = collections.Counter()
 
 GELU = "gelu"
 _COUNT_LOCK = threading.Lock()  # the counts above are bumped from one thread a card
@@ -52,7 +55,8 @@ _COUNT_LOCK = threading.Lock()  # the counts above are bumped from one thread a 
 def reset_launch_counts() -> None:
     with _COUNT_LOCK:
         for table in (LAUNCHES, GEMM_VARIANT_LAUNCHES, LAYERNORM_VARIANT_LAUNCHES,
-                      DEC_SELF_VARIANT_LAUNCHES, ENC_CROSS_KV_LAUNCHES):
+                      DEC_SELF_VARIANT_LAUNCHES, ENC_CROSS_KV_LAUNCHES,
+                      DEC_CROSS_BEAM_LAUNCHES):
             for k in table:
                 table[k] = 0
 
@@ -81,6 +85,12 @@ def enc_cross_kv_counts() -> dict[int, int]:
     """Launches of enc_cross_attention by KV, the KVs launched only: they add
     up to LAUNCHES["enc_cross_attention"]."""
     return {kv: n for kv, n in ENC_CROSS_KV_LAUNCHES.items() if n}
+
+
+def dec_cross_beam_counts() -> dict[int, int]:
+    """Launches of dec_cross_attention by the beams of an item, the beam
+    counts launched only: they add up to LAUNCHES["dec_cross_attention"]."""
+    return {k: n for k, n in sorted(DEC_CROSS_BEAM_LAUNCHES.items()) if n}
 
 
 # ---------------------------------------------------------------------------
@@ -469,6 +479,7 @@ def dec_cross_attention_plain(q, ck, cv, ck_scale, cv_scale, enc_bias, heads: in
 
 
 SMEM_MAX = 232448  # shared memory a block can have on an H100
+DEC_CROSS_GROUP = 8  # beams a block: the n8 operand of csrc/dec_cross_attention.cu's mma.sync
 
 
 @functools.lru_cache(maxsize=None)  # a decode step asks once a layer, for one shape
@@ -485,9 +496,43 @@ def dec_cross_smem_bytes(beams: int, s_len: int, elem_bytes: int) -> int:
             + 4 * 64 + 8 * 8)
 
 
+class DecCrossPlan(NamedTuple):
+    """How csrc/dec_cross_attention.cu launches an item's beams."""
+    groups: int       # blocks an (item, head): beams in groups of 8, the group fastest
+    group_beams: int  # beams a block holds room for: min(beams, 8)
+    last_beams: int   # beams of the last group
+    smem: int         # dynamic shared memory a block, bytes
+
+
+@functools.lru_cache(maxsize=None)  # a decode step asks once a layer, for one shape
+def dec_cross_plan(beams: int, s_len: int, elem_bytes: int) -> DecCrossPlan:
+    """The launch of dec_cross_attention for `beams` beams an item over S =
+    s_len positions of K/V with `elem_bytes` bytes an element (1: int8, 2:
+    bf16). Pure: the wrapper passes its groups and bytes to the CUDA
+    launcher, which makes its grid of them and refuses a plan that is not
+    its kernel instance's. Up to 8 beams: one block
+    an (item, head), with room for exactly those beams (one kernel instance
+    a beam count). More: groups of 8, a block a (group, head, item), each
+    with the shared memory of 8 beams, so the largest S does not shrink with
+    the beam count. Raises ValueError for beams < 1, S < 1, or a block that
+    no H100 SM holds."""
+    if beams < 1 or s_len < 1 or elem_bytes not in (1, 2):
+        raise ValueError(f"dec_cross_attention: needs beams >= 1, S >= 1 and 1- or 2-byte K/V "
+                         f"(beams={beams}, S={s_len}, elem_bytes={elem_bytes})")
+    per_block = min(beams, DEC_CROSS_GROUP)
+    groups = -(-beams // DEC_CROSS_GROUP)
+    smem = dec_cross_smem_bytes(per_block, s_len, elem_bytes)
+    if smem > SMEM_MAX:
+        raise ValueError(f"dec_cross_attention: S={s_len} with {per_block} beams a block needs "
+                         f"{smem} bytes of shared memory, more than a block has ({SMEM_MAX})")
+    return DecCrossPlan(groups, per_block, beams - DEC_CROSS_GROUP * (groups - 1), smem)
+
+
 def dec_cross_attention(q, ck, cv, ck_scale, cv_scale, enc_bias, heads: int):
     """q [BK, d] (beams of item b are rows b*K..b*K+K-1), K/V [B, H, hd, S]
-    bf16 or int8 (with scales [B, H, hd] f32), pad bias [B, S] f32 -> [BK, d]."""
+    bf16 or int8 (with scales [B, H, hd] f32), pad bias [B, S] f32 -> [BK, d].
+    Any beam count K: past 8 the kernel runs in groups of 8 (`dec_cross_plan`),
+    and the launch counts under K as well (`dec_cross_beam_counts`)."""
     no_grad_guard("dec_cross_attention", q, ck, cv, ck_scale, cv_scale, enc_bias)
     if _on_cpu(q):
         return dec_cross_attention_plain(q, ck, cv, ck_scale, cv_scale, enc_bias, heads)
@@ -505,14 +550,14 @@ def dec_cross_attention(q, ck, cv, ck_scale, cv_scale, enc_bias, heads: int):
         _req(ck_scale, "dec_cross k scale", torch.float32, (b, heads, 64), q.device)
         _req(cv_scale, "dec_cross v scale", torch.float32, (b, heads, 64), q.device)
     _req(enc_bias, "dec_cross bias", torch.float32, (b, s_len), q.device)
-    if d != heads * 64 or bk % b or bk // b > 8:
-        raise ValueError(f"dec_cross_attention: needs head_dim 64 and <= 8 beams (d={d}, "
-                         f"rows={bk}, items={b})")
-    if dec_cross_smem_bytes(bk // b, s_len, ck.element_size()) > SMEM_MAX:
-        raise ValueError(f"dec_cross_attention: S={s_len} with {bk // b} beams needs more "
-                         "shared memory than a block has")
+    if d != heads * 64 or bk < b or bk % b:
+        raise ValueError(f"dec_cross_attention: needs head_dim 64 and whole beams an item "
+                         f"(d={d}, rows={bk}, items={b})")
+    beams = bk // b
+    plan = dec_cross_plan(beams, s_len, ck.element_size())  # raises where no block holds it
     out = torch.empty(bk, d, dtype=torch.bfloat16, device=q.device)
     _launch("dec_cross_attention", "vt_dec_cross_attention", q.device, _p(q), _p(ck), _p(cv),
-            _p(ck_scale), _p(cv_scale), _p(enc_bias), _p(out), b, bk // b, heads, s_len,
-            int(is_int8), ctypes.c_float(64 ** -0.5))
+            _p(ck_scale), _p(cv_scale), _p(enc_bias), _p(out), b, beams, plan.groups,
+            plan.smem, heads, s_len, int(is_int8), ctypes.c_float(64 ** -0.5),
+            variant=(DEC_CROSS_BEAM_LAUNCHES, beams))
     return out

@@ -306,7 +306,9 @@ def mha(p: Params, hidden: torch.Tensor, key_value: torch.Tensor | None = None,
     (the caller's mask hides those past the step); cross-attention reads the
     cache's K/V, projected once, and ignores key_value's values. The JAX
     function returns the updated cache beside the output; here the output
-    alone. A cache takes whole weights: with `tp` it raises."""
+    alone. A step that would end past L_max (cache_index + t > L_max) raises
+    ValueError before anything is written, where JAX clamps the write's
+    start. A cache takes whole weights: with `tp` it raises."""
     if cache is not None and tp is not None:
         raise ValueError("mha: cache= runs on whole weights; tp= is not supported with it")
     d = hidden.shape[-1]
@@ -325,8 +327,11 @@ def mha(p: Params, hidden: torch.Tensor, key_value: torch.Tensor | None = None,
         k = _split_heads(column_linear(p["k_proj"], src, tp), heads)
         v = _split_heads(column_linear(p["v_proj"], src, tp), heads)
         if cache is not None:  # a decode step of the cached self-attention
-            idx = int(cache_index)
-            cache["k"][:, :, idx:idx + k.shape[2]] = k
+            idx, t, l_max = int(cache_index), k.shape[2], cache["k"].shape[2]
+            if idx < 0 or idx + t > l_max:  # JAX's dynamic_update_slice clamps instead
+                raise ValueError(f"mha: a cached step of t={t} tokens at cache_index={idx} "
+                                 f"does not fit the cache's L_max={l_max}")
+            cache["k"][:, :, idx:idx + t] = k
             cache["v"][:, :, idx:idx + v.shape[2]] = v
             k, v = cache["k"], cache["v"]
     out = attention_core(q, k, v, mask)
