@@ -63,17 +63,18 @@ GEMM_EPILOGUES = [(False, False, None, torch.float32), (True, False, None, torch
 @pytest.mark.parametrize("m", [1, 37, 160, 161, 256, 257, 1280, 2048 + 37])
 @pytest.mark.parametrize("k,n", [(256, 384), (32, 64), (96, 192), (1024, 1024)])
 def test_gemm_shape_sweep(dev, m, k, n):
-    """Ragged rows through both kernels (M <= 256: split-K cluster; above:
-    TMA tiles), a k tail of 32, a last column tile
-    half empty, every epilogue kind, against the twin; the launch counts by
-    kernel move with the plan."""
+    """Ragged rows through the three kernels (M <= 256: split-K cluster; up
+    to GEMM_MID_M_MAX: 128-row TMA tiles with split-K; above: 256 x 128 TMA
+    tiles), a k tail of 32, a last column tile half empty, every epilogue
+    kind, against the twin; the launch counts by kernel move with the plan."""
     from vacnic_tpu_torch.kernels import primitives as K
 
     g = torch.Generator(device=dev).manual_seed(m * 7 + n)
     a, w = rn(g, m, k, dtype=torch.bfloat16), rn(g, k, n, std=0.05, dtype=torch.bfloat16)
     b, r = rn(g, n), rn(g, m, n)
     variant = K.gemm_plan(m, n, k).variant
-    assert variant == ("small_m" if m <= 256 else "large_m")
+    assert variant == ("small_m" if m <= 256 else "mid_m" if m <= K.GEMM_MID_M_MAX
+                       else "large_m")
     for has_b, has_r, act, out in GEMM_EPILOGUES:
         before = K.gemm_variant_counts()[variant]
         got = K.gemm(a, w, b if has_b else None, r if has_r else None, act, out)
@@ -106,29 +107,94 @@ def test_gemm_large_m_tiles_and_clusters(dev):
     kernel on one and on several tiles: non-symmetric random A and W (a
     transposed operand cannot pass), an odd number of column tiles (the grid
     is padded to whole clusters), f32 out against torch.matmul (sum order
-    only)."""
+    only). These shapes now take mid_m, so the large-M plan is launched
+    through the private entry; the last shape is the plan's own large_m."""
     from vacnic_tpu_torch.kernels import primitives as K
 
     g = torch.Generator(device=dev).manual_seed(5)
-    for m, k, n in ((257, 64, 128), (256 * 3 + 5, 320, 384), (700, 1024, 1024)):
-        assert K.gemm_plan(m, n, k).variant == "large_m"
+    large = K.GemmPlan("large_m")
+    for m, k, n in ((257, 64, 128), (256 * 3 + 5, 320, 384), (700, 1024, 1024),
+                    (K.GEMM_MID_M_MAX + 1, 320, 384)):
         a, w = rn(g, m, k, dtype=torch.bfloat16), rn(g, k, n, std=0.05, dtype=torch.bfloat16)
-        close(K.gemm(a, w), a.float() @ w.float(), False)
+        before = K.gemm_variant_counts()["large_m"]
+        close(K._gemm_planned(large, a, w), a.float() @ w.float(), False)
         b, r = rn(g, n), rn(g, m, n)
-        close(K.gemm(a, w, b, r, K.GELU, torch.bfloat16),
+        close(K._gemm_planned(large, a, w, b, r, K.GELU, torch.bfloat16),
               K.gemm_plain(a, w, b, r, K.GELU, torch.bfloat16), True)
+        assert K.gemm_variant_counts()["large_m"] == before + 2
+    assert K.gemm_plan(K.GEMM_MID_M_MAX + 1, 384, 320) == large
 
 
-@pytest.mark.parametrize("m", [1, 64, 65, 160, 256, 257, 16384])
-def test_gemm_shared_memory_fits_a_block(dev, m):
-    """The ring (and, for large M, its barriers) of the kernel a shape takes,
-    as the built library states it, fits the 227 KB a block can have and holds
-    at least three slots of (rows + 64 columns) x 64 k in bf16."""
+MID_PLANS = [(bn, split) for bn in (64, 128) for split in (1, 2, 4)]
+
+
+@pytest.mark.parametrize("bn,split", MID_PLANS)
+@pytest.mark.parametrize("m", [257, 320, 511, 1280, "max", "max+1"])
+def test_gemm_mid_m_every_plan(dev, m, bn, split):
+    """mid_m at every tile width and split, through the private entry, at
+    ragged rows on each side of its range (257: a warpgroup with one live
+    row; 320: a dead warpgroup; GEMM_MID_M_MAX + 1 past it), K 1056 (17 k
+    tiles, the last a tail of 32: uneven slabs) and N 1088 (a half-empty
+    last 128-column tile), every epilogue kind, against the twin."""
     from vacnic_tpu_torch.kernels import primitives as K
 
+    m = {"max": K.GEMM_MID_M_MAX, "max+1": K.GEMM_MID_M_MAX + 1}.get(m, m)
+    k, n = 1056, 1088
+    g = torch.Generator(device=dev).manual_seed(m + 7 * split + bn)
+    a, w = rn(g, m, k, dtype=torch.bfloat16), rn(g, k, n, std=0.05, dtype=torch.bfloat16)
+    b, r = rn(g, n), rn(g, m, n)
+    plan = K.GemmPlan("mid_m", split, bn)
+    for has_b, has_r, act, out in GEMM_EPILOGUES:
+        before = K.gemm_variant_counts()["mid_m"]
+        got = K._gemm_planned(plan, a, w, b if has_b else None, r if has_r else None, act, out)
+        assert K.gemm_variant_counts()["mid_m"] == before + 1
+        assert got.dtype == out and got.shape == (m, n)
+        close(got, K.gemm_plain(a, w, b if has_b else None, r if has_r else None, act, out),
+              out == torch.bfloat16)
+
+
+@pytest.mark.parametrize("m,n,k", [(320, 1024, 1024), (640, 1024, 4096), (1280, 3072, 1024),
+                                   (1024, 4096, 1024)])
+def test_gemm_mid_m_plans_are_repeatable(dev, m, n, k):
+    """The decoder's and the encoder's shapes as gemm_plan cuts them, and
+    every split at the first: bit-identical from call to call (the partial
+    tiles are summed in rank order, without atomics)."""
+    from vacnic_tpu_torch.kernels import primitives as K
+
+    g = torch.Generator(device=dev).manual_seed(13)
+    a, w = rn(g, m, k, dtype=torch.bfloat16), rn(g, k, n, std=0.05, dtype=torch.bfloat16)
+    b, r = rn(g, n), rn(g, m, n)
+    plans = [K.gemm_plan(m, n, k)]
+    assert plans[0].variant == "mid_m"
+    if m == 320:
+        plans += [K.GemmPlan("mid_m", split, bn) for bn, split in MID_PLANS]
+    for plan in plans:
+        first = K._gemm_planned(plan, a, w, b, r, K.GELU, torch.float32)
+        close(first, K.gemm_plain(a, w, b, r, K.GELU, torch.float32), False)
+        for _ in range(3):
+            assert torch.equal(first, K._gemm_planned(plan, a, w, b, r, K.GELU, torch.float32))
+    assert torch.equal(K.gemm(a, w, b, r, K.GELU, torch.float32),
+                       K._gemm_planned(plans[0], a, w, b, r, K.GELU, torch.float32))
+
+
+@pytest.mark.parametrize("m", [1, 64, 65, 160, 256, 257, 320, 1280, 2048, 2049, 16384])
+def test_gemm_shared_memory_fits_a_block(dev, m):
+    """The ring (and, for the TMA kernels, its barriers) of the kernel a
+    shape takes, as the built library states it, fits the 227 KB a block can
+    have and holds at least three slots of (rows + columns) x 64 k in bf16;
+    mid_m's, at both tile widths, lets two blocks share an SM's 228 KB."""
+    from vacnic_tpu_torch.kernels import _build
+    from vacnic_tpu_torch.kernels import primitives as K
+
+    plan = K.gemm_plan(m, 1024, 1024)
     smem = K.gemm_smem_bytes(m, 1024, 1024)
-    rows, cols = (256, 128) if m > 256 else (64 * -(-m // 64), 64)
+    rows, cols = {"large_m": (256, 128), "mid_m": (128, plan.bn),
+                  "small_m": (64 * -(-m // 64), 64)}[plan.variant]
     assert 3 * (rows + cols) * 64 * 2 <= smem <= 232448
+    for bn in (64, 128):
+        mid = _build.lib().vt_gemm_smem_bytes(3, m, bn)
+        assert 3 * (128 + bn) * 64 * 2 <= mid and 2 * (mid + 1024) <= 233472
+    assert _build.lib().vt_gemm_smem_bytes(3, m, 96) == 0
 
 
 def test_gemm_refuses_other_shapes(dev):

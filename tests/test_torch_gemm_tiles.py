@@ -1,11 +1,13 @@
 """The plan that picks kernel and split of a gemm_bf16 product
 (kernels/primitives.gemm_plan), held to what the CUDA launcher
 (csrc/gemm_bf16.cu, vt_gemm_bf16) accepts, and the split-K order of its
-small-M kernel, emulated in PyTorch on the CPU against the plain twin that
-defines the result: block r of a cluster accumulates the k tiles
+small-M and mid-M kernels, emulated in PyTorch on the CPU against the plain
+twin that defines the result: block r of a cluster accumulates the k tiles
 [r per, (r + 1) per) of 64 in f32; the partial tiles are summed in rank
 order 0, 1, ..; then bias -> gelu -> residual -> rounding. The gelu is not
-linear, so nothing of the epilogue may touch a partial sum.
+linear, so nothing of the epilogue may touch a partial sum. The mid-M
+kernel does this on 128-row tiles of 64 or 128 columns, what lies past M, N
+and K read as zeros, block r of a tile finishing its 128 / split rows.
 
 Tolerances. The emulations differ from the twin only in the order of the f32
 sums: 1e-5 on f32 outputs of order one (K up to 1024, inputs of std 1 and
@@ -51,6 +53,42 @@ def split_k_gemm(a, w, bias, residual, act, out_dtype, split):
     for p in partials:  # always 0, 1, ..: the result does not depend on timing
         total = total + p
     return epilogue(total, bias, residual, act, out_dtype)
+
+
+def mid_m_gemm(a, w, bias, residual, act, out_dtype, plan):
+    """gemm_mid_kernel: A and W zero-filled past M, N and K to whole tiles
+    (TMA's fill), each 128 x bn output tile's `split` partial tiles by
+    cluster rank, block r summing rows [r 128 / split, (r + 1) 128 / split)
+    over the ranks in rank order, then the epilogue, only rows < M and
+    columns < N stored."""
+    m, k = a.shape
+    n = w.shape[1]
+    bm, bn = K.GEMM_MID_BM, plan.bn
+    mp, np_, kp = -(-m // bm) * bm, -(-n // bn) * bn, -(-k // BK) * BK
+    ap = torch.zeros(mp, kp)
+    ap[:m, :k] = a.float()
+    wp = torch.zeros(kp, np_)
+    wp[:k, :n] = w.float()
+    n_tiles, rows = kp // BK, bm // plan.split
+    per = -(-n_tiles // plan.split)
+    out = torch.full((m, n), float("nan")).to(out_dtype)
+    for m0 in range(0, mp, bm):
+        for n0 in range(0, np_, bn):
+            parts = [k_tiles(ap[m0:m0 + bm], wp[:, n0:n0 + bn], r * per,
+                             max(0, min(per, n_tiles - r * per))) for r in range(plan.split)]
+            c1 = min(n0 + bn, n)
+            for r in range(plan.split):
+                lo = m0 + r * rows
+                hi = min(lo + rows, m)
+                if lo >= m:
+                    continue
+                total = torch.zeros(rows, bn)
+                for p in parts:  # always 0, 1, ..
+                    total = total + p[r * rows:(r + 1) * rows]
+                out[lo:hi, n0:c1] = epilogue(
+                    total[:hi - lo, :c1 - n0], None if bias is None else bias[n0:c1],
+                    None if residual is None else residual[lo:hi, n0:c1], act, out_dtype)
+    return out
 
 
 def assert_close(out, ref):
@@ -102,6 +140,38 @@ def test_split_k_slabs_and_k_tail(k, split, dt):
                      K.gemm_plain(a, w, bias, res, act, out))
 
 
+MID_PLANS = [K.GemmPlan("mid_m", split, bn) for bn in (64, 128) for split in (1, 2, 4)]
+
+
+def plan_id(plan):
+    return f"bn{plan.bn}-split{plan.split}"
+
+
+@pytest.mark.parametrize("plan", MID_PLANS, ids=plan_id)
+@pytest.mark.parametrize("epi", EPILOGUES, ids=epilogue_id)
+def test_mid_m_matches_plain(epi, plan):
+    """M 320 (the last row tile's second warpgroup past M), K 288 (five k
+    tiles, the last a tail of 32: split 4 gives slabs of 2, 2, 1, 0) and N
+    192 (N % 128 == 64: a half-empty last 128-column tile)."""
+    has_bias, has_res, act, out = epi
+    a, w, bias, res = inputs(320 + plan.bn + plan.split, 320, 288, 192, torch.bfloat16)
+    b, r = (bias if has_bias else None), (res if has_res else None)
+    assert_close(mid_m_gemm(a, w, b, r, act, out, plan), K.gemm_plain(a, w, b, r, act, out))
+
+
+@pytest.mark.parametrize("plan", MID_PLANS, ids=plan_id)
+@pytest.mark.parametrize("m", [257, 383])
+def test_mid_m_ragged_rows(m, plan):
+    """257: one live row in the last tile's first warpgroup; 383: the last
+    tile's second warpgroup with 63 live rows. K 1056 % 64 == 32, N 1088 %
+    128 == 64, inputs of both dtypes the twin takes."""
+    for dt in (torch.float32, torch.bfloat16):
+        a, w, bias, res = inputs(m + plan.split, m, 1056, 1088, dt)
+        for act, out in ((K.GELU, torch.float32), (None, torch.bfloat16)):
+            assert_close(mid_m_gemm(a, w, bias, res, act, out, plan),
+                         K.gemm_plain(a, w, bias, res, act, out))
+
+
 def test_epilogue_before_the_sum_would_be_wrong():
     """What the order protects: a gelu applied to the partial sums differs
     from the twin by far more than the tolerance."""
@@ -127,10 +197,13 @@ def launcher_accepts(plan, m, n, k):
     """The checks of vt_gemm_bf16 on what the wrapper passes down."""
     assert plan.variant in K.GEMM_VARIANTS
     if plan.variant == "small_m":
-        assert m <= 256 and plan.split in (1, 2, 4)
+        assert m <= 256 and plan.split in (1, 2, 4) and plan.bn == 0
         assert (64 * -(-m // 64)) % plan.split == 0  # the rows each block of a cluster finishes
+    elif plan.variant == "mid_m":
+        assert plan.split in (1, 2, 4) and plan.bn in (64, 128)
+        assert -(-m // K.GEMM_MID_BM) * plan.split <= 65535  # the grid's y extent
     else:
-        assert plan.split == 1
+        assert plan.split == 1 and plan.bn == 0
 
 
 def small_m_blocks(plan, n):
@@ -152,6 +225,47 @@ def test_plan_decode_products(name, m):
     assert (k // BK) % plan.split == 0
     assert 64 <= small_m_blocks(plan, n) <= K.GEMM_SMS
     assert plan.split <= 4  # clusters of 8 are not placed 16 at a time
+
+
+def mid_m_max_blocks(m, n, k):
+    """The most blocks any mid_m plan of the shape has."""
+    k_tiles = -(-k // BK)
+    return -(-m // K.GEMM_MID_BM) * (n // 64) * max(s for s in (1, 2, 4) if k_tiles % s == 0)
+
+
+@pytest.mark.parametrize("name", LAYER_PRODUCTS)
+@pytest.mark.parametrize("m", [320, 512, 640, 1280, 513, 1024],
+                         ids=["batch64x5", "batch32x16-or-enc-batch1", "batch128x5",
+                              "batch256x5", "ragged513", "enc-batch2"])
+def test_plan_mid_products(name, m):
+    """The decoder's products at BK 320-1280 (batch 64-256 x beam 5, 32 x 16
+    beams) and the encoder's at batch 1 and 2 (M 512 and 1024; 513
+    ragged) take the 128-row TMA kernel with split-K: slabs that divide the
+    k tiles, clusters of at most 4, and a grid of at least
+    GEMM_MID_MIN_BLOCKS (128 of the 132 SMs) wherever a plan of the shape
+    has one."""
+    k, n = LAYER_PRODUCTS[name]
+    plan = K.gemm_plan(m, n, k)
+    launcher_accepts(plan, m, n, k)
+    assert plan.variant == "mid_m" and K.GEMM_SMALL_M_MAX < m <= K.GEMM_MID_M_MAX
+    assert (k // BK) % plan.split == 0 and plan.split <= 4
+    if mid_m_max_blocks(m, n, k) >= K.GEMM_MID_MIN_BLOCKS:
+        assert K.mid_m_blocks(plan, m, n) >= K.GEMM_MID_MIN_BLOCKS
+
+
+@pytest.mark.parametrize("m,variant", [(256, "small_m"), (257, "mid_m"), (1280, "mid_m"),
+                                       ("max", "mid_m"), ("max+1", "large_m"),
+                                       (32 * 512, "large_m")])
+def test_plan_boundaries(m, variant):
+    """small_m up to 256 rows, mid_m from 257 to GEMM_MID_M_MAX (at least
+    the decoder's 1280 at batch 256 x beam 5), large_m past it and at batch
+    32's 16384 encoder rows, for each of a layer's products."""
+    assert K.GEMM_MID_M_MAX >= 1280
+    m = {"max": K.GEMM_MID_M_MAX, "max+1": K.GEMM_MID_M_MAX + 1}.get(m, m)
+    for k, n in LAYER_PRODUCTS.values():
+        plan = K.gemm_plan(m, n, k)
+        launcher_accepts(plan, m, n, k)
+        assert plan.variant == variant
 
 
 @pytest.mark.parametrize("name", LAYER_PRODUCTS)
@@ -179,9 +293,12 @@ def test_every_accepted_shape_has_a_plan(m, k, n):
     redesign it still takes, by shape alone."""
     plan = K.gemm_plan(m, n, k)
     launcher_accepts(plan, m, n, k)
-    assert plan.variant == ("small_m" if m <= K.GEMM_SMALL_M_MAX else "large_m")
+    assert plan.variant == ("small_m" if m <= K.GEMM_SMALL_M_MAX else
+                            "mid_m" if m <= K.GEMM_MID_M_MAX else "large_m")
     if plan.variant == "small_m" and plan.split > 1:
         assert small_m_blocks(plan, n) <= K.GEMM_SMS
+    if plan.variant == "mid_m" and mid_m_max_blocks(m, n, k) >= K.GEMM_MID_MIN_BLOCKS:
+        assert K.mid_m_blocks(plan, m, n) >= K.GEMM_MID_MIN_BLOCKS
 
 
 @pytest.mark.parametrize("m,k,n", [(0, 64, 64), (8, 48, 64), (8, 0, 64), (8, 64, 96), (8, 64, 0)])
@@ -196,4 +313,4 @@ def test_cpu_gemm_takes_the_twin_and_counts_nothing():
     out = K.gemm(a, w, bias, res, K.GELU, torch.float32)
     assert torch.equal(out, K.gemm_plain(a, w, bias, res, K.GELU, torch.float32))
     assert K.launch_counts()["gemm_bf16"] == 0
-    assert K.gemm_variant_counts() == {"large_m": 0, "small_m": 0}
+    assert K.gemm_variant_counts() == {"large_m": 0, "small_m": 0, "mid_m": 0}

@@ -437,5 +437,5 @@ def test_launch_counts_are_exact_under_threads(monkeypatch):
         sys.setswitchinterval(interval)
     assert not any(t.is_alive() for t in ts)
     assert K.launch_counts()["gemm_bf16"] == threads * n
-    assert K.gemm_variant_counts() == {"large_m": 0, "small_m": threads * n}
+    assert K.gemm_variant_counts() == {"large_m": 0, "small_m": threads * n, "mid_m": 0}
     K.reset_launch_counts()

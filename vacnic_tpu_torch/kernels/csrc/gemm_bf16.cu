@@ -1,5 +1,8 @@
-// bf16 x bf16 -> f32-accumulate matrix product with a fused epilogue, in two
-// kernels: one for many rows (the encoder) and one for few (the decoder).
+// bf16 x bf16 -> f32-accumulate matrix product with a fused epilogue, in three
+// kernels: one for many rows (the encoder at batch 8 and up), one for few (the
+// decoder up to 256 rows) and one for the range between (257 to a bound of a
+// few thousand rows: the decoder at batch 64-256 or past 8 beams, the
+// encoder at batch 1-4).
 //
 // Replaces: the matrix products inside the two TPU kernels' bodies --
 //   vacnic_tpu/kernels/encoder_stack.py:_kernel (fused QKV, self out-proj,
@@ -61,7 +64,30 @@
 // comes after the sum) and stores whole 16-byte pieces. No atomics, no
 // workspace, and the reduction and the epilogue are spread over the cluster.
 //
-// Which kernel and split a shape takes is decided in Python
+// Kernel 3, gemm_mid_kernel (between the two): at 257-2048 rows the product
+// is neither kernel 1's operations-bound tile nor kernel 2's weight stream.
+// At M 320 the weight bytes set the bound, at M 1280 the two nearly balance
+// (fc1: 10.7 GFLOP, 10.9 us, against 21 MB, 6.3 us); what lost time there on
+// kernel 1 was its grid (M 320 x N 1024 is 16 blocks of 256 x 128 on 132
+// SMs) and its serial K loop. So: block tiles of 128 rows (two consumer
+// warpgroups) by 64 or 128 columns, chosen with the split by gemm_plan to
+// fill the card; a warpgroup whose 64 rows all lie past M fetches, computes
+// and stores nothing (M 320 wastes 64 rows of 384, not 192 of 512). K is
+// split over a cluster of 1, 2 or 4 blocks, reduced as kernel 2 does it:
+// each block writes its f32 partial tile into its own ring, the cluster
+// synchronises, block r sums its share of the rows over the ranks in rank
+// order through distributed shared memory and applies bias, gelu, residual
+// and the rounding -- no atomics, no workspace, bit-identical from call to
+// call. The partial tile is also the epilogue's turnaround (kernel 1 lost 40%
+// of its first version's time storing straight from the accumulators): the
+// bias, residual and output move as whole rows, even at split 1. Tiles come
+// by TMA, as in kernel 1, one producer warp and full/empty mbarriers, into a
+// ring of 96 KB, small enough that two blocks share an SM where the grid has
+// more blocks than SMs. Neither a deeper ring for a block alone on its SM
+// nor kernel 1's multicast of the A rows to clusters of 2 or 4 column tiles
+// measured faster (PERF.md), so the kernel has neither.
+//
+// Which kernel, split and tile width a shape takes is decided in Python
 // (kernels/primitives.gemm_plan) and passed down.
 
 #include <stdint.h>
@@ -427,6 +453,122 @@ gemm_small_kernel(const __nv_bfloat16* __restrict__ A, const __nv_bfloat16* __re
   cluster.sync();  // nobody's shared memory goes away while a peer still reads it
 }
 
+constexpr int MID_WGS = 2;  // kernel 3: 128 rows a block
+
+// Kernel 3. Threads 0 .. 255 are the two consumer warpgroups; lane 0 of the
+// last warp is the producer. The grid is (column tiles, row tiles x split);
+// the cluster is the `split` blocks of one output tile, rank r taking the k
+// tiles [r per, (r + 1) per) and finishing rows [r 128 / split, (r + 1) 128 / split).
+template <int NA, int STAGES>
+__global__ void __launch_bounds__(MID_WGS * 128 + 32, 2)
+gemm_mid_kernel(const __grid_constant__ CUtensorMap map_a,
+                const __grid_constant__ CUtensorMap map_w, const float* __restrict__ bias,
+                const float* __restrict__ res, void* __restrict__ C, int M, int N, int K,
+                int act, int out_bf16, int split) {
+  using T = Tile<MID_WGS, NA, STAGES>;
+  constexpr int LD = T::BN + 8;  // floats a row of the partial tile: conflict-free both ways
+  static_assert(T::BM * LD * 4 <= STAGES * T::STAGE_BYTES, "the partial tile reuses the ring");
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_tiles(smem_raw);
+  const uint32_t smem0 = smem_u32(smem);
+  const uint32_t full0 = smem0 + STAGES * T::STAGE_BYTES;  // STAGES full, then STAGES empty
+  const uint32_t empty0 = full0 + STAGES * 8;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int tid = threadIdx.x;
+  const int rank = cluster.block_rank();  // the cluster is 1 x split x 1
+  const int n0 = blockIdx.x * T::BN, m0 = (blockIdx.y / split) * T::BM;
+  const int live = min(MID_WGS, (M - m0 + 63) / 64);  // warpgroups with a row below M
+  const int nkt_all = (K + BK - 1) / BK;
+  const int per = (nkt_all + split - 1) / split;
+  const int kt0 = rank * per;
+  const int nkt = max(0, min(per, nkt_all - kt0));
+
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full0 + 8 * s, 1);      // the producer's expect_tx
+      mbar_init(empty0 + 8 * s, live);  // one thread of each live consumer warpgroup
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  float acc[NA * 8][4];
+#pragma unroll
+  for (int j = 0; j < NA * 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
+  if (tid >= MID_WGS * 128) {
+    if (tid == MID_WGS * 128) {
+      // the producer: the live warpgroups' A rows and the W tiles
+      int slot = 0, parity = 1;  // a fresh barrier counts as released
+      for (int kt = 0; kt < nkt; ++kt) {
+        mbar_wait(empty0 + 8 * slot, parity);
+        const uint32_t full = full0 + 8 * slot, st = smem0 + slot * T::STAGE_BYTES;
+        const int k0 = (kt0 + kt) * BK;
+        mbar_expect_tx(full, (live + NA) * ATOM_BYTES);
+        for (int w = 0; w < live; ++w) tma_load(st + w * ATOM_BYTES, &map_a, k0, m0 + 64 * w, full);
+        for (int a = 0; a < NA; ++a)
+          tma_load(st + T::A_BYTES + a * ATOM_BYTES, &map_w, n0 + a * 64, k0, full);
+        if (++slot == STAGES) {
+          slot = 0;
+          parity ^= 1;
+        }
+      }
+    }
+  } else if ((tid >> 7) < live) {
+    const bool elected = (tid & 127) == 0;
+    int slot = 0, parity = 0, prev = 0;
+    pin(acc);
+    for (int kt = 0; kt < nkt; ++kt) {
+      mbar_wait(full0 + 8 * slot, parity);  // the step's tiles have landed (TMA: async proxy)
+      mma_step<MID_WGS, NA>(acc, smem0 + slot * T::STAGE_BYTES, tid, kt == 0);
+      wgmma_wait_pending<1>();  // the step before is done; this one runs on
+      if (elected && kt > 0) mbar_arrive(empty0 + 8 * prev);  // hand its slot back
+      prev = slot;
+      if (++slot == STAGES) {
+        slot = 0;
+        parity ^= 1;
+      }
+    }
+    wgmma_wait_pending<0>();
+    pin(acc);
+  }
+  __syncwarp();     // the producer's warp is whole again
+  __syncthreads();  // every wgmma has read its last tiles: the ring is free
+
+  float* part = reinterpret_cast<float*>(smem);
+  if (tid < MID_WGS * 128 && (tid >> 7) < live) {
+    const int lane = tid & 31, g = lane >> 2, t = lane & 3;
+    float* pa = part + ((tid >> 5) * 16 + g) * LD + 2 * t;
+    float* pb = pa + 8 * LD;
+#pragma unroll
+    for (int j = 0; j < NA * 8; ++j) {
+      *reinterpret_cast<float2*>(pa + 8 * j) = make_float2(acc[j][0], acc[j][1]);
+      *reinterpret_cast<float2*>(pb + 8 * j) = make_float2(acc[j][2], acc[j][3]);
+    }
+  }
+  cluster.sync();  // every block's partial tile is written
+
+  // rows [rank rows, (rank + 1) rows) of the tile, whole 16-byte pieces of
+  // neighbouring columns: a warp covers 128 (BN 64: two rows of 64) columns
+  const int rows = T::BM / split;
+  constexpr int C4 = T::BN / 4;
+  for (int i = tid; i < rows * C4; i += blockDim.x) {
+    const int row = rank * rows + i / C4, col = (i % C4) * 4;
+    const int gr = m0 + row, gc = n0 + col;
+    if (gr >= M || gc >= N) continue;
+    float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    for (int q = 0; q < split; ++q) {  // always in rank order
+      const float* src = q == rank ? part : cluster.map_shared_rank(part, q);
+      const float4 p = *reinterpret_cast<const float4*>(src + row * LD + col);
+      v.x += p.x;
+      v.y += p.y;
+      v.z += p.z;
+      v.w += p.w;
+    }
+    finish4(v, load_bias4(bias, gc, N), res, C, gr, gc, N, act, out_bf16);
+  }
+  cluster.sync();  // nobody's shared memory goes away while a peer still reads it
+}
+
 struct GemmArgs {
   const __nv_bfloat16* a;
   const __nv_bfloat16* w;
@@ -514,6 +656,53 @@ int launch_small(const GemmArgs& g, int split) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// Kernel 3's ring: 96 KB (NA 1: four slots of 24 KB, NA 2: three of 32 KB),
+// so that two blocks, each with its barriers and alignment slack, share an
+// SM's 228 KB.
+constexpr int mid_stages(int na) { return na == 1 ? 4 : 3; }
+
+template <int NA>
+constexpr int mid_smem() {
+  constexpr int stages = mid_stages(NA);
+  constexpr int bytes = Tile<MID_WGS, NA, stages>::SMEM_BYTES + 2 * stages * 8;
+  static_assert(2 * (bytes + 1024) <= 233472, "two blocks an SM");  // + 1 KB reserved a block
+  return bytes;
+}
+
+template <int NA>
+int launch_mid(const GemmArgs& g, int split) {
+  constexpr int STAGES = mid_stages(NA);
+  using T = Tile<MID_WGS, NA, STAGES>;
+  constexpr int SMEM = mid_smem<NA>();
+  static device_state::PerDevice configured;
+  auto kernel = gemm_mid_kernel<NA, STAGES>;
+  cudaError_t e = allow_smem(kernel, SMEM, configured);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  CUtensorMap map_a, map_w;
+  e = map_cache.get(g.a, g.M, g.K, 64, &map_a);  // a box a warpgroup: 64 rows
+  if (e != cudaSuccess) return static_cast<int>(e);
+  e = map_cache.get(g.w, g.K, g.N, 64, &map_w);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const long long tiles_y = (long long)((g.M + T::BM - 1) / T::BM) * split;
+  if (tiles_y > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((g.N + T::BN - 1) / T::BN, (unsigned)tiles_y, 1);
+  cfg.blockDim = dim3(T::THREADS + 32, 1, 1);
+  cfg.dynamicSmemBytes = SMEM;
+  cfg.stream = g.stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = split;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, kernel, map_a, map_w, g.bias, g.res, g.c, g.M, g.N, g.K, g.act,
+                         g.out_bf16, split);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // A [M,K] bf16, W [K,N] bf16, bias [N] f32 or NULL, res [M,N] f32 or NULL,
@@ -523,11 +712,14 @@ int launch_small(const GemmArgs& g, int split) {
 //   variant 1 (large M): 256 x 128 tiles in clusters of two neighbouring
 //     column tiles; split = 1;
 //   variant 2 (small M <= 256): ceil(M / 64) warpgroups cover every row of a
-//     64-column slab, split = 1, 2 or 4 blocks of a cluster along K.
-// Any other plan is refused with cudaErrorInvalidValue.
+//     64-column slab, split = 1, 2 or 4 blocks of a cluster along K;
+//   variant 3 (M between): 128 x bn tiles, bn = 64 or 128, split = 1, 2 or 4
+//     blocks of a cluster along K.
+// bn is 0 for variants 1 and 2, whose tiles are fixed. Any other plan is
+// refused with cudaErrorInvalidValue.
 extern "C" int vt_gemm_bf16(const void* A, const void* W, const void* bias, const void* res,
                             void* C, int M, int N, int K, int act, int out_bf16, int variant,
-                            int split, void* stream) {
+                            int split, int bn, void* stream) {
   const GemmArgs g = {reinterpret_cast<const __nv_bfloat16*>(A),
                       reinterpret_cast<const __nv_bfloat16*>(W),
                       reinterpret_cast<const float*>(bias),
@@ -535,14 +727,16 @@ extern "C" int vt_gemm_bf16(const void* A, const void* W, const void* bias, cons
                       C, M, N, K, act, out_bf16, reinterpret_cast<cudaStream_t>(stream)};
   const int invalid = static_cast<int>(cudaErrorInvalidValue);
   if (M < 1 || K < 32 || K % 32 || N < 64 || N % 64) return invalid;
+  // TMA reads 16-byte aligned rows
+  const bool aligned =
+      reinterpret_cast<uintptr_t>(A) % 16 == 0 && reinterpret_cast<uintptr_t>(W) % 16 == 0;
+  const bool split_ok = split == 1 || split == 2 || split == 4;
   if (variant == 1) {
-    if (split != 1) return invalid;
-    // TMA reads 16-byte aligned rows
-    if (reinterpret_cast<uintptr_t>(A) % 16 || reinterpret_cast<uintptr_t>(W) % 16) return invalid;
+    if (split != 1 || bn != 0 || !aligned) return invalid;
     return launch_large<4, 2, 4, 1>(g);
   }
   if (variant == 2) {
-    if (split != 1 && split != 2 && split != 4) return invalid;
+    if (!split_ok || bn != 0) return invalid;
     switch ((M + 63) / 64) {
       case 1: return launch_small<1, 1>(g, split);
       case 2: return launch_small<2, 1>(g, split);
@@ -551,14 +745,20 @@ extern "C" int vt_gemm_bf16(const void* A, const void* W, const void* bias, cons
       default: return invalid;
     }
   }
+  if (variant == 3) {
+    if (!split_ok || !aligned) return invalid;
+    if (bn == 64) return launch_mid<1>(g, split);
+    if (bn == 128) return launch_mid<2>(g, split);
+  }
   return invalid;
 }
 
-// Dynamic shared memory, in bytes a block, of the kernel that variant and M
-// select in vt_gemm_bf16; 0 where it would refuse them.
-extern "C" int vt_gemm_smem_bytes(int variant, int M) {
-  if (variant == 1) return large_smem<4, 2, 4>();
-  if (variant != 2) return 0;
+// Dynamic shared memory, in bytes a block, of the kernel that variant, M and
+// bn select in vt_gemm_bf16; 0 where it would refuse them.
+extern "C" int vt_gemm_smem_bytes(int variant, int M, int bn) {
+  if (variant == 1) return bn == 0 ? large_smem<4, 2, 4>() : 0;
+  if (variant == 3) return bn == 64 ? mid_smem<1>() : bn == 128 ? mid_smem<2>() : 0;
+  if (variant != 2 || bn != 0) return 0;
   switch ((M + 63) / 64) {
     case 1: return Tile<1, 1, small_stages(1, 1)>::SMEM_BYTES;
     case 2: return Tile<2, 1, small_stages(2, 1)>::SMEM_BYTES;

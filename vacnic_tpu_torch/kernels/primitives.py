@@ -33,8 +33,8 @@ KERNELS = ("gemm_bf16", "layernorm", "enc_self_attention", "enc_cross_attention"
 # (the wrappers of the last three live in kernels/lm_stats, kernels/flash_attn
 # and kernels/lm_head)
 LAUNCHES: dict[str, int] = {k: 0 for k in KERNELS}
-# gemm_bf16 is two __global__ kernels; every launch also counts under its own
-GEMM_VARIANTS = ("large_m", "small_m")
+# gemm_bf16 is three __global__ kernels; every launch also counts under its own
+GEMM_VARIANTS = ("large_m", "small_m", "mid_m")
 GEMM_VARIANT_LAUNCHES: dict[str, int] = {v: 0 for v in GEMM_VARIANTS}
 # and so is layernorm
 LAYERNORM_VARIANTS = ("warp", "block")
@@ -184,13 +184,56 @@ def gemm_plain(a, w, bias=None, residual=None, act=None, out_dtype=torch.float32
 
 GEMM_BK = 64                  # k per tile of csrc/gemm_bf16.cu
 GEMM_SMALL_M_MAX = 256        # four warpgroups of 64 rows
+GEMM_MID_M_MAX = 2048         # mid_m's last row count (gemm_plan); above, large_m
+GEMM_MID_BM = 128             # rows a mid_m block: two warpgroups
+GEMM_MID_MIN_BLOCKS = 128     # mid_m: the grid the plan fills first, where the shape has one
+GEMM_MID_STEP_128 = 1.8       # mid_m: a 128-column k-step's time, in 64-column k-steps
+GEMM_MID_SPLIT_STEPS = 2      # mid_m: a further rank of a split, in 64-column k-steps
 GEMM_SMS = 132                # an H100's streaming multiprocessors
 
 
 class GemmPlan(NamedTuple):
     """Which kernel of csrc/gemm_bf16.cu a product takes, and how K is cut."""
-    variant: str    # "large_m": TMA-fed 256 x 128 tiles; "small_m": split-K over a cluster
-    split: int = 1  # small_m: blocks of a cluster along K, each block a 64-column slab
+    variant: str    # "large_m": TMA-fed 256 x 128 tiles; "small_m": split-K over a cluster;
+    #                 "mid_m": TMA-fed 128 x bn tiles, split-K over a cluster
+    split: int = 1  # small_m, mid_m: blocks of a cluster along K
+    bn: int = 0     # mid_m: columns a block, 64 or 128; 0 where the kernel fixes them
+
+
+def mid_m_blocks(plan: GemmPlan, m: int, n: int) -> int:
+    """Blocks of a mid_m launch: 128-row by bn-column tiles, `split` a tile."""
+    return -(-m // GEMM_MID_BM) * -(-n // plan.bn) * plan.split
+
+
+def _mid_m_plan(m: int, n: int, k: int) -> GemmPlan:
+    """Of the tile widths 64 and 128 and the splits 1, 2, 4 that divide the
+    k tiles: among the grids of at least GEMM_MID_MIN_BLOCKS blocks, where
+    the shape has one, the least estimated time -- the blocks an SM (at
+    least one: a grid under a wave is no faster than one wave) times a
+    block's k-steps, a 128-column k-step weighing GEMM_MID_STEP_128 of a
+    64-column one, plus GEMM_MID_SPLIT_STEPS for each further rank of a
+    split (its share of the cluster's reduction); fewer blocks, then the
+    wider tile, on a tie.
+
+    The weights were fitted to chip_smoke.py's gemmplan phase, which times
+    every plan at M 320-4096 for each product of a layer and sets the
+    layer-step of the plan's picks beside that of the best plans (PERF.md).
+    A full wave of 132 blocks is not asked for: at M 512 it would move the
+    d x d products from 128 blocks of split 2 (0.0082 graph ms) to 256 of
+    split 4 (0.0126)."""
+    k_tiles = -(-k // GEMM_BK)
+    cands = []
+    for bn in (64, 128):
+        for split in (1, 2, 4):
+            if k_tiles % split:
+                continue
+            plan = GemmPlan("mid_m", split, bn)
+            blocks = mid_m_blocks(plan, m, n)
+            step = GEMM_MID_STEP_128 if bn == 128 else 1.0
+            est = (max(1.0, blocks / GEMM_SMS) * (k_tiles // split) * step
+                   + GEMM_MID_SPLIT_STEPS * (split - 1))
+            cands.append((blocks < GEMM_MID_MIN_BLOCKS, est, blocks, -bn, plan))
+    return min(cands)[-1]
 
 
 @functools.lru_cache(maxsize=None)  # a decode step asks 72 times, for four shapes
@@ -204,17 +247,24 @@ def gemm_plan(m: int, n: int, k: int) -> GemmPlan:
     wave of the 132 SMs (a block takes an SM's whole shared memory). More
     blocks than SMs ran 1.5-2x slower, and so did clusters of 8, which the
     card does not place 16 at a time.
-    Above: the TMA kernel, 256 x 128 tiles."""
+    257 <= m <= GEMM_MID_M_MAX: the TMA kernel of 128-row tiles with split-K
+    (_mid_m_plan). Above: the TMA kernel of 256 x 128 tiles. The bound is
+    where the second overtakes the first: summed over a layer-step (qkv,
+    self and cross out, cross q, fc1, fc2) the 128-row kernel took 0.1780
+    graph ms at M 2048 against the 256-row kernel's 0.1817, and 0.3195
+    against 0.2624 at M 4096 (chip_smoke.py's kernels phase; PERF.md)."""
     if m < 1 or k < 32 or k % 32 or n < 64 or n % 64:
         raise ValueError(f"gemm: needs M >= 1, K % 32 == 0 and N % 64 == 0, got M={m} K={k} N={n}")
-    if m > GEMM_SMALL_M_MAX:
+    if m > GEMM_MID_M_MAX:
         return GemmPlan("large_m")
+    if m > GEMM_SMALL_M_MAX:
+        return _mid_m_plan(m, n, k)
     k_tiles = -(-k // GEMM_BK)
     fits = [s for s in (1, 2, 4) if k_tiles % s == 0 and n // 64 * s <= GEMM_SMS]
     return GemmPlan("small_m", max(fits, default=1))
 
 
-_VARIANT_ID = {"large_m": 1, "small_m": 2}
+_VARIANT_ID = {"large_m": 1, "small_m": 2, "mid_m": 3}
 
 
 def gemm(a, w, bias=None, residual=None, act=None, out_dtype=torch.float32):
@@ -223,6 +273,17 @@ def gemm(a, w, bias=None, residual=None, act=None, out_dtype=torch.float32):
     no_grad_guard("gemm", a, w, bias, residual)
     if _on_cpu(a):
         return gemm_plain(a, w, bias, residual, act, out_dtype)
+    return _gemm_planned(gemm_plan(a.shape[0], w.shape[1], a.shape[1]), a, w, bias, residual,
+                         act, out_dtype)
+
+
+def _gemm_planned(plan: GemmPlan, a, w, bias=None, residual=None, act=None,
+                  out_dtype=torch.float32):
+    """gemm on the card by the given plan, whatever gemm_plan would say: the
+    entry through which tests and chip_smoke.py hold each kernel to the twin
+    and time it at shapes that the plan gives another. The port's paths go
+    through `gemm`."""
+    no_grad_guard("gemm", a, w, bias, residual)
     m, k = a.shape
     n = w.shape[1]
     _req(a, "gemm a", torch.bfloat16)
@@ -233,11 +294,11 @@ def gemm(a, w, bias=None, residual=None, act=None, out_dtype=torch.float32):
         _req(residual, "gemm residual", torch.float32, (m, n), a.device)
     if act not in (None, GELU) or out_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"gemm: act {act!r}, out_dtype {out_dtype} not supported")
-    plan = gemm_plan(m, n, k)
     out = torch.empty(m, n, dtype=out_dtype, device=a.device)
     _launch("gemm_bf16", "vt_gemm_bf16", a.device, _p(a), _p(w), _p(bias), _p(residual),
             _p(out), m, n, k, int(act == GELU), int(out_dtype == torch.bfloat16),
-            _VARIANT_ID[plan.variant], plan.split, variant=(GEMM_VARIANT_LAUNCHES, plan.variant))
+            _VARIANT_ID[plan.variant], plan.split, plan.bn,
+            variant=(GEMM_VARIANT_LAUNCHES, plan.variant))
     return out
 
 
@@ -246,7 +307,8 @@ def gemm_smem_bytes(m: int, n: int, k: int) -> int:
     built library states it."""
     from vacnic_tpu_torch.kernels._build import lib
 
-    return lib().vt_gemm_smem_bytes(_VARIANT_ID[gemm_plan(m, n, k).variant], m)
+    plan = gemm_plan(m, n, k)
+    return lib().vt_gemm_smem_bytes(_VARIANT_ID[plan.variant], m, plan.bn)
 
 
 # ---------------------------------------------------------------------------
