@@ -22,8 +22,9 @@ Phases:
            tile width and split through the private entry. Untimed too:
            layernorm at d 32 ... 2048 (both kernels, a scalar tail) and
            rows 1 to 6000; dec_cross_attention at beams 1, 5, 8, 9, 11, 16,
-           17 x S 1, 40 (to 8 beams), 130, 512, int8 and bf16, with an item
-           whose keys are all masked;
+           17, 24, 33 x S 1, 40 (to 8 beams), 130, 512, int8 and bf16, with
+           an item whose keys are all masked, by the plan and, 9-24 beams,
+           the groups of 8 and the wide block by explicit plans;
            dec_self_attention (timed at pos 0, 31, 49 for each of its bf16,
            int8 and fp8 self caches) at BK 1, 5, 8, 37, 160, 640 x heads 4
            and 16, pos = T - 1 and a middle pos, a random ancestry, and int8
@@ -41,21 +42,27 @@ Phases:
            at KV 40, the slice's, and at B 32 at KV 20 and 36, the onlyvis
            and mlp paths') at KV 1, 8, 16, 20, 36, 40, 64 x S 1, 63, 64,
            130, 512. The ladder phase's shapes, timed: dec_cross_attention
-           at B 32 x beams 11 and 16 (groups of 8 beams) and B 256 x beam 5,
-           int8 and bf16 (bf16 beside SDPA); the decoder's five products at
+           at B 8 x 11 beams, B 32 x 16 (the ladder's) and 32 x 11 beams
+           (no path's), each as the plan launches it beside the other launch
+           past 8 beams (the wide block or the groups of 8), and B 256 x
+           beam 5, int8 and bf16 (bf16 beside SDPA); the decoder's five products at
            M 320, 640, 1280 (batch 64-256 x beam 5) and 512 (32 x 16 beams),
            the encoder's at M 512, 1024, 2048 and 4096 (batch 1, 2, 4, 8),
            beside addmm; lm_head at BK 1280 beside addmm. Past 8 beams each group's rows
            must be bit-identical to the kernel of that many beams on those q
-           rows alone. The rows of the two kernels redesigned last log
-           the times of the kernels before them (EARLIER), outside the
-           kernels line. gemm_bf16, layernorm, dec_cross_attention,
+           rows alone (at B 32 x 11 and 16: the wide block's). The rows of
+           the two kernels redesigned last log the times of the kernels
+           before them (EARLIER), outside the kernels line. gemm_bf16, layernorm, dec_cross_attention,
            dec_self_attention, lm_head, enc_cross_attention and lm_stats
            must repeat bit-identically.
   gemmplan readings only, not in the default list: every mid_m plan (tile
            width x split), large_m and addmm at the decoder's and the
            encoder's rows (GEMM_SWEEP_M) for each product of a layer, each
            held to the twin (run_gemmplan_phase).
+  crossplan readings only, not in the default list: dec_cross_attention's
+           groups of 8 and wide block at B 8, 16, 32 x beams 9, 11, 16, 17,
+           24 x int8 and bf16, each held to the twin and the wide one
+           bit-identical to the groups (run_crossplan_phase).
   accuracy enc_cross_attention at the slice's shape on three seeds against
            a float64 reference with the twin's rounding points, beside the
            plain twin and an emulation of the kernel's order of work: the
@@ -131,8 +138,10 @@ Phases:
            batches 64, 128 and 256 x beam 5 (BK 320-1280: every decoder
            product on mid_m, the encoder on large_m at up to 131072 rows), each with
            the slice's gates at its batch and beam count (launch counts as
-           gemm_plan says, dec_cross_attention counted by beams, mean length
-           >= 45, finite scores) and readings (wall, captions/s, peak
+           gemm_plan says, dec_cross_attention counted by beams and on the
+           variant dec_cross_plan picks: at 8 x 11 and 32 x 16 the wide
+           block; mean length >= 45, finite scores) and
+           readings (wall, captions/s, peak
            memory); rows 0-31 of batch 256 decoded at batch 32, token
            agreement read, not gated; then CaptionService with the default
            ServeConfig() (buckets up to 256): a burst of 256 rows queued
@@ -254,8 +263,9 @@ file into that tree and run it there with --tokens-out first).
 
 Prints the registers, spills and shared memory of the two 512-token
 self-attention kernels, the encoder's cross-attention, the four gemm_bf16,
-two layernorm, four dec_cross_attention (beam 5 and groups of 8, int8 and
-bf16), three dec_self_attention, four
+two layernorm, eight dec_cross_attention (beam 5, groups of 8 and the
+wide block of two and of three n8 operands, int8 and bf16), three
+dec_self_attention, four
 lm_head and four lm_stats kernels (from nvcc's output of this build; a spill
 in any but the 512-token self-attention kernels fails the run), a JSON line
 with
@@ -707,14 +717,17 @@ def kernel_cases():
                   lambda: FA.flash_attention_plain(hq, hk, hv, hbias), None, 0.0,
                   PEAK_BF16_FLOPS, None))
 
-    # the ladder phase's shapes (a row's launches are its own ladder run's):
-    # dec_cross_attention past 8 beams (groups of 8) and at batch 256
-    for beams_w in (11, 16):
-        cases += [dec_cross_timed(rn, g, 32, beams_w, S, kind,
-                                  f"dec_cross_attention:beams{beams_w}")
+    # the ladder phase's shapes (a row's launches are its own ladder run's;
+    # the paths' cross K/V are int8, so no path launches a bf16 row):
+    # dec_cross_attention at 8 x 11 and 32 x 16 beams and at batch 256, and
+    # 32 x 11 beams, which no path runs
+    for items, beams_w, kern in ((8, 11, "dec_cross_attention:beams11"),
+                                 (32, 16, "dec_cross_attention:beams16"),
+                                 (32, 11, "dec_cross_attention:unpathed"),
+                                 (256, beams, "dec_cross_attention:b256")):
+        cases += [dec_cross_timed(rn, g, items, beams_w, S, kind,
+                                  kern if kind == "int8" else "dec_cross_attention:unpathed")
                   for kind in ("int8", "bf16")]
-    cases += [dec_cross_timed(rn, g, 256, beams, S, kind, "dec_cross_attention:b256")
-              for kind in ("int8", "bf16")]
     # the decoder's products at batch 64, 128, 256 x beam 5 (M 320, ragged:
     # 256 + 64; 640; 1280) and at batch 32 x 16 beams (M 512); the encoder's
     # at batch 1 (M 512: the service's b1 requests), 2 and 4 (M 1024, 2048:
@@ -733,10 +746,16 @@ def kernel_cases():
                   lambda: LH.lm_head(x1280, w_lm, b_lm), lambda: LH.lm_head_plain(x1280, w_lm, b_lm),
                   1280 * d * 2 + Vp * d * 2 + Vp * 4 + 1280 * Vp * 4, 2.0 * 1280 * Vp * d,
                   PEAK_BF16_FLOPS, lambda: torch.addmm(b_lm, x1280.float(), w32.t())))
-    # correctness only: groups of 8 with a ragged last one (9, 11, 17) and
-    # whole ones (16) x S 1, 130, 512 x int8 and bf16
-    for beams_c, s_c, kind in itertools.product((9, 11, 16, 17), (1, 130, 512), ("int8", "bf16")):
+    # correctness only, past 8 beams: by the plan (the wide block to 24
+    # beams, the groups of 8 past) with a ragged last operand (9, 11, 17,
+    # 33) and whole ones (16, 24) x S 1, 130, 512; the groups of 8 by
+    # explicit plans at the same shapes but 33; int8 and bf16
+    for beams_c, s_c, kind in itertools.product((9, 11, 16, 17, 24, 33), (1, 130, 512),
+                                                ("int8", "bf16")):
         cases.append(dec_cross_case(rn, g, B5, H5, beams_c, s_c, kind))
+    for beams_c, s_c, kind in itertools.product((9, 11, 16, 17, 24), (1, 130, 512),
+                                                ("int8", "bf16")):
+        cases.append(dec_cross_case(rn, g, B5, H5, beams_c, s_c, kind, "grouped"))
     return cases
 
 
@@ -900,14 +919,27 @@ def dec_cross_inputs(rn, g, items: int, heads: int, beams: int, s_len: int, kind
     return q, kk, vv, ks, vs, ebias
 
 
-def dec_cross_case(rn, g, items: int, heads: int, beams: int, s_len: int, kind: str):
-    """A correctness-only dec_cross_attention case (dec_cross_inputs)."""
+def dec_cross_case(rn, g, items: int, heads: int, beams: int, s_len: int, kind: str,
+                   variant: str | None = None):
+    """A correctness-only dec_cross_attention case (dec_cross_inputs), by
+    dec_cross_plan's plan or, given a variant, by that variant's."""
     from vacnic_tpu_torch.kernels import primitives as K
 
     args = dec_cross_inputs(rn, g, items, heads, beams, s_len, kind)
-    return (f"dec_cross_attention {kind} B={items} beams={beams} S={s_len}",
-            "dec_cross_attention", lambda: K.dec_cross_attention(*args, heads),
+    plan = None if variant is None else K.dec_cross_variant_plan(
+        variant, beams, s_len, 1 if kind == "int8" else 2)
+    return (f"dec_cross_attention {kind} B={items} beams={beams} S={s_len}"
+            + (f" [{plan.variant}]" if plan is not None else ""),
+            "dec_cross_attention", lambda: K._dec_cross_planned(plan, *args, heads),
             lambda: K.dec_cross_attention_plain(*args, heads), None, 0.0, PEAK_BF16_FLOPS, None)
+
+
+def dec_cross_bytes(args) -> int:
+    """The bytes a dec_cross_attention call must move: q in and out (bf16),
+    K and V once an item, the bias and (int8) the scales."""
+    q, kk, _, ks, _, ebias = args
+    return (2 * q.numel() * 2 + 2 * kk.numel() * kk.element_size() + ebias.numel() * 4
+            + (2 * ks.numel() * 4 if ks is not None else 0))
 
 
 def dec_cross_timed(rn, g, items: int, beams: int, s_len: int, kind: str, kern: str,
@@ -915,28 +947,38 @@ def dec_cross_timed(rn, g, items: int, beams: int, s_len: int, kind: str, kern: 
     """A timed dec_cross_attention case: q of items x beams rows, K/V of
     `kind`, each item's keys masked past a random point in [S/2, S]. The
     bound counts each K/V element once an item (read by every beam group of
-    it); bf16 also against SDPA over [items, H, beams, 64] queries."""
+    it); bf16 also against SDPA over [items, H, beams, 64] queries. Past 8
+    beams the row names the plan's variant and has the other launch past 8
+    at the same shape beside it ("other": the groups of 8 beside the wide
+    block, or the wide block beside the groups)."""
     import torch
     import torch.nn.functional as Fn
 
     from vacnic_tpu_torch.kernels import primitives as K
 
-    d, bk = heads * 64, items * beams
-    q, kk, vv, ks, vs, ebias = dec_cross_inputs(
+    args = dec_cross_inputs(
         rn, g, items, heads, beams, s_len, kind,
         torch.randint(s_len // 2, s_len + 1, (items, 1), device="cuda", generator=g))
+    q, kk, vv, ks, vs, ebias = args
     lib = None
     if kind != "int8":
         emask = (ebias > -1)[:, None, None, :]
         lib = (lambda: Fn.scaled_dot_product_attention(
             q.view(items, beams, heads, 64).transpose(1, 2), kk.transpose(2, 3),
             vv.transpose(2, 3), attn_mask=emask))
-    byts = bk * d * 2 * 2 + 2 * kk.numel() * kk.element_size() + items * s_len * 4 + (
-        2 * items * heads * 64 * 4 if ks is not None else 0)
-    return (f"dec_cross_attention {kind} B={items} beams={beams} S={s_len}", kern,
-            lambda: K.dec_cross_attention(q, kk, vv, ks, vs, ebias, heads),
-            lambda: K.dec_cross_attention_plain(q, kk, vv, ks, vs, ebias, heads),
-            byts, 4.0 * bk * s_len * d, PEAK_BF16_FLOPS, lib)
+    plan = K.dec_cross_plan(beams, s_len, kk.element_size())
+    extra = ()
+    if plan.variant != "beams":  # the other launch past 8 beams, beside the plan's
+        other = K.dec_cross_variant_plan("grouped" if plan.variant == "wide" else "wide", beams,
+                                         s_len, kk.element_size())
+        extra = (("other", f"{other.variant} at the same shape",
+                  lambda: K._dec_cross_planned(other, *args, heads)),)
+    return (f"dec_cross_attention {kind} B={items} beams={beams} S={s_len}"
+            + (f" [{plan.variant}]" if beams > K.DEC_CROSS_GROUP else ""), kern,
+            lambda: K.dec_cross_attention(*args, heads),
+            lambda: K.dec_cross_attention_plain(*args, heads),
+            dec_cross_bytes(args), 4.0 * items * beams * s_len * heads * 64, PEAK_BF16_FLOPS, lib,
+            *extra)
 
 
 def tolerance(out) -> tuple[float, float]:
@@ -1232,6 +1274,63 @@ def run_gemmplan_phase(gpu: str) -> None:
         raise RuntimeError(f"gemmplan: kernels disagree with the plain twin: {failures}")
 
 
+CROSS_SWEEP_ITEMS = (8, 16, 32)  # the ladder's 8 x 11 and 32 x 16 beams' batches, and between
+CROSS_SWEEP_BEAMS = (9, 11, 16, 17, 24)  # two and three n8 operands, whole and ragged
+
+
+def run_crossplan_phase(gpu: str) -> None:
+    """Readings behind dec_cross_plan's rule past 8 beams: at B 8, 16 and 32
+    x beams 9, 11, 16, 17, 24 x int8 and bf16 (H 16, S 512, each item's keys
+    masked past a random point in [S/2, S], as dec_cross_timed makes them),
+    graph ms of the groups of 8 and of the wide block (the shared memory of
+    each, and so its blocks a SM, in the line), each through the launcher
+    with an explicit plan, held to the plain twin (tolerance()) and the
+    wide output bit-identical to the grouped one; the plan's pick starred,
+    the bound beside. Full table: chiprun_out/chip_smoke/cross_plans.txt."""
+    import itertools
+
+    import torch
+
+    from vacnic_tpu_torch.kernels import primitives as K
+
+    g = torch.Generator(device="cuda").manual_seed(4322)
+
+    def rn(*shape, std=1.0, dtype=torch.float32):
+        return (torch.randn(shape, generator=g, device="cuda") * std).to(dtype)
+
+    lines, failures = [], []
+    for items, beams, kind in itertools.product(CROSS_SWEEP_ITEMS, CROSS_SWEEP_BEAMS,
+                                                ("int8", "bf16")):
+        heads, s_len, eb = 16, 512, 1 if kind == "int8" else 2
+        args = dec_cross_inputs(rn, g, items, heads, beams, s_len, kind, torch.randint(
+            s_len // 2, s_len + 1, (items, 1), device="cuda", generator=g))
+        ref = K.dec_cross_attention_plain(*args, heads)
+        pick = K.dec_cross_plan(beams, s_len, eb)
+        got, outs = [], {}
+        for variant in ("grouped", "wide"):
+            plan = K.dec_cross_variant_plan(variant, beams, s_len, eb)
+            fn = (lambda plan=plan: K._dec_cross_planned(plan, *args, heads))
+            out = outs[variant] = fn()
+            tol_a, tol_r = tolerance(out)
+            if not bool(((out.float() - ref.float()).abs()
+                         <= tol_a + tol_r * ref.float().abs()).all()):
+                failures.append(f"B={items} beams={beams} {kind} {variant}: vs twin")
+            got.append(f"{'*' if plan == pick else ''}{variant} ({plan.smem} B) "
+                       f"{graph_ms(fn):.4f}")
+        if not torch.equal(outs["wide"], outs["grouped"]):
+            failures.append(f"B={items} beams={beams} {kind}: wide not bit-identical to the "
+                            "groups of 8")
+        b_ms, b_by = bound(dec_cross_bytes(args), 4.0 * items * beams * s_len * heads * 64)
+        lines.append(f"B={items} beams={beams} {kind}: " + ", ".join(got)
+                     + f"; bound {b_ms:.4f} ({b_by}) (graph ms; * the plan's pick)")
+    with open(os.path.join(OUT_DIR, "cross_plans.txt"), "w") as f:
+        f.write("\n".join(lines + [gpu]) + "\n")
+    for line in lines:
+        log(f"crossplan {line} ({gpu})")
+    if failures:
+        raise RuntimeError(f"crossplan: {failures}")
+
+
 def run_dispatch_phase() -> None:
     """What a launch costs the host, which sets the wall of every path: the
     decoder's products (M = 160) through gemm, with layernorm at 160 rows (a
@@ -1395,7 +1494,8 @@ def check_launched(tag: str, counts: dict, names) -> None:
 def counts_by_kernel() -> dict:
     """The launch counts since the last reset, with gemm_bf16's, layernorm's
     and dec_self_attention's split by kernel ("gemm_bf16:small_m", ...) and
-    dec_cross_attention's by the beams of an item ("dec_cross_attention:beams5")."""
+    dec_cross_attention's by the beams of an item ("dec_cross_attention:beams5")
+    and by the plan's variant ("dec_cross_attention:wide")."""
     from vacnic_tpu_torch.kernels import primitives as K
 
     counts = K.launch_counts()
@@ -1404,6 +1504,7 @@ def counts_by_kernel() -> dict:
     counts.update({f"dec_self_attention:{v}": n for v, n in K.dec_self_variant_counts().items()})
     counts.update({f"dec_cross_attention:beams{b}": n
                    for b, n in K.dec_cross_beam_counts().items()})
+    counts.update({f"dec_cross_attention:{v}": n for v, n in K.dec_cross_variant_counts().items()})
     return counts
 
 
@@ -1468,17 +1569,25 @@ def check_slice_counts(tag: str, cfg, batch_size: int) -> dict:
     dec_layers = cfg.bart.decoder_layers
     want = {"layernorm": 3 * cfg.bart.encoder_layers + 3 * dec_layers * steps,
             "dec_cross_attention": dec_layers * steps, "dec_self_attention": dec_layers * steps}
+    # dec_cross_attention's variant, as dec_cross_plan picks it for the
+    # beams over the article's tokens in int8 (the paths' cross K/V)
+    cross_plan = K.dec_cross_plan(cfg.decode.num_beams, cfg.data.article_max_length, 1)
+    cross_by_variant = K.dec_cross_variant_counts()
+    want_variant = {v: want["dec_cross_attention"] * (v == cross_plan.variant)
+                    for v in K.DEC_CROSS_VARIANTS}
     log(f"{tag}: layernorm by kernel {ln_by_kernel}, dec_self_attention by cache {self_by_kind}, "
-        f"dec_cross_attention by beams {cross_by_beams}; expected {want}")
+        f"dec_cross_attention by beams {cross_by_beams} and by variant {cross_by_variant}; "
+        f"expected {want}, dec_cross all {cross_plan.variant}")
     if any(counts[k] != n for k, n in want.items()) or ln_by_kernel != {
             "warp": want["layernorm"], "block": 0} or self_by_kind != {
             "bf16": want["dec_self_attention"], "int8": 0, "fp8": 0} or cross_by_beams != {
-            cfg.decode.num_beams: want["dec_cross_attention"]}:
+            cfg.decode.num_beams: want["dec_cross_attention"]} or cross_by_variant != want_variant:
         raise RuntimeError(f"{tag}: launches {counts}, layernorm by kernel {ln_by_kernel}, "
                            f"dec_self_attention by cache {self_by_kind}, dec_cross_attention "
-                           f"by beams {cross_by_beams}: expected {want}, all layernorm launches "
-                           "the warp kernel's, all dec_self the bf16 cache's, all dec_cross at "
-                           f"{cfg.decode.num_beams} beams")
+                           f"by beams {cross_by_beams}, by variant {cross_by_variant}: expected "
+                           f"{want}, all layernorm launches the warp kernel's, all dec_self the "
+                           f"bf16 cache's, all dec_cross at {cfg.decode.num_beams} beams on "
+                           f"the {cross_plan.variant} kernel")
     return counts
 
 
@@ -2201,8 +2310,9 @@ def run_ladder_phase(cfg, params, gpu: str) -> dict:
     """Decoding at the beam counts and batches the slice does not take, on
     the slice's model and tree (full_train(), random bf16 weights from seed
     0, uncut; lp 2.0, length 50, min_length 49). (1) generate_mm at batch 8
-    x 11 beams and batch 32 x 16 beams (dec_cross_attention in groups of 8
-    beams), (2) at batches 64, 128 and 256 x beam 5: each through
+    x 11 beams and batch 32 x 16 beams (dec_cross_attention past 8 beams:
+    the wide block, as dec_cross_plan picks), (2) at batches 64, 128 and 256
+    x beam 5: each through
     run_model_path, so with the slice's gates at that batch and beam count
     (every slice kernel launched, gemm_bf16's kernels as gemm_plan places
     the encoder's and the decoder's products, dec_cross_attention counted by
@@ -2292,8 +2402,9 @@ def build_lines() -> list[str]:
     """Registers a thread, spill bytes and shared memory of the two 512-token
     self-attention kernels, the encoder's cross-attention kernel, the four
     gemm_bf16 kernels (mid_m at both tile widths), the two layernorm kernels, the int8 and bf16
-    dec_cross_attention kernels at five beams and at groups of 8 beams (past
-    8), the bf16, int8 and fp8 dec_self_attention
+    dec_cross_attention kernels at five beams, at groups of 8 beams (past
+    8) and the wide block's (two and three n8 operands), the bf16, int8 and
+    fp8 dec_self_attention
     kernels at the slice's plans and the four lm_head and four lm_stats
     kernels (N = 64, 128, 192, 256 x rows a pass; BK 160 takes 192), from
     nvcc's -Xptxas -v output of this build. The dynamic shared memory is the
@@ -2301,7 +2412,8 @@ def build_lines() -> list[str]:
     what the built library states for the cross-attention; csrc/flash_attn.cu:
     two stages of K, V and the padded bias tile; both + 1024 to align the
     tiles, computed here for S = 512; gemm: what the built library states
-    for the shape; dec_cross: dec_cross_smem_bytes; dec_self:
+    for the shape; dec_cross: dec_cross_smem_bytes, the wide block's at 16
+    and 24 beams; dec_self:
     dec_self_smem_bytes at T = 64; lm_head and lm_stats: what the built
     library states for csrc/lm_head.cu's Geometry). A kernel other
     than the 512-token self-attention ones that spills fails the run."""
@@ -2327,8 +2439,14 @@ def build_lines() -> list[str]:
                "dec_cross_kernelIaLi5E": K.dec_cross_smem_bytes(5, 512, 1),
                "dec_cross_kernelI13__nv_bfloat16Li5E": K.dec_cross_smem_bytes(5, 512, 2),
                # past 8 beams: blocks of a group of 8, S = 512
-               "dec_cross_kernel_groupedIaE": K.dec_cross_plan(16, 512, 1).smem,
-               "dec_cross_kernel_groupedI13__nv_bfloat16E": K.dec_cross_plan(16, 512, 2).smem,
+               "dec_cross_kernel_groupedIaE":
+                   K.dec_cross_variant_plan("grouped", 16, 512, 1).smem,
+               "dec_cross_kernel_groupedI13__nv_bfloat16E":
+                   K.dec_cross_variant_plan("grouped", 16, 512, 2).smem,
+               # and the wide block of two n8 operands (at 16 beams) and of
+               # three (at 24), S = 512
+               **{f"dec_cross_kernel_wideI{kt}Li{ops}E": K.dec_cross_plan(8 * ops, 512, eb).smem
+                  for kt, eb in (("a", 1), ("13__nv_bfloat16", 2)) for ops in (2, 3)},
                # bf16, int8 (signed char) and fp8 self caches, T = 64
                "dec_self_kernelI13__nv_bfloat16E": K.dec_self_smem_bytes(64, 2),
                "dec_self_kernelIaE": K.dec_self_smem_bytes(64, 1),
@@ -5034,6 +5152,8 @@ def main() -> int:
         run_dispatch_phase()
     if "gemmplan" in phases:
         run_gemmplan_phase(gpu)
+    if "crossplan" in phases:
+        run_crossplan_phase(gpu)
     launches = {}  # kernel -> launches in the run of the path that names it
     if phases & {"stacks", "slice", "selfkv", "stats", "stackhead", "layerwise", "serve",
                   "ladder", "profile", "mesh", "meshscale"}:

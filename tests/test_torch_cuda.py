@@ -541,31 +541,60 @@ def test_dec_cross_attention_wide_beams_long_s(dev, kind, s_len):
         K.dec_cross_attention(*cross_case(g, 2, 2, 16, s_next, kind), 2)
 
 
-@pytest.mark.parametrize("beams", [5, 11, 16])
-def test_dec_cross_launcher_takes_only_its_plan(dev, beams):
-    """The launcher makes its grid of dec_cross_plan's groups and its shared
-    memory of the plan's bytes: the plan itself launches, a group more or
-    less, or other bytes, are refused before any launch."""
+@pytest.mark.parametrize("beams,variant", [(5, "beams"), (11, "grouped"), (11, "wide"),
+                                           (16, "wide"), (24, "wide"), (16, "grouped")])
+def test_dec_cross_launcher_takes_only_its_plan(dev, beams, variant):
+    """The launcher makes its grid of the plan's blocks and its shared
+    memory of the plan's bytes, for the plan's variant: the plan itself
+    launches; a block more or less, other bytes or another variant are
+    refused before any launch."""
     from vacnic_tpu_torch.kernels import _build
     from vacnic_tpu_torch.kernels import primitives as K
 
     g = torch.Generator(device=dev).manual_seed(beams)
     q, k, v, ks, vs, bias = cross_case(g, 2, 2, beams, 130, "int8")
     out = torch.empty_like(q)
-    plan = K.dec_cross_plan(beams, 130, 1)
+    plan = K.dec_cross_variant_plan(variant, beams, 130, 1)
     stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
 
-    def launch(groups, smem):
+    def launch(variant, groups, smem):
         return _build.lib().vt_dec_cross_attention(
             *(ctypes.c_void_p(t.data_ptr()) for t in (q, k, v, ks, vs, bias, out)), 2, beams,
-            groups, smem, 2, 130, 1, ctypes.c_float(64 ** -0.5), stream)
+            K.DEC_CROSS_VARIANTS.index(variant), groups, smem, 2, 130, 1,
+            ctypes.c_float(64 ** -0.5), stream)
 
-    assert launch(plan.groups, plan.smem) == 0
+    assert launch(plan.variant, plan.groups, plan.smem) == 0
     torch.cuda.synchronize()
     close(out, K.dec_cross_attention_plain(q, k, v, ks, vs, bias, 2), True)
-    for groups, smem in ((plan.groups + 1, plan.smem), (plan.groups - 1, plan.smem),
-                         (plan.groups, plan.smem + 16)):
-        assert launch(groups, smem) != 0, (groups, smem)
+    other = "grouped" if plan.variant == "wide" else "wide"
+    for variant, groups, smem in ((plan.variant, plan.groups + 1, plan.smem),
+                                  (plan.variant, plan.groups - 1, plan.smem),
+                                  (plan.variant, plan.groups, plan.smem + 16),
+                                  (other, plan.groups, plan.smem)):
+        assert launch(variant, groups, smem) != 0, (variant, groups, smem)
+
+
+@pytest.mark.parametrize("kind", ["int8", "bf16"])
+@pytest.mark.parametrize("items,s_len", [(3, 130), (8, 512)])
+@pytest.mark.parametrize("beams", [9, 11, 16, 17, 24])
+def test_dec_cross_wide_matches_grouped(dev, beams, items, s_len, kind):
+    """The wide block and the groups of 8 through explicit plans at one
+    shape: against the twin, each variant counted as itself, and the wide
+    outputs bit-identical to the grouped ones and from call to call (every
+    beam's sums are those of its group of 8 in either launch)."""
+    from vacnic_tpu_torch.kernels import primitives as K
+
+    g = torch.Generator(device=dev).manual_seed(beams * 31 + s_len + items)
+    args = cross_case(g, items, 16, beams, s_len, kind)
+    eb = 1 if kind == "int8" else 2
+    grouped, wide = (K.dec_cross_variant_plan(v, beams, s_len, eb) for v in ("grouped", "wide"))
+    K.reset_launch_counts()
+    want = K._dec_cross_planned(grouped, *args, 16)
+    got = K._dec_cross_planned(wide, *args, 16)
+    assert K.dec_cross_variant_counts() == {"beams": 0, "wide": 1, "grouped": 1}
+    close(want, K.dec_cross_attention_plain(*args, 16), True)
+    assert torch.equal(got, want)
+    assert torch.equal(K._dec_cross_planned(wide, *args, 16), got)
 
 
 def test_variant_counters_add_up(dev):

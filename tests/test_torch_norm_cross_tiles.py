@@ -295,6 +295,57 @@ def test_int8_to_bf16_is_exact():
     assert not np.any(f.view(np.uint32) & 0xFFFF)  # nothing is lost in the low half
 
 
+def byte_perm(x, y, sel):
+    """CUDA's __byte_perm: byte i of the result is byte (sel >> 4 i) & 7 of
+    the eight bytes x (0-3) then y (4-7)."""
+    both = [(x >> (8 * i)) & 0xFF for i in range(4)] + [(y >> (8 * i)) & 0xFF for i in range(4)]
+    return sum(both[(sel >> (4 * i)) & 7] << (8 * i) for i in range(4))
+
+
+def quad_to_bf16(w):
+    """csrc/dec_cross_attention.cu's quad_to_bf16: four int8 -> two words of
+    bf16 pairs, the lower byte in the low half."""
+    u = w ^ 0x80808080
+    f = [np.array([0x4B000000 | byte_perm(u, 0x4B000000, 0x7440 + i) & 0xFF],
+                  np.uint32).view(np.float32)[0] - np.float32(8388736.0) for i in range(4)]
+    top = [int(np.array([v], np.float32).view(np.uint32)[0]) >> 16 for v in f]
+    return top[0] | top[1] << 16, top[2] | top[3] << 16
+
+
+def bf16_bits(v):
+    return int(torch.tensor([float(v)]).to(torch.bfloat16).view(torch.int16).item()) & 0xFFFF
+
+
+def test_wide_int8_operands_in_registers():
+    """The wide block's int8 operands, made in the lanes' registers. K:
+    ldmatrix.trans of byte pairs hands lane (g, t) of an 8-channel x
+    16-position matrix the word (K[2t][2g], K[2t][2g+1], K[2t+1][2g],
+    K[2t+1][2g+1]); byte_perm 0x3120 and the quad conversion must give the
+    bf16 pairs of channels 2t, 2t + 1 at position 2g and at 2g + 1, the A
+    rows g and g + 8. V: the byte pairs at positions 2t and 2t + 8 of a
+    channel row, one word, must give that row's pairs (2t, 2t + 1) and (2t +
+    8, 2t + 9), the k slots of the bf16 kernel's operands."""
+    rng = np.random.RandomState(5)
+    k = rng.randint(-128, 128, (8, 16))
+    kb = k.astype(np.int64) & 0xFF
+    for g in range(8):
+        for t in range(4):
+            w = (kb[2 * t][2 * g] | kb[2 * t][2 * g + 1] << 8 | kb[2 * t + 1][2 * g] << 16
+                 | kb[2 * t + 1][2 * g + 1] << 24)
+            x, y = quad_to_bf16(byte_perm(int(w), 0, 0x3120))
+            for word, pos in ((x, 2 * g), (y, 2 * g + 1)):
+                assert word & 0xFFFF == bf16_bits(k[2 * t][pos])
+                assert word >> 16 == bf16_bits(k[2 * t + 1][pos])
+    v = rng.randint(-128, 128, 16)
+    vb = v.astype(np.int64) & 0xFF
+    for t in range(4):
+        lo = vb[2 * t] | vb[2 * t + 1] << 8
+        hi = vb[2 * t + 8] | vb[2 * t + 9] << 8
+        x, y = quad_to_bf16(int(lo | hi << 16))
+        assert (x & 0xFFFF, x >> 16) == (bf16_bits(v[2 * t]), bf16_bits(v[2 * t + 1]))
+        assert (y & 0xFFFF, y >> 16) == (bf16_bits(v[2 * t + 8]), bf16_bits(v[2 * t + 9]))
+
+
 @pytest.mark.parametrize("elem_bytes", [1, 2], ids=["int8", "bf16"])
 def test_main_path_is_one_resident_wave(elem_bytes):
     """Five beams over the 512 article tokens: four blocks fit a SM's 228 KB

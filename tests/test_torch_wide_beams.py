@@ -149,33 +149,49 @@ def test_generate_mm_wide_beams_matches_jax(beams, mode, monkeypatch):
 @pytest.mark.parametrize("beams", [1, 5, 8, 9, 11, 15, 16, 17, 24, 33])
 def test_plan_groups_of_eight(beams, elem_bytes):
     """Up to 8 beams one block an (item, head) with room for exactly those
-    beams (the kernel before's instance); past 8, ceil(beams / 8) groups,
-    the last one ragged, each block with 8 beams' shared memory at any
-    beam count."""
+    beams (the kernel before's instance); 9-24 one wide block an (item,
+    head) holding all of them; past 24 ceil(beams / 8) groups, the last one
+    ragged, each block with 8 beams' shared memory at any beam count. The
+    last n8 operand holds the beams past the whole groups of 8 in every
+    variant."""
     plan = K.dec_cross_plan(beams, 512, elem_bytes)
-    assert plan.groups == -(-beams // 8)
-    assert plan.group_beams == min(beams, 8)
-    assert 1 <= plan.last_beams <= plan.group_beams
-    assert 8 * (plan.groups - 1) + plan.last_beams == beams
-    assert plan.smem == K.dec_cross_smem_bytes(min(beams, 8), 512, elem_bytes) <= K.SMEM_MAX
+    variant = "beams" if beams <= 8 else "wide" if beams <= 24 else "grouped"
+    assert plan.variant == variant
+    assert plan.groups == (-(-beams // 8) if variant == "grouped" else 1)
+    assert plan.group_beams == (8 if variant == "grouped" else beams)
+    assert 1 <= plan.last_beams <= 8
+    assert 8 * (-(-beams // 8) - 1) + plan.last_beams == beams
+    assert plan.smem == K.dec_cross_smem_bytes(plan.group_beams, 512, elem_bytes,
+                                               variant) <= K.SMEM_MAX
 
 
 @pytest.mark.parametrize("elem_bytes", [1, 2], ids=["int8", "bf16"])
 def test_plan_keeps_the_limit_on_s(elem_bytes):
-    """The largest S a block of 8 beams holds is the largest at 11, 16 and
-    64 beams too; one more position is refused at every such count."""
+    """The largest S a block of 8 beams holds is held at 11, 16 and 64
+    beams too (by the groups of 8 where the wide block's scores do not
+    fit). Past it only a wide block takes more (at 11 beams its scores take
+    fewer bytes than a block of 8's scores, probabilities, q and bias), and
+    the first S that no block holds is refused at every such count."""
     s_max = max(s for s in range(1, 8193) if K.dec_cross_smem_bytes(8, s, elem_bytes)
                 <= K.SMEM_MAX)
     for beams in (8, 11, 16, 64):
         assert K.dec_cross_plan(beams, s_max, elem_bytes).smem <= K.SMEM_MAX
-    s_next = next(s for s in range(s_max + 1, 16384)
-                  if K.dec_cross_smem_bytes(8, s, elem_bytes) > K.SMEM_MAX)
-    for beams in (8, 11, 16, 64):
+        s_limit = s_max
+        while True:
+            try:
+                plan = K.dec_cross_plan(beams, s_limit + 1, elem_bytes)
+            except ValueError as e:
+                assert "shared memory" in str(e)
+                break
+            assert plan.variant == "wide" and plan.smem <= K.SMEM_MAX, (beams, s_limit + 1)
+            s_limit += 1
         with pytest.raises(ValueError, match="shared memory"):
-            K.dec_cross_plan(beams, s_next, elem_bytes)
+            K.dec_cross_plan(beams, s_limit + 1, elem_bytes)
+        assert (s_limit > s_max) == (beams == 11), (beams, s_limit, s_max)
 
 
-@pytest.mark.parametrize("beams,s_len,elem_bytes", [(0, 512, 1), (5, 0, 1), (5, 512, 4)])
+@pytest.mark.parametrize("beams,s_len,elem_bytes", [(0, 512, 1), (5, 0, 1), (5, 512, 4),
+                                                    (11, 0, 1)])
 def test_plan_refusals(beams, s_len, elem_bytes):
     with pytest.raises(ValueError):
         K.dec_cross_plan(beams, s_len, elem_bytes)
@@ -188,7 +204,7 @@ def grouped_dec_cross(q, ck, cv, ks, vs, bias, heads):
     block of 8 beams (tiled_dec_cross) and writes back only its own rows."""
     b = ck.shape[0]
     beams = q.shape[0] // b
-    plan = K.dec_cross_plan(beams, ck.shape[-1], ck.element_size())
+    plan = K.dec_cross_variant_plan("grouped", beams, ck.shape[-1], ck.element_size())
     out = torch.empty_like(q)
     q3, o3 = q.reshape(b, beams, -1), out.reshape(b, beams, -1)
     for g in range(plan.groups):
@@ -211,6 +227,145 @@ def test_grouped_order_matches_plain(beams, s_len, kind):
                                            torch.bfloat16)
     out = grouped_dec_cross(q, ck, cv, ks, vs, bias, 2)
     assert_cross_close(out, K.dec_cross_attention_plain(q, ck, cv, ks, vs, bias, 2), cv, vs)
+
+
+def wide_dec_cross(q, ck, cv, ks, vs, bias, heads):
+    """The wide block's order of work: one block an (item, head) for all its
+    beams, q padded with zero rows to ceil(beams / 8) n8 operands of 8 rows;
+    each 64-position K tile taken once and multiplied by every operand in
+    turn (scores over all 64 channels, plus the bias); the softmax a beam at
+    a time over all S, as a block of 8 takes it (each operand's rows in one
+    piece); the normalised probabilities rounded to the inputs' dtype; P V
+    one 16-position step after another, every operand in turn; the V scale;
+    only the item's own beams written back."""
+    dt = q.dtype
+    b, _, hd, s_len = ck.shape
+    beams = q.shape[0] // b
+    ops = -(-beams // 8)
+    qp = torch.zeros(b, 8 * ops, q.shape[1], dtype=dt)
+    qp[:, :beams] = q.reshape(b, beams, -1)
+    qh = (qp.float() * hd ** -0.5).to(dt).reshape(b, 8 * ops, heads, hd)
+    if ks is not None:
+        qh = (qh.float() * ks.float()[:, None]).to(dt)
+    q32 = [qh[:, 8 * o:8 * o + 8].float().contiguous() for o in range(ops)]
+    tiles = [[] for _ in range(ops)]
+    for lo in range(0, s_len, 64):  # a K tile once, every operand in turn
+        kt = ck[..., lo:lo + 64].float()
+        for o in range(ops):
+            tiles[o].append(torch.einsum("bkhd,bhdn->bkhn", q32[o], kt))
+    outs = []
+    probs = []
+    for o in range(ops):
+        s = torch.cat(tiles[o], -1) + bias.float()[:, None, None, :]
+        m = s.amax(-1, keepdim=True)
+        inv = 1.0 / torch.exp(s - m).sum(-1, keepdim=True)
+        probs.append((torch.exp(s - m) * inv).to(dt).float())
+        outs.append(torch.zeros(b, 8, heads, hd))
+    for c in range(0, s_len, 16):  # one mma k-step after another, every operand in turn
+        vt = cv[..., c:c + 16].float()
+        for o in range(ops):
+            outs[o] = outs[o] + torch.einsum("bkhn,bhdn->bkhd", probs[o][..., c:c + 16], vt)
+    out = torch.cat(outs, 1)
+    if vs is not None:
+        out = out * vs.float()[:, None]
+    return out.to(dt)[:, :beams].reshape(b * beams, heads * hd)
+
+
+@pytest.mark.parametrize("kind", ["int8", "bf16"])
+@pytest.mark.parametrize("s_len", [40, 130])
+@pytest.mark.parametrize("beams", [9, 11, 16, 17, 24])
+def test_wide_order_matches_grouped(beams, s_len, kind):
+    """The wide block's order of work, bit for bit the groups of 8's (every
+    beam's sums are those of its group of 8), and within the twin's
+    tolerance: two and three operands, whole and ragged last ones, the fully
+    masked item and the half-masked one."""
+    q, ck, cv, ks, vs, bias = cross_inputs(beams * 300 + s_len, 3, beams, 2, s_len, kind,
+                                           torch.bfloat16)
+    out = wide_dec_cross(q, ck, cv, ks, vs, bias, 2)
+    assert torch.equal(out, grouped_dec_cross(q, ck, cv, ks, vs, bias, 2))
+    assert_cross_close(out, K.dec_cross_attention_plain(q, ck, cv, ks, vs, bias, 2), cv, vs)
+
+
+@pytest.mark.parametrize("elem_bytes", [1, 2], ids=["int8", "bf16"])
+@pytest.mark.parametrize("s_len", [1, 40, 130, 512, 1472, 3008, 3776])
+@pytest.mark.parametrize("beams", [1, 8, 9, 11, 16, 17, 24, 25, 64])
+def test_plan_variant_by_shape(beams, s_len, elem_bytes):
+    """The variant at each (beams, S), the same at every B (the readings at
+    B 8, 16 and 32 favoured the wide block alike): the kernel of that beam
+    count to 8; from 9 to 24 the wide block wherever it fits a SM, else the
+    groups of 8; the groups past 24."""
+    plan = K.dec_cross_plan(beams, s_len, elem_bytes)
+    wide = K.dec_cross_smem_bytes(beams, s_len, elem_bytes, "wide")
+    want = ("beams" if beams <= 8 else
+            "wide" if beams <= K.DEC_CROSS_WIDE_MAX and wide <= K.SMEM_MAX else "grouped")
+    assert plan.variant == want
+    assert plan == K.dec_cross_variant_plan(want, beams, s_len, elem_bytes)
+
+
+@pytest.mark.parametrize("variant,beams", [("beams", 8), ("wide", 9), ("wide", 11), ("wide", 16),
+                                           ("wide", 24), ("grouped", 16)])
+@pytest.mark.parametrize("elem_bytes", [1, 2], ids=["int8", "bf16"])
+def test_largest_s_of_each_variant(variant, beams, elem_bytes):
+    """Each variant's largest S is the last whole tile its block's bytes
+    allow (the bytes grow by one tile's rows at each 64 positions). Past a
+    wide block's, dec_cross_plan turns to the groups of 8 where they fit
+    and refuses the shape where they do not."""
+    def fits(s, variant=variant):
+        return K.dec_cross_smem_bytes(beams, s, elem_bytes, variant) <= K.SMEM_MAX
+
+    s_max = max(s for s in range(1, 8193) if fits(s))
+    assert s_max % 64 == 0 and not fits(s_max + 1)
+    assert all(fits(s) for s in range(s_max - 63, s_max + 1))
+    if variant == "wide":
+        assert K.dec_cross_plan(beams, s_max, elem_bytes).variant == "wide"
+        if fits(s_max + 1, "grouped"):
+            assert K.dec_cross_plan(beams, s_max + 1, elem_bytes).variant == "grouped"
+        else:
+            with pytest.raises(ValueError, match="shared memory"):
+                K.dec_cross_plan(beams, s_max + 1, elem_bytes)
+
+
+@pytest.mark.parametrize("elem_bytes", [1, 2], ids=["int8", "bf16"])
+@pytest.mark.parametrize("s_len", [1, 64, 130, 512])
+@pytest.mark.parametrize("beams", [1, 5, 8, 9, 16, 24])
+def test_smem_bytes_of_every_variant(beams, s_len, elem_bytes):
+    """dec_cross_smem_bytes by variant, against the blocks' layouts counted
+    piece by piece (csrc/dec_cross_attention.cu's smem_bytes and
+    wide_smem_bytes): the ring, scores and probabilities of the block's
+    beams, the zero row, then a block of <= 8 beams' int8 strips, q, bias,
+    V scales and softmax statistics, or the wide block's V scales and its
+    four warps' score maxima (its probabilities over its scores)."""
+    sp = 64 * -(-s_len // 64)
+    ring = 4 * 64 * 80 if elem_bytes == 1 else 3 * 64 * 144
+    strips = 4 * 3072 if elem_bytes == 1 else 0
+    scores, probs = 4 * (sp + 4), 2 * (sp + 8)
+    small = 16 + 8 * 68 * 4 + 4 * sp + 64 * 4 + 8 * 8
+    if beams <= 8:
+        assert K.dec_cross_smem_bytes(beams, s_len, elem_bytes) == (
+            ring + strips + beams * (scores + probs) + small)
+    assert K.dec_cross_smem_bytes(beams, s_len, elem_bytes, "grouped") == (
+        ring + strips + 8 * (scores + probs) + small)
+    assert K.dec_cross_smem_bytes(beams, s_len, elem_bytes, "wide") == (
+        ring + beams * (scores + 4 * 4) + 16 + 64 * 4)
+    # the wide block's probability row fits in the first half of its score row
+    assert 2 * sp <= scores
+
+
+@pytest.mark.parametrize("variant,beams", [("grouped", 5), ("wide", 8), ("wide", 25),
+                                           ("beams", 9), ("wide", 11)])
+def test_explicit_plans_refuse_the_cpu(variant, beams):
+    """A plan that the launcher has no instance for (groups of 8 at 8 beams
+    or fewer, a wide block of one operand or of four, the kernel of a beam
+    count past 8) is still made (the launcher refuses it on the card,
+    tests/test_torch_cuda.py), and no explicit plan reaches a CPU tensor:
+    the planned entry takes only the card's tensors."""
+    q, ck, cv, ks, vs, bias = cross_inputs(7, 2, beams, 2, 40, "int8", torch.bfloat16)
+    plan = K.dec_cross_variant_plan(variant, beams, 40, 1)
+    assert plan.variant == variant
+    K.reset_launch_counts()
+    with pytest.raises(ValueError, match="cuda"):
+        K._dec_cross_planned(plan, q, ck, cv, ks, vs, bias, 2)
+    assert K.dec_cross_variant_counts() == {"beams": 0, "wide": 0, "grouped": 0}
 
 
 def test_cpu_wide_beams_take_the_twin_and_count_nothing():

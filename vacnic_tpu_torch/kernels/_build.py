@@ -37,8 +37,8 @@ SIGNATURES = {
     "vt_enc_cross_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "vt_enc_cross_smem_bytes": [],  # returns bytes
     "vt_dec_self_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
-    "vt_dec_cross_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
-                               _P],
+    "vt_dec_cross_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                               _F, _P],
     "vt_lm_stats": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "vt_lm_head": [_P, _P, _P, _P, _I, _I, _I, _P],
     "vt_lm_head_smem_bytes": [_I, _I],  # returns bytes

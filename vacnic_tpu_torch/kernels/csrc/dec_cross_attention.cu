@@ -38,18 +38,40 @@
 //   past S (the last tile's tail) are zero in shared memory and masked out of
 //   the softmax. A head whose rows are not 16-byte aligned in device memory
 //   (S * element bytes % 16 != 0) is copied element by element.
-// More than 8 beams: the beams of an item go in groups of 8 (the n8 operand
-//   of mma.sync), one block a (group, head, item), the group index fastest
-//   in launch order, so the groups of one (item, head) run side by side and
-//   all but the first find its K/V in L2 (64 KB a head in int8). Each block
-//   keeps the shared memory of 8 beams, so S's limit does not fall with the
-//   beam count; the last group's beams past the item's end are zero q rows,
-//   as beams past NB are below 8. Every beam's sums are those of a block of
-//   <= 8 beams: the same order and bits at any beam count.
+// More than 8 beams, two launches (kernels/primitives.dec_cross_plan picks):
+//   - wide (9-24 beams): one block an (item, head) holds all of its beams,
+//     q as ceil(beams / 8) n8 operands of mma.sync. Each K/V tile is copied
+//     and (int8) converted once; a warp loads its A fragments of a tile once
+//     and issues one mma a group, so the tensor-core work grows with the
+//     beams and the bytes do not. Scores [beams][S] f32 bound the block's
+//     shared memory, so the rest is cut to let four blocks share a SM up to
+//     16 int8 beams at S = 512: the probabilities overlay the first half of
+//     each beam's own score row (a warp writes a beam's bf16 over floats it
+//     has read, 32 positions at a time in increasing order, so no write
+//     lands on a float still unread), int8 tiles become bf16 in the lanes'
+//     own operand registers (no strip in shared memory), and the bias is
+//     read from device memory. The softmax's max is kept in registers while
+//     the scores are written (a max is the same in any order), and its pass
+//     over a row stores each exp, which the normalisation then scales: one
+//     expf a position.
+//   - grouped (any count): the beams of an item in groups of 8, one block a
+//     (group, head, item), the group index fastest in launch order, so the
+//     groups of one (item, head) run side by side and all but the first find
+//     its K/V in L2 (64 KB a head in int8). Each block keeps the shared
+//     memory of 8 beams, so S's limit does not fall with the beam count; the
+//     last group's beams past the item's end are zero q rows, as beams past
+//     NB are below 8.
+//   Every beam's sums are those of a block of <= 8 beams in either launch:
+//   the same A and B operands for its column of each mma, the same softmax
+//   (a warp a beam: lanes strided over S in increasing order, then the
+//   butterfly), the same P V order. So the bits are the same at any beam
+//   count and in either launch.
 // Measured against it and not kept (PERF.md): S split over a thread
 //   block cluster of 2 or 4 blocks, the ranges' softmax statistics and
 //   outputs combined in rank order through distributed shared memory --
 //   2048 short blocks in three waves, whose loads stopped between the waves.
+//   In the wide block: the probabilities in rows of their own, int8's bf16
+//   strips in shared memory, and one expf a position in each of two passes.
 
 #include <math.h>
 #include <stdint.h>
@@ -167,6 +189,15 @@ __host__ __device__ constexpr long long smem_bytes(int beams, int S, int elem_by
          (elem_bytes == 1 ? 4 * STRIP : 0) + 4LL * beams * ((S + TP - 1) / TP * TP + 4) +
          2LL * beams * ((S + TP - 1) / TP * TP + 8) + 16 + 4LL * MAX_BEAMS * QSW +
          4LL * ((S + TP - 1) / TP * TP) + 4LL * HD + 8LL * MAX_BEAMS;
+}
+
+// Dynamic shared memory of a wide block (kernels/primitives.dec_cross_smem_bytes
+// states the same): the ring as above, scores [beams][sp + 4] f32 (the
+// probabilities over them), a zero row, the V scales [64], the warps' score
+// maxima [4][beams].
+__host__ __device__ constexpr long long wide_smem_bytes(int beams, int S, int elem_bytes) {
+  return static_cast<long long>(ring_slots(elem_bytes)) * HD * row_bytes(TP, elem_bytes) +
+         4LL * beams * ((S + TP - 1) / TP * TP + 4) + 16 + 4LL * HD + 16LL * beams;
 }
 
 // A block's work: the NB beams of an (item, head), or (GROUPED, NB = 8)
@@ -413,6 +444,273 @@ dec_cross_kernel_grouped(const __nv_bfloat16* __restrict__ q, const KT* __restri
   dec_cross_block<KT, MAX_BEAMS, true>(q, ck, cv, ks, vs, bias, out, H, S, beams, vec, scaling);
 }
 
+// grid (H, B), block 128: all `beams` of an item, 8 (G - 1) < beams <= 8 G,
+// as G n8 operands. G = 2 asks ptxas for the registers of four blocks a SM
+// (9-16 int8 beams fit four in shared memory at S = 512), G = 3 for three.
+template <typename KT, int G>
+__global__ void __launch_bounds__(THREADS, G == 2 ? 4 : 3)
+dec_cross_kernel_wide(const __nv_bfloat16* __restrict__ q, const KT* __restrict__ ck,
+                      const KT* __restrict__ cv, const float* __restrict__ ks,
+                      const float* __restrict__ vs, const float* __restrict__ bias,
+                      __nv_bfloat16* __restrict__ out, int H, int S, int beams, int vec,
+                      float scaling) {
+  constexpr int EB = sizeof(KT);
+  constexpr bool INT8 = EB == 1;
+  constexpr int R = ring_slots(EB);
+  constexpr int RB = row_bytes(TP, EB);  // a row of a tile as copied
+  constexpr int SLOT = HD * RB;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int h = blockIdx.x, b = blockIdx.y;
+  const size_t row0 = static_cast<size_t>(b) * beams;  // the item's first q row
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;   // mma lane naming
+  const int mi = lane >> 3, r = lane & 7;  // the ldmatrix matrix and row this lane points at
+  const int D = H * HD;
+  const size_t head = static_cast<size_t>(b) * H + h;
+  const int nt = (S + TP - 1) / TP, sp = nt * TP;
+  const int SCW = sp + 4;  // floats a row of scores
+  const int PW = 2 * SCW;  // bf16 a row of probabilities: over the row's scores
+  unsigned char* ring = smem;                                     // [R][64][RB]
+  float* sc = reinterpret_cast<float*>(ring + R * SLOT);          // [beams][SCW]
+  __nv_bfloat16* pt = reinterpret_cast<__nv_bfloat16*>(sc);       // [beams][PW]
+  unsigned char* zero16 = reinterpret_cast<unsigned char*>(sc + beams * SCW);
+  float* vss = reinterpret_cast<float*>(zero16 + 16);  // [64] V scales
+  float* wmax = vss + HD;                              // [4][beams] each warp's score maxima
+  const KT* kg = ck + head * HD * S;
+  const KT* vg = cv + head * HD * S;
+  const float* bg = bias + static_cast<size_t>(b) * S;
+
+  // tile j of K_0 .. K_{nt-1}, V_0 .. V_{nt-1} into ring slot j % R: one
+  // cp.async group a tile (an empty one past the end keeps the count)
+  auto fetch = [&](int j) {
+    if (j < 2 * nt) {
+      const int jt = j < nt ? j : j - nt;
+      const KT* src = (j < nt ? kg : vg) + jt * TP;
+      unsigned char* dst = ring + (j % R) * SLOT;
+      const int n = min(TP, S - jt * TP);
+      if (vec && n == TP) {
+        constexpr int CPR = TP * EB / 16;  // 16-byte pieces of a row
+        const int c = tid % CPR;
+#pragma unroll
+        for (int row = tid / CPR; row < HD; row += THREADS / CPR)
+          cp_async16(smem_u32(dst + row * RB + 16 * c),
+                     reinterpret_cast<const unsigned char*>(src + static_cast<size_t>(row) * S) +
+                         16 * c);
+      } else if (vec) {
+        const int chunks = n * EB / 16;
+        for (int i = tid; i < HD * chunks; i += THREADS) {
+          const int row = i / chunks, c = i - row * chunks;
+          cp_async16(smem_u32(dst + row * RB + 16 * c),
+                     reinterpret_cast<const unsigned char*>(src + static_cast<size_t>(row) * S) +
+                         16 * c);
+        }
+      } else {
+        for (int i = tid; i < HD * n; i += THREADS) {
+          const int row = i / n, p = i - row * n;
+          reinterpret_cast<KT*>(dst + row * RB)[p] = src[static_cast<size_t>(row) * S + p];
+        }
+      }
+      const int tail = (TP - n) * EB;  // past S: zero, so 0 * V stays 0
+      for (int i = tid; i < HD * tail; i += THREADS) {
+        const int row = i / tail;
+        dst[row * RB + n * EB + (i - row * tail)] = 0;
+      }
+    }
+    cp_async_commit();
+  };
+
+  // 1. R - 1 tiles go out; q comes straight into the B operands meanwhile:
+  // beam 8 gi + g at the channel pairs of k-step kk, rounded as a block of
+  // <= 8 beams rounds it (zero past the item's beams)
+#pragma unroll
+  for (int j = 0; j < R - 1; ++j) fetch(j);
+  uint32_t qf[G][4][2];
+#pragma unroll
+  for (int gi = 0; gi < G; ++gi) {
+    const int bm = 8 * gi + g;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int c = 16 * kk + 2 * t + 8 * hf;
+        float v0 = 0.0f, v1 = 0.0f;
+        if (bm < beams) {
+          const uint32_t q2 =
+              *reinterpret_cast<const uint32_t*>(q + (row0 + bm) * D + h * HD + c);
+          v0 = bf16_round(__uint_as_float(q2 << 16) * scaling);
+          v1 = bf16_round(__uint_as_float(q2 & 0xFFFF0000u) * scaling);
+          if (ks != nullptr) {
+            const float2 k2 = *reinterpret_cast<const float2*>(ks + head * HD + c);
+            v0 = bf16_round(v0 * k2.x);
+            v1 = bf16_round(v1 * k2.y);
+          }
+        }
+        qf[gi][kk][hf] = pack_bf16(v0, v1);  // bf16 values already: exact
+      }
+    }
+  }
+  if (tid < HD / 4) {
+    float4 v4s = make_float4(1.0f, 1.0f, 1.0f, 1.0f);
+    if (vs != nullptr) v4s = *reinterpret_cast<const float4*>(vs + head * HD + 4 * tid);
+    *reinterpret_cast<float4*>(vss + 4 * tid) = v4s;
+  }
+  if (tid < 4) reinterpret_cast<uint32_t*>(zero16)[tid] = 0u;
+
+  // 2. the tiles, one block barrier each
+  float o[G][4];  // group gi: channels 16w + g (+ 8) x beams 8 gi + 2t, + 1
+  float mx[G][2];  // the largest score so far of beams 8 gi + 2t, + 1 at this lane's positions
+#pragma unroll
+  for (int gi = 0; gi < G; ++gi) {
+    o[gi][0] = o[gi][1] = o[gi][2] = o[gi][3] = 0.0f;
+    mx[gi][0] = mx[gi][1] = -INFINITY;
+  }
+  for (int j = 0; j < 2 * nt; ++j) {
+    cp_async_wait<R - 2>();  // this thread's copies of tile j have landed
+    __syncthreads();         // everyone's; and everyone is done with tile j - 1
+    fetch(j + R - 1);        // into the slot tile j - 1 left
+    const unsigned char* cur = ring + (j % R) * SLOT;
+    if (j < nt) {
+      // scores of positions j TP + 16w .. + 15: A = K^T (rows = positions),
+      // loaded once for every group. bf16: ldmatrix.trans, row g (g + 8) =
+      // position g (g + 8). int8: ldmatrix.trans of byte pairs, so a lane
+      // holds channels 2t, 2t + 1 at positions 2g, 2g + 1 of a matrix of
+      // eight channels; rows g and g + 8 are positions 2g and 2g + 1, each
+      // row's 16 channels in the k slots of the bf16 kernel's.
+      uint32_t a[4][4];
+      if (INT8) {
+#pragma unroll
+        for (int k2 = 0; k2 < 2; ++k2) {  // channels 32 k2 .. + 31: two k-steps
+          uint32_t w[4];
+          ldsm_x4_trans(smem_u32(cur) + (32 * k2 + 8 * mi + r) * RB + 16 * warp, w);
+#pragma unroll
+          for (int m = 0; m < 4; ++m) {  // eight channels: a0 / a1 (m even) or a2 / a3
+            const uint2 v = quad_to_bf16(__byte_perm(w[m], 0u, 0x3120));
+            a[2 * k2 + (m >> 1)][2 * (m & 1)] = v.x;      // position 2g
+            a[2 * k2 + (m >> 1)][2 * (m & 1) + 1] = v.y;  // position 2g + 1
+          }
+        }
+      } else {
+        const uint32_t base =
+            smem_u32(cur) + (r + 8 * (mi >> 1)) * RB + 2 * (16 * warp + 8 * (mi & 1));
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) ldsm_x4_trans(base + kk * 16 * RB, a[kk]);
+      }
+      int pos[2];
+      float bb[2];
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        pos[hh] = j * TP + 16 * warp + (INT8 ? 2 * g + hh : g + 8 * hh);
+        bb[hh] = pos[hh] < S ? __ldg(bg + pos[hh]) : 0.0f;
+      }
+#pragma unroll
+      for (int gi = 0; gi < G; ++gi) {
+        float d[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) mma_bf16(d, a[kk], qf[gi][kk][0], qf[gi][kk][1]);
+        const int c0 = 8 * gi + 2 * t;  // this lane's two beams
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const bool inside = pos[hh] < S;
+          const float s0 = d[2 * hh] + bb[hh], s1 = d[2 * hh + 1] + bb[hh];
+          if (inside) {
+            mx[gi][0] = fmaxf(mx[gi][0], s0);
+            mx[gi][1] = fmaxf(mx[gi][1], s1);
+          }
+          if (c0 < beams) sc[c0 * SCW + pos[hh]] = inside ? s0 : -INFINITY;
+          if (c0 + 1 < beams) sc[(c0 + 1) * SCW + pos[hh]] = inside ? s1 : -INFINITY;
+        }
+      }
+      if (j == nt - 1) {  // 3. softmax over all S, a warp a beam, then its probabilities
+#pragma unroll
+        for (int gi = 0; gi < G; ++gi) {  // the warp's maxima: over g, then one lane a t
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int bm = 8 * gi + 2 * t + e;
+            float m = mx[gi][e];
+#pragma unroll
+            for (int off = 4; off < 32; off <<= 1)
+              m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+            if (g == 0 && bm < beams) wmax[warp * beams + bm] = m;
+          }
+        }
+        __syncthreads();
+        for (int bm = warp; bm < beams; bm += THREADS / 32) {
+          float* row = sc + bm * SCW;
+          const float m = fmaxf(fmaxf(wmax[bm], wmax[beams + bm]),
+                                fmaxf(wmax[2 * beams + bm], wmax[3 * beams + bm]));
+          float l = 0.0f;
+          for (int p = lane; p < S; p += 32) {  // each exp kept for the normalisation
+            const float e = expf(row[p] - m);
+            row[p] = e;
+            l += e;
+          }
+          l = warp_sum(l);
+          const float inv = 1.0f / l;  // the same on every lane: the butterfly's sums commute
+          __nv_bfloat16* prow = pt + bm * PW;
+          // normalised, then rounded to bf16; 0 past S. Positions c .. c +
+          // 31 land on the floats of c / 2 .. c / 2 + 15, all read by this
+          // chunk or an earlier one
+          for (int c = 0; c < sp; c += 32) {
+            const int p = c + lane;
+            const float v = p < S ? row[p] * inv : 0.0f;
+            __syncwarp();
+            prow[p] = __float2bfloat16(v);
+          }
+        }
+      }
+    } else {
+      // 4. P V of positions (j - nt) TP .. + 63: A = V rows 16w .. 16w + 15
+      // (channels), read once for every group. int8: a lane reads its own
+      // byte pairs (positions 2t, 2t + 1 and 2t + 8, 2t + 9 of rows g and
+      // g + 8) and turns them into its operand registers.
+      const int p0 = (j - nt) * TP + 8 * (mi & 1);
+#pragma unroll
+      for (int kk = 0; kk < TP / 16; ++kk) {
+        uint32_t a[4];
+        if (INT8) {
+#pragma unroll
+          for (int hr = 0; hr < 2; ++hr) {  // rows g, g + 8: a0 / a2, a1 / a3
+            const unsigned char* vr = cur + (16 * warp + g + 8 * hr) * RB + 16 * kk + 2 * t;
+            const uint32_t lo = *reinterpret_cast<const unsigned short*>(vr);
+            const uint32_t hi = *reinterpret_cast<const unsigned short*>(vr + 8);
+            const uint2 v = quad_to_bf16(lo | (hi << 16));
+            a[hr] = v.x;
+            a[2 + hr] = v.y;
+          }
+        } else {
+          ldsm_x4(smem_u32(cur) + (16 * warp + r + 8 * (mi & 1)) * RB + 16 * (mi >> 1) + 32 * kk,
+                  a);
+        }
+#pragma unroll
+        for (int gi = 0; gi < G; ++gi) {  // B: the probabilities of beam 8 gi + r, or a zero row
+          const int bm = 8 * gi + r;
+          uint32_t b0, b1;
+          ldsm_x2(bm < beams ? smem_u32(pt) + (bm * PW + p0 + 16 * kk) * 2 : smem_u32(zero16),
+                  b0, b1);
+          mma_bf16(o[gi], a, b0, b1);
+        }
+      }
+    }
+  }
+
+  // 5. the head output, times the V scale (int8; 1 for bf16)
+  const int ch = 16 * warp + g;
+  const float s0 = vss[ch], s8 = vss[ch + 8];
+#pragma unroll
+  for (int gi = 0; gi < G; ++gi) {
+    const int c0 = 8 * gi + 2 * t;
+    __nv_bfloat16* ob = out + (row0 + c0) * D + h * HD + ch;
+    if (c0 < beams) {
+      ob[0] = __float2bfloat16(o[gi][0] * s0);
+      ob[8] = __float2bfloat16(o[gi][2] * s8);
+    }
+    if (c0 + 1 < beams) {
+      ob[D] = __float2bfloat16(o[gi][1] * s0);
+      ob[D + 8] = __float2bfloat16(o[gi][3] * s8);
+    }
+  }
+}
+
 struct Args {
   const void *q, *ck, *cv;
   const float *ks, *vs, *bias;
@@ -458,38 +756,73 @@ int launch(const Args& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// All beams of an item in one block, G n8 operands (wide). The plan's
+// bytes must be this instance's and its grid one block an (item, head).
+template <typename KT, int G>
+int launch_wide(const Args& a) {
+  constexpr int EB = sizeof(KT);
+  const long long smem = wide_smem_bytes(a.beams, a.S, EB);
+  if (smem > MAX_SMEM || a.smem != smem || a.groups != 1 ||
+      (a.beams + MAX_BEAMS - 1) / MAX_BEAMS != G)
+    return static_cast<int>(cudaErrorInvalidValue);
+  static device_state::PerDevice configured;  // the shared-memory limit, raised once a device
+  const int vec = (a.S * EB) % 16 == 0 && reinterpret_cast<uintptr_t>(a.ck) % 16 == 0 &&
+                  reinterpret_cast<uintptr_t>(a.cv) % 16 == 0;
+  auto kernel = dec_cross_kernel_wide<KT, G>;
+  const cudaError_t e = device_state::allow_smem(kernel, MAX_SMEM, configured);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kernel<<<dim3(a.H, a.B), THREADS, static_cast<size_t>(smem), a.stream>>>(
+      reinterpret_cast<const __nv_bfloat16*>(a.q), reinterpret_cast<const KT*>(a.ck),
+      reinterpret_cast<const KT*>(a.cv), a.ks, a.vs, a.bias, a.out, a.H, a.S, a.beams, vec,
+      a.scaling);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The plan's variant (kernels/primitives.DEC_CROSS_VARIANTS: 0 beams, 1
+// wide, 2 grouped) -> its instance; anything else is refused.
 template <typename KT>
-int launch_beams(int beams, const Args& a) {
-  switch (beams) {
-    case 1: return launch<KT, 1>(a);
-    case 2: return launch<KT, 2>(a);
-    case 3: return launch<KT, 3>(a);
-    case 4: return launch<KT, 4>(a);
-    case 5: return launch<KT, 5>(a);
-    case 6: return launch<KT, 6>(a);
-    case 7: return launch<KT, 7>(a);
-    case 8: return launch<KT, 8>(a);
-    default:  // groups of 8 (kernels/primitives.dec_cross_plan states the same)
-      return beams > MAX_BEAMS ? launch<KT, MAX_BEAMS, true>(a)
-                               : static_cast<int>(cudaErrorInvalidValue);
+int launch_variant(int variant, const Args& a) {
+  const int invalid = static_cast<int>(cudaErrorInvalidValue);
+  if (variant == 0) {
+    switch (a.beams) {
+      case 1: return launch<KT, 1>(a);
+      case 2: return launch<KT, 2>(a);
+      case 3: return launch<KT, 3>(a);
+      case 4: return launch<KT, 4>(a);
+      case 5: return launch<KT, 5>(a);
+      case 6: return launch<KT, 6>(a);
+      case 7: return launch<KT, 7>(a);
+      case 8: return launch<KT, 8>(a);
+      default: return invalid;
+    }
   }
+  if (variant == 1) {
+    switch ((a.beams + MAX_BEAMS - 1) / MAX_BEAMS) {
+      case 2: return launch_wide<KT, 2>(a);
+      case 3: return launch_wide<KT, 3>(a);
+      default: return invalid;
+    }
+  }
+  if (variant == 2 && a.beams > MAX_BEAMS) return launch<KT, MAX_BEAMS, true>(a);
+  return invalid;
 }
 
 }  // namespace
 
 // q [B*beams, H*64] bf16, ck/cv [B, H, 64, S] int8 (is_int8) or bf16,
 // ks/vs [B, H, 64] f32 (int8 only, else NULL), bias [B, S] f32,
-// out [B*beams, H*64] bf16. beams >= 1 (past 8 in groups of 8, a block a
-// group); q 8-byte and the scales 16-byte aligned. groups and smem are
-// kernels/primitives.dec_cross_plan's: ceil(beams / 8) blocks an (item,
-// head) and the dynamic shared memory of a block of min(beams, 8) beams. A
-// plan that is not the instance's, a block that would need more than 227 KB
-// of shared memory, or anything else out of range, is refused with
+// out [B*beams, H*64] bf16. beams >= 1; q 8-byte and the scales 16-byte
+// aligned. variant, groups and smem are kernels/primitives.dec_cross_plan's:
+// the instance (beams: 1-8 beams, one block an (item, head); wide: 9-24,
+// one block an (item, head) for all; grouped: past 8, a block a group of
+// 8), the blocks an (item, head) and the dynamic shared memory of a block.
+// A plan that is not the instance's, a block that would need more than 227
+// KB of shared memory, or anything else out of range, is refused with
 // cudaErrorInvalidValue.
 extern "C" int vt_dec_cross_attention(const void* q, const void* ck, const void* cv,
                                       const void* ks, const void* vs, const void* bias, void* out,
-                                      int B, int beams, int groups, int smem, int H, int S,
-                                      int is_int8, float scaling, void* stream) {
+                                      int B, int beams, int variant, int groups, int smem, int H,
+                                      int S, int is_int8, float scaling, void* stream) {
   const int invalid = static_cast<int>(cudaErrorInvalidValue);
   if (B < 1 || H < 1 || S < 1 || beams < 1 || groups < 1 || B > 65535 || H > 65535)
     return invalid;
@@ -499,5 +832,5 @@ extern "C" int vt_dec_cross_attention(const void* q, const void* ck, const void*
   const Args a = {q, ck, cv, reinterpret_cast<const float*>(ks), reinterpret_cast<const float*>(vs),
                   reinterpret_cast<const float*>(bias), reinterpret_cast<__nv_bfloat16*>(out),
                   B, beams, groups, H, S, smem, scaling, reinterpret_cast<cudaStream_t>(stream)};
-  return is_int8 ? launch_beams<int8_t>(beams, a) : launch_beams<__nv_bfloat16>(beams, a);
+  return is_int8 ? launch_variant<int8_t>(variant, a) : launch_variant<__nv_bfloat16>(variant, a);
 }

@@ -45,8 +45,11 @@ DEC_SELF_VARIANT_LAUNCHES: dict[str, int] = {v: 0 for v in DEC_SELF_VARIANTS}
 # enc_cross_attention's launches by their KV (the prompt rows, + the NER
 # prefix's without only_image: 40 and 20 under clipcap, 36 and 16 under mlp)
 ENC_CROSS_KV_LAUNCHES: dict[int, int] = {kv: 0 for kv in range(1, 65)}
-# dec_cross_attention's launches by the beams of an item (any count >= 1)
+# dec_cross_attention's launches by the beams of an item (any count >= 1),
+# and by the plan's variant (DEC_CROSS_VARIANTS)
 DEC_CROSS_BEAM_LAUNCHES: collections.Counter = collections.Counter()
+DEC_CROSS_VARIANTS = ("beams", "wide", "grouped")  # the launcher's variant ids, in order
+DEC_CROSS_VARIANT_LAUNCHES: dict[str, int] = {v: 0 for v in DEC_CROSS_VARIANTS}
 
 GELU = "gelu"
 _COUNT_LOCK = threading.Lock()  # the counts above are bumped from one thread a card
@@ -56,7 +59,7 @@ def reset_launch_counts() -> None:
     with _COUNT_LOCK:
         for table in (LAUNCHES, GEMM_VARIANT_LAUNCHES, LAYERNORM_VARIANT_LAUNCHES,
                       DEC_SELF_VARIANT_LAUNCHES, ENC_CROSS_KV_LAUNCHES,
-                      DEC_CROSS_BEAM_LAUNCHES):
+                      DEC_CROSS_BEAM_LAUNCHES, DEC_CROSS_VARIANT_LAUNCHES):
             for k in table:
                 table[k] = 0
 
@@ -91,6 +94,12 @@ def dec_cross_beam_counts() -> dict[int, int]:
     """Launches of dec_cross_attention by the beams of an item, the beam
     counts launched only: they add up to LAUNCHES["dec_cross_attention"]."""
     return {k: n for k, n in sorted(DEC_CROSS_BEAM_LAUNCHES.items()) if n}
+
+
+def dec_cross_variant_counts() -> dict[str, int]:
+    """Launches of dec_cross_attention by the plan's variant ("beams",
+    "wide", "grouped"): they add up to LAUNCHES["dec_cross_attention"]."""
+    return dict(DEC_CROSS_VARIANT_LAUNCHES)
 
 
 # ---------------------------------------------------------------------------
@@ -146,11 +155,13 @@ def _stream(device: torch.device | None = None) -> ctypes.c_void_p:
 
 
 def _launch(name: str, fn: str, device: torch.device, *args,
-            variant: tuple[dict[str, int], str] | None = None) -> None:
+            variant: tuple[dict[str, int], str] | None = None,
+            also: tuple[dict[str, int], str] | None = None) -> None:
     """Call the library's entry point `fn` on `device` (its first tensor
     operand's) and that device's current stream; the entry points launch on
     the calling thread's current device, so another one is made current for
-    the call. Counts one launch of `name`, and of `variant` = (table, key)."""
+    the call. Counts one launch of `name`, and of `variant` and `also`, each
+    a (table, key)."""
     from vacnic_tpu_torch.kernels._build import lib
 
     entry = getattr(lib(), fn)
@@ -163,8 +174,9 @@ def _launch(name: str, fn: str, device: torch.device, *args,
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {rc}")
     with _COUNT_LOCK:
         LAUNCHES[name] += 1
-        if variant is not None:
-            variant[0][variant[1]] += 1
+        for table_key in (variant, also):
+            if table_key is not None:
+                table_key[0][table_key[1]] += 1
 
 
 # ---------------------------------------------------------------------------
@@ -541,28 +553,43 @@ def dec_cross_attention_plain(q, ck, cv, ck_scale, cv_scale, enc_bias, heads: in
 
 
 SMEM_MAX = 232448  # shared memory a block can have on an H100
-DEC_CROSS_GROUP = 8  # beams a block: the n8 operand of csrc/dec_cross_attention.cu's mma.sync
+DEC_CROSS_GROUP = 8  # beams an operand: the n8 operand of csrc/dec_cross_attention.cu's mma.sync
+DEC_CROSS_WIDE_MAX = 24  # beams of the widest wide instance: three n8 operands
 
 
 @functools.lru_cache(maxsize=None)  # a decode step asks once a layer, for one shape
-def dec_cross_smem_bytes(beams: int, s_len: int, elem_bytes: int) -> int:
+def dec_cross_smem_bytes(beams: int, s_len: int, elem_bytes: int, variant: str = "beams") -> int:
     """Dynamic shared memory of a dec_cross_attention block, as
-    csrc/dec_cross_attention.cu's smem_bytes counts it (sp = S in whole
-    64-position tiles): the ring of K/V tiles as copied (int8: four, rows of
-    80 bytes, and a 3 KB bf16 strip a warp; bf16: three, rows of 144 bytes),
-    scores [beams][sp + 4] f32, probabilities [beams][sp + 8] bf16, a zero
-    row, q [8][68] f32, the bias, the V scales, the softmax statistics."""
+    csrc/dec_cross_attention.cu's smem_bytes ("beams": a block of `beams`
+    beams; "grouped": of 8) and wide_smem_bytes ("wide": all `beams` in
+    one block) count it, sp = S in whole 64-position tiles: the ring of K/V
+    tiles as copied (int8: four, rows of 80 bytes; bf16: three, rows of 144
+    bytes), scores [beams][sp + 4] f32, a zero row; "beams" and "grouped"
+    also probabilities [beams][sp + 8] bf16, int8's 3 KB bf16 strip a warp,
+    q [8][68] f32, the bias, the V scales, the softmax statistics; "wide"
+    only the V scales and the four warps' score maxima [4][beams] f32 (its
+    probabilities overlay its scores, its int8 tiles become bf16 in
+    registers, its q goes straight to registers, its bias is read from
+    device memory)."""
     sp = 64 * -(-s_len // 64)
-    ring = 4 * 64 * 80 + 4 * 3072 if elem_bytes == 1 else 3 * 64 * 144
-    return (ring + 4 * beams * (sp + 4) + 2 * beams * (sp + 8) + 16 + 4 * 8 * 68 + 4 * sp
-            + 4 * 64 + 8 * 8)
+    ring = 4 * 64 * 80 if elem_bytes == 1 else 3 * 64 * 144
+    if variant == "wide":
+        return ring + 4 * beams * (sp + 4) + 16 + 4 * 64 + 4 * 4 * beams
+    if variant == "grouped":
+        beams = DEC_CROSS_GROUP
+    strips = 4 * 3072 if elem_bytes == 1 else 0
+    return (ring + strips + 4 * beams * (sp + 4) + 2 * beams * (sp + 8) + 16 + 4 * 8 * 68
+            + 4 * sp + 4 * 64 + 8 * 8)
 
 
 class DecCrossPlan(NamedTuple):
     """How csrc/dec_cross_attention.cu launches an item's beams."""
-    groups: int       # blocks an (item, head): beams in groups of 8, the group fastest
-    group_beams: int  # beams a block holds room for: min(beams, 8)
-    last_beams: int   # beams of the last group
+    variant: str      # "beams": 1-8, a block an (item, head) with room for exactly them;
+    #                   "wide": 9-24, a block an (item, head) for all of them, q as
+    #                   ceil(beams / 8) n8 operands; "grouped": a block a group of 8
+    groups: int       # blocks an (item, head): ceil(beams / 8) grouped, else 1
+    group_beams: int  # beams a block holds room for: all (wide) or min(beams, 8)
+    last_beams: int   # beams of the last n8 operand
     smem: int         # dynamic shared memory a block, bytes
 
 
@@ -570,34 +597,72 @@ class DecCrossPlan(NamedTuple):
 def dec_cross_plan(beams: int, s_len: int, elem_bytes: int) -> DecCrossPlan:
     """The launch of dec_cross_attention for `beams` beams an item over S =
     s_len positions of K/V with `elem_bytes` bytes an element (1: int8, 2:
-    bf16). Pure: the wrapper passes its groups and bytes to the CUDA
-    launcher, which makes its grid of them and refuses a plan that is not
-    its kernel instance's. Up to 8 beams: one block
-    an (item, head), with room for exactly those beams (one kernel instance
-    a beam count). More: groups of 8, a block a (group, head, item), each
+    bf16). Pure: the wrapper passes its variant, blocks and bytes to the
+    CUDA launcher, which makes its grid of them and refuses a plan that is
+    not its kernel instance's. Up to 8 beams: one block an (item, head),
+    with room for exactly those beams (one kernel instance a beam count).
+    9-24 beams: one wide block an (item, head) for all of them, where that
+    block fits a SM's shared memory. Otherwise (more beams, or an S whose
+    scores do not fit): groups of 8, a block a (group, head, item), each
     with the shared memory of 8 beams, so the largest S does not shrink with
     the beam count. Raises ValueError for beams < 1, S < 1, or a block that
-    no H100 SM holds."""
+    no H100 SM holds.
+
+    The rule follows the readings of chip_smoke.py's crossplan phase
+    (PERF.md §6; H100 80GB HBM3 at 700 W): at S 512, H 16 and B 8, 16 and
+    32, the wide block took 0.52-0.97x the groups' time at every int8 shape
+    of 9, 11, 16, 17 and 24 beams (B 32 x 16: 0.0269 against 0.0496 graph
+    ms), and 0.60-0.95x at 11 of the 15 bf16 ones (1.01-1.12x at B 8 x 16,
+    17, 24 and B 32 x 16). No path runs bf16 cross K/V on the card, so the
+    rule makes no exception for them."""
     if beams < 1 or s_len < 1 or elem_bytes not in (1, 2):
         raise ValueError(f"dec_cross_attention: needs beams >= 1, S >= 1 and 1- or 2-byte K/V "
                          f"(beams={beams}, S={s_len}, elem_bytes={elem_bytes})")
-    per_block = min(beams, DEC_CROSS_GROUP)
+    if beams <= DEC_CROSS_GROUP:
+        plan = dec_cross_variant_plan("beams", beams, s_len, elem_bytes)
+    else:
+        plan = dec_cross_variant_plan("wide", beams, s_len, elem_bytes)
+        if beams > DEC_CROSS_WIDE_MAX or plan.smem > SMEM_MAX:
+            plan = dec_cross_variant_plan("grouped", beams, s_len, elem_bytes)
+    if plan.smem > SMEM_MAX:
+        raise ValueError(f"dec_cross_attention: S={s_len} with {plan.group_beams} beams a block "
+                         f"needs {plan.smem} bytes of shared memory, more than a block has "
+                         f"({SMEM_MAX})")
+    return plan
+
+
+def dec_cross_variant_plan(variant: str, beams: int, s_len: int, elem_bytes: int) -> DecCrossPlan:
+    """The plan of one variant at this shape, whether or not dec_cross_plan
+    picks it and whether or not the launcher has an instance for it or a SM
+    holds its block (the launcher refuses such a plan)."""
     groups = -(-beams // DEC_CROSS_GROUP)
-    smem = dec_cross_smem_bytes(per_block, s_len, elem_bytes)
-    if smem > SMEM_MAX:
-        raise ValueError(f"dec_cross_attention: S={s_len} with {per_block} beams a block needs "
-                         f"{smem} bytes of shared memory, more than a block has ({SMEM_MAX})")
-    return DecCrossPlan(groups, per_block, beams - DEC_CROSS_GROUP * (groups - 1), smem)
+    last = beams - DEC_CROSS_GROUP * (groups - 1)
+    smem = dec_cross_smem_bytes(beams, s_len, elem_bytes, variant)
+    if variant == "grouped":
+        return DecCrossPlan("grouped", groups, DEC_CROSS_GROUP, last, smem)
+    return DecCrossPlan(variant, 1, beams, last, smem)
 
 
 def dec_cross_attention(q, ck, cv, ck_scale, cv_scale, enc_bias, heads: int):
     """q [BK, d] (beams of item b are rows b*K..b*K+K-1), K/V [B, H, hd, S]
     bf16 or int8 (with scales [B, H, hd] f32), pad bias [B, S] f32 -> [BK, d].
-    Any beam count K: past 8 the kernel runs in groups of 8 (`dec_cross_plan`),
-    and the launch counts under K as well (`dec_cross_beam_counts`)."""
+    Any beam count K: past 8 one wide block an (item, head) or groups of 8
+    (`dec_cross_plan`); the launch counts under K (`dec_cross_beam_counts`)
+    and under the plan's variant (`dec_cross_variant_counts`) as well."""
     no_grad_guard("dec_cross_attention", q, ck, cv, ck_scale, cv_scale, enc_bias)
     if _on_cpu(q):
         return dec_cross_attention_plain(q, ck, cv, ck_scale, cv_scale, enc_bias, heads)
+    return _dec_cross_planned(None, q, ck, cv, ck_scale, cv_scale, enc_bias, heads)
+
+
+def _dec_cross_planned(plan: DecCrossPlan | None, q, ck, cv, ck_scale, cv_scale, enc_bias,
+                       heads: int):
+    """dec_cross_attention on the card by the given plan (None:
+    dec_cross_plan's), whatever dec_cross_plan would say: the entry through
+    which tests and chip_smoke.py hold each variant to the twin and time it
+    at shapes that the plan gives another. The port's paths go through
+    `dec_cross_attention`."""
+    no_grad_guard("dec_cross_attention", q, ck, cv, ck_scale, cv_scale, enc_bias)
     bk, d = q.shape
     b, h, hd, s_len = ck.shape
     is_int8 = ck.dtype == torch.int8
@@ -616,10 +681,13 @@ def dec_cross_attention(q, ck, cv, ck_scale, cv_scale, enc_bias, heads: int):
         raise ValueError(f"dec_cross_attention: needs head_dim 64 and whole beams an item "
                          f"(d={d}, rows={bk}, items={b})")
     beams = bk // b
-    plan = dec_cross_plan(beams, s_len, ck.element_size())  # raises where no block holds it
+    if plan is None:
+        plan = dec_cross_plan(beams, s_len, ck.element_size())  # raises where no block holds it
     out = torch.empty(bk, d, dtype=torch.bfloat16, device=q.device)
     _launch("dec_cross_attention", "vt_dec_cross_attention", q.device, _p(q), _p(ck), _p(cv),
-            _p(ck_scale), _p(cv_scale), _p(enc_bias), _p(out), b, beams, plan.groups,
-            plan.smem, heads, s_len, int(is_int8), ctypes.c_float(64 ** -0.5),
-            variant=(DEC_CROSS_BEAM_LAUNCHES, beams))
+            _p(ck_scale), _p(cv_scale), _p(enc_bias), _p(out), b, beams,
+            DEC_CROSS_VARIANTS.index(plan.variant), plan.groups, plan.smem, heads, s_len,
+            int(is_int8), ctypes.c_float(64 ** -0.5),
+            variant=(DEC_CROSS_BEAM_LAUNCHES, beams),
+            also=(DEC_CROSS_VARIANT_LAUNCHES, plan.variant))
     return out
