@@ -4,8 +4,8 @@ the CPU:
 * `core/rng`: `set_random_seed` leaves Python's and numpy's generators in
   JAX's state (the same draws) and seeds torch's; `split_like` has JAX's keys;
   both PRNG implementation names are accepted, others refused;
-* `core/profiling`: `StepTimer.summary()` has JAX's keys; `trace` writes a
-  Chrome trace holding an `annotate` range; `sync` passes CPU tensors;
+* `core/profiling`: `trace` writes a Chrome trace holding an `annotate`
+  range;
 * `convert_checkpoint`: a tree JAX's `save_tree` writes loads in the port
   (bf16 leaves bit for bit as torch.bfloat16, tuples kept, the int "heads"
   leaf), and the port's loads in JAX's `load_tree` (bf16 widened to f32);
@@ -31,7 +31,6 @@ import numpy as np
 import pytest
 import torch
 
-from vacnic_tpu.core import profiling as JPROF
 from vacnic_tpu.core import rng as JRNG
 from vacnic_tpu.core.config import VacnicConfig as JCfg
 from vacnic_tpu.models import fusion as JF
@@ -110,21 +109,10 @@ def test_split_like(names):
     assert len(set(tkeys.values())) == len(names)
 
 
-def test_step_timer_summary_keys():
-    j, t = JPROF.StepTimer(warmup=1), TPROF.StepTimer(warmup=1)
-    assert t.summary() == j.summary() == {"steps": 0}
-    for timer, leaf in ((j, jax.numpy.ones(2)), (t, torch.ones(2))):
-        for _ in range(4):
-            with timer.step(leaf):
-                time.sleep(0.001)
-    assert list(t.summary()) == list(j.summary())
-    assert t.summary()["steps"] == 3 and t.summary()["steps_per_sec"] > 0
-
-
 def test_trace_writes_chrome_trace(tmp_path):
     with TPROF.trace(str(tmp_path)):
         with TPROF.annotate("vacnic.test_range"):
-            TPROF.sync({"x": torch.ones(8) * 2, "n": 3})
+            torch.ones(8) * 2
     trace = json.loads((tmp_path / TPROF.TRACE_FILE).read_text())
     assert any(e.get("name") == "vacnic.test_range" for e in trace["traceEvents"])
 

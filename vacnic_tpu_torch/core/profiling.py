@@ -2,39 +2,44 @@
 
 * `trace(dir)`: a context manager around `torch.profiler` (CPU activity,
   and CUDA activity where a card is present) that writes one Chrome trace,
-  `<dir>/trace.json`, when it exits (chrome://tracing or Perfetto).
-* `annotate(name)`: a labelled range in that trace
-  (`torch.profiler.record_function`).
-* `sync(x)`: waits for the device work that produces `x`'s tensors
-  (`torch.cuda.synchronize()` when any is on the card; nothing on the CPU).
-* `StepTimer`: wall-clock step timing with that sync; `summary()` has the
-  JAX package's keys.
+  `<dir>/trace.json`, when it exits (chrome://tracing or Perfetto). It
+  records every thread, so the spans of `serve.CaptionService`'s batcher
+  land in it beside the caller's.
+* `annotate(name)`: the port's one span primitive. While a profiler
+  records, a labelled range in its trace (`torch.profiler.record_function`,
+  on the clock of the device activities it launches); otherwise a shared
+  no-op context after one flag read, so the spans cost nothing untraced.
+
+A profiler records the ranges of the thread that started it (and of the
+threads it propagates its state to, such as autograd's); ranges opened on
+another thread reach a trace only from a profiler started with
+`profile_all_threads` in its experimental config, as `trace` starts it.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
-import time
-from typing import Any
 
-import numpy as np
 import torch
-
-from vacnic_tpu_torch.core.tree import leaves_with_path
+import torch.autograd.profiler as autograd_profiler
 
 TRACE_FILE = "trace.json"
+
+_NO_SPAN = contextlib.nullcontext()
 
 
 @contextlib.contextmanager
 def trace(log_dir: str):
+    from torch._C._profiler import _ExperimentalConfig
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
-    prof = profile(activities=activities)
+    prof = profile(activities=activities,
+                   experimental_config=_ExperimentalConfig(profile_all_threads=True))
     prof.__enter__()
     try:
         yield prof
@@ -44,41 +49,10 @@ def trace(log_dir: str):
 
 
 def annotate(name: str):
-    return torch.profiler.record_function(name)
-
-
-def sync(x: Any) -> None:
-    """Wait for the computation producing `x` (a tensor or a tree of them)."""
-    if any(isinstance(t, torch.Tensor) and t.is_cuda for _, t in leaves_with_path(x)):
-        torch.cuda.synchronize()
-
-
-class StepTimer:
-    """Rolling step timer: `with timer.step(): ...` then `timer.summary()`."""
-
-    def __init__(self, warmup: int = 1):
-        self.times: list[float] = []
-        self.warmup = warmup
-        self._n = 0
-
-    @contextlib.contextmanager
-    def step(self, result: Any = None):
-        t0 = time.perf_counter()
-        yield
-        if result is not None:
-            sync(result)
-        self._n += 1
-        if self._n > self.warmup:
-            self.times.append(time.perf_counter() - t0)
-
-    def summary(self) -> dict[str, float]:
-        if not self.times:
-            return {"steps": 0}
-        arr = np.asarray(self.times)
-        return {
-            "steps": len(arr),
-            "mean_s": float(arr.mean()),
-            "p50_s": float(np.percentile(arr, 50)),
-            "p95_s": float(np.percentile(arr, 95)),
-            "steps_per_sec": float(1.0 / arr.mean()),
-        }
+    """A span named `name` while a profiler records, else a no-op context.
+    The flag is the Python profiler's process-wide one: it reads true on
+    every thread while a profiler runs, where the C++ check reads only the
+    calling thread's state."""
+    if autograd_profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return _NO_SPAN

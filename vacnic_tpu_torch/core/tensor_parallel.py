@@ -42,9 +42,9 @@ from typing import Any, Callable
 
 import torch
 import torch.distributed as dist
-from torch.profiler import record_function
 
 from vacnic_tpu_torch.core.mesh import param_dim
+from vacnic_tpu_torch.core.profiling import annotate
 from vacnic_tpu_torch.core.tree import leaves_with_path, tree_map
 
 
@@ -77,7 +77,7 @@ def all_reduce_(t: torch.Tensor, group) -> torch.Tensor:
     """t summed over the group's ranks, in place; returned. Under the
     profiler range "tensor_parallel.all_reduce", so a trace shows the model
     group's traffic apart from the compute around it."""
-    with record_function("tensor_parallel.all_reduce"):
+    with annotate("tensor_parallel.all_reduce"):
         if _through_host(t, group):
             host = t.cpu()
             dist.all_reduce(host, op=dist.ReduceOp.SUM, group=group)
@@ -90,7 +90,7 @@ def all_reduce_(t: torch.Tensor, group) -> torch.Tensor:
 def all_gather(t: torch.Tensor, group) -> list[torch.Tensor]:
     """Every rank's t (of one shape), in rank order, on t's device (under
     the profiler range "tensor_parallel.all_gather")."""
-    with record_function("tensor_parallel.all_gather"):
+    with annotate("tensor_parallel.all_gather"):
         src = t.detach().contiguous()
         if _through_host(src, group):
             src = src.cpu()

@@ -30,6 +30,14 @@ apply raises instead of running another path.
 Top-k order: every top-k here returns the larger value first and, among
 equal values, the lower index first (the lax.top_k rule the tie tests pin),
 through a stable descending sort.
+
+Spans (`core/profiling.annotate`, for a profiler's trace): each step's
+"beam_search.model" (`step_fn` / `step_stats_fn`: the decoder and the LM
+head) and "beam_search.select" (from the logits to the next BeamState),
+"beam_search.sync" around every wait of the host on the stream (the
+reads of device values in `_host_bool`, the n-gram bans' `nonzero`,
+`pow_f32`'s host scalars), and
+"beam_search.fallback" around a step whose certificate failed.
 """
 
 from __future__ import annotations
@@ -39,6 +47,7 @@ from typing import Any, Callable, NamedTuple
 import torch
 
 from vacnic_tpu_torch.core.config import DecodeConfig
+from vacnic_tpu_torch.core.profiling import annotate
 from vacnic_tpu_torch.kernels.lm_stats import gather_rerank, top_k
 
 NEG_INF = -1.0e7  # large but finite, as in the JAX package
@@ -55,6 +64,14 @@ class BeamState(NamedTuple):
     finished_flags: torch.Tensor   # [B, K] bool
     done: torch.Tensor             # [B] bool
     cache: Any
+
+
+def _host_bool(x: torch.Tensor) -> bool:
+    """`bool(x)` of a one-element tensor: the search's host reads of device
+    values go through here, under the span "beam_search.sync" (the host
+    waiting on the device)."""
+    with annotate("beam_search.sync"):
+        return bool(x)
 
 
 def gather_beams(x: torch.Tensor, beam_indices: torch.Tensor) -> torch.Tensor:
@@ -82,12 +99,12 @@ def _ngram_matches(seqs: torch.Tensor, cur: int, n: int):
 
 
 def _apply_no_repeat_ngram(seqs, cur: int, total, n: int, ban_value):
-    b, k, _ = seqs.shape
     match, banned_tok = _ngram_matches(seqs, cur, n)
     ban = torch.zeros(total.shape, dtype=torch.bool, device=total.device)
-    bi = torch.arange(b, device=total.device)[:, None, None].expand_as(banned_tok)
-    ki = torch.arange(k, device=total.device)[None, :, None].expand_as(banned_tok)
-    ban[bi[match], ki[match], banned_tok[match].long()] = True
+    with annotate("beam_search.sync"):  # the matches' count, read by the host
+        bi, ki, pi = match.nonzero(as_tuple=True)
+    ban.index_put_((bi, ki, banned_tok[bi, ki, pi].long()),
+                   torch.ones((), dtype=torch.bool, device=total.device))
     return torch.where(ban, ban_value, total)
 
 
@@ -232,8 +249,9 @@ def _candidates_shortlist(logits, lse, s: BeamState, cur: int, *, cfg: DecodeCon
     ci3 = ci.reshape(b, k, C)
     if banned is not None:
         hit = (ci3[:, :, :, None] == banned[:, :, None, :]).any(dim=-1)
-        if not bool((hit.sum(dim=-1) <= C - 2 * k).all()):
-            return full_fn(logits, lse, s, cur)
+        if not _host_bool((hit.sum(dim=-1) <= C - 2 * k).all()):
+            with annotate("beam_search.fallback"):
+                return full_fn(logits, lse, s, cur)
         total = torch.where(hit, float("-inf"), total)
     ts, ti = top_k(total.reshape(b, k * C), 2 * k)
     return ts, ti // C, torch.gather(ci3.reshape(b, k * C), 1, ti)
@@ -261,8 +279,9 @@ def _candidates_opt(logits, lse, s: BeamState, cur: int, *, cfg: DecodeConfig, b
     if banned is not None:
         bl = torch.gather(banned, 1, tbeam[:, :, None].expand(b, w, banned.shape[2]))
         hit = (ttok[:, :, None] == bl).any(dim=-1)
-        if not bool((hit.sum(dim=1) <= w - 2 * k).all()):
-            return full_fn(logits, lse, s, cur)
+        if not _host_bool((hit.sum(dim=1) <= w - 2 * k).all()):
+            with annotate("beam_search.fallback"):
+                return full_fn(logits, lse, s, cur)
         ts = torch.where(hit, float("-inf"), ts)
     s2, i2 = top_k(ts, 2 * k)
     return s2, torch.gather(tbeam, 1, i2), torch.gather(ttok, 1, i2)
@@ -330,84 +349,90 @@ def beam_search(
         return candidates_full(logits[:, :vocab_size], lse, st, cur, **common)
 
     def pow_f32(x: int) -> torch.Tensor:
-        return torch.tensor(float(x), dtype=torch.float32, device=device) ** lp
+        with annotate("beam_search.sync"):  # a host scalar's copy waits for the stream
+            x = torch.tensor(float(x), dtype=torch.float32, device=device)
+        return x ** lp
 
     k_range = torch.arange(2 * k, device=device)[None, :]
-    while s.cur_len < L and not bool(s.done.all()):
+    while s.cur_len < L and not _host_bool(s.done.all()):
         cur = s.cur_len
-        tok = s.running_seqs.reshape(b * k, L)[:, cur - 1:cur]
-        if step_stats_fn is not None:
-            logits, cv, ci, lse, new_cache = step_stats_fn(tok, s.cache, cur - 1)
-            topk_scores, topk_beam, topk_tok = _candidates_shortlist(
-                logits, lse, s, cur, full_fn=full_fn, pre=(cv, ci), **common)
-        else:
-            logits, new_cache = step_fn(tok, s.cache, cur - 1)
-            logits = logits.float()
-            blocks = None
-            if block_lse:
-                blocks = _block_view(logits)
-                lse = blocked_logsumexp(*blocks)
+        with annotate("beam_search.model"):
+            tok = s.running_seqs.reshape(b * k, L)[:, cur - 1:cur]
+            if step_stats_fn is not None:
+                logits, cv, ci, lse, new_cache = step_stats_fn(tok, s.cache, cur - 1)
             else:
-                lse = torch.logsumexp(logits, dim=-1)
-            if mode == "shortlist":
+                logits, new_cache = step_fn(tok, s.cache, cur - 1)
+        with annotate("beam_search.select"):
+            if step_stats_fn is not None:
                 topk_scores, topk_beam, topk_tok = _candidates_shortlist(
-                    logits, lse, s, cur, full_fn=full_fn, blocks=blocks, **common)
-            elif mode == "opt":
-                topk_scores, topk_beam, topk_tok = _candidates_opt(
-                    logits, lse, s, cur, full_fn=full_fn, **common)
+                    logits, lse, s, cur, full_fn=full_fn, pre=(cv, ci), **common)
             else:
-                topk_scores, topk_beam, topk_tok = full_fn(logits, lse, s, cur)
+                logits = logits.float()
+                blocks = None
+                if block_lse:
+                    blocks = _block_view(logits)
+                    lse = blocked_logsumexp(*blocks)
+                else:
+                    lse = torch.logsumexp(logits, dim=-1)
+                if mode == "shortlist":
+                    topk_scores, topk_beam, topk_tok = _candidates_shortlist(
+                        logits, lse, s, cur, full_fn=full_fn, blocks=blocks, **common)
+                elif mode == "opt":
+                    topk_scores, topk_beam, topk_tok = _candidates_opt(
+                        logits, lse, s, cur, full_fn=full_fn, **common)
+                else:
+                    topk_scores, topk_beam, topk_tok = full_fn(logits, lse, s, cur)
 
-        cand_seqs = gather_beams(s.running_seqs, topk_beam)  # [B, 2K, L]
-        cand_seqs[:, :, cur] = topk_tok
+            cand_seqs = gather_beams(s.running_seqs, topk_beam)  # [B, 2K, L]
+            cand_seqs[:, :, cur] = topk_tok
 
-        eos_hit = topk_tok == eos_token_id
-        is_last = cur + 1 >= L
-        hits = eos_hit if legacy else (eos_hit | is_last)
-        admit = hits & (k_range < k) & ~s.done[:, None]
+            eos_hit = topk_tok == eos_token_id
+            is_last = cur + 1 >= L
+            hits = eos_hit if legacy else (eos_hit | is_last)
+            admit = hits & (k_range < k) & ~s.done[:, None]
 
-        new_fin = torch.where(admit, topk_scores / pow_f32(cur), NEG_INF)
-        fin_scores = torch.cat([s.finished_scores, new_fin], dim=1)
-        fin_seqs = torch.cat([s.finished_seqs, cand_seqs], dim=1)
-        fin_flags = torch.cat([s.finished_flags, admit], dim=1)
+            new_fin = torch.where(admit, topk_scores / pow_f32(cur), NEG_INF)
+            fin_scores = torch.cat([s.finished_scores, new_fin], dim=1)
+            fin_seqs = torch.cat([s.finished_seqs, cand_seqs], dim=1)
+            fin_flags = torch.cat([s.finished_flags, admit], dim=1)
 
-        run_cand = torch.where(hits, NEG_INF, topk_scores)
-        top_run_scores, top_run_idx = top_k(run_cand, k)
-        new_running_seqs = gather_beams(cand_seqs, top_run_idx)
-        sel_beam = torch.gather(topk_beam, 1, top_run_idx)
+            run_cand = torch.where(hits, NEG_INF, topk_scores)
+            top_run_scores, top_run_idx = top_k(run_cand, k)
+            new_running_seqs = gather_beams(cand_seqs, top_run_idx)
+            sel_beam = torch.gather(topk_beam, 1, top_run_idx)
 
-        if legacy:
-            final_admit = (~s.done[:, None]).expand(b, k) & is_last
-            final_scores = torch.where(final_admit, top_run_scores / pow_f32(cur + 1), NEG_INF)
-            fin_scores = torch.cat([fin_scores, final_scores], dim=1)
-            fin_seqs = torch.cat([fin_seqs, new_running_seqs], dim=1)
-            fin_flags = torch.cat([fin_flags, final_admit], dim=1)
+            if legacy:
+                final_admit = (~s.done[:, None]).expand(b, k) & is_last
+                final_scores = torch.where(final_admit, top_run_scores / pow_f32(cur + 1), NEG_INF)
+                fin_scores = torch.cat([fin_scores, final_scores], dim=1)
+                fin_seqs = torch.cat([fin_seqs, new_running_seqs], dim=1)
+                fin_flags = torch.cat([fin_flags, final_admit], dim=1)
 
-        top_fin_scores, top_fin_idx = top_k(fin_scores, k)
-        finished_seqs = gather_beams(fin_seqs, top_fin_idx)
-        finished_flags = torch.gather(fin_flags, 1, top_fin_idx)
+            top_fin_scores, top_fin_idx = top_k(fin_scores, k)
+            finished_seqs = gather_beams(fin_seqs, top_fin_idx)
+            finished_flags = torch.gather(fin_flags, 1, top_fin_idx)
 
-        flat_sel = (torch.arange(b, device=device)[:, None] * k + sel_beam).reshape(-1)
-        new_cache = reorder_cache_fn(new_cache, flat_sel)
+            flat_sel = (torch.arange(b, device=device)[:, None] * k + sel_beam).reshape(-1)
+            new_cache = reorder_cache_fn(new_cache, flat_sel)
 
-        all_fin = finished_flags.all(dim=1)
-        if cfg.early_stopping:
-            newly_done = all_fin
-        else:
-            best_num = topk_scores[:, 0] if legacy else top_run_scores[:, 0]
-            best_possible = best_num / pow_f32(cur)
-            newly_done = all_fin & (best_possible <= top_fin_scores.amin(dim=1))
+            all_fin = finished_flags.all(dim=1)
+            if cfg.early_stopping:
+                newly_done = all_fin
+            else:
+                best_num = topk_scores[:, 0] if legacy else top_run_scores[:, 0]
+                best_possible = best_num / pow_f32(cur)
+                newly_done = all_fin & (best_possible <= top_fin_scores.amin(dim=1))
 
-        def freeze(old, new):
-            return torch.where(s.done.reshape((b,) + (1,) * (new.ndim - 1)), old, new)
+            def freeze(old, new):
+                return torch.where(s.done.reshape((b,) + (1,) * (new.ndim - 1)), old, new)
 
-        s = BeamState(
-            cur_len=cur + 1,
-            running_seqs=freeze(s.running_seqs, new_running_seqs),
-            running_scores=freeze(s.running_scores, top_run_scores),
-            finished_seqs=freeze(s.finished_seqs, finished_seqs),
-            finished_scores=freeze(s.finished_scores, top_fin_scores),
-            finished_flags=freeze(s.finished_flags, finished_flags),
-            done=s.done | newly_done,
-            cache=new_cache)
+            s = BeamState(
+                cur_len=cur + 1,
+                running_seqs=freeze(s.running_seqs, new_running_seqs),
+                running_scores=freeze(s.running_scores, top_run_scores),
+                finished_seqs=freeze(s.finished_seqs, finished_seqs),
+                finished_scores=freeze(s.finished_scores, top_fin_scores),
+                finished_flags=freeze(s.finished_flags, finished_flags),
+                done=s.done | newly_done,
+                cache=new_cache)
     return s.finished_seqs[:, 0], s.finished_scores[:, 0]

@@ -36,6 +36,10 @@ running the whole of `generate_mm` on its contiguous row shard.
 
 Entry points run on "cuda" unless the caller passes device="cpu"; without
 a card and without that argument they raise.
+
+Spans (`core/profiling.annotate`): "generate.encode" (the encoder),
+"generate.decode_cache" (the decode weights, the cross K/V and the self
+cache), "generate.beam_search" (the search, with its own spans inside).
 """
 
 from __future__ import annotations
@@ -51,6 +55,7 @@ import torch
 from vacnic_tpu_torch.core.config import BartConfig, DecodeConfig, FusionConfig
 from vacnic_tpu_torch.core.device import as_tensor, resolve_device
 from vacnic_tpu_torch.core.mesh import Mesh, Sharded
+from vacnic_tpu_torch.core.profiling import annotate
 from vacnic_tpu_torch.core.tree import leaves_with_path
 from vacnic_tpu_torch.infer import decode_fast as DF
 from vacnic_tpu_torch.infer.beam_search import beam_search, resolve_cand_mode, shortlist_c_width
@@ -87,9 +92,10 @@ def _mm_encode(params, input_ids, attention_mask, image_features, cfg, fcfg, *,
                face_features, face_mask, name_ids, name_mask, add_ner_ffn, dtype):
     fwd = (F.mm_encoder_fwd_fused if F.fused_encoder_eligible(fcfg, cfg, add_ner_ffn)
            else F.mm_encoder_fwd)
-    return fwd(params, input_ids, attention_mask, image_features, cfg, fcfg,
-               face_features=face_features, face_mask=face_mask, name_ids=name_ids,
-               name_mask=name_mask, add_ner_ffn=add_ner_ffn, dtype=dtype)
+    with annotate("generate.encode"):
+        return fwd(params, input_ids, attention_mask, image_features, cfg, fcfg,
+                   face_features=face_features, face_mask=face_mask, name_ids=name_ids,
+                   name_mask=name_mask, add_ner_ffn=add_ner_ffn, dtype=dtype)
 
 
 def _search_plan(params, dcfg: DecodeConfig, cand_mode, lm_stats: bool, lm_head: str):
@@ -119,15 +125,16 @@ def _decode_from_encoder(params, enc_hidden, attention_mask, cfg: BartConfig,
                          plan: CachePlan, lm_head: str):
     kdtype = plan.dtype
     bsz = enc_hidden.shape[0]
-    dp = DF.build_decode_params(params, kdtype)
-    cache = DF.build_decode_cache(params, enc_hidden, dcfg.num_beams, dcfg.max_length, cfg,
-                                  kdtype, pad_to=CACHE_PAD, time_major=True,
-                                  cross_kv_int8=plan.cross_kv_int8,
-                                  self_kv_int8=plan.self_kv == "int8",
-                                  self_kv_fp8=plan.self_kv == "fp8")
-    enc_bias = expand_mask(attention_mask, 1)  # [B, 1, 1, S]
-    if shortlist_c is not None or lm_head == "stack":
-        dp = DF.ensure_lm_head(dp, params, kdtype)
+    with annotate("generate.decode_cache"):
+        dp = DF.build_decode_params(params, kdtype)
+        cache = DF.build_decode_cache(params, enc_hidden, dcfg.num_beams, dcfg.max_length, cfg,
+                                      kdtype, pad_to=CACHE_PAD, time_major=True,
+                                      cross_kv_int8=plan.cross_kv_int8,
+                                      self_kv_int8=plan.self_kv == "int8",
+                                      self_kv_fp8=plan.self_kv == "fp8")
+        enc_bias = expand_mask(attention_mask, 1)  # [B, 1, 1, S]
+        if shortlist_c is not None or lm_head == "stack":
+            dp = DF.ensure_lm_head(dp, params, kdtype)
 
     def step_fn(tok, cache, pos):
         return DF.decode_step_kernel(dp, params, cache, tok, pos, enc_bias, cfg, dtype,
@@ -140,13 +147,14 @@ def _decode_from_encoder(params, enc_hidden, attention_mask, cfg: BartConfig,
             return DF.decode_step_kernel_stats(dp, params, cache, tok, pos, enc_bias, cfg,
                                                dtype, shortlist_c=shortlist_c)
 
-    return beam_search(
-        step_fn, cache, bsz, cfg=dcfg, eos_token_id=cfg.eos_token_id,
-        pad_token_id=cfg.pad_token_id, decoder_start_token_id=cfg.decoder_start_token_id,
-        forced_bos_token_id=cfg.forced_bos_token_id,
-        vocab_size=params["shared"]["weight"].shape[0],
-        reorder_cache_fn=DF.reorder_anc, device=enc_hidden.device, cand_mode=mode,
-        step_stats_fn=step_stats_fn)
+    with annotate("generate.beam_search"):
+        return beam_search(
+            step_fn, cache, bsz, cfg=dcfg, eos_token_id=cfg.eos_token_id,
+            pad_token_id=cfg.pad_token_id, decoder_start_token_id=cfg.decoder_start_token_id,
+            forced_bos_token_id=cfg.forced_bos_token_id,
+            vocab_size=params["shared"]["weight"].shape[0],
+            reorder_cache_fn=DF.reorder_anc, device=enc_hidden.device, cand_mode=mode,
+            step_stats_fn=step_stats_fn)
 
 
 @torch.no_grad()
@@ -298,7 +306,8 @@ def generate_text_bart(params, input_ids, attention_mask, cfg: BartConfig, dcfg:
     mode, _ = _search_plan(params, dcfg, None, False, lm_head)
     params = tree_to(params, dev)
     input_ids, attention_mask = as_tensor(input_ids, dev), as_tensor(attention_mask, dev)
-    enc = B.encoder_fwd(params, input_ids, attention_mask, cfg, dtype=dtype)
+    with annotate("generate.encode"):
+        enc = B.encoder_fwd(params, input_ids, attention_mask, cfg, dtype=dtype)
     return _decode_from_encoder(params, enc, attention_mask, cfg, dcfg, dtype, mode, None, plan,
                                 lm_head)
 

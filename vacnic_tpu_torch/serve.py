@@ -27,6 +27,13 @@ Design points:
   caching allocator's blocks and the library handles are warm. Buckets
   default to (1, 8, 32, 256): 1 is the latency floor, 256 the throughput
   end of the ladder.
+- Spans (`core/profiling.annotate`): the batcher's "serve.wait" (an empty
+  queue) and "serve.collect" (a batch held open for arrivals), and one
+  "serve.batch" a dispatched batch holding "serve.stage" (stack, pad, the
+  device lock, copy, CLIP), "serve.decode" (`generate_mm`, the results to
+  the host and their dicts) and "serve.respond" (stats, futures). They
+  open on the batcher thread, so only a profiler that records every
+  thread (`core/profiling.trace`, or `profile_all_threads`) sees them.
 
 `make_http_server` / `http_serve` put a minimal stdlib HTTP front on the
 service (POST /v1/caption, GET /healthz, GET /v1/stats).
@@ -46,6 +53,7 @@ a sharded service returns the tokens one device would.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import json
 import logging
@@ -61,6 +69,7 @@ import torch
 
 from vacnic_tpu_torch.core.config import VacnicConfig
 from vacnic_tpu_torch.core.device import resolve_device
+from vacnic_tpu_torch.core.profiling import annotate
 from vacnic_tpu_torch.data.synthetic import synthetic_batch
 from vacnic_tpu_torch.infer import generate as G
 from vacnic_tpu_torch.models import clip_vit
@@ -431,7 +440,8 @@ class CaptionService:
                     items.append(nxt)
             else:
                 try:
-                    first = self._q.get(timeout=0.1)
+                    with annotate("serve.wait"):
+                        first = self._q.get(timeout=0.1)
                 except queue.Empty:
                     continue
                 if first is None:
@@ -441,7 +451,8 @@ class CaptionService:
                 # dispatch (holding them an extra fill wait would convert
                 # deferrals into deadline sheds under exactly the load the
                 # defer policy targets)
-                items = self._fill_to_stable(self._collect(first))
+                with annotate("serve.collect"):
+                    items = self._fill_to_stable(self._collect(first))
             carry = self._dispatch_or_defer(items)
         # sole-consumer drain on exit: fail whatever is still queued/carried
         for item in carry:
@@ -602,35 +613,37 @@ class CaptionService:
         return target > b_down
 
     def _dispatch(self, items: list) -> None:
-        now = time.monotonic()
-        n = len(items)
-        bucket = next((b for b in self.scfg.buckets if b >= n),
-                      self.scfg.buckets[-1])
-        try:
-            t0 = time.monotonic()
-            results = self._decode_rows([it[0] for it in items], bucket=bucket)
-            decode_ms = (time.monotonic() - t0) * 1e3
-        except Exception as e:  # surface to every caller in the batch
-            with self._lock:
-                self._stats["errors"] += n
-            for _, fut, *_ in items:
-                _safe_set(fut, exc=e)
-            return
-        done = time.monotonic()
-        with self._lock:
-            old = self._bucket_ms.get(int(bucket))
-            self._bucket_ms[int(bucket)] = (decode_ms if old is None
-                                            else 0.7 * old + 0.3 * decode_ms)
-            self._stats["requests"] += n
-            self._stats["batches"] += 1
-            self._stats["padded_rows"] += bucket - n
-            self._stats["bucket_counts"][int(bucket)] += 1
-            self._stats["wait_ms_sum"] += sum(
-                (now - t_in) * 1e3 for _, _, t_in, _dl in items)
-            self._stats["decode_ms_sum"] += decode_ms
-            self._lat_ring.extend((done - t_in) * 1e3 for _, _, t_in, _dl in items)
-        for res, (_, fut, *_) in zip(results, items):
-            _safe_set(fut, result=res)
+        with annotate("serve.batch"):
+            now = time.monotonic()
+            n = len(items)
+            bucket = next((b for b in self.scfg.buckets if b >= n),
+                          self.scfg.buckets[-1])
+            try:
+                t0 = time.monotonic()
+                results = self._decode_rows([it[0] for it in items], bucket=bucket)
+                decode_ms = (time.monotonic() - t0) * 1e3
+            except Exception as e:  # surface to every caller in the batch
+                with self._lock:
+                    self._stats["errors"] += n
+                for _, fut, *_ in items:
+                    _safe_set(fut, exc=e)
+                return
+            done = time.monotonic()
+            with annotate("serve.respond"):
+                with self._lock:
+                    old = self._bucket_ms.get(int(bucket))
+                    self._bucket_ms[int(bucket)] = (decode_ms if old is None
+                                                    else 0.7 * old + 0.3 * decode_ms)
+                    self._stats["requests"] += n
+                    self._stats["batches"] += 1
+                    self._stats["padded_rows"] += bucket - n
+                    self._stats["bucket_counts"][int(bucket)] += 1
+                    self._stats["wait_ms_sum"] += sum(
+                        (now - t_in) * 1e3 for _, _, t_in, _dl in items)
+                    self._stats["decode_ms_sum"] += decode_ms
+                    self._lat_ring.extend((done - t_in) * 1e3 for _, _, t_in, _dl in items)
+                for res, (_, fut, *_) in zip(results, items):
+                    _safe_set(fut, result=res)
 
     def _decode_rows(self, rows: list[dict], bucket: int | None = None
                      ) -> list[dict]:
@@ -644,50 +657,56 @@ class CaptionService:
         concurrently."""
         n = len(rows)
         bucket = bucket or n
-        batch = {}
-        for key in self._expected:
-            stacked = np.stack([r[key] for r in rows])
-            if bucket > n:
-                pad = np.repeat(stacked[:1], bucket - n, axis=0)
-                stacked = np.concatenate([stacked, pad], axis=0)
-            batch[key] = torch.from_numpy(stacked)
-
-        with self._device_lock, torch.inference_mode():
-            batch = {k: v.to(self.device) for k, v in batch.items()}
-            if self.scfg.input_kind == "pixels":
-                _, img_cls = clip_vit.clip_vision_fwd(self.params["clip"], batch["pixels"],
-                                                      self.cfg.clip, self._dtype)
-            else:
-                img_cls = batch["image_cls"]
-            kwargs = {}
-            if not self.cfg.fusion.only_image:
-                kwargs = dict(
-                    face_features=batch["face_emb"],
-                    face_mask=face_mask_from_emb(batch["face_emb"]),
-                    name_ids=batch["names_art_ids"],
-                    name_mask=create_mask(batch["names_art_ids"]),
-                )
-            src = batch["article_ids"]
-            if self.mesh is not None:
-                seqs, scores = G.generate_mm_sharded(
-                    self.mesh, self.params["model"], src, create_mask(src),
-                    img_cls, self.cfg.bart, self.cfg.fusion, self.cfg.decode,
-                    dtype=self._dtype, data_axis=self.data_axis, **kwargs)
-            else:
-                seqs, scores = G.generate_mm(
-                    self.params["model"], src, create_mask(src), img_cls,
-                    self.cfg.bart, self.cfg.fusion, self.cfg.decode,
-                    dtype=self._dtype, device=self.device, **kwargs)
-            seqs = seqs[:n].cpu().numpy()
-            scores = scores[:n].float().cpu().numpy()
-        out = []
-        for i in range(n):
-            caption = None
-            if self.tokenizer is not None:
-                caption = self.tokenizer.decode(seqs[i],
-                                                skip_special_tokens=True)
-            out.append({"tokens": [int(t) for t in seqs[i]],
-                        "score": float(scores[i]), "caption": caption})
+        with contextlib.ExitStack() as on_device:
+            with annotate("serve.stage"):
+                batch = {}
+                for key in self._expected:
+                    stacked = np.stack([r[key] for r in rows])
+                    if bucket > n:
+                        pad = np.repeat(stacked[:1], bucket - n, axis=0)
+                        stacked = np.concatenate([stacked, pad], axis=0)
+                    batch[key] = torch.from_numpy(stacked)
+                # the device from the copies in to the results' copy out: the
+                # host's stacking above and its dicts below stay unlocked
+                on_device.enter_context(self._device_lock)
+                on_device.enter_context(torch.inference_mode())
+                batch = {k: v.to(self.device) for k, v in batch.items()}
+                if self.scfg.input_kind == "pixels":
+                    _, img_cls = clip_vit.clip_vision_fwd(self.params["clip"], batch["pixels"],
+                                                          self.cfg.clip, self._dtype)
+                else:
+                    img_cls = batch["image_cls"]
+                kwargs = {}
+                if not self.cfg.fusion.only_image:
+                    kwargs = dict(
+                        face_features=batch["face_emb"],
+                        face_mask=face_mask_from_emb(batch["face_emb"]),
+                        name_ids=batch["names_art_ids"],
+                        name_mask=create_mask(batch["names_art_ids"]),
+                    )
+                src = batch["article_ids"]
+            with annotate("serve.decode"):
+                if self.mesh is not None:
+                    seqs, scores = G.generate_mm_sharded(
+                        self.mesh, self.params["model"], src, create_mask(src),
+                        img_cls, self.cfg.bart, self.cfg.fusion, self.cfg.decode,
+                        dtype=self._dtype, data_axis=self.data_axis, **kwargs)
+                else:
+                    seqs, scores = G.generate_mm(
+                        self.params["model"], src, create_mask(src), img_cls,
+                        self.cfg.bart, self.cfg.fusion, self.cfg.decode,
+                        dtype=self._dtype, device=self.device, **kwargs)
+                seqs = seqs[:n].cpu().numpy()
+                scores = scores[:n].float().cpu().numpy()
+                on_device.close()
+                out = []
+                for i in range(n):
+                    caption = None
+                    if self.tokenizer is not None:
+                        caption = self.tokenizer.decode(seqs[i],
+                                                        skip_special_tokens=True)
+                    out.append({"tokens": [int(t) for t in seqs[i]],
+                                "score": float(scores[i]), "caption": caption})
         return out
 
 

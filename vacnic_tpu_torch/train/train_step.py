@@ -47,12 +47,12 @@ from typing import Any
 import numpy as np
 import torch
 import torch.distributed as dist
-from torch.profiler import record_function
 
 from vacnic_tpu_torch.core import tensor_parallel as TP
 from vacnic_tpu_torch.core.config import VacnicConfig, dtype_of
 from vacnic_tpu_torch.core.device import as_tensor, resolve_device
 from vacnic_tpu_torch.core.distributed import local_batch_slice
+from vacnic_tpu_torch.core.profiling import annotate
 from vacnic_tpu_torch.core.tree import leaves_with_path
 from vacnic_tpu_torch.models import bart as B
 from vacnic_tpu_torch.models import fusion as F
@@ -297,16 +297,16 @@ def loss_and_grads(params: Params, teacher: Params, batch: dict, cfg: VacnicConf
         if dropout_rng is not None:
             dropout_rng = RowShardSeed(dropout_rng, dist.get_rank(group),
                                        dist.get_world_size(group))
-    with record_function("train_step.forward"):
+    with annotate("train_step.forward"):
         loss, metrics = compute_losses(params, teacher, batch, cfg, dropout_rng, group=group,
                                        tp=tp)
-    with record_function("train_step.backward"):
+    with annotate("train_step.backward"):
         got = iter(torch.autograd.grad(loss, [p for p, w in zip(leaves, wrt) if w],
                                        allow_unused=True))
     grads = [next(got) if w else None for w in wrt]
     metrics = {k: v.detach() for k, v in metrics.items()}
     if group is not None:
-        with record_function("train_step.all_reduce"):
+        with annotate("train_step.all_reduce"):
             grads = _all_reduce_sum(grads, group)
             keys = [k for k in metrics if k != "teacher_pooled"]
             summed = _all_reduce_sum([torch.stack([metrics[k].float() for k in keys])], group)
@@ -387,7 +387,7 @@ def make_train_step(cfg: VacnicConfig, num_training_steps: int, mu_dtype=None, n
         metrics, grads = loss_and_grads(state.params, state.teacher, batch, cfg, dropout_rng,
                                         group, tp)
         cut = [TP.is_cut(path, p) for path, p in leaves_with_path(state.params)] if tp else None
-        with record_function("train_step.optimizer"):
+        with annotate("train_step.optimizer"):
             # a leaf without a gradient counts as 0; under tp the model group's sum
             metrics["grad_norm"] = global_norm(grads, cut, tp)
             tx.step_(state.params, grads, state.opt_state, cut, tp)
