@@ -54,7 +54,11 @@ Phases:
            the two kernels redesigned last log the times of the kernels
            before them (EARLIER), outside the kernels line. gemm_bf16, layernorm, dec_cross_attention,
            dec_self_attention, lm_head, enc_cross_attention and lm_stats
-           must repeat bit-identically.
+           must repeat bit-identically. cross_kv (the decode cache's cross
+           K/V, one launch a layer) against its twin at batch 256, 32, 8
+           and 1 x S 512 x d 1024, int8 and bf16, by cross_kv_gaps, then
+           one layer timed at each beside the f32 product the decode cache
+           ran before (`library`) and bf16 addmm.
   gemmplan readings only, not in the default list: every mid_m plan (tile
            width x split), large_m and addmm at the decoder's and the
            encoder's rows (GEMM_SWEEP_M) for each product of a layer, each
@@ -74,12 +78,15 @@ Phases:
            a bare torch.empty, issued without waiting for the card.
   stacks   full-width fused encoder and decode step (random weights) against
            the layer-by-layer references at batches 2 and 4 (the encoder's
-           products at M 1024 and 2048).
+           products at M 1024 and 2048); the kernel path's decode cache
+           (cross_kv, bf16) against the reference path's cross K/V within
+           one bf16 ulp (cross_kv_gaps), wherever a decode step is checked.
   slice    VacnicConfig.full_train(), random bf16 weights from seed 0,
            synthetic_batch(32): generate_mm on cuda, beam 5 x max_length 50
            x length penalty 2.0 with min_length 49. Launch counts are zeroed
            just before this run and read just after; the six kernels of the
-           fused encoder and the decode stack must have launched, gemm_bf16's
+           fused encoder and the decode stack and the decode cache's cross_kv
+           must have launched, gemm_bf16's
            three kernels as kernels/primitives.gemm_plan places the six
            products of an encoder layer (M = batch x 512) and of a decoder
            layer a step (M = batch x beams): small_m up to 256 rows, mid_m
@@ -90,7 +97,8 @@ Phases:
            (12, enc_cross all at KV 40), dec_cross_attention and
            dec_self_attention once a decoder layer a step (588, dec_self all
            on the bf16 cache's kernel, dec_cross all at the path's beam
-           count). Checks finite scores and a mean caption length >= 45.
+           count), cross_kv once a decoder layer (12). Checks finite scores
+           and a mean caption length >= 45.
   selfkv   the same run with self_kv="int8" and with self_kv="fp8" (the
            quantized self cache): dec_self_attention must launch 588 times
            on that cache's kernel; finite scores, mean length >= 45; token
@@ -252,7 +260,7 @@ Phases:
            (convert_checkpoint.save_tree; released widths, each tower cut to
            2 of 12 layers) and a fixture CLIP vocab, equal to
            retrieve_sentences recomputed on the card; lmm --backend echo;
-           smoke (the six slice kernels launched). One line a subcommand
+           smoke (the slice's kernels launched). One line a subcommand
            with its wall seconds; logs in chiprun_out/chip_smoke/cli_*.log.
 
 --batch N (32 by default) is the batch of the slice and of the paths run
@@ -311,6 +319,7 @@ SOURCES = {
     "lm_stats": "vacnic_tpu_torch/kernels/csrc/lm_head.cu",
     "flash_attention": "vacnic_tpu_torch/kernels/csrc/flash_attn.cu",
     "lm_head": "vacnic_tpu_torch/kernels/csrc/lm_head.cu",
+    "cross_kv": "vacnic_tpu_torch/kernels/csrc/gemm_bf16.cu",
 }
 REPLACES = {
     "gemm_bf16": "vacnic_tpu/kernels/encoder_stack.py:103 (_kernel matmuls); "
@@ -327,10 +336,13 @@ REPLACES = {
     "flash_attention": "vacnic_tpu/kernels/flash_attn.py:65 (flash_attention; _flash_kernel :28)",
     "lm_head": "vacnic_tpu/kernels/decode_layer.py:643-650 (_lm_head, the n_lm > 0 grid "
                "iteration of decode_stack :653)",
+    "cross_kv": "none: the JAX package leaves the decoder's cross K/V product to XLA's einsum "
+                "(vacnic_tpu/infer/decode_fast.py:267-280)",
 }
 SLICE_KERNELS = ("gemm_bf16", "layernorm", "enc_self_attention", "enc_cross_attention",
-                 "dec_self_attention", "dec_cross_attention")
-DECODE_KERNELS = ("gemm_bf16", "layernorm", "dec_self_attention", "dec_cross_attention")
+                 "dec_self_attention", "dec_cross_attention", "cross_kv")
+DECODE_KERNELS = ("gemm_bf16", "layernorm", "dec_self_attention", "dec_cross_attention",
+                  "cross_kv")
 SELF_KV_KINDS = ("int8", "fp8")
 # enc_cross_attention's KV on each model's path: the slice's full_train()
 # (clipcap, 20 prompt rows + 20 NER rows), onlyvis_train() (only_image: 20
@@ -1075,8 +1087,69 @@ def run_kernels_phase():
         f"{groups or 'bit-identical ok'}")
     if groups:
         failures.append("dec_cross_attention group identity")
+    rows += cross_kv_rows(failures)
     if failures:
         raise RuntimeError(f"kernels disagree with their plain twins: {failures}")
+    return rows
+
+
+CROSS_KV_TIMED = (256, 32, 8, 1)  # items at S 512: the cells' batch, the service's buckets
+
+
+def cross_kv_rows(failures: list) -> list:
+    """cross_kv (csrc/gemm_bf16.cu's cross_kv_gemm_kernel) against its twin,
+    int8 and bf16, at batch 256 / 32 / 8 / 1 x S 512 x d 1024 (two layers,
+    cross_kv_gaps; the int8 share of entries off by one is logged), one
+    launch a layer; then one layer timed at each of those shapes: ms, graph
+    ms, the bound, the twin (the recipe the decode cache ran before, f32
+    products of bf16 values and plain passes), the f32 library product and
+    bias alone (`library`), bf16 addmm (`second`)."""
+    import torch
+
+    from vacnic_tpu_torch.kernels import primitives as K
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(2206)
+    d, s_len, rows = 1024, 512, []
+    heads = d // 64
+    for batch in CROSS_KV_TIMED:
+        x, w, b = cross_kv_inputs(g, batch, s_len, d, layers=2)
+        for int8 in (True, False):
+            before = K.launch_counts()["cross_kv"]
+            got = K.cross_kv(x, w, b, heads, int8)
+            torch.cuda.synchronize()
+            launched = K.launch_counts()["cross_kv"] - before
+            gaps = cross_kv_gaps(got, K.cross_kv_plain(x, w, b, heads, int8))
+            ok = gaps["ok"] and launched == 2
+            log(f"kernel cross_kv B={batch} S={s_len} d={d} {'int8' if int8 else 'bf16'}, 2 "
+                f"layers: {gaps}, {launched} launches {'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(f"cross_kv B={batch} {'int8' if int8 else 'bf16'}")
+        x1, w1, b1 = x, w[:1].contiguous(), b[:1].contiguous()
+        xf, wf = x1.float(), w1[0].float()
+        byts = (x1.numel() * 2 + w1.numel() * 2 + b1.numel() * 4 + 2 * x1.numel()
+                + 2 * batch * d * 4)
+        b_ms, b_by = bound(byts, 2.0 * batch * s_len * d * 2 * d)
+        row = {"name": f"cross_kv B={batch} S={s_len} d={d} int8 (one layer)",
+               "kernel": "cross_kv", "route": "cuda", "source": SOURCES["cross_kv"],
+               "replaces": REPLACES["cross_kv"],
+               "launches": None, "ms": time_ms(lambda: K.cross_kv(x1, w1, b1, heads, True), 5),
+               "graph_ms": graph_ms(lambda: K.cross_kv(x1, w1, b1, heads, True), 5),
+               "bound_ms": b_ms, "bound_by": b_by,
+               "plain_ms": time_ms(lambda: K.cross_kv_plain(x1, w1, b1, heads, True), 3, warmup=1),
+               "library": "f32 product + bias of bf16 values, as the decode cache ran it",
+               "library_ms": time_ms(lambda: torch.addmm(b1[0], xf.view(-1, d), wf), 3),
+               "library_graph_ms": graph_ms(lambda: torch.addmm(b1[0], xf.view(-1, d), wf), 3),
+               "second": "bf16 addmm, product + bias only",
+               "second_ms": time_ms(lambda: torch.addmm(b1[0].to(torch.bfloat16),
+                                                        x1.view(-1, d), w1[0]), 5)}
+        rows.append(row)
+        log(f"kernel {row['name']}: ms {row['ms']:.4f} graph_ms {row['graph_ms']:.4f} bound_ms "
+            f"{b_ms:.4f} ({b_by}) plain_ms {row['plain_ms']:.4f} library_ms "
+            f"{row['library_ms']:.4f} library_graph_ms {row['library_graph_ms']:.4f}; "
+            f"bf16 addmm ms {row['second_ms']:.4f}")
+        del x, w, b, x1, w1, b1, xf, wf, got
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -1109,6 +1182,56 @@ def bf16_ulp(x):
     import torch
 
     return torch.ldexp(torch.ones_like(x), torch.frexp(x)[1] - 8)
+
+
+CROSS_KV_SHARE = 0.01           # int8 entries that may differ, by one, from the twin's
+CROSS_KV_SCALE_REL = 2.0 ** -7  # a scale's relative gap: one bf16 ulp of its amax
+CROSS_KV_ULP_FLOOR = 2.0 ** -10  # bf16: the ulp is taken at no less than this magnitude
+
+
+def cross_kv_inputs(g, batch: int, s_len: int, d: int, layers: int = 1):
+    """Cross K/V inputs on the card: x [B, S, d] bf16 ~ N(0, 1) (a LayerNorm's
+    output), w [L, d, 2d] bf16 and b [L, 2d] f32 ~ N(0, 0.02) (the weights'
+    initial scale)."""
+    import torch
+
+    x = torch.randn(batch, s_len, d, generator=g, device="cuda").to(torch.bfloat16)
+    w = (torch.randn(layers, d, 2 * d, generator=g, device="cuda") * 0.02).to(torch.bfloat16)
+    return x, w, torch.randn(layers, 2 * d, generator=g, device="cuda") * 0.02
+
+
+def cross_kv_gaps(got, ref) -> dict:
+    """The kernel's cross K/V (k, v, k_scale, v_scale) against the twin's ->
+    readings and `ok`. int8: values within +-1 on at most CROSS_KV_SHARE of
+    the entries, scales within CROSS_KV_SCALE_REL (the two sum the products
+    in other orders, so a bf16 value, and with it an amax, may round one ulp
+    apart: 2^-7 of an amax just above a power of two). bf16: within one bf16
+    ulp of the twin's value, the ulp taken at
+    no less than CROSS_KV_ULP_FLOOR: below it the sums' order alone (~1e-6
+    over 1024 products) moves a value by more than its ulp."""
+    import torch
+
+    out = {"ok": all(a.shape == r.shape and a.dtype == r.dtype
+                     for a, r in zip(got, ref) if r is not None)
+           and all((a is None) == (r is None) for a, r in zip(got, ref))}
+    if not out["ok"]:
+        return out
+    k, v, ks, vs = got
+    rk, rv, rks, rvs = ref
+    if ks is not None:
+        diffs = [(a.int() - r.int()).abs() for a, r in ((k, rk), (v, rv))]
+        out["max_diff"] = max(int(dd.max()) for dd in diffs)
+        out["share"] = sum(int((dd != 0).sum()) for dd in diffs) / (2 * k.numel())
+        out["scale_rel"] = max(float(((a - r).abs() / r.abs()).max())
+                               for a, r in ((ks, rks), (vs, rvs)))
+        out["ok"] = (out["max_diff"] <= 1 and out["share"] <= CROSS_KV_SHARE
+                     and out["scale_rel"] <= CROSS_KV_SCALE_REL)
+    else:
+        out["ulps"] = max(float(((a.float() - r.float()).abs()
+                                 / bf16_ulp(r.float().abs().clamp(min=CROSS_KV_ULP_FLOOR))).max())
+                          for a, r in ((k, rk), (v, rv)))
+        out["ok"] = out["ulps"] <= 1.0
+    return out
 
 
 def enc_cross_reference(q, ck, cv, batch: int, seq: int, heads: int):
@@ -1458,6 +1581,11 @@ def decode_steps_error(cfg, params, x: dict, enc, steps: int = 3) -> tuple[float
         c_ref = DF.build_decode_cache(params, enc, beams, length, cfg.bart, bf, pad_to=16)
         c_ker = DF.build_decode_cache(params, enc, beams, length, cfg.bart, bf, pad_to=16,
                                       time_major=True)
+        gaps = cross_kv_gaps((c_ker.cross_k, c_ker.cross_v, None, None),
+                             (c_ref.cross_k, c_ref.cross_v, None, None))
+        if not gaps["ok"]:  # the kernel path's bf16 cross K/V against the reference path's
+            raise RuntimeError(f"decode cache: the kernel's cross K/V against the plain "
+                               f"recipe's at batch {enc.shape[0]}: {gaps}")
         bias = expand_mask(x["attention_mask"], 1)
         tok = torch.full((enc.shape[0] * beams, 1), cfg.bart.decoder_start_token_id,
                          device="cuda")
@@ -1568,7 +1696,8 @@ def check_slice_counts(tag: str, cfg, batch_size: int) -> dict:
     steps = cfg.decode.max_length - 1  # min_length = max_length - 1: every step runs
     dec_layers = cfg.bart.decoder_layers
     want = {"layernorm": 3 * cfg.bart.encoder_layers + 3 * dec_layers * steps,
-            "dec_cross_attention": dec_layers * steps, "dec_self_attention": dec_layers * steps}
+            "dec_cross_attention": dec_layers * steps, "dec_self_attention": dec_layers * steps,
+            "cross_kv": dec_layers}  # the decode cache's cross K/V: one launch a decoder layer
     # dec_cross_attention's variant, as dec_cross_plan picks it for the
     # beams over the article's tokens in int8 (the paths' cross K/V)
     cross_plan = K.dec_cross_plan(cfg.decode.num_beams, cfg.data.article_max_length, 1)

@@ -902,6 +902,63 @@ def test_enc_cross_refuses(dev):
             call()
 
 
+@pytest.mark.parametrize("int8", [True, False])
+@pytest.mark.parametrize("batch,s_len,d", [(256, 512, 1024), (1, 512, 1024), (8, 512, 1024),
+                                           (32, 512, 1024), (3, 333, 1024), (2, 1024, 768),
+                                           (3, 7, 256), (2, 256, 256), (5, 257, 256)])
+def test_cross_kv_kernel(dev, batch, s_len, d, int8):
+    """cross_kv_gemm_kernel against the plain twin at the cells' shape (B
+    256 x S 512), the service's buckets 1 / 8 / 32, S that is no whole row
+    tile (7, 257, 333) and BART's longest (1024 at d 768), two layers: int8
+    within +-1 on at most 1% of the entries, scales within 2^-7, bf16 within
+    one ulp (chip_smoke.cross_kv_gaps); the int8 form equal, bit for bit, to
+    quantize_cross_kv of the kernel's own bf16 form; one launch a layer."""
+    import chip_smoke
+    from vacnic_tpu_torch.kernels import primitives as K
+
+    g = torch.Generator(device=dev).manual_seed(batch * 7 + s_len)
+    x, w, b = chip_smoke.cross_kv_inputs(g, batch, s_len, d, layers=2)
+    before = K.launch_counts()["cross_kv"]
+    got = K.cross_kv(x, w, b, d // 64, int8)
+    assert K.launch_counts()["cross_kv"] == before + 2
+    gaps = chip_smoke.cross_kv_gaps(got, K.cross_kv_plain(x, w, b, d // 64, int8))
+    assert gaps["ok"], gaps
+    if int8:
+        k16, v16, _, _ = K.cross_kv(x, w, b, d // 64, False)
+        for q, sc, y in ((got[0], got[2], k16), (got[1], got[3], v16)):
+            q_ref, sc_ref = K.quantize_cross_kv(y)
+            assert torch.equal(q, q_ref) and torch.equal(sc, sc_ref)
+    again = K.cross_kv(x, w, b, d // 64, int8)
+    assert all(torch.equal(a, o) for a, o in zip(again, got) if a is not None)
+
+
+def test_cross_kv_refuses(dev):
+    from vacnic_tpu_torch.kernels import primitives as K
+
+    bf = torch.bfloat16
+    x = torch.zeros(2, 40, 256, device=dev, dtype=bf)
+    w = torch.zeros(3, 256, 512, device=dev, dtype=bf)
+    b = torch.zeros(3, 512, device=dev)
+    bad = [lambda: K.cross_kv(x.float(), w, b, 4, True),                        # x not bf16
+           lambda: K.cross_kv(x, w.float(), b, 4, True),                        # w not bf16
+           lambda: K.cross_kv(x, w[:, :, :256].contiguous(), b, 4, True),       # w not [d, 2d]
+           lambda: K.cross_kv(x, w, b[:2], 4, True),                            # b of 2 layers
+           lambda: K.cross_kv(x.transpose(0, 1), w, b, 4, True),                # not contiguous
+           lambda: K.cross_kv(torch.zeros(1, 1025, 256, device=dev, dtype=bf), w, b, 4, True),
+           lambda: K.cross_kv(torch.zeros(1, 8, 96, device=dev, dtype=bf),
+                              torch.zeros(1, 96, 192, device=dev, dtype=bf),
+                              torch.zeros(1, 192, device=dev), 1, True),        # d % 64
+           lambda: K.cross_kv(x, w, b, 3, True),                                # 3 heads of 256
+           lambda: K.cross_kv(x[0], w, b, 4, True),                             # not [B, S, d]
+           lambda: K.cross_kv(torch.zeros(2 * 40 * 256 + 1, device=dev, dtype=bf)[1:]
+                              .view(2, 40, 256), w, b, 4, True)]                # off 16 bytes
+    for call in bad:
+        with pytest.raises(ValueError):
+            call()
+    with pytest.raises(RuntimeError):  # no backward
+        K.cross_kv(x, w.clone().requires_grad_(), b, 4, True)
+
+
 def card_config():
     """VacnicConfig.tiny() widened to shapes the kernels take (head_dim 64
     with four heads, d 256; S = 64): the config `cli smoke` runs."""

@@ -75,13 +75,13 @@ def test_cache_build_and_quantize(setup):
     assert_close(ker.cross_k, j["cache_tm"].cross_k)
     assert_close(ker.cross_v, j["cache_tm"].cross_v)
     np.testing.assert_array_equal(ker.anc.numpy(), np.asarray(j["cache_tm"].anc))
-    qt, st = TDF.quantize_cross_kv(ker.cross_k)
+    qt, st = K.quantize_cross_kv(ker.cross_k)
     qj, sj = JDF.quantize_cross_kv(j["cache_tm"].cross_k)
     np.testing.assert_array_equal(qt.numpy(), np.asarray(qj))
     assert_close(st, sj, atol=0, rtol=1e-6)
     # round half to even on both sides
     half = np.array([0.5, 1.5, 2.5, -0.5, -2.5, 127.0], np.float32)[None, None, None, None, :]
-    np.testing.assert_array_equal(TDF.quantize_cross_kv(t(half))[0].numpy(),
+    np.testing.assert_array_equal(K.quantize_cross_kv(t(half))[0].numpy(),
                                   np.asarray(JDF.quantize_cross_kv(jnp.asarray(half))[0]))
 
 
@@ -208,8 +208,8 @@ def test_crosskv_int8_exact_when_representable(setup):
     _, base = port_caches(tp, enc, tcfg)
     base = base._replace(cross_k=t(ck), cross_v=t(cv))
     _, quant = port_caches(tp, enc, tcfg)
-    ck8, sk8 = TDF.quantize_cross_kv(t(ck))
-    cv8, sv8 = TDF.quantize_cross_kv(t(cv))
+    ck8, sk8 = K.quantize_cross_kv(t(ck))
+    cv8, sv8 = K.quantize_cross_kv(t(cv))
     np.testing.assert_array_equal(ck8.numpy().astype(np.int32), ints_k.astype(np.int32))
     quant = quant._replace(cross_k=ck8, cross_v=cv8, cross_k_scale=sk8, cross_v_scale=sv8)
     lb, _ = TDF.decode_step_kernel(dp, tp, base, t(tok), 0, t(enc_bias), tcfg, torch.float32)

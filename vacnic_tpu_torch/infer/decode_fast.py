@@ -2,7 +2,10 @@
 vacnic_tpu/infer/decode_fast.py).
 
 * Cross K/V are computed once per batch item, [L, B, H, hd, S], and never
-  expanded over beams; beams enter through q.
+  expanded over beams; beams enter through q. On the kernel path
+  (time_major=True) on the card they are one kernels/primitives.cross_kv
+  launch a layer (the product, bias, layout and int8 quantization in one
+  kernel); the reference path and CPU tensors take its plain twin.
 * The kernel path keeps the self cache time-major [L, T, BK, D] and
   write-once: a step writes its K/V at row `pos` of its own beam row, and a
   beam select only recomposes the ancestry matrix anc [T, BK]
@@ -37,6 +40,7 @@ from typing import NamedTuple
 import torch
 
 from vacnic_tpu_torch.core.config import BartConfig
+from vacnic_tpu_torch.kernels import primitives as K
 from vacnic_tpu_torch.models.bart import POS_OFFSET
 from vacnic_tpu_torch.models.layers import ACT2FN, Params, layernorm
 
@@ -148,19 +152,6 @@ def ensure_lm_head(dp: DecodeParams, params: Params, dtype=torch.bfloat16) -> De
     return dp
 
 
-def quantize_cross_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """[L, B, H, hd, S] -> (int8 values, f32 scales [L, B, H, hd]).
-
-    Symmetric per-(layer, item, head, channel) quantization over S. The
-    channel scales cost nothing in the kernel: K's folds into q before the
-    score sum over hd, V's into the head output after the sum over S.
-    torch.round rounds half to even, as jnp.round does."""
-    xf = x.float()
-    scale = torch.clamp(xf.abs().amax(dim=-1) / 127.0, min=1e-12)
-    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127).to(torch.int8)
-    return q, scale
-
-
 def quantize_self_rows(rows: torch.Tensor, n_heads: int) -> tuple[torch.Tensor, torch.Tensor]:
     """[L, BK, d] new self K (or V) rows -> (int8 [L, BK, d], f32 [L, BK, H]).
 
@@ -189,7 +180,9 @@ def build_decode_cache(params: Params, enc_out: torch.Tensor, num_beams: int, ma
                        self_kv_int8: bool = False, self_kv_fp8: bool = False) -> DecodeCache:
     """Cross K/V once per batch item; zero self cache at batch*beams with T
     rounded up to `pad_to`. time_major=True: [L, T, BK, D] + identity
-    ancestry (kernel path); else [L, BK, T, D] (reference path).
+    ancestry (kernel path), the cross K/V through kernels/primitives.cross_kv
+    (on the card its kernel, in bf16); else [L, BK, T, D] (reference path),
+    the cross K/V by the plain twin on any device.
     self_kv_int8 / self_kv_fp8 (kernel path, one at most): the self cache in
     int8 with zero [L, T, BK, H] scales, or in fp8 e4m3."""
     if self_kv_int8 and self_kv_fp8:
@@ -199,27 +192,17 @@ def build_decode_cache(params: Params, enc_out: torch.Tensor, num_beams: int, ma
     layers = params["decoder"]["layers"]
     b, s, d = enc_out.shape
     t_len = -(-max_len // pad_to) * pad_to
-    h, hd = cfg.decoder_attention_heads, cfg.decoder_head_dim
+    h = cfg.decoder_attention_heads
     dev = enc_out.device
 
-    def project(name):
-        outs, scales = [], []
-        x = enc_out.to(dtype).float()
-        for p in layers:  # one layer's [B, S, D] f32 at a time
-            y = x @ p["encoder_attn"][name]["kernel"].to(dtype).float() \
-                + p["encoder_attn"][name]["bias"].float()
-            y = y.to(dtype).reshape(b, s, h, hd).permute(0, 2, 3, 1)  # [B, H, hd, S]
-            if cross_kv_int8:
-                yq, sc = quantize_cross_kv(y)
-                outs.append(yq)
-                scales.append(sc)
-            else:
-                outs.append(y.contiguous())
-        return (torch.stack(outs).contiguous(),
-                torch.stack(scales).contiguous() if cross_kv_int8 else None)
+    def kv(part):  # [L, d, 2d] and [L, 2d]: each layer's K then V
+        return torch.stack([torch.cat([p["encoder_attn"][n][part] for n in ("k_proj", "v_proj")],
+                                      dim=-1) for p in layers])
 
-    cross_k, ck_scale = project("k_proj")
-    cross_v, cv_scale = project("v_proj")
+    project = K.cross_kv if time_major else K.cross_kv_plain
+    cross_k, cross_v, ck_scale, cv_scale = project(
+        enc_out.to(dtype).contiguous(), kv("kernel").to(dtype).contiguous(),
+        kv("bias").float().contiguous(), h, cross_kv_int8)
     n_layers, bkt = len(layers), b * num_beams
     shape = (n_layers, t_len, bkt, d) if time_major else (n_layers, bkt, t_len, d)
     anc = None

@@ -89,6 +89,40 @@
 //
 // Which kernel, split and tile width a shape takes is decided in Python
 // (kernels/primitives.gemm_plan) and passed down.
+//
+// Kernel 4, cross_kv_gemm_kernel: the decoder's cross K and V of one layer,
+// computed once a batch before the beam search (infer/decode_fast.
+// build_decode_cache). Replaces no TPU kernel: the JAX package leaves the
+// product to XLA's einsum, bf16 operands with f32 accumulation, + the f32
+// bias, rounded to bf16 (vacnic_tpu/infer/decode_fast.py:267-280); the port
+// ran it as f32 library products of bf16-rounded values followed by seven
+// plain passes over f32 temporaries. Y = X [B S, d] @ [Wk | Wv] [d, 2d] +
+// bias, rounded to bf16, stored as K and V [B, d, S] (= [B, H, hd, S]), or
+// quantized to int8 with one f32 scale an (item, channel) over the S
+// positions: scale = max(amax / 127, 1e-12), q = clamp(rint(y / scale),
+// -127, 127).
+// Bound at B 256 x S 512, d 1024: 2 x 131072 x 2048 x 1024 = 550 GFLOP a
+// layer, 0.556 ms at 989 TFLOP/s, against 268 MB of X, 4 MB of W and 268 MB
+// of int8 out (0.16 ms): operations bound, 6.7 ms for the 12 layers. So the
+// main loop is kernel 1's: 256 x 128 tiles, four consumer warpgroups on
+// wgmma, one TMA producer, a four-slot ring, the A rows multicast to the two
+// column tiles of a cluster. What is new is the epilogue, which the library
+// product left to seven passes over device memory:
+//   * row tiles never straddle an item: an item's S positions are
+//     ceil(S / 256) row tiles, rows past S are computed and never stored;
+//   * + bias and the rounding to bf16 in registers;
+//   * int8: the column maxima of an item's positions are taken in the
+//     block (shuffles, then shared memory) and across its row tiles by the
+//     cluster: the cluster is 2 column tiles x the item's row tiles (up to
+//     4: S <= 1024, BART's positions), and each block reads its row
+//     neighbours' maxima through distributed shared memory;
+//   * the tile goes through shared memory turned around, [column][position],
+//     so that every column's positions leave as whole 16-byte pieces of one
+//     contiguous row of [B, d, S].
+// The scale is amax * fl(1 / 127): what quantize_cross_kv's `amax / 127.0`
+// computes on a CUDA tensor (PyTorch divides by a host scalar as a product
+// with its f32 reciprocal); y / scale is an IEEE division (__fdiv_rn) and
+// rint rounds half to even, as torch.round does.
 
 #include <stdint.h>
 #include <cuda.h>
@@ -569,6 +603,206 @@ gemm_mid_kernel(const __grid_constant__ CUtensorMap map_a,
   cluster.sync();  // nobody's shared memory goes away while a peer still reads it
 }
 
+constexpr int KV_WGS = 4, KV_NA = 2, KV_STAGES = 4;  // kernel 4: kernel 1's tile and ring
+constexpr int KV_MAX_TILES = 4;  // row tiles an item: a cluster of 2 x 4, the portable largest
+// past the ring and its barriers: every warp's column maxima [16][128], the
+// block's [128] (read by its row neighbours) and the scales [128], f32
+constexpr int KV_XCH_BYTES = (KV_WGS * 4 + 2) * 64 * KV_NA * 4;
+constexpr float INV127 = 1.0f / 127.0f;
+
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// Named barrier 1 over the consumer warpgroups: the producer warp takes no part.
+__device__ __forceinline__ void kv_consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(KV_WGS * 128) : "memory");
+}
+
+// Kernel 4. The grid is (column tiles, whole to a cluster pair; items x
+// `tiles` row tiles), the cluster (2, tiles): rank cx + 2 cy is column tile cx
+// of the pair and row tile cy of the item. Threads 0 .. 511 are the consumer
+// warpgroups; lane 0 of the last warp is the producer.
+template <bool INT8>
+__global__ void __launch_bounds__(KV_WGS * 128 + 32, 1)
+cross_kv_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
+                     const __grid_constant__ CUtensorMap map_w, const float* __restrict__ bias,
+                     void* __restrict__ out_k, void* __restrict__ out_v,
+                     float* __restrict__ scale_k, float* __restrict__ scale_v, int S, int D,
+                     int tiles) {
+  using T = Tile<KV_WGS, KV_NA, KV_STAGES>;
+  constexpr int cn = CLUSTER_N;
+  constexpr int ESZ = INT8 ? 1 : 2;                // bytes a stored value
+  constexpr int LDT = T::BM * ESZ + 16;            // bytes a column of the turned-around tile
+  constexpr int CHUNKS = T::BM * ESZ / 16;         // 16-byte pieces a column
+  static_assert(T::BN * LDT <= KV_STAGES * T::STAGE_BYTES, "the turned-around tile fits the ring");
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_tiles(smem_raw);
+  const uint32_t smem0 = smem_u32(smem);
+  const uint32_t full0 = smem0 + KV_STAGES * T::STAGE_BYTES;  // STAGES full, then STAGES empty
+  const uint32_t empty0 = full0 + KV_STAGES * 8;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int tid = threadIdx.x;
+  const int cx = blockIdx.x % cn, cy = blockIdx.y % tiles;  // the block's place in its cluster
+  const int item = blockIdx.y / tiles;
+  const int n0 = blockIdx.x * T::BN, r0 = cy * T::BM;  // first column; first position of the item
+  const int m0 = item * S + r0;                        // first row of X
+  const int N = 2 * D;
+  const int valid = min(T::BM, S - r0);                // positions of the item in this tile
+  const int nkt = (D + BK - 1) / BK;
+  float* colmax = reinterpret_cast<float*>(smem + KV_STAGES * T::STAGE_BYTES + 2 * KV_STAGES * 8);
+  float* blockmax = colmax + KV_WGS * 4 * T::BN;             // [BN], read by the row neighbours
+  float* scale_s = blockmax + T::BN;                         // [BN]
+
+  if (tid == 0) {
+    for (int s = 0; s < KV_STAGES; ++s) {
+      mbar_init(full0 + 8 * s, 1);               // the producer's expect_tx
+      mbar_init(empty0 + 8 * s, cn * KV_WGS);    // every warpgroup of the column pair
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  cluster.sync();  // every block's barriers exist before a peer writes or arrives
+
+  float acc[KV_NA * 8][4];
+  const int lane = tid & 31, warp = tid >> 5, g = lane >> 2, t = lane & 3;
+  const int rlo = warp * 16 + g, rhi = rlo + 8;  // this thread's rows of the tile
+  if (tid >= KV_WGS * 128) {
+    if (tid == KV_WGS * 128) {
+      // the producer: half of the A rows for both blocks of the column pair,
+      // and its own W tiles
+      constexpr int a_rows = T::BM / cn;
+      const uint16_t pair = static_cast<uint16_t>(((1u << cn) - 1) << (cn * cy));
+      const uint16_t self = static_cast<uint16_t>(1u << (cx + cn * cy));
+      int slot = 0, parity = 1;  // a fresh barrier counts as released
+      for (int kt = 0; kt < nkt; ++kt) {
+        mbar_wait(empty0 + 8 * slot, parity);
+        const uint32_t full = full0 + 8 * slot, st = smem0 + slot * T::STAGE_BYTES;
+        mbar_expect_tx(full, T::STAGE_BYTES);
+        tma_load_multicast(st + cx * a_rows * TILE_BYTES_PER_ROW, &map_a, kt * BK,
+                           m0 + cx * a_rows, full, pair);
+        for (int a = 0; a < KV_NA; ++a)
+          tma_load_multicast(st + T::A_BYTES + a * ATOM_BYTES, &map_w, n0 + a * 64, kt * BK,
+                             full, self);
+        if (++slot == KV_STAGES) {
+          slot = 0;
+          parity ^= 1;
+        }
+      }
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < KV_NA * 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
+    const bool elected = (tid & 127) == 0;
+    int slot = 0, parity = 0, prev = 0;
+    pin(acc);
+    for (int kt = 0; kt < nkt; ++kt) {
+      mbar_wait(full0 + 8 * slot, parity);  // the step's tiles have landed (TMA: async proxy)
+      mma_step<KV_WGS, KV_NA>(acc, smem0 + slot * T::STAGE_BYTES, tid, kt == 0);
+      wgmma_wait_pending<1>();  // the step before is done; this one runs on
+      if (elected && kt > 0)    // hand its slot back to both producers that fill it
+        for (int r = 0; r < cn; ++r) mbar_arrive_cluster(empty0 + 8 * prev, r + cn * cy);
+      prev = slot;
+      if (++slot == KV_STAGES) {
+        slot = 0;
+        parity ^= 1;
+      }
+    }
+    wgmma_wait_pending<0>();
+    pin(acc);
+
+    // + bias, rounded to bf16; int8: each warp's column maxima over its
+    // rows of the item (shuffles across the eight row lanes)
+#pragma unroll
+    for (int j = 0; j < KV_NA * 8; ++j) {
+      const int c = 8 * j + 2 * t, gc = n0 + c;
+      const float2 b = gc < N ? __ldg(reinterpret_cast<const float2*>(bias + gc))
+                              : make_float2(0.0f, 0.0f);
+      acc[j][0] = round_bf16(acc[j][0] + b.x);
+      acc[j][1] = round_bf16(acc[j][1] + b.y);
+      acc[j][2] = round_bf16(acc[j][2] + b.x);
+      acc[j][3] = round_bf16(acc[j][3] + b.y);
+      if (INT8) {
+        const bool lo = rlo < valid, hi = rhi < valid;  // rows of the item
+        float m0v = fmaxf(lo ? fabsf(acc[j][0]) : 0.0f, hi ? fabsf(acc[j][2]) : 0.0f);
+        float m1v = fmaxf(lo ? fabsf(acc[j][1]) : 0.0f, hi ? fabsf(acc[j][3]) : 0.0f);
+#pragma unroll
+        for (int o = 4; o < 32; o <<= 1) {
+          m0v = fmaxf(m0v, __shfl_xor_sync(0xffffffffu, m0v, o));
+          m1v = fmaxf(m1v, __shfl_xor_sync(0xffffffffu, m1v, o));
+        }
+        if (g == 0) {
+          colmax[warp * T::BN + c] = m0v;
+          colmax[warp * T::BN + c + 1] = m1v;
+        }
+      }
+    }
+    if (INT8) {
+      kv_consumers_sync();  // every warp's maxima are in
+      if (tid < T::BN) {
+        float m = 0.0f;
+        for (int w = 0; w < KV_WGS * 4; ++w) m = fmaxf(m, colmax[w * T::BN + tid]);
+        blockmax[tid] = m;
+      }
+    }
+  }
+  __syncwarp();    // the producer's warp is whole again
+  cluster.sync();  // every block's maxima are in; every wgmma of the cluster is done
+
+  if (tid < KV_WGS * 128) {
+    if (INT8) {
+      if (tid < T::BN) {  // the item's maxima over its row tiles, and the scale
+        float m = 0.0f;
+        for (int y = 0; y < tiles; ++y)
+          m = fmaxf(m, cluster.map_shared_rank(blockmax, cx + cn * y)[tid]);
+        const float s = fmaxf(m * INV127, 1e-12f);
+        scale_s[tid] = s;
+        const int gc = n0 + tid;
+        if (cy == 0 && gc < N) (gc < D ? scale_k : scale_v)[(size_t)item * D + gc % D] = s;
+      }
+      kv_consumers_sync();
+    }
+    // the tile turned around, [column][position], 16 bytes of padding a
+    // column, in the ring: the cluster's sync above came after every wgmma
+#pragma unroll
+    for (int j = 0; j < KV_NA * 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = 8 * j + 2 * t + e;
+        unsigned char* col = smem + c * LDT;
+        if (INT8) {
+          const float s = scale_s[c];
+          col[rlo] = static_cast<unsigned char>(static_cast<signed char>(
+              fminf(fmaxf(rintf(__fdiv_rn(acc[j][e], s)), -127.0f), 127.0f)));
+          col[rhi] = static_cast<unsigned char>(static_cast<signed char>(
+              fminf(fmaxf(rintf(__fdiv_rn(acc[j][2 + e], s)), -127.0f), 127.0f)));
+        } else {
+          reinterpret_cast<__nv_bfloat16*>(col)[rlo] = __float2bfloat16_rn(acc[j][e]);
+          reinterpret_cast<__nv_bfloat16*>(col)[rhi] = __float2bfloat16_rn(acc[j][2 + e]);
+        }
+      }
+    }
+    kv_consumers_sync();
+    // each column's valid positions to its row of [B, d, S]: 16 lanes (int8)
+    // or 32 (bf16) a column, whole 16-byte pieces where S keeps them aligned
+    const bool whole = (S * ESZ) % 16 == 0;
+    for (int i = tid; i < T::BN * CHUNKS; i += KV_WGS * 128) {
+      const int c = i / CHUNKS, p0 = (i % CHUNKS) * (16 / ESZ), gc = n0 + c;
+      if (gc >= N || p0 >= valid) continue;
+      unsigned char* dst = reinterpret_cast<unsigned char*>(gc < D ? out_k : out_v) +
+                           (((size_t)item * D + gc % D) * S + r0 + p0) * ESZ;
+      const unsigned char* src = smem + c * LDT + p0 * ESZ;
+      if (whole && p0 + 16 / ESZ <= valid) {
+        *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+      } else {
+        const int n = min(16 / ESZ, valid - p0) * ESZ;
+        for (int k = 0; k < n; ++k) dst[k] = src[k];
+      }
+    }
+  }
+  __syncwarp();
+  cluster.sync();  // no block leaves while a row neighbour may still read its maxima
+}
+
 struct GemmArgs {
   const __nv_bfloat16* a;
   const __nv_bfloat16* w;
@@ -703,6 +937,51 @@ int launch_mid(const GemmArgs& g, int split) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// Kernel 4's shared memory: kernel 1's ring and barriers, then the maxima.
+constexpr int cross_kv_smem() {
+  constexpr int bytes = large_smem<KV_WGS, KV_NA, KV_STAGES>() + KV_XCH_BYTES;
+  static_assert(bytes <= MAX_SMEM, "ring, barriers and maxima too large");
+  return bytes;
+}
+
+template <bool INT8>
+int launch_cross_kv(const __nv_bfloat16* x, const __nv_bfloat16* w, const float* bias,
+                    void* out_k, void* out_v, float* scale_k, float* scale_v, int B, int S,
+                    int D, int tiles, cudaStream_t stream) {
+  using T = Tile<KV_WGS, KV_NA, KV_STAGES>;
+  constexpr int SMEM = cross_kv_smem();
+  constexpr int cn = CLUSTER_N;
+  static device_state::PerDevice configured;
+  auto kernel = cross_kv_gemm_kernel<INT8>;
+  cudaError_t e = allow_smem(kernel, SMEM, configured);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  CUtensorMap map_a, map_w;
+  e = map_cache.get(x, B * S, D, T::BM / cn, &map_a);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  e = map_cache.get(w, D, 2 * D, 64, &map_w);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int tiles_n = (2 * D + T::BN - 1) / T::BN;
+  const long long tiles_y = (long long)B * tiles;
+  if (tiles_y > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  cudaLaunchConfig_t cfg = {};
+  // whole clusters: a block past the last column tile loads zeros and stores nothing
+  cfg.gridDim = dim3((tiles_n + cn - 1) / cn * cn, (unsigned)tiles_y, 1);
+  cfg.blockDim = dim3(T::THREADS + 32, 1, 1);
+  cfg.dynamicSmemBytes = SMEM;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cn;
+  attr[0].val.clusterDim.y = tiles;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, kernel, map_a, map_w, bias, out_k, out_v, scale_k, scale_v, S, D,
+                         tiles);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // A [M,K] bf16, W [K,N] bf16, bias [N] f32 or NULL, res [M,N] f32 or NULL,
@@ -751,6 +1030,34 @@ extern "C" int vt_gemm_bf16(const void* A, const void* W, const void* bias, cons
     if (bn == 128) return launch_mid<2>(g, split);
   }
   return invalid;
+}
+
+// The decoder's cross K and V of one layer (kernel 4): X [B S, D] bf16, W
+// [D, 2D] bf16 (Wk | Wv), bias [2D] f32 -> K and V [B, D, S], int8 with
+// scales [B, D] f32 (is_int8 = 1) or bf16 (is_int8 = 0, scales NULL).
+// `tiles` is kernels/primitives.cross_kv_plan's row tiles an item,
+// ceil(S / 256), at most 4; D % 64 == 0; X and W start on 16 bytes. Anything
+// else is refused with cudaErrorInvalidValue.
+extern "C" int vt_cross_kv(const void* X, const void* W, const void* bias, void* out_k,
+                           void* out_v, void* scale_k, void* scale_v, int B, int S, int D,
+                           int tiles, int is_int8, void* stream) {
+  const int invalid = static_cast<int>(cudaErrorInvalidValue);
+  constexpr int BM = Tile<KV_WGS, KV_NA, KV_STAGES>::BM;
+  if (B < 1 || S < 1 || D < 64 || D % 64 || tiles != (S + BM - 1) / BM || tiles > KV_MAX_TILES)
+    return invalid;
+  if (reinterpret_cast<uintptr_t>(X) % 16 || reinterpret_cast<uintptr_t>(W) % 16 ||
+      reinterpret_cast<uintptr_t>(bias) % 8 || out_k == nullptr || out_v == nullptr)
+    return invalid;
+  const auto x = reinterpret_cast<const __nv_bfloat16*>(X);
+  const auto w = reinterpret_cast<const __nv_bfloat16*>(W);
+  const auto b = reinterpret_cast<const float*>(bias);
+  const auto st = reinterpret_cast<cudaStream_t>(stream);
+  if (is_int8) {
+    if (scale_k == nullptr || scale_v == nullptr) return invalid;
+    return launch_cross_kv<true>(x, w, b, out_k, out_v, reinterpret_cast<float*>(scale_k),
+                                 reinterpret_cast<float*>(scale_v), B, S, D, tiles, st);
+  }
+  return launch_cross_kv<false>(x, w, b, out_k, out_v, nullptr, nullptr, B, S, D, tiles, st);
 }
 
 // Dynamic shared memory, in bytes a block, of the kernel that variant, M and

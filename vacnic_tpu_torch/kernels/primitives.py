@@ -29,9 +29,9 @@ import torch
 
 KERNELS = ("gemm_bf16", "layernorm", "enc_self_attention", "enc_cross_attention",
            "dec_self_attention", "dec_cross_attention", "lm_stats", "flash_attention",
-           "lm_head")
-# (the wrappers of the last three live in kernels/lm_stats, kernels/flash_attn
-# and kernels/lm_head)
+           "lm_head", "cross_kv")
+# (the wrappers of lm_stats, flash_attention and lm_head live in
+# kernels/lm_stats, kernels/flash_attn and kernels/lm_head)
 LAUNCHES: dict[str, int] = {k: 0 for k in KERNELS}
 # gemm_bf16 is three __global__ kernels; every launch also counts under its own
 GEMM_VARIANTS = ("large_m", "small_m", "mid_m")
@@ -321,6 +321,114 @@ def gemm_smem_bytes(m: int, n: int, k: int) -> int:
 
     plan = gemm_plan(m, n, k)
     return lib().vt_gemm_smem_bytes(_VARIANT_ID[plan.variant], m, plan.bn)
+
+
+# ---------------------------------------------------------------------------
+# The decoder's cross K/V: one product a layer, its epilogue quantizing
+# ---------------------------------------------------------------------------
+
+def quantize_cross_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """[..., S] -> (int8 values, f32 scales [...]).
+
+    Symmetric per-(layer, item, head, channel) quantization over S. The
+    channel scales cost nothing in the kernel: K's folds into q before the
+    score sum over hd, V's into the head output after the sum over S.
+    torch.round rounds half to even, as jnp.round does."""
+    xf = x.float()
+    scale = torch.clamp(xf.abs().amax(dim=-1) / 127.0, min=1e-12)
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def cross_kv_plain(x, w, b, heads: int, int8: bool):
+    """x [B, S, d] in the matmul dtype, w [L, d, 2d] (each layer's Wk | Wv)
+    in it, b [L, 2d] -> (k, v [L, B, H, hd, S], k_scale, v_scale [L, B, H,
+    hd] f32 or None): each layer's K and V as two f32 products of x's
+    values, + the f32 bias, rounded to x's dtype; int8: quantize_cross_kv
+    over S."""
+    bsz, s_len, d = x.shape
+    xf = x.float()
+    outs, scales = ([], []), ([], [])
+    for wl, bl in zip(w, b):
+        for i, (wh, bh) in enumerate(zip(wl.split(d, dim=1), bl.split(d))):
+            y = xf @ wh.float().contiguous() + bh.float()  # one layer's [B, S, d] f32 at a time
+            y = y.to(x.dtype).reshape(bsz, s_len, heads, d // heads).permute(0, 2, 3, 1)
+            if int8:
+                yq, sc = quantize_cross_kv(y)
+                outs[i].append(yq)
+                scales[i].append(sc)
+            else:
+                outs[i].append(y.contiguous())
+    k, v = (torch.stack(o).contiguous() for o in outs)
+    if not int8:
+        return k, v, None, None
+    return k, v, *(torch.stack(sc).contiguous() for sc in scales)
+
+
+CROSS_KV_BM = 256        # positions a row tile of csrc/gemm_bf16.cu's cross_kv_gemm_kernel
+CROSS_KV_MAX_TILES = 4   # row tiles an item: a cluster of 2 column x 4 row tiles, 8 blocks
+
+
+class CrossKvPlan(NamedTuple):
+    """How csrc/gemm_bf16.cu's cross_kv_gemm_kernel covers one layer."""
+    tiles: int    # row tiles an item, ceil(S / 256): the cluster's row extent
+    cluster: int  # blocks a cluster: 2 column tiles x `tiles`
+
+
+@functools.lru_cache(maxsize=None)
+def cross_kv_plan(batch: int, s_len: int, d: int) -> CrossKvPlan:
+    """The launch of one layer's cross K/V at `batch` items of `s_len`
+    positions and model width d. Pure: the CUDA launcher only follows it.
+    An item's positions are whole row tiles of 256, never shared with
+    another item, so that one cluster holds all of an item's rows of a
+    column pair and takes its column maxima (the int8 scales) in
+    distributed shared memory; S <= 1024 (BART's positions). Raises
+    ValueError for batch < 1, S outside 1..1024, d not a multiple of 64 or a
+    grid past 65535 rows of blocks."""
+    tiles = -(-s_len // CROSS_KV_BM)
+    if (batch < 1 or not 1 <= tiles <= CROSS_KV_MAX_TILES or d < 64 or d % 64
+            or batch * tiles > 65535):
+        raise ValueError(f"cross_kv: needs batch >= 1, 1 <= S <= "
+                         f"{CROSS_KV_BM * CROSS_KV_MAX_TILES}, d % 64 == 0 and batch x "
+                         f"ceil(S / {CROSS_KV_BM}) <= 65535 (batch={batch}, S={s_len}, d={d})")
+    return CrossKvPlan(tiles, 2 * tiles)
+
+
+def cross_kv(x, w, b, heads: int, int8: bool):
+    """The decoder's cross K/V of every layer, one launch a layer: x [B, S,
+    d] (the encoder's output in the matmul dtype), w [L, d, 2d] (each
+    layer's Wk | Wv), b [L, 2d] f32 -> (k, v [L, B, H, hd, S] int8 or bf16,
+    k_scale, v_scale [L, B, H, hd] f32 or None). y = x @ w + b rounded to
+    bf16, then with int8 quantized over S as quantize_cross_kv (kernel:
+    csrc/gemm_bf16.cu's cross_kv_gemm_kernel, `cross_kv_plan`)."""
+    no_grad_guard("cross_kv", x, w, b)
+    if _on_cpu(x):
+        return cross_kv_plain(x, w, b, heads, int8)
+    if x.dim() != 3 or w.dim() != 3:
+        raise ValueError(f"cross_kv: x [B, S, d] and w [L, d, 2d], got shapes "
+                         f"{tuple(x.shape)} and {tuple(w.shape)}")
+    bsz, s_len, d = x.shape
+    n_layers = w.shape[0]
+    _req(x, "cross_kv x", torch.bfloat16)
+    _req(w, "cross_kv w", torch.bfloat16, (n_layers, d, 2 * d), x.device)
+    _req(b, "cross_kv b", torch.float32, (n_layers, 2 * d), x.device)
+    if heads < 1 or d % heads:
+        raise ValueError(f"cross_kv: {heads} heads do not divide d={d}")
+    plan = cross_kv_plan(bsz, s_len, d)
+    if x.data_ptr() % 16 or w.data_ptr() % 16:
+        raise ValueError("cross_kv: x and w must start on 16 bytes")
+    shape = (n_layers, bsz, heads, d // heads, s_len)
+    k = torch.empty(shape, dtype=torch.int8 if int8 else torch.bfloat16, device=x.device)
+    v = torch.empty_like(k)
+    ks = vs = None
+    if int8:
+        ks = torch.empty(shape[:-1], dtype=torch.float32, device=x.device)
+        vs = torch.empty_like(ks)
+    for layer in range(n_layers):
+        _launch("cross_kv", "vt_cross_kv", x.device, _p(x), _p(w[layer]), _p(b[layer]),
+                _p(k[layer]), _p(v[layer]), _p(ks[layer] if int8 else None),
+                _p(vs[layer] if int8 else None), bsz, s_len, d, plan.tiles, int(int8))
+    return k, v, ks, vs
 
 
 # ---------------------------------------------------------------------------
