@@ -262,6 +262,15 @@ Phases:
            retrieve_sentences recomputed on the card; lmm --backend echo;
            smoke (the slice's kernels launched). One line a subcommand
            with its wall seconds; logs in chiprun_out/chip_smoke/cli_*.log.
+  led      VacnicConfig.led_full() (run_led_phase): its kernels at the LED
+           cell's B 32 x S 16384 against their twins, within tolerance()
+           (cross_kv by cross_kv_gaps): enc_window_attention, the layer's
+           window plus global rows, the long cross_kv, the split
+           dec_cross_attention; timed beside the twin, the bound and the
+           library (led_kernels.json). Then (run_led_path) the fused
+           encoder against the layer-by-layer one at batch 2, and
+           generate_mm at 32 x 16384 x beam 5 with its launches held to
+           LED's path.
 
 --batch N (32 by default) is the batch of the slice and of the paths run
 beside it; their launch gates follow gemm_plan at that batch.
@@ -5207,6 +5216,221 @@ def run_tp_phase(gpu: str) -> int:
     return res[0]["ranks"][0]["flash_attention"]
 
 
+LED_BATCH, LED_S = 32, 16384  # the LED cell's batch and article bucket
+
+
+def within_tolerance(out, ref) -> tuple[float, bool]:
+    """(the widest gap of `out` to `ref`, every element within tolerance())."""
+    tol_a, tol_r = tolerance(out)
+    err = (out.float() - ref.float()).abs()
+    return float(err.max()), bool((err <= tol_a + tol_r * ref.float().abs()).all())
+
+
+def run_led_phase(gpu: str) -> None:
+    """LED's kernels (VacnicConfig.led_full) at its cell's shape, B 32 x S
+    16384, H 16, lengths in [8192, 16384), each against its plain twin and
+    held to it: enc_window_attention (w 512, global <s>) and the whole LED
+    self-attention of a layer (the window, then the global rows by gemm,
+    cross_kv bf16 and dec_cross_attention at one query an item) within
+    tolerance() on four items; cross_kv int8 of one layer by cross_kv_gaps
+    on two; dec_cross_attention int8 at 5 beams (the split over a cluster)
+    within tolerance(). Readings: ms (time_ms), graph ms, the bound, the
+    plain twin's ms, the library's ms where one call does the work (SDPA
+    with the band-and-global mask as a [4, 1, S, S] bool on four items;
+    bf16 `addmm`, product and bias), the gap; led_kernels.json in OUT_DIR
+    holds them. Then run_led_path."""
+    import torch
+
+    from vacnic_tpu_torch.core.config import VacnicConfig
+    from vacnic_tpu_torch.kernels import encoder_stack as ES
+    from vacnic_tpu_torch.kernels import primitives as K
+
+    cfg = VacnicConfig.led_full().bart
+    b, s_len, heads, d = LED_BATCH, LED_S, cfg.encoder_attention_heads, cfg.d_model
+    w, glob = cfg.attention_window // 2, cfg.global_tokens
+    g = torch.Generator(device="cuda").manual_seed(23)
+    lengths = torch.randint(s_len // 2, s_len, (b,), generator=g, device="cuda")
+    keep = torch.arange(s_len, device="cuda")[None, :] < lengths[:, None]
+    bias = torch.where(keep, 0.0, torch.finfo(torch.float32).min).float().contiguous()
+    bias_k = torch.clamp(bias, min=float(torch.finfo(torch.bfloat16).min)).contiguous()
+    rows, bad = [], []
+
+    def row(name, call, plain, byts, ops, library=None, gap=None, ok=True):
+        ms, gms = time_ms(call, reps=3), graph_ms(call, reps=3)
+        bms, by = bound(byts, ops)
+        plain_ms = time_ms(plain, reps=1, warmup=1, groups=1)
+        lib = None
+        if library is not None:
+            lib = (time_ms(library, reps=2, groups=3), graph_ms(library, reps=2))
+        r = {"name": name, "ms": ms, "graph_ms": gms, "bound_ms": bms, "bound": by,
+             "plain_ms": plain_ms, "library_ms": lib, "gap": gap, "ok": ok}
+        log(f"led: {name}: {ms:.4f} ms, graph {gms:.4f}, bound {bms:.4f} ({by}), plain "
+            f"{plain_ms:.1f}, library {lib}, gap {gap}, {'ok' if ok else 'OUT OF TOLERANCE'} "
+            f"({gpu})")
+        rows.append(r)
+        if not ok:
+            bad.append(name)
+        torch.cuda.empty_cache()
+
+    # the window attention
+    qkv = (torch.randn(b * s_len, 3 * d, generator=g, device="cuda")).to(torch.bfloat16)
+    out = K.enc_window_attention(qkv, bias_k, b, s_len, heads, w, glob)
+    ref = torch.cat([K.enc_window_attention_plain(qkv[i * s_len:(i + 1) * s_len],
+                                                  bias_k[i:i + 1], 1, s_len, heads, w, glob)
+                     for i in range(4)])
+    gap, ok = within_tolerance(out[:4 * s_len], ref)
+    keys = sum(sum(min(s_len - 1, i + w) - max(0, i - w) + 1 + (1 if i - w > 0 else 0)
+                   for i in range(0, int(n), 64)) * 64 for n in lengths.tolist())
+    q4 = qkv.view(b, s_len, 3, heads, 64).permute(2, 0, 3, 1, 4)
+    pos = torch.arange(s_len, device="cuda")
+    band = ((pos[:, None] - pos[None, :]).abs() <= w) | (pos[None, :] < glob)
+    mask = (band[None] & keep[:4, None, :])[:, None]  # [4, 1, S, S]: four items of the batch
+
+    def sdpa():  # four items: its time x 8 is the batch's
+        return torch.nn.functional.scaled_dot_product_attention(q4[0, :4], q4[1, :4], q4[2, :4],
+                                                                attn_mask=mask)
+
+    row(f"enc_window_attention B={b} S={s_len} H={heads} w={w} G={glob} "
+        "(library: SDPA on 4 items)",
+        lambda: K.enc_window_attention(qkv, bias_k, b, s_len, heads, w, glob),
+        lambda: K.enc_window_attention_plain(qkv, bias_k, b, s_len, heads, w, glob),
+        b * s_len * 4 * d * 2, 4.0 * 64 * heads * keys, sdpa, gap, ok)
+    del mask, band, out, ref
+
+    # the LED self-attention of a layer: the window, then the global rows
+    xb = torch.randn(b * s_len, d, generator=g, device="cuda").to(torch.bfloat16)
+    sp = ES.EncStackParams(
+        *([None] * 15),
+        w_qg=(torch.randn(1, d, d, generator=g, device="cuda") * 0.02).to(torch.bfloat16),
+        b_qg=torch.randn(1, d, generator=g, device="cuda") * 0.02,
+        w_kvg=(torch.randn(1, d, 2 * d, generator=g, device="cuda") * 0.02).to(torch.bfloat16),
+        b_kvg=torch.randn(1, 2 * d, generator=g, device="cuda") * 0.02)
+    got = ES._window_attention(sp, 0, qkv, xb, bias_k, b, s_len, cfg, ES.KERNEL_OPS)
+    gap, ok = 0.0, True
+    for i in range(4):
+        rs = slice(i * s_len, (i + 1) * s_len)
+        ref = ES._window_attention(sp, 0, qkv[rs], xb[rs], bias_k[i:i + 1], 1, s_len, cfg,
+                                   ES.PLAIN_OPS)
+        gi, oi = within_tolerance(got[rs], ref)
+        gap, ok = max(gap, gi), ok and oi
+    row("LED self-attention a layer (window + global rows)",
+        lambda: ES._window_attention(sp, 0, qkv, xb, bias_k, b, s_len, cfg, ES.KERNEL_OPS),
+        lambda: ES._window_attention(sp, 0, qkv, xb, bias_k, b, s_len, cfg, ES.PLAIN_OPS),
+        b * s_len * 4 * d * 2 + b * s_len * 2 * d * 2 * 2 + b * s_len * d * 2,
+        4.0 * 64 * heads * keys + 2.0 * b * s_len * d * 2 * d + 4.0 * b * s_len * d, None, gap, ok)
+    del qkv, xb, got, ref
+
+    # the decoder's long cross K/V, one layer
+    x, wkv, bkv = cross_kv_inputs(g, b, s_len, d, layers=1)
+    got = K.cross_kv(x, wkv, bkv, heads, True)
+    ref = K.cross_kv_plain(x[:2].contiguous(), wkv, bkv, heads, True)
+    gaps = cross_kv_gaps(tuple(t[:, :2] for t in got), ref)
+    row(f"cross_kv int8 B={b} S={s_len} d={d}, one layer [long]",
+        lambda: K.cross_kv(x, wkv, bkv, heads, True),
+        lambda: K.cross_kv_plain(x, wkv, bkv, heads, True),
+        (b * s_len * d + d * 2 * d) * 2 + 2 * d * 4 + b * s_len * 2 * d + 2 * b * d * 4,
+        2.0 * b * s_len * d * 2 * d,
+        lambda: torch.addmm(bkv[0].to(torch.bfloat16), x.view(-1, d), wkv[0]),
+        {k: v for k, v in gaps.items() if k != "ok"}, gaps["ok"])
+    del x, got, ref
+
+    # the split dec_cross_attention, int8, 5 beams
+    beams = VacnicConfig.led_full().decode.num_beams
+    q = torch.randn(b * beams, d, generator=g, device="cuda").to(torch.bfloat16)
+    ck, cv = (torch.randint(-127, 128, (b, heads, 64, s_len), generator=g,
+                            device="cuda").to(torch.int8) for _ in range(2))
+    ks, vs = (torch.rand(b, heads, 64, generator=g, device="cuda") * 0.01 + 1e-3
+              for _ in range(2))
+    out = K.dec_cross_attention(q, ck, cv, ks, vs, bias, heads)
+    gap, ok = within_tolerance(out, K.dec_cross_attention_plain(q, ck, cv, ks, vs, bias, heads))
+    plan = K.dec_cross_plan(beams, s_len, 1)
+    if plan.variant != "split":
+        raise RuntimeError(f"led: dec_cross_plan({beams}, {s_len}, int8) is {plan}, not split")
+    row(f"dec_cross_attention int8 B={b} beams={beams} S={s_len} [split {plan.groups}]",
+        lambda: K.dec_cross_attention(q, ck, cv, ks, vs, bias, heads),
+        lambda: K.dec_cross_attention_plain(q, ck, cv, ks, vs, bias, heads),
+        b * beams * d * 2 * 2 + 2 * b * d * s_len + b * s_len * 4 + 2 * b * d * 4,
+        4.0 * b * beams * d * s_len, None, gap, ok)
+    del q, ck, cv, out
+    with open(os.path.join(OUT_DIR, "led_kernels.json"), "w") as f:
+        json.dump({"gpu": gpu, "rows": rows}, f, indent=1)
+    if bad:
+        raise RuntimeError(f"led: kernels off their plain twins beyond tolerance(): {bad}")
+    torch.cuda.empty_cache()
+    run_led_path(gpu)
+
+
+def run_led_path(gpu: str) -> None:
+    """VacnicConfig.led_full() at full width, random bf16 weights from seed
+    0, decoding every step: the fused encoder against the layer-by-layer
+    one at batch 2 x S 16384; then generate_mm at the cell's batch, 32 x S
+    16384 x beam 5, with the launches zeroed just before the run and held,
+    just after, to LED's path: in each of the 12 encoder layers one
+    enc_window_attention, one query_global product, one key_global |
+    value_global cross_kv (bf16, "long") and one dec_cross_attention of
+    one query an item, and no enc_self_attention; the decode cache's 12
+    cross_kv ("long") with 12 cross_kv_quant; every decode step's
+    dec_cross_attention on the split kernel; gemm_bf16's kernels as
+    gemm_plan places the products."""
+    import torch
+
+    from vacnic_tpu_torch.core.config import VacnicConfig
+    from vacnic_tpu_torch.infer.generate import generate_mm
+    from vacnic_tpu_torch.kernels import primitives as K
+
+    cfg, params = full_model(cfg=VacnicConfig.led_full())
+    check_fused_encoder("led", cfg, params, batch_inputs(cfg, 2))
+    torch.cuda.empty_cache()
+    x = batch_inputs(cfg, LED_BATCH)
+
+    def run():
+        out = generate_mm(params, cfg=cfg.bart, fcfg=cfg.fusion, dcfg=cfg.decode,
+                          dtype=torch.bfloat16, device="cuda", **x)
+        torch.cuda.synchronize()
+        return out
+
+    run()  # warm-up
+    K.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    seqs, scores = run()
+    dt = time.perf_counter() - t0
+    nonpad = check_captions("led", cfg, seqs, scores, LED_BATCH)
+    b, s_len, d = cfg.bart, cfg.data.article_max_length, cfg.bart.d_model
+    enc_l, dec_l, steps = b.encoder_layers, b.decoder_layers, cfg.decode.max_length - 1
+    beams, glob = cfg.decode.num_beams, b.global_tokens
+    gemm_want = gemm_plan_counts(cfg, LED_BATCH)
+    gemm_want[K.gemm_plan(LED_BATCH * glob, d, d).variant] += enc_l  # query_global
+    enc_plan, dec_plan = K.dec_cross_plan(glob, s_len, 2), K.dec_cross_plan(beams, s_len, 1)
+    want = {
+        "launches": {"enc_window_attention": enc_l, "enc_self_attention": 0,
+                     "enc_cross_attention": enc_l, "cross_kv": enc_l + dec_l,
+                     "cross_kv_quant": dec_l, "dec_cross_attention": enc_l + dec_l * steps,
+                     "dec_self_attention": dec_l * steps,
+                     "layernorm": 3 * enc_l + 3 * dec_l * steps},
+        "gemm_bf16": gemm_want,
+        "cross_kv": {"cluster": 0, "long": enc_l + dec_l},
+        "dec_cross_beams": {glob: enc_l, beams: dec_l * steps},
+        "dec_cross_variants": {v: enc_l * (v == enc_plan.variant)
+                               + dec_l * steps * (v == dec_plan.variant)
+                               for v in K.DEC_CROSS_VARIANTS},
+    }
+    counts = K.launch_counts()
+    got = {"launches": {k: counts[k] for k in want["launches"]},
+           "gemm_bf16": K.gemm_variant_counts(), "cross_kv": K.cross_kv_variant_counts(),
+           "dec_cross_beams": K.dec_cross_beam_counts(),
+           "dec_cross_variants": K.dec_cross_variant_counts()}
+    log(f"led: generate_mm beam {beams} x {cfg.decode.max_length}, batch {LED_BATCH} x S "
+        f"{s_len}: {dt:.3f} s, {LED_BATCH / dt:.2f} captions/s, mean non-pad length "
+        f"{nonpad:.1f}, peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+        f"launches {got}; expected {want} ({gpu})")
+    if dec_plan.variant != "split" or got != want:
+        raise RuntimeError(f"led: launches {got}: expected {want}, every decode step's "
+                           f"dec_cross_attention on the split kernel (plan {dec_plan.variant})")
+    del params
+    torch.cuda.empty_cache()
+
+
 def compare_tokens(ref: dict, gpu: str) -> None:
     """Every path run here against the captions another tree saved with
     --tokens-out on the same seeds: token agreement printed, and any
@@ -5237,7 +5461,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
                     default="build,kernels,accuracy,dispatch,stacks,slice,selfkv,stats,stackhead,"
-                            "layerwise,serve,ladder,profile,mesh,onlyvis,mlp,train,tp,data,cli")
+                            "layerwise,serve,ladder,profile,mesh,onlyvis,mlp,train,tp,data,cli,"
+                            "led")
     ap.add_argument("--batch", type=int, default=32)
     ap.add_argument("--tokens-out", metavar="FILE",
                     help="save each path's captions (torch.save of {path: tokens})")
@@ -5283,6 +5508,9 @@ def main() -> int:
         run_gemmplan_phase(gpu)
     if "crossplan" in phases:
         run_crossplan_phase(gpu)
+    if "led" in phases:
+        run_led_phase(gpu)
+        torch.cuda.empty_cache()
     launches = {}  # kernel -> launches in the run of the path that names it
     if phases & {"stacks", "slice", "selfkv", "stats", "stackhead", "layerwise", "serve",
                   "ladder", "profile", "mesh", "meshscale"}:

@@ -113,13 +113,12 @@ def test_cross_kv_plan(batch, s_len, d, tiles):
     assert (plan.tiles - 1) * K.CROSS_KV_BM < s_len <= plan.tiles * K.CROSS_KV_BM
 
 
-@pytest.mark.parametrize("batch,s_len,d", [(1, 1025, 1024), (1, 0, 1024), (0, 512, 1024),
+@pytest.mark.parametrize("batch,s_len,d", [(1, 16385, 1024), (1, 0, 1024), (0, 512, 1024),
                                            (2, 512, 96), (2, 512, 32), (65536, 1, 64),
                                            (32768, 257, 64)])
 def test_cross_kv_plan_refuses(batch, s_len, d):
-    """Past BART's 1024 positions (a cluster of more than 2 x 4), no
-    positions or items, d not a multiple of 64, a grid of more than 65535
-    block rows."""
+    """Past LED's 16384 positions (the long plan's last), no positions or
+    items, d not a multiple of 64, a grid of more than 65535 block rows."""
     with pytest.raises(ValueError):
         K.cross_kv_plan(batch, s_len, d)
 
@@ -152,7 +151,7 @@ def test_wrapper_refuses(fake_card):
            lambda: K.cross_kv(x.transpose(0, 1), w, b, 4, True),           # not contiguous
            lambda: K.cross_kv(x[0], w, b, 4, True),                        # not [B, S, d]
            lambda: K.cross_kv(x, w, b, 3, True),                           # 3 heads of 256
-           lambda: K.cross_kv(*card_inputs(s_len=1025), 4, True),          # past 1024 positions
+           lambda: K.cross_kv(*card_inputs(s_len=16385), 4, True),         # past 16384 positions
            lambda: K.cross_kv(*card_inputs(d=96, layers=1), 1, True),      # d % 64
            lambda: K.cross_kv(torch.zeros(2 * 40 * 256 + 1, dtype=torch.bfloat16)[1:]
                               .view(2, 40, 256), w, b, 4, True)]           # off 16 bytes
@@ -178,6 +177,30 @@ def test_wrapper_launches_once_a_layer(fake_card, int8):
         assert ptrs[4] == v[layer].data_ptr()
         assert (ptrs[5] is None) == (not int8)
         assert args[7:] == (3, 300, 256, 2, int(int8))
+
+
+@pytest.mark.parametrize("int8", [True, False])
+def test_wrapper_long_launches(fake_card, int8):
+    """Past 1024 positions: the product once a layer in clusters of the
+    column pair (vt_cross_kv_long, bf16), with int8 into a bf16 copy that
+    cross_kv_quant_kernel then quantizes into the layer's slices."""
+    x, w, b = card_inputs(batch=2, s_len=1280, layers=2)
+    k, v, ks, vs = K.cross_kv(x, w, b, 4, int8)
+    assert k.shape == (2, 2, 4, 64, 1280) and (ks is None) == (not int8)
+    want = ([("cross_kv", "vt_cross_kv_long"), ("cross_kv_quant", "vt_cross_kv_quant")] if int8
+            else [("cross_kv", "vt_cross_kv_long")]) * 2
+    assert [(n, fn) for n, fn, _ in fake_card] == want
+    for layer in range(2):
+        prod = fake_card[layer * len(want) // 2][2]
+        assert prod[5:] == (2, 1280, 256, 5)
+        assert prod[1].value == w[layer].data_ptr()
+        if int8:
+            quant = fake_card[layer * 2 + 1][2]
+            assert [a.value for a in quant[:2]] == [a.value for a in prod[3:5]]
+            assert quant[2].value == k[layer].data_ptr() and quant[5].value == vs[layer].data_ptr()
+            assert quant[6:] == (2 * 256, 1280)
+        else:
+            assert prod[3].value == k[layer].data_ptr() and prod[4].value == v[layer].data_ptr()
 
 
 @pytest.mark.parametrize("int8", [True, False])

@@ -591,7 +591,7 @@ def test_dec_cross_wide_matches_grouped(dev, beams, items, s_len, kind):
     K.reset_launch_counts()
     want = K._dec_cross_planned(grouped, *args, 16)
     got = K._dec_cross_planned(wide, *args, 16)
-    assert K.dec_cross_variant_counts() == {"beams": 0, "wide": 1, "grouped": 1}
+    assert K.dec_cross_variant_counts() == {"beams": 0, "wide": 1, "grouped": 1, "split": 0}
     close(want, K.dec_cross_attention_plain(*args, 16), True)
     assert torch.equal(got, want)
     assert torch.equal(K._dec_cross_planned(wide, *args, 16), got)
@@ -944,7 +944,7 @@ def test_cross_kv_refuses(dev):
            lambda: K.cross_kv(x, w[:, :, :256].contiguous(), b, 4, True),       # w not [d, 2d]
            lambda: K.cross_kv(x, w, b[:2], 4, True),                            # b of 2 layers
            lambda: K.cross_kv(x.transpose(0, 1), w, b, 4, True),                # not contiguous
-           lambda: K.cross_kv(torch.zeros(1, 1025, 256, device=dev, dtype=bf), w, b, 4, True),
+           lambda: K.cross_kv(torch.zeros(1, 16385, 256, device=dev, dtype=bf), w, b, 4, True),
            lambda: K.cross_kv(torch.zeros(1, 8, 96, device=dev, dtype=bf),
                               torch.zeros(1, 96, 192, device=dev, dtype=bf),
                               torch.zeros(1, 192, device=dev), 1, True),        # d % 64
@@ -1372,3 +1372,161 @@ def test_two_rank_tp_step_on_one_card(dev, tmp_path):
         state, m = step_fn(state, batch)
         for k, v in m.items():
             assert abs(res["steps"][i][k] - float(v)) <= 2e-5 * (1 + abs(float(v))), (i, k)
+
+
+# ---------------------------------------------------------------------------
+# LED (VacnicConfig.led_full): the window attention, the global rows, the
+# cross K/V past 1024 positions and the split dec_cross_attention
+# ---------------------------------------------------------------------------
+
+def window_case(g, batch, s_len, heads, lengths):
+    """qkv [B*S, 3d] bf16 ~ N(0, 1) and the pad bias of items of `lengths`."""
+    qkv = rn(g, batch * s_len, 3 * heads * 64, dtype=torch.bfloat16)
+    keep = torch.arange(s_len, device="cuda")[None, :] < torch.tensor(lengths, device="cuda")[:, None]
+    bias = torch.where(keep, 0.0, torch.finfo(torch.float32).min).float().contiguous()
+    return qkv, bias
+
+
+@pytest.mark.parametrize("batch,s_len,heads,w,glob,lengths", [
+    (3, 256, 2, 64, 1, (256, 100, 1)), (2, 512, 4, 100, 2, (512, 300)),
+    (2, 1024, 2, 512, 1, (1024, 513)), (2, 192, 2, 0, 0, (192, 70)),
+    (2, 640, 2, 17, 64, (640, 65)), (1, 128, 2, 1000, 3, (120,))])
+def test_enc_window_attention_kernel(dev, batch, s_len, heads, w, glob, lengths):
+    """enc_window_kernel against the twin: bands that are and are not whole
+    tiles, one to 64 global tokens, a band wider than S, padded tails that
+    end inside a tile and tiles wholly padded (zero rows); repeatable."""
+    from vacnic_tpu_torch.kernels import primitives as K
+
+    g = torch.Generator(device=dev).manual_seed(s_len + w)
+    qkv, bias = window_case(g, batch, s_len, heads, lengths)
+    before = K.launch_counts()["enc_window_attention"]
+    out = K.enc_window_attention(qkv, bias, batch, s_len, heads, w, glob)
+    assert K.launch_counts()["enc_window_attention"] == before + 1
+    ref = K.enc_window_attention_plain(qkv, bias, batch, s_len, heads, w, glob)
+    close(out, ref, True)
+    pad = (bias != 0).reshape(-1)
+    assert bool((out[pad] == 0).all())
+    assert torch.equal(out, K.enc_window_attention(qkv, bias, batch, s_len, heads, w, glob))
+
+
+def test_enc_window_attention_led_size(dev):
+    """LED's cell shape, B 32 x S 16384 x H 16, w 512, global <s>, lengths
+    in [8192, 16384): against the twin on four items of the batch."""
+    from vacnic_tpu_torch.kernels import primitives as K
+
+    g = torch.Generator(device=dev).manual_seed(16384)
+    lengths = [8192 + 256 * i + 7 * i for i in range(32)]
+    qkv, bias = window_case(g, 32, 16384, 16, lengths)
+    out = K.enc_window_attention(qkv, bias, 32, 16384, 16, 512, 1)
+    for item in (0, 5, 17, 31):
+        rows = slice(item * 16384, (item + 1) * 16384)
+        ref = K.enc_window_attention_plain(qkv[rows], bias[item:item + 1], 1, 16384, 16, 512, 1)
+        close(out[rows], ref, True)
+
+
+@pytest.mark.parametrize("batch,s_len,d", [(2, 512, 256), (3, 1280, 256), (32, 16384, 1024)])
+def test_led_global_rows_on_the_card(dev, batch, s_len, d):
+    """The fused stack's LED self-attention (the window kernel, then the
+    global rows by gemm, the long or short cross_kv in bf16 and
+    dec_cross_attention at one query an item) against the same steps
+    through the plain twins."""
+    from vacnic_tpu_torch.core.config import BartConfig
+    from vacnic_tpu_torch.kernels import encoder_stack as ES
+    from vacnic_tpu_torch.kernels import primitives as K
+
+    heads = d // 64
+    cfg = BartConfig(d_model=d, encoder_attention_heads=heads, attention_window=1024,
+                     position_offset=0)
+    g = torch.Generator(device=dev).manual_seed(batch + s_len)
+    xb = rn(g, batch * s_len, d, dtype=torch.bfloat16)
+    w_qkv = rn(g, d, 3 * d, std=0.02, dtype=torch.bfloat16)
+    qkv = K.gemm(xb, w_qkv, rn(g, 3 * d, std=0.02), out_dtype=torch.bfloat16)
+    _, bias = window_case(g, batch, s_len, heads, [s_len - 37 * i for i in range(batch)])
+    sp = ES.EncStackParams(*([None] * 15), w_qg=rn(g, 1, d, d, std=0.02, dtype=torch.bfloat16),
+                           b_qg=rn(g, 1, d, std=0.02),
+                           w_kvg=rn(g, 1, d, 2 * d, std=0.02, dtype=torch.bfloat16),
+                           b_kvg=rn(g, 1, 2 * d, std=0.02))
+    got = ES._window_attention(sp, 0, qkv, xb, bias, batch, s_len, cfg, ES.KERNEL_OPS)
+    items = range(batch) if batch <= 3 else (0, 9, 31)
+    for item in items:
+        rows = slice(item * s_len, (item + 1) * s_len)
+        ref = ES._window_attention(sp, 0, qkv[rows], xb[rows], bias[item:item + 1], 1, s_len,
+                                   cfg, ES.PLAIN_OPS)
+        close(got[rows], ref, True)
+
+
+@pytest.mark.parametrize("int8", [True, False])
+@pytest.mark.parametrize("batch,s_len,d", [(2, 1025, 256), (3, 1280, 256), (2, 4097, 512),
+                                           (32, 16384, 1024)])
+def test_cross_kv_long_kernel(dev, batch, s_len, d, int8):
+    """cross_kv past 1024 positions (clusters of the column pair, then
+    cross_kv_quant_kernel) against the twin, as test_cross_kv_kernel: int8
+    within +-1 on a small share, scales within 2^-7, bf16 within an ulp; the
+    int8 form equal, bit for bit, to quantize_cross_kv of the kernel's bf16
+    form; a product and (int8) a quantization a layer; repeatable."""
+    import chip_smoke
+    from vacnic_tpu_torch.kernels import primitives as K
+
+    g = torch.Generator(device=dev).manual_seed(batch * 7 + s_len)
+    layers = 1 if batch == 32 else 2
+    x, w, b = chip_smoke.cross_kv_inputs(g, batch, s_len, d, layers=layers)
+    before = K.launch_counts()
+    got = K.cross_kv(x, w, b, d // 64, int8)
+    after = K.launch_counts()
+    assert after["cross_kv"] == before["cross_kv"] + layers
+    assert after["cross_kv_quant"] == before["cross_kv_quant"] + (layers if int8 else 0)
+    if batch == 32:  # the twin's f32 temporaries of one layer at 16384 positions: a few items
+        sub = slice(0, 4)
+        ref = K.cross_kv_plain(x[sub].contiguous(), w, b, d // 64, int8)
+        got_sub = tuple(None if t is None else t[:, sub] for t in got)
+        gaps = chip_smoke.cross_kv_gaps(got_sub, ref)
+    else:
+        gaps = chip_smoke.cross_kv_gaps(got, K.cross_kv_plain(x, w, b, d // 64, int8))
+    assert gaps["ok"], gaps
+    if int8:
+        k16, v16, _, _ = K.cross_kv(x, w, b, d // 64, False)
+        for q, sc, y in ((got[0], got[2], k16), (got[1], got[3], v16)):
+            q_ref, sc_ref = K.quantize_cross_kv(y)
+            assert torch.equal(q, q_ref) and torch.equal(sc, sc_ref)
+    again = K.cross_kv(x, w, b, d // 64, int8)
+    assert all(torch.equal(a, o) for a, o in zip(again, got) if a is not None)
+
+
+@pytest.mark.parametrize("items,heads,beams,s_len,kind", [
+    (2, 2, 5, 6000, "int8"), (3, 2, 8, 9000, "bf16"), (2, 4, 1, 22000, "bf16"),
+    (2, 2, 3, 16384, "int8"), (32, 16, 5, 16384, "int8")])
+def test_dec_cross_split_kernel(dev, items, heads, beams, s_len, kind):
+    """The split dec_cross_attention (S over a cluster) where the plan takes
+    it: against the twin, a fully masked item and a half-masked one,
+    bit-identical over two calls; every split that fits agrees with the
+    plan's within one bf16 rounding."""
+    from vacnic_tpu_torch.kernels import primitives as K
+
+    g = torch.Generator(device=dev).manual_seed(beams * s_len)
+    args = cross_case(g, items, heads, beams, s_len, kind)
+    plan = K.dec_cross_plan(beams, s_len, 1 if kind == "int8" else 2)
+    assert plan.variant == "split"
+    before = K.dec_cross_variant_counts()["split"]
+    out = K.dec_cross_attention(*args, heads)
+    assert K.dec_cross_variant_counts()["split"] == before + 1
+    assert bool(torch.isfinite(out.float()).all())
+    close(out, K.dec_cross_attention_plain(*args, heads), True)
+    assert torch.equal(out, K.dec_cross_attention(*args, heads))
+    for n in K.DEC_CROSS_SPLITS:
+        other = K.dec_cross_variant_plan("split", beams, s_len, 1 if kind == "int8" else 2, n)
+        if other.smem <= K.SMEM_MAX and (n - 1) * K.dec_cross_split_positions(s_len, n) < s_len:
+            close(K._dec_cross_planned(other, *args, heads), out, True)
+
+
+def test_dec_cross_split_matches_the_unsplit_block(dev):
+    """Where both fit (5 beams at S 2000), a split over 2, 4 and 8 blocks
+    against the unsplit block of the same beams."""
+    from vacnic_tpu_torch.kernels import primitives as K
+
+    g = torch.Generator(device=dev).manual_seed(2000)
+    for kind in ("int8", "bf16"):
+        args = cross_case(g, 4, 4, 5, 2000, kind)
+        one = K.dec_cross_attention(*args, 4)
+        for n in K.DEC_CROSS_SPLITS:
+            plan = K.dec_cross_variant_plan("split", 5, 2000, 1 if kind == "int8" else 2, n)
+            close(K._dec_cross_planned(plan, *args, 4), one, True)

@@ -20,7 +20,8 @@ from vacnic_tpu.data.synthetic import synthetic_batch as j_batch
 from vacnic_tpu.kernels.encoder_stack import encoder_text_stack as j_text_stack
 from vacnic_tpu.models import fusion as JF
 from vacnic_tpu.train.train_step import create_mask as j_mask, face_mask_from_emb as j_face
-from vacnic_tpu_torch.core.config import BartConfig, FusionConfig, VacnicConfig as TC
+from vacnic_tpu_torch.core.config import (PORT_ONLY_BART_FIELDS, BartConfig, FusionConfig,
+                                          VacnicConfig as TC)
 from vacnic_tpu_torch.core.rng import make_generator
 from vacnic_tpu_torch.data.synthetic import synthetic_batch as t_batch
 from vacnic_tpu_torch.kernels import encoder_stack as ES
@@ -126,7 +127,8 @@ def test_init_tree_matches_jax(only_image):
                             only_image=only_image)
     import vacnic_tpu.core.config as J
 
-    jbart = J.BartConfig(**dataclasses.asdict(bart))
+    jbart = J.BartConfig(**{k: v for k, v in dataclasses.asdict(bart).items()
+                            if k not in PORT_ONLY_BART_FIELDS})  # LED's: the port's own
     jfus = J.FusionConfig(**dataclasses.asdict(fus))
     shapes = jax.eval_shape(lambda k: JF.multimodal_bart_init(k, jbart, jfus),
                             jax.random.PRNGKey(0))

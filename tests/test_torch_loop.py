@@ -24,7 +24,7 @@ import torch
 
 from vacnic_tpu.core.config import VacnicConfig as JC
 from vacnic_tpu.train.checkpoints import CheckpointManager as JCheckpointManager
-from vacnic_tpu_torch.core.config import VacnicConfig
+from vacnic_tpu_torch.core.config import PORT_ONLY_BART_FIELDS, BartConfig, VacnicConfig
 from vacnic_tpu_torch.core.logging import MetricsLogger
 from vacnic_tpu_torch.core.rng import make_generator
 from vacnic_tpu_torch.core.tree import leaves_with_path
@@ -170,13 +170,19 @@ def test_config_sidecar_reads_in_both_packages(tmp_path):
     cfg = tiny(alpha=0.25)
     CheckpointManager(str(tmp_path / "port"), cfg)
     jcfg = JCheckpointManager.load_config(str(tmp_path / "port"))
-    assert json.loads(jcfg.to_json()) == json.loads(cfg.to_json())
+    port_json = json.loads(cfg.to_json())
+    for name in PORT_ONLY_BART_FIELDS:  # LED's fields: the port's own, at BART's defaults
+        assert port_json["bart"].pop(name) == getattr(BartConfig(), name)
+    assert json.loads(jcfg.to_json()) == port_json
     assert jcfg.train.alpha == 0.25
     jdir = tmp_path / "jax"
     j = dataclasses.replace(JC.tiny(), train=dataclasses.replace(JC.tiny().train, margin=0.7))
     JCheckpointManager(str(jdir), j).close()  # the JAX package writes its sidecar
     got = CheckpointManager.load_config(str(jdir))
-    assert got.train.margin == 0.7 and json.loads(got.to_json()) == json.loads(j.to_json())
+    got_json = json.loads(got.to_json())
+    for name in PORT_ONLY_BART_FIELDS:
+        assert got_json["bart"].pop(name) == getattr(BartConfig(), name)
+    assert got.train.margin == 0.7 and got_json == json.loads(j.to_json())
 
 
 def test_metrics_logger_without_wandb(tmp_path, monkeypatch):

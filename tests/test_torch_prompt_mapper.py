@@ -37,7 +37,8 @@ from vacnic_tpu.models import bart as JB
 from vacnic_tpu.models import fusion as JF
 from vacnic_tpu.train.train_step import create_mask as j_mask, face_mask_from_emb as j_face
 from vacnic_tpu_torch.core import tensor_parallel as TP
-from vacnic_tpu_torch.core.config import BartConfig, FusionConfig, VacnicConfig as TC
+from vacnic_tpu_torch.core.config import (PORT_ONLY_BART_FIELDS, BartConfig, FusionConfig,
+                                          VacnicConfig as TC)
 from vacnic_tpu_torch.core.rng import make_generator
 from vacnic_tpu_torch.core.tree import leaves_with_path
 from vacnic_tpu_torch.infer.generate import generate_mm as t_generate
@@ -118,7 +119,8 @@ def test_init_tree_matches_jax(only_image, d_model):
                            encoder_ffn_dim=64, decoder_ffn_dim=64)
     fus = FusionConfig.tiny(fusion_layers=(0,), dim_common=d_model, prompt_mlp_type="mlp",
                             map_size=(196, 256, 64, 16), only_image=only_image)
-    jbart = JBart(**dataclasses.asdict(bart))
+    jbart = JBart(**{k: v for k, v in dataclasses.asdict(bart).items()
+                     if k not in PORT_ONLY_BART_FIELDS})  # LED's: the port's own
     jfus = JFusion(**dataclasses.asdict(fus))
     shapes = jax.eval_shape(lambda k: JF.multimodal_bart_init(k, jbart, jfus),
                             jax.random.PRNGKey(0))

@@ -171,11 +171,16 @@ def test_plan_keeps_the_limit_on_s(elem_bytes):
     beams too (by the groups of 8 where the wide block's scores do not
     fit). Past it only a wide block takes more (at 11 beams its scores take
     fewer bytes than a block of 8's scores, probabilities, q and bias), and
-    the first S that no block holds is refused at every such count."""
+    the first S that no block holds is refused at every such count past 8
+    beams; at 8 beams that S is split over a cluster (LED's long articles)."""
     s_max = max(s for s in range(1, 8193) if K.dec_cross_smem_bytes(8, s, elem_bytes)
                 <= K.SMEM_MAX)
     for beams in (8, 11, 16, 64):
         assert K.dec_cross_plan(beams, s_max, elem_bytes).smem <= K.SMEM_MAX
+        if beams <= K.DEC_CROSS_GROUP:
+            plan = K.dec_cross_plan(beams, s_max + 1, elem_bytes)
+            assert plan.variant == "split" and plan.smem <= K.SMEM_MAX
+            continue
         s_limit = s_max
         while True:
             try:
@@ -365,7 +370,7 @@ def test_explicit_plans_refuse_the_cpu(variant, beams):
     K.reset_launch_counts()
     with pytest.raises(ValueError, match="cuda"):
         K._dec_cross_planned(plan, q, ck, cv, ks, vs, bias, 2)
-    assert K.dec_cross_variant_counts() == {"beams": 0, "wide": 0, "grouped": 0}
+    assert K.dec_cross_variant_counts() == {"beams": 0, "wide": 0, "grouped": 0, "split": 0}
 
 
 def test_cpu_wide_beams_take_the_twin_and_count_nothing():

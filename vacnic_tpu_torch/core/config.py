@@ -29,6 +29,24 @@ class BartConfig:
     `patrickvonplaten/bart-large-fp32`, run_full_train.sh:5) with the vocab
     already extended by <ENT>, <NONAME> (train...match.py:753 resizes
     50265 -> 50267).
+
+    The last three fields hold LED's shape (allenai/led-large-16384,
+    config.json; Beltagy et al., arXiv:2004.05150) and are the port's own:
+    the JAX package has no LED. Their defaults are BART's, so every BART
+    preset is unchanged.
+      attention_window: config.json's `attention_window` (one value for
+        every encoder layer): each token attends to the keys within
+        attention_window / 2 of it. 0 is BART's dense self-attention.
+      max_encoder_position_embeddings: `max_encoder_position_embeddings`,
+        the rows of the encoder's (and the names stream's) position table;
+        0 takes `max_position_embeddings` (BART: one size for both). The
+        decoder's table is `max_position_embeddings` (LED's
+        `max_decoder_position_embeddings`).
+      position_offset: the rows a position table holds before position 0:
+        2 for BART's BartLearnedPositionalEmbedding, 0 for LED's.
+    Where the window is set, the first token `<s>` has global attention
+    (LED's `global_attention_mask` on `<s>`, the paper's convention for long
+    inputs, §5): `global_tokens`.
     """
 
     vocab_size: int = 50267
@@ -51,6 +69,26 @@ class BartConfig:
     dropout: float = 0.1
     attention_dropout: float = 0.0
     activation_dropout: float = 0.0
+    # LED (port only; see the docstring)
+    attention_window: int = 0
+    max_encoder_position_embeddings: int = 0
+    position_offset: int = 2
+
+    @property
+    def global_tokens(self) -> int:
+        """The leading tokens with global attention: `<s>` under a window."""
+        return 1 if self.attention_window else 0
+
+    @property
+    def encoder_positions(self) -> int:
+        """Rows of the encoder's position table, the offset's included."""
+        return (self.max_encoder_position_embeddings or self.max_position_embeddings
+                ) + self.position_offset
+
+    @property
+    def decoder_positions(self) -> int:
+        """Rows of the decoder's position table, the offset's included."""
+        return self.max_position_embeddings + self.position_offset
 
     @property
     def head_dim(self) -> int:
@@ -295,6 +333,18 @@ class VacnicConfig:
         return dataclasses.replace(cfg, fusion=dataclasses.replace(cfg.fusion, only_image=True))
 
     @staticmethod
+    def led_full() -> "VacnicConfig":
+        """The full model (full_train) with LED-large-16384 as its BART:
+        bart-large's widths, 16384 encoder positions, a window of 1024 in
+        every encoder layer with global attention on `<s>`, 1024 decoder
+        positions, no position offset; articles of 16384 tokens."""
+        cfg = VacnicConfig()
+        bart = dataclasses.replace(cfg.bart, attention_window=1024,
+                                   max_encoder_position_embeddings=16384, position_offset=0)
+        return dataclasses.replace(cfg, bart=bart,
+                                   data=dataclasses.replace(cfg.data, article_max_length=16384))
+
+    @staticmethod
     def tiny(only_image: bool = False) -> "VacnicConfig":
         return VacnicConfig(
             bart=BartConfig.tiny(),
@@ -334,6 +384,11 @@ class VacnicConfig:
             decode=build(DecodeConfig, raw.get("decode", {})),
             mesh=build(MeshConfig, raw.get("mesh", {})),
         )
+
+
+# BartConfig's fields that the JAX package's copy does not have (LED's)
+PORT_ONLY_BART_FIELDS = ("attention_window", "max_encoder_position_embeddings",
+                         "position_offset")
 
 
 def dtype_of(name: str):

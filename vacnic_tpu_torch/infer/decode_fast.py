@@ -41,7 +41,6 @@ import torch
 
 from vacnic_tpu_torch.core.config import BartConfig
 from vacnic_tpu_torch.kernels import primitives as K
-from vacnic_tpu_torch.models.bart import POS_OFFSET
 from vacnic_tpu_torch.models.layers import ACT2FN, Params, layernorm
 
 
@@ -243,7 +242,7 @@ def _embed(params: Params, tok: torch.Tensor, pos: int, cfg: BartConfig, dtype) 
     dec = params["decoder"]
     x = params["shared"]["weight"][tok[:, 0].long()].to(dtype)
     scale = float(cfg.d_model) ** 0.5 if cfg.scale_embedding else 1.0
-    x = x * scale + dec["embed_positions"]["weight"][pos + POS_OFFSET].to(dtype)
+    x = x * scale + dec["embed_positions"]["weight"][pos + cfg.position_offset].to(dtype)
     return layernorm(dec["layernorm_embedding"], x)
 
 

@@ -33,8 +33,11 @@ SIGNATURES = {
     "vt_gemm_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "vt_gemm_smem_bytes": [_I, _I, _I],  # returns bytes, not an error code
     "vt_cross_kv": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "vt_cross_kv_long": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "vt_cross_kv_quant": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
     "vt_layernorm": [_P, _P, _P, _P, _I, _I, _F, _I, _I, _P],
     "vt_enc_self_attention": [_P, _P, _P, _I, _I, _I, _F, _P],
+    "vt_enc_window_attention": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     "vt_enc_cross_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "vt_enc_cross_smem_bytes": [],  # returns bytes
     "vt_dec_self_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],

@@ -66,10 +66,23 @@
 //   (a warp a beam: lanes strided over S in increasing order, then the
 //   butterfly), the same P V order. So the bits are the same at any beam
 //   count and in either launch.
-// Measured against it and not kept (PERF.md): S split over a thread
-//   block cluster of 2 or 4 blocks, the ranges' softmax statistics and
-//   outputs combined in rank order through distributed shared memory --
-//   2048 short blocks in three waves, whose loads stopped between the waves.
+// Split (1-8 beams, an S whose scores no block holds: LED's 16384 positions
+//   at 5 beams need 320 KB of them): S cut into whole tiles over a thread
+//   block cluster of 2, 4 or 8 blocks an (item, head), rank r taking the r-th
+//   share in order. Each block runs the beams block above on its share: its
+//   scores, then the exact softmax over the whole row through distributed
+//   shared memory -- each rank's row maxima, the cluster barrier, the row
+//   max over the ranks (a max is the same in any order), each rank's sum of
+//   exp(s - max), the barrier, the sum over the ranks in rank order, which
+//   every rank adds alike -- so the probabilities are rounded to bf16 after
+//   the division by the whole row's sum; then its share of P V, the partial
+//   sums of every rank read by rank 0 and added in rank order. The order is
+//   fixed: bit-identical from call to call. The sums' order differs from the
+//   unsplit block's, so the two agree to f32 rounding, not bit for bit. At
+//   S 512 an earlier version of this split (2 or 4 blocks) was measured
+//   against the unsplit block and not kept: 2048 short blocks in three
+//   waves, whose loads stopped between the waves (PERF.md). Here it runs
+//   only where no unsplit block fits.
 //   In the wide block: the probabilities in rows of their own, int8's bf16
 //   strips in shared memory, and one expf a position in each of two passes.
 
@@ -77,8 +90,11 @@
 #include <stdint.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cooperative_groups.h>
 
 #include "attn_tiles.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -200,9 +216,30 @@ __host__ __device__ constexpr long long wide_smem_bytes(int beams, int S, int el
          4LL * beams * ((S + TP - 1) / TP * TP + 4) + 16 + 4LL * HD + 16LL * beams;
 }
 
+constexpr int MAX_SPLIT = 8;  // blocks of a split cluster: the portable largest
+
+// Positions a rank of a split over `split` blocks takes: whole tiles.
+__host__ __device__ constexpr int split_positions(int S, int split) {
+  return ((S + TP - 1) / TP + split - 1) / split * TP;
+}
+
+// Dynamic shared memory of a split block (kernels/primitives.dec_cross_smem_bytes
+// states the same): the beams block's layout for `beams` beams over a
+// rank's positions, then the exchange: the row maxima [8], the row sums [8]
+// and the partial outputs [128][4], f32.
+__host__ __device__ constexpr long long split_smem_bytes(int beams, int S, int elem_bytes,
+                                                         int split) {
+  return static_cast<long long>(ring_slots(elem_bytes)) * HD * row_bytes(TP, elem_bytes) +
+         (elem_bytes == 1 ? 4 * STRIP : 0) + 4LL * beams * (split_positions(S, split) + 4) +
+         2LL * beams * (split_positions(S, split) + 8) + 16 + 4LL * MAX_BEAMS * QSW +
+         4LL * split_positions(S, split) + 4LL * HD + 8LL * MAX_BEAMS + 4LL * 2 * MAX_BEAMS +
+         16LL * THREADS;
+}
+
 // A block's work: the NB beams of an (item, head), or (GROUPED, NB = 8)
-// one group of 8 beams of it.
-template <typename KT, int NB, bool GROUPED>
+// one group of 8 beams of it, or (SPLIT, NB = 8) the `beams` beams of an
+// (item, head) over one rank's share of S.
+template <typename KT, int NB, bool GROUPED, bool SPLIT = false>
 __device__ __forceinline__ void
 dec_cross_block(const __nv_bfloat16* __restrict__ q, const KT* __restrict__ ck,
                 const KT* __restrict__ cv, const float* __restrict__ ks,
@@ -217,29 +254,39 @@ dec_cross_block(const __nv_bfloat16* __restrict__ q, const KT* __restrict__ ck,
   constexpr int SLOT = HD * RB;
   constexpr int SROW = row_bytes(16, 2);  // a row of a scores strip: 16 positions
   extern __shared__ __align__(16) unsigned char smem[];
-  const int h = GROUPED ? blockIdx.y : blockIdx.x, b = GROUPED ? blockIdx.z : blockIdx.y;
+  const int h = GROUPED || SPLIT ? blockIdx.y : blockIdx.x;
+  const int b = GROUPED || SPLIT ? blockIdx.z : blockIdx.y;
   const int grp = GROUPED ? blockIdx.x : 0;
-  const int nb = GROUPED ? min(NB, beams - NB * grp) : NB;  // this block's beams
-  const size_t row0 = static_cast<size_t>(b) * (GROUPED ? beams : NB) + NB * grp;  // its first q row
+  const int nb = GROUPED ? min(NB, beams - NB * grp) : SPLIT ? beams : NB;  // this block's beams
+  const size_t row0 =
+      static_cast<size_t>(b) * (GROUPED || SPLIT ? beams : NB) + NB * grp;  // its first q row
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;   // mma lane naming
   const int mi = lane >> 3, r = lane & 7;  // the ldmatrix matrix and row this lane points at
   const int D = H * HD;
   const size_t head = static_cast<size_t>(b) * H + h;
-  const int nt = (S + TP - 1) / TP, sp = nt * TP;
+  // the positions p0 .. p0 + sl - 1 of S are this block's (all but in a split)
+  const int rank = SPLIT ? blockIdx.x : 0, nsplit = SPLIT ? gridDim.x : 1;
+  const int spr = SPLIT ? split_positions(S, nsplit) : 0;
+  const int p0 = rank * spr, sl = SPLIT ? min(spr, S - p0) : S;
+  const int nt = (sl + TP - 1) / TP, sp = SPLIT ? spr : nt * TP;  // tiles; the layout's positions
+  const int LB = SPLIT ? nb : NB;       // beams the layout holds
   const int SCW = sp + 4, PW = sp + 8;  // rows of scores, probabilities
   unsigned char* ring = smem;                                           // [R][64][RB]
   unsigned char* strip = ring + R * SLOT + (INT8 ? warp * STRIP : 0);  // int8: this warp's
-  float* sc = reinterpret_cast<float*>(ring + R * SLOT + (INT8 ? 4 * STRIP : 0));  // [NB][SCW]
-  __nv_bfloat16* pt = reinterpret_cast<__nv_bfloat16*>(sc + NB * SCW);    // [NB][PW]
-  unsigned char* zero16 = reinterpret_cast<unsigned char*>(pt + NB * PW);  // 16 zero bytes
+  float* sc = reinterpret_cast<float*>(ring + R * SLOT + (INT8 ? 4 * STRIP : 0));  // [LB][SCW]
+  __nv_bfloat16* pt = reinterpret_cast<__nv_bfloat16*>(sc + LB * SCW);    // [LB][PW]
+  unsigned char* zero16 = reinterpret_cast<unsigned char*>(pt + LB * PW);  // 16 zero bytes
   float* qs = reinterpret_cast<float*>(zero16 + 16);                     // [8][QSW]
   float* bs = qs + MAX_BEAMS * QSW;                                      // [sp] bias
   float* vss = bs + sp;                                                  // [64] V scales
   float2* gst = reinterpret_cast<float2*>(vss + HD);                    // [8] (max, 1 / sum)
-  const KT* kg = ck + head * HD * S;
-  const KT* vg = cv + head * HD * S;
-  const float* bg = bias + static_cast<size_t>(b) * S;
+  float* xm = reinterpret_cast<float*>(gst + MAX_BEAMS);  // split: [8] this rank's row maxima,
+  float* xl = xm + MAX_BEAMS;                             // [8] its row sums,
+  float* xo = xl + MAX_BEAMS;                             // [128][4] its partial outputs
+  const KT* kg = ck + head * HD * S + p0;
+  const KT* vg = cv + head * HD * S + p0;
+  const float* bg = bias + static_cast<size_t>(b) * S + p0;
 
   // tile j of K_0 .. K_{nt-1}, V_0 .. V_{nt-1} into ring slot j % R: one
   // cp.async group a tile (an empty one past the end keeps the count)
@@ -248,7 +295,7 @@ dec_cross_block(const __nv_bfloat16* __restrict__ q, const KT* __restrict__ ck,
       const int jt = j < nt ? j : j - nt;
       const KT* src = (j < nt ? kg : vg) + jt * TP;
       unsigned char* dst = ring + (j % R) * SLOT;
-      const int n = min(TP, S - jt * TP);
+      const int n = min(TP, sl - jt * TP);
       if (vec && n == TP) {  // a whole tile: every thread the same pieces, no division
         constexpr int CPR = TP * EB / 16;  // 16-byte pieces of a row
         const int c = tid % CPR;
@@ -283,9 +330,9 @@ dec_cross_block(const __nv_bfloat16* __restrict__ q, const KT* __restrict__ ck,
   // 1. the bias rides in the first tile's group; R - 1 tiles go out; q and
   // the scales come into registers meanwhile
   if (vec) {
-    for (int c = tid; c < S / 4; c += THREADS) cp_async16(smem_u32(bs + 4 * c), bg + 4 * c);
+    for (int c = tid; c < sl / 4; c += THREADS) cp_async16(smem_u32(bs + 4 * c), bg + 4 * c);
   } else {
-    for (int p = tid; p < S; p += THREADS) bs[p] = bg[p];
+    for (int p = tid; p < sl; p += THREADS) bs[p] = bg[p];
   }
 #pragma unroll
   for (int j = 0; j < R - 1; ++j) fetch(j);
@@ -354,31 +401,61 @@ dec_cross_block(const __nv_bfloat16* __restrict__ q, const KT* __restrict__ ck,
 #pragma unroll
       for (int hh = 0; hh < 2; ++hh) {
         const int pos = j * TP + 16 * warp + g + 8 * hh;
-        const bool inside = pos < S;
+        const bool inside = pos < sl;
         const float bb = inside ? bs[pos] : 0.0f;
         if (2 * t < nb) sc[2 * t * SCW + pos] = inside ? d[2 * hh] + bb : -INFINITY;
         if (2 * t + 1 < nb) sc[(2 * t + 1) * SCW + pos] = inside ? d[2 * hh + 1] + bb : -INFINITY;
       }
       if (j == nt - 1) {  // 3. softmax over all S, a warp a beam
         __syncthreads();
-        for (int bm = warp; bm < nb; bm += THREADS / 32) {
-          const float* row = sc + bm * SCW;
-          float m = -INFINITY;
-          for (int p = lane; p < S; p += 32) m = fmaxf(m, row[p]);
-          m = warp_max(m);
-          float l = 0.0f;
-          for (int p = lane; p < S; p += 32) l += expf(row[p] - m);
-          l = warp_sum(l);
-          if (lane == 0) gst[bm] = make_float2(m, 1.0f / l);
+        if constexpr (SPLIT) {  // the row's statistics over the cluster's ranks
+          cg::cluster_group cluster = cg::this_cluster();
+          for (int bm = warp; bm < nb; bm += THREADS / 32) {
+            const float* row = sc + bm * SCW;
+            float m = -INFINITY;
+            for (int p = lane; p < sl; p += 32) m = fmaxf(m, row[p]);
+            m = warp_max(m);
+            if (lane == 0) xm[bm] = m;
+          }
+          cluster.sync();  // every rank's maxima are in
+          for (int bm = warp; bm < nb; bm += THREADS / 32) {
+            float m = -INFINITY;
+            for (int k = 0; k < nsplit; ++k) m = fmaxf(m, cluster.map_shared_rank(xm, k)[bm]);
+            const float* row = sc + bm * SCW;
+            float l = 0.0f;
+            for (int p = lane; p < sl; p += 32) l += expf(row[p] - m);
+            l = warp_sum(l);
+            if (lane == 0) {
+              xl[bm] = l;
+              gst[bm].x = m;
+            }
+          }
+          cluster.sync();  // every rank's sums are in
+          if (tid < nb) {
+            float l = 0.0f;
+            for (int k = 0; k < nsplit; ++k) l += cluster.map_shared_rank(xl, k)[tid];
+            gst[tid].y = 1.0f / l;
+          }
+        } else {
+          for (int bm = warp; bm < nb; bm += THREADS / 32) {
+            const float* row = sc + bm * SCW;
+            float m = -INFINITY;
+            for (int p = lane; p < S; p += 32) m = fmaxf(m, row[p]);
+            m = warp_max(m);
+            float l = 0.0f;
+            for (int p = lane; p < S; p += 32) l += expf(row[p] - m);
+            l = warp_sum(l);
+            if (lane == 0) gst[bm] = make_float2(m, 1.0f / l);
+          }
         }
         __syncthreads();
 #pragma unroll
         for (int bm = 0; bm < NB; ++bm) {  // normalised, then rounded to bf16; 0 past S
           if (bm >= nb) break;
           const float2 ml = gst[bm];
-          for (int pos = tid; pos < sp; pos += THREADS)
+          for (int pos = tid; pos < nt * TP; pos += THREADS)
             pt[bm * PW + pos] =
-                __float2bfloat16(pos < S ? expf(sc[bm * SCW + pos] - ml.x) * ml.y : 0.0f);
+                __float2bfloat16(pos < sl ? expf(sc[bm * SCW + pos] - ml.x) * ml.y : 0.0f);
         }
       }
     } else {
@@ -404,6 +481,28 @@ dec_cross_block(const __nv_bfloat16* __restrict__ q, const KT* __restrict__ ck,
         mma_bf16(o, a, b0, b1);
       }
     }
+  }
+
+  if constexpr (SPLIT) {  // the ranks' partial sums, added by rank 0 in rank order
+    cg::cluster_group cluster = cg::this_cluster();
+    *reinterpret_cast<float4*>(xo + 4 * tid) = make_float4(o[0], o[1], o[2], o[3]);
+    cluster.sync();  // every rank's partials are in
+    if (rank == 0) {
+      float4 a = *reinterpret_cast<const float4*>(xo + 4 * tid);
+      for (int k = 1; k < nsplit; ++k) {
+        const float4 e = *reinterpret_cast<const float4*>(cluster.map_shared_rank(xo, k) + 4 * tid);
+        a.x += e.x;
+        a.y += e.y;
+        a.z += e.z;
+        a.w += e.w;
+      }
+      o[0] = a.x;
+      o[1] = a.y;
+      o[2] = a.z;
+      o[3] = a.w;
+    }
+    cluster.sync();  // no rank leaves while rank 0 still reads its partials
+    if (rank != 0) return;
   }
 
   // 5. the head output, times the V scale (int8)
@@ -442,6 +541,20 @@ dec_cross_kernel_grouped(const __nv_bfloat16* __restrict__ q, const KT* __restri
                          __nv_bfloat16* __restrict__ out, int H, int S, int beams, int vec,
                          float scaling) {
   dec_cross_block<KT, MAX_BEAMS, true>(q, ck, cv, ks, vs, bias, out, H, S, beams, vec, scaling);
+}
+
+// grid (split, H, B) in clusters of (split, 1, 1), block 128: rank r takes
+// the r-th share of S for all `beams` <= 8 of an item. Two blocks a SM:
+// LED's 16384 positions at 5 int8 beams over 8 ranks take 105 KB each.
+template <typename KT>
+__global__ void __launch_bounds__(THREADS, 2)
+dec_cross_kernel_split(const __nv_bfloat16* __restrict__ q, const KT* __restrict__ ck,
+                       const KT* __restrict__ cv, const float* __restrict__ ks,
+                       const float* __restrict__ vs, const float* __restrict__ bias,
+                       __nv_bfloat16* __restrict__ out, int H, int S, int beams, int vec,
+                       float scaling) {
+  dec_cross_block<KT, MAX_BEAMS, false, true>(q, ck, cv, ks, vs, bias, out, H, S, beams, vec,
+                                              scaling);
 }
 
 // grid (H, B), block 128: all `beams` of an item, 8 (G - 1) < beams <= 8 G,
@@ -778,8 +891,46 @@ int launch_wide(const Args& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// S over a cluster of `groups` = 2, 4 or 8 blocks an (item, head), <= 8
+// beams (split). The plan's bytes must be this split's, and every rank
+// must hold positions.
+template <typename KT>
+int launch_split(const Args& a) {
+  constexpr int EB = sizeof(KT);
+  const int split = a.groups;
+  if (a.beams > MAX_BEAMS || (split != 2 && split != 4 && split != MAX_SPLIT))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long smem = split_smem_bytes(a.beams, a.S, EB, split);
+  if (smem > MAX_SMEM || a.smem != smem || (split - 1) * split_positions(a.S, split) >= a.S)
+    return static_cast<int>(cudaErrorInvalidValue);
+  static device_state::PerDevice configured;  // the shared-memory limit, raised once a device
+  const int vec = (a.S * EB) % 16 == 0 && reinterpret_cast<uintptr_t>(a.ck) % 16 == 0 &&
+                  reinterpret_cast<uintptr_t>(a.cv) % 16 == 0 &&
+                  reinterpret_cast<uintptr_t>(a.bias) % 16 == 0;
+  auto kernel = dec_cross_kernel_split<KT>;
+  cudaError_t e = device_state::allow_smem(kernel, MAX_SMEM, configured);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(split, a.H, a.B);
+  cfg.blockDim = dim3(THREADS, 1, 1);
+  cfg.dynamicSmemBytes = static_cast<size_t>(smem);
+  cfg.stream = a.stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, kernel, reinterpret_cast<const __nv_bfloat16*>(a.q),
+                         reinterpret_cast<const KT*>(a.ck), reinterpret_cast<const KT*>(a.cv),
+                         a.ks, a.vs, a.bias, a.out, a.H, a.S, a.beams, vec, a.scaling);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // The plan's variant (kernels/primitives.DEC_CROSS_VARIANTS: 0 beams, 1
-// wide, 2 grouped) -> its instance; anything else is refused.
+// wide, 2 grouped, 3 split) -> its instance; anything else is refused.
 template <typename KT>
 int launch_variant(int variant, const Args& a) {
   const int invalid = static_cast<int>(cudaErrorInvalidValue);
@@ -804,6 +955,7 @@ int launch_variant(int variant, const Args& a) {
     }
   }
   if (variant == 2 && a.beams > MAX_BEAMS) return launch<KT, MAX_BEAMS, true>(a);
+  if (variant == 3) return launch_split<KT>(a);
   return invalid;
 }
 
@@ -815,7 +967,8 @@ int launch_variant(int variant, const Args& a) {
 // aligned. variant, groups and smem are kernels/primitives.dec_cross_plan's:
 // the instance (beams: 1-8 beams, one block an (item, head); wide: 9-24,
 // one block an (item, head) for all; grouped: past 8, a block a group of
-// 8), the blocks an (item, head) and the dynamic shared memory of a block.
+// 8; split: 1-8 beams, S over a cluster of `groups` blocks), the blocks an
+// (item, head) and the dynamic shared memory of a block.
 // A plan that is not the instance's, a block that would need more than 227
 // KB of shared memory, or anything else out of range, is refused with
 // cudaErrorInvalidValue.

@@ -61,6 +61,32 @@
 //   layouts as enc_self_attn_kernel (attn_tiles.cuh), one instruction a
 //   k-step, and the tile operands read once a block; at 2.7 GFLOP the
 //   kernel is bytes bound either way.
+//
+// (3) enc_window_kernel: LED's windowed self-attention (Longformer,
+//   arXiv:2004.05150 §3; transformers' LEDEncoderSelfAttention), which
+//   replaces no TPU kernel: the JAX package has no LED. Row i attends to the
+//   keys j with |i - j| <= w (w = attention_window / 2) and to the item's
+//   global keys j < G (the leading tokens with global attention, counted
+//   once), each unless padded; the softmax is over that union, f32, exact;
+//   a padded query row's probabilities are 0, so its output is 0. The rows
+//   of the global tokens themselves are computed here too and then
+//   overwritten by their global attention (kernels/encoder_stack).
+//   Semantics as (1): q rounded to bf16 after the scaling, P to bf16 after
+//   the exact normalisation, P V in f32, bf16 out.
+// Bound on the H100, B = 32, S = 16384, H = 16, w = 512, a layer: the band
+//   is 2w + 1 = 1025 keys a row, 4 * B * S * H * 1025 * 64 = 2.2 TFLOP, 2.2
+//   ms at 989 TFLOP/s; q, k, v and o are 4.3 GB, 1.3 ms at 3.35 TB/s:
+//   operations bound. As (1) it computes Q K^T twice: 3.3 TFLOP done.
+// Design: enc_self_attn_kernel's, one block of one warpgroup a 64-row query
+//   tile, two passes over a list of key tiles instead of all of them: the
+//   tiles that meet [q0 - w, q0 + 63 + w] (17 at w = 512: 18 a tile minus
+//   those cut by the item's ends) and, where that band does not reach it,
+//   tile 0, which holds the global keys (G <= 64). Each score is masked by
+//   the rule above in registers (-inf, exactly 0 after exp); the pad bias is
+//   read from device memory (L1), not staged, so a block's shared memory is
+//   the ring alone and four blocks share a SM at any S. A query tile whose
+//   rows are all padding (the tail past an item's length) writes zeros and
+//   returns: no copy, no product.
 
 #include <float.h>
 #include <math.h>
@@ -89,6 +115,7 @@ constexpr int CROSS_STAGES = 3;              // q tiles a block has in flight
 // K tile | V tile | CROSS_STAGES q tiles | the output tile, + 1024 to align
 constexpr int CROSS_SMEM = TILE_ALIGN + (3 + CROSS_STAGES) * KV_TILE_BYTES;
 constexpr int CROSS_BLOCKS_PER_SM = 4;      // the block slots the grid fills
+constexpr int WINDOW_SMEM = RING_BYTES + TILE_ALIGN;  // the ring alone: the bias stays in L1
 
 __global__ void __launch_bounds__(SELF_THREADS, 4)
 enc_self_attn_kernel(const __nv_bfloat16* __restrict__ qkv, const float* __restrict__ bias,
@@ -215,6 +242,151 @@ enc_self_attn_kernel(const __nv_bfloat16* __restrict__ qkv, const float* __restr
   }
 
   store_o_tile(out + (tok0 + row0) * d + h * HD, d, o, 1.0f, 1.0f, lane);
+}
+
+// grid (S / 64, H, B): block (x, h, b) takes query rows 64x .. 64x + 63 of
+// item b, head h, over the key tiles of its band and the global tile.
+__global__ void __launch_bounds__(SELF_THREADS, 4)
+enc_window_kernel(const __nv_bfloat16* __restrict__ qkv, const float* __restrict__ bias,
+                  __nv_bfloat16* __restrict__ out, int S, int H, int w, int G, float scaling) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_tiles(smem_raw);
+  const uint32_t smem0 = smem_u32(smem);
+
+  const int d = H * HD, d3 = 3 * d;
+  const int q0 = blockIdx.x * QT, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const size_t tok0 = (size_t)b * S;
+  const float* brow = bias + tok0;  // the item's pad bias: 0 where a token is kept
+  const int row0 = q0 + warp * 16;  // this warp's first query row
+  const int ra = row0 + g, rb = ra + 8;  // this lane's two rows
+  __nv_bfloat16* obase = out + (tok0 + row0) * d + h * HD;
+
+  // a tile of padding alone: its probabilities are all 0
+  if (!__syncthreads_or(tid < QT && __ldg(brow + q0 + tid) == 0.0f)) {
+    float z[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) z[j][0] = z[j][1] = z[j][2] = z[j][3] = 0.0f;
+    store_o_tile(obase, d, z, 1.0f, 1.0f, lane);
+    return;
+  }
+
+  // the key tiles: [global tile 0,] lo .. hi
+  const int lo = max(0, q0 - w) / KT, hi = min(S - 1, q0 + QT - 1 + w) / KT;
+  const int extra = (G > 0 && lo > 0) ? 1 : 0;
+  const int n_tiles = extra + hi - lo + 1;
+  auto tile_of = [&](int i) { return i < extra ? 0 : lo + i - extra; };
+
+  const __nv_bfloat16* kbase = qkv + tok0 * d3 + d + h * HD;
+  const __nv_bfloat16* vbase = kbase + d;
+  TileLoader<SELF_THREADS> kload, vload;
+  kload.init(kbase, d3, tid);
+  vload.init(vbase, d3, tid);
+  const __nv_bfloat16* k0 = kload.src;
+  const __nv_bfloat16* v0 = vload.src;
+  const long long tile_step = (long long)KT * d3;
+  // step i < n_tiles: K of tile_of(i) (pass 1); n_tiles + i: its K and V (pass 2)
+  auto prefetch = [&](int step) {
+    const uint32_t st = smem0 + (step & 1) * 2 * KV_TILE_BYTES;
+    const int tile = tile_of(step < n_tiles ? step : step - n_tiles);
+    kload.src = k0 + tile * tile_step;
+    kload.copy(st);
+    if (step >= n_tiles) {
+      vload.src = v0 + tile * tile_step;
+      vload.copy(st + KV_TILE_BYTES);
+    }
+    cp_async_commit();
+  };
+  prefetch(0);
+
+  uint32_t qf[4][4];
+  load_q_frags(qf, qkv + (tok0 + row0) * d3 + h * HD, d3, lane);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&qf[kk][e]));
+      qf[kk][e] = pack_bf16x2(f.x * scaling, f.y * scaling);
+    }
+  }
+
+  float o[8][4];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.0f;
+  float m0 = -FLT_MAX, m1 = -FLT_MAX;
+  float l0 = 0.0f, l1 = 0.0f;
+
+  // s = Q K^T + bias for the step's key tile, -inf where a key is neither
+  // in the row's band nor global
+  auto scores = [&](float (&s)[8][4], int step, int tile) {
+    cp_async_wait<0>();
+    fence_proxy_async();
+    __syncthreads();
+    if (step + 1 < 2 * n_tiles) prefetch(step + 1);
+    qk_tile(s, qf, smem0 + (step & 1) * 2 * KV_TILE_BYTES);
+    const int key0 = tile * KT + 2 * t;
+    float2 bv[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) bv[j] = __ldg(reinterpret_cast<const float2*>(brow + key0 + 8 * j));
+    wgmma_wait(s);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int key = key0 + 8 * j + e;
+        const float bb = e ? bv[j].y : bv[j].x;
+        const bool glob = key < G;
+        s[j][e] = (glob || abs(ra - key) <= w) ? s[j][e] + bb : -INFINITY;
+        s[j][2 + e] = (glob || abs(rb - key) <= w) ? s[j][2 + e] + bb : -INFINITY;
+      }
+    }
+  };
+
+  for (int i = 0; i < n_tiles; ++i) {
+    float s[8][4];
+    scores(s, i, tile_of(i));
+    float mx0 = -FLT_MAX, mx1 = -FLT_MAX;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
+      mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
+    }
+    const float mn0 = fmaxf(m0, quad_max(mx0)), mn1 = fmaxf(m1, quad_max(mx1));
+    float sum0 = 0.0f, sum1 = 0.0f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      sum0 += fast_exp(s[j][0] - mn0) + fast_exp(s[j][1] - mn0);
+      sum1 += fast_exp(s[j][2] - mn1) + fast_exp(s[j][3] - mn1);
+    }
+    l0 = l0 * fast_exp(m0 - mn0) + sum0;
+    l1 = l1 * fast_exp(m1 - mn1) + sum1;
+    m0 = mn0;
+    m1 = mn1;
+  }
+  l0 = 1.0f / quad_sum(l0);
+  l1 = 1.0f / quad_sum(l1);
+
+  for (int i = 0; i < n_tiles; ++i) {
+    const int step = n_tiles + i;
+    float s[8][4];
+    scores(s, step, tile_of(i));
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      s[j][0] = fast_exp(s[j][0] - m0) * l0;
+      s[j][1] = fast_exp(s[j][1] - m0) * l0;
+      s[j][2] = fast_exp(s[j][2] - m1) * l1;
+      s[j][3] = fast_exp(s[j][3] - m1) * l1;
+    }
+    uint32_t pf[4][4];
+    pack_p_frags(pf, s);
+    pv_tile(o, pf, smem0 + ((step & 1) * 2 + 1) * KV_TILE_BYTES);
+    wgmma_wait(o);
+  }
+
+  // a padded query row's probabilities are 0
+  store_o_tile(obase, d, o, __ldg(brow + ra) == 0.0f ? 1.0f : 0.0f,
+               __ldg(brow + rb) == 0.0f ? 1.0f : 0.0f, lane);
 }
 
 // One 16-byte asynchronous copy that reads `src` only when `ok`, and
@@ -397,6 +569,25 @@ extern "C" int vt_enc_self_attention(const void* qkv, const void* bias, void* ou
   enc_self_attn_kernel<<<grid, SELF_THREADS, SELF_SMEM_FIXED + (size_t)S * 4, s>>>(
       reinterpret_cast<const __nv_bfloat16*>(qkv), reinterpret_cast<const float*>(bias),
       reinterpret_cast<__nv_bfloat16*>(out), S, H, scaling);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// LED's windowed self-attention: qkv, bias and out as vt_enc_self_attention,
+// w the band's half width (attention_window / 2, >= 0), G the leading global
+// tokens (0 .. 64). Needs S % 64 == 0 and S <= 32768; anything else is
+// refused with cudaErrorInvalidValue.
+extern "C" int vt_enc_window_attention(const void* qkv, const void* bias, void* out, int B, int S,
+                                       int H, int w, int G, float scaling, void* stream) {
+  if (B < 1 || H < 1 || S < KT || S % KT || S > MAX_S || w < 0 || G < 0 || G > KT)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (B > 65535 || H > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  static device_state::PerDevice configured;  // the attribute is set once a device, not a launch
+  const cudaError_t e = allow_smem(enc_window_kernel, WINDOW_SMEM, configured);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  dim3 grid(S / QT, H, B);
+  enc_window_kernel<<<grid, SELF_THREADS, WINDOW_SMEM, reinterpret_cast<cudaStream_t>(stream)>>>(
+      reinterpret_cast<const __nv_bfloat16*>(qkv), reinterpret_cast<const float*>(bias),
+      reinterpret_cast<__nv_bfloat16*>(out), S, H, w, G, scaling);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -123,8 +123,18 @@
 // computes on a CUDA tensor (PyTorch divides by a host scalar as a product
 // with its f32 reciprocal); y / scale is an IEEE division (__fdiv_rn) and
 // rint rounds half to even, as torch.round does.
+// Past 1024 positions (LED's 16384) an item's row tiles outgrow a portable
+// cluster. There kernel 4 runs in its bf16 form with clusters of the column
+// pair alone (a cluster row a block row), and kernel 5, cross_kv_quant_kernel,
+// quantizes: a block a row of [B, d, S] (an (item, channel) of K or V),
+// the row's maximum over S, the scale, then every value, as above. The
+// values it reads are the bf16 ones the int8 epilogue quantizes, so the int8
+// and the scales are those of the one-pass form, bit for bit. Its cost is a
+// bf16 copy of K and V, written and read once more: at B 32 x S 16384 2.1
+// GB a layer, 1.3 ms at 3.35 TB/s, beside the product's 2.2 ms.
 
 #include <stdint.h>
+#include <initializer_list>
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -629,7 +639,7 @@ cross_kv_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
                      const __grid_constant__ CUtensorMap map_w, const float* __restrict__ bias,
                      void* __restrict__ out_k, void* __restrict__ out_v,
                      float* __restrict__ scale_k, float* __restrict__ scale_v, int S, int D,
-                     int tiles) {
+                     int tiles, int crows) {
   using T = Tile<KV_WGS, KV_NA, KV_STAGES>;
   constexpr int cn = CLUSTER_N;
   constexpr int ESZ = INT8 ? 1 : 2;                // bytes a stored value
@@ -643,7 +653,9 @@ cross_kv_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
   const uint32_t empty0 = full0 + KV_STAGES * 8;
   cg::cluster_group cluster = cg::this_cluster();
   const int tid = threadIdx.x;
-  const int cx = blockIdx.x % cn, cy = blockIdx.y % tiles;  // the block's place in its cluster
+  const int cx = blockIdx.x % cn, cy = blockIdx.y % tiles;  // column of the pair; row tile
+  const int crow = blockIdx.y % crows;  // the block's cluster row: cy where the item's row
+                                        // tiles make the cluster (int8), else 0
   const int item = blockIdx.y / tiles;
   const int n0 = blockIdx.x * T::BN, r0 = cy * T::BM;  // first column; first position of the item
   const int m0 = item * S + r0;                        // first row of X
@@ -671,8 +683,8 @@ cross_kv_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
       // the producer: half of the A rows for both blocks of the column pair,
       // and its own W tiles
       constexpr int a_rows = T::BM / cn;
-      const uint16_t pair = static_cast<uint16_t>(((1u << cn) - 1) << (cn * cy));
-      const uint16_t self = static_cast<uint16_t>(1u << (cx + cn * cy));
+      const uint16_t pair = static_cast<uint16_t>(((1u << cn) - 1) << (cn * crow));
+      const uint16_t self = static_cast<uint16_t>(1u << (cx + cn * crow));
       int slot = 0, parity = 1;  // a fresh barrier counts as released
       for (int kt = 0; kt < nkt; ++kt) {
         mbar_wait(empty0 + 8 * slot, parity);
@@ -700,7 +712,7 @@ cross_kv_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
       mma_step<KV_WGS, KV_NA>(acc, smem0 + slot * T::STAGE_BYTES, tid, kt == 0);
       wgmma_wait_pending<1>();  // the step before is done; this one runs on
       if (elected && kt > 0)    // hand its slot back to both producers that fill it
-        for (int r = 0; r < cn; ++r) mbar_arrive_cluster(empty0 + 8 * prev, r + cn * cy);
+        for (int r = 0; r < cn; ++r) mbar_arrive_cluster(empty0 + 8 * prev, r + cn * crow);
       prev = slot;
       if (++slot == KV_STAGES) {
         slot = 0;
@@ -801,6 +813,70 @@ cross_kv_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
   }
   __syncwarp();
   cluster.sync();  // no block leaves while a row neighbour may still read its maxima
+}
+
+// Kernel 5: a block a row of [rows, S] bf16 -> int8 and its scale.
+constexpr int QUANT_THREADS = 256;
+
+__global__ void __launch_bounds__(QUANT_THREADS)
+cross_kv_quant_kernel(const __nv_bfloat16* __restrict__ src_k,
+                      const __nv_bfloat16* __restrict__ src_v, int8_t* __restrict__ dst_k,
+                      int8_t* __restrict__ dst_v, float* __restrict__ scale_k,
+                      float* __restrict__ scale_v, int rows, int S) {
+  __shared__ float wmax[QUANT_THREADS / 32];
+  const bool is_v = static_cast<int>(blockIdx.x) >= rows;
+  const size_t row = is_v ? blockIdx.x - rows : blockIdx.x;
+  const __nv_bfloat16* x = (is_v ? src_v : src_k) + row * S;
+  int8_t* y = (is_v ? dst_v : dst_k) + row * S;
+  const int tid = threadIdx.x;
+  const bool vec = S % 16 == 0;  // 16 values a piece: 32 bytes in, 16 out, aligned
+  float m = 0.0f;
+  if (vec) {
+    for (int c = tid; c < S / 8; c += QUANT_THREADS) {
+      const uint4 u = __ldg(reinterpret_cast<const uint4*>(x) + c);
+      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float2 f = __bfloat1622float2(h[i]);
+        m = fmaxf(m, fmaxf(fabsf(f.x), fabsf(f.y)));
+      }
+    }
+  } else {
+    for (int i = tid; i < S; i += QUANT_THREADS) m = fmaxf(m, fabsf(__bfloat162float(x[i])));
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+  if ((tid & 31) == 0) wmax[tid >> 5] = m;
+  __syncthreads();
+  m = 0.0f;
+#pragma unroll
+  for (int w = 0; w < QUANT_THREADS / 32; ++w) m = fmaxf(m, wmax[w]);
+  const float sc = fmaxf(m * INV127, 1e-12f);
+  if (tid == 0) (is_v ? scale_v : scale_k)[row] = sc;
+  auto q8 = [&](float v) {
+    return static_cast<uint32_t>(static_cast<uint8_t>(static_cast<int8_t>(
+        fminf(fmaxf(rintf(__fdiv_rn(v, sc)), -127.0f), 127.0f))));
+  };
+  if (vec) {
+    for (int c = tid; c < S / 16; c += QUANT_THREADS) {
+      const uint4 u0 = __ldg(reinterpret_cast<const uint4*>(x) + 2 * c);
+      const uint4 u1 = __ldg(reinterpret_cast<const uint4*>(x) + 2 * c + 1);
+      const __nv_bfloat162* h0 = reinterpret_cast<const __nv_bfloat162*>(&u0);
+      const __nv_bfloat162* h1 = reinterpret_cast<const __nv_bfloat162*>(&u1);
+      uint32_t w[4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float2 a = __bfloat1622float2(h0[2 * i]), b = __bfloat1622float2(h0[2 * i + 1]);
+        w[i] = q8(a.x) | q8(a.y) << 8 | q8(b.x) << 16 | q8(b.y) << 24;
+        const float2 c2 = __bfloat1622float2(h1[2 * i]), d2 = __bfloat1622float2(h1[2 * i + 1]);
+        w[2 + i] = q8(c2.x) | q8(c2.y) << 8 | q8(d2.x) << 16 | q8(d2.y) << 24;
+      }
+      reinterpret_cast<uint4*>(y)[c] = make_uint4(w[0], w[1], w[2], w[3]);
+    }
+  } else {
+    for (int i = tid; i < S; i += QUANT_THREADS)
+      y[i] = static_cast<int8_t>(static_cast<uint8_t>(q8(__bfloat162float(x[i]))));
+  }
 }
 
 struct GemmArgs {
@@ -944,10 +1020,12 @@ constexpr int cross_kv_smem() {
   return bytes;
 }
 
+// clusters of the column pair x `crows` row tiles: the item's `tiles` for
+// int8 (its column maxima), 1 for bf16 past KV_MAX_TILES
 template <bool INT8>
 int launch_cross_kv(const __nv_bfloat16* x, const __nv_bfloat16* w, const float* bias,
                     void* out_k, void* out_v, float* scale_k, float* scale_v, int B, int S,
-                    int D, int tiles, cudaStream_t stream) {
+                    int D, int tiles, int crows, cudaStream_t stream) {
   using T = Tile<KV_WGS, KV_NA, KV_STAGES>;
   constexpr int SMEM = cross_kv_smem();
   constexpr int cn = CLUSTER_N;
@@ -972,12 +1050,12 @@ int launch_cross_kv(const __nv_bfloat16* x, const __nv_bfloat16* w, const float*
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = cn;
-  attr[0].val.clusterDim.y = tiles;
+  attr[0].val.clusterDim.y = crows;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   e = cudaLaunchKernelEx(&cfg, kernel, map_a, map_w, bias, out_k, out_v, scale_k, scale_v, S, D,
-                         tiles);
+                         tiles, crows);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
@@ -1055,9 +1133,49 @@ extern "C" int vt_cross_kv(const void* X, const void* W, const void* bias, void*
   if (is_int8) {
     if (scale_k == nullptr || scale_v == nullptr) return invalid;
     return launch_cross_kv<true>(x, w, b, out_k, out_v, reinterpret_cast<float*>(scale_k),
-                                 reinterpret_cast<float*>(scale_v), B, S, D, tiles, st);
+                                 reinterpret_cast<float*>(scale_v), B, S, D, tiles, tiles, st);
   }
-  return launch_cross_kv<false>(x, w, b, out_k, out_v, nullptr, nullptr, B, S, D, tiles, st);
+  return launch_cross_kv<false>(x, w, b, out_k, out_v, nullptr, nullptr, B, S, D, tiles, tiles,
+                                st);
+}
+
+// Kernel 4 past KV_MAX_TILES row tiles an item (LED's long articles): K and
+// V [B, D, S] bf16 as vt_cross_kv's bf16 form, in clusters of the column
+// pair alone; `tiles` = ceil(S / 256) > KV_MAX_TILES. kernel 5
+// (vt_cross_kv_quant) then makes the int8 form. Anything else is refused
+// with cudaErrorInvalidValue.
+extern "C" int vt_cross_kv_long(const void* X, const void* W, const void* bias, void* out_k,
+                                void* out_v, int B, int S, int D, int tiles, void* stream) {
+  const int invalid = static_cast<int>(cudaErrorInvalidValue);
+  constexpr int BM = Tile<KV_WGS, KV_NA, KV_STAGES>::BM;
+  if (B < 1 || S < 1 || D < 64 || D % 64 || tiles != (S + BM - 1) / BM || tiles <= KV_MAX_TILES)
+    return invalid;
+  if (reinterpret_cast<uintptr_t>(X) % 16 || reinterpret_cast<uintptr_t>(W) % 16 ||
+      reinterpret_cast<uintptr_t>(bias) % 8 || out_k == nullptr || out_v == nullptr)
+    return invalid;
+  return launch_cross_kv<false>(reinterpret_cast<const __nv_bfloat16*>(X),
+                                reinterpret_cast<const __nv_bfloat16*>(W),
+                                reinterpret_cast<const float*>(bias), out_k, out_v, nullptr,
+                                nullptr, B, S, D, tiles, 1, reinterpret_cast<cudaStream_t>(stream));
+}
+
+// Kernel 5: K and V [rows, S] bf16 -> int8 [rows, S] and scales [rows] f32,
+// a row an (item, channel): scale = max(amax / 127, 1e-12), q = clamp(rint(y
+// / scale), -127, 127). Needs rows >= 1, S >= 1 and every pointer on 16
+// bytes; anything else is refused with cudaErrorInvalidValue.
+extern "C" int vt_cross_kv_quant(const void* src_k, const void* src_v, void* dst_k, void* dst_v,
+                                 void* scale_k, void* scale_v, int rows, int S, void* stream) {
+  const int invalid = static_cast<int>(cudaErrorInvalidValue);
+  if (rows < 1 || S < 1 || 2LL * rows > 2147483647LL) return invalid;
+  for (const void* p : {src_k, src_v, static_cast<const void*>(dst_k),
+                        static_cast<const void*>(dst_v), static_cast<const void*>(scale_k),
+                        static_cast<const void*>(scale_v)})
+    if (p == nullptr || reinterpret_cast<uintptr_t>(p) % 16) return invalid;
+  cross_kv_quant_kernel<<<2 * rows, QUANT_THREADS, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
+      reinterpret_cast<const __nv_bfloat16*>(src_k), reinterpret_cast<const __nv_bfloat16*>(src_v),
+      reinterpret_cast<int8_t*>(dst_k), reinterpret_cast<int8_t*>(dst_v),
+      reinterpret_cast<float*>(scale_k), reinterpret_cast<float*>(scale_v), rows, S);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // Dynamic shared memory, in bytes a block, of the kernel that variant, M and

@@ -4,7 +4,14 @@ vacnic_tpu/kernels/encoder_stack.py:encoder_text_stack).
 Per layer: self-attention with fused QKV and the [B, S] pad bias, then
 self_attn_layer_norm; cross-attention to the layer's precomputed img+ner
 K/V (keys pre-transposed [d, KV], no bias), then img_ner_attn_layer_norm;
-FFN (exact gelu), then final_layer_norm. `encoder_text_stack` runs each
+FFN (exact gelu), then final_layer_norm. With LED's window
+(cfg.attention_window) the self-attention is enc_window_attention's band
+and global columns instead, and each global token's row is then replaced
+by its global attention: its query_global projection (gemm), key_global
+and value_global over every token (cross_kv, bf16, the [B, H, hd, S]
+layout) and one query an (item, head) over all S (dec_cross_attention),
+the projections computed as LED writes them, not folded into q. Both run
+under the span "encoder.window_attention". `encoder_text_stack` runs each
 layer through the CUDA kernels of kernels/primitives on the card;
 `encoder_text_stack_plain` runs the same layer loop through their plain
 twins and is what CPU tensors take. The residual stream stays in f32
@@ -22,6 +29,7 @@ from typing import NamedTuple
 import torch
 
 from vacnic_tpu_torch.core.config import BartConfig
+from vacnic_tpu_torch.core.profiling import annotate
 from vacnic_tpu_torch.kernels import primitives as K
 
 
@@ -44,13 +52,38 @@ class EncStackParams(NamedTuple):
     w_fc2: torch.Tensor   # [L, F, d]
     b_fc2: torch.Tensor   # [L, d]
     ln_f: torch.Tensor    # [L, 2, d]
+    # LED's global projections (cfg.attention_window > 0), else None
+    w_qg: torch.Tensor | None = None   # [L, d, d] query_global
+    b_qg: torch.Tensor | None = None   # [L, d]
+    w_kvg: torch.Tensor | None = None  # [L, d, 2d] key_global | value_global
+    b_kvg: torch.Tensor | None = None  # [L, 2d]
 
 
 KERNEL_OPS = SimpleNamespace(gemm=K.gemm, layernorm=K.layernorm,
-                             self_attn=K.enc_self_attention, cross_attn=K.enc_cross_attention)
+                             self_attn=K.enc_self_attention, cross_attn=K.enc_cross_attention,
+                             window_attn=K.enc_window_attention, cross_kv=K.cross_kv,
+                             dec_cross=K.dec_cross_attention)
 PLAIN_OPS = SimpleNamespace(gemm=K.gemm_plain, layernorm=K.layernorm_plain,
                             self_attn=K.enc_self_attention_plain,
-                            cross_attn=K.enc_cross_attention_plain)
+                            cross_attn=K.enc_cross_attention_plain,
+                            window_attn=K.enc_window_attention_plain, cross_kv=K.cross_kv_plain,
+                            dec_cross=K.dec_cross_attention_plain)
+
+
+def _window_attention(sp: EncStackParams, l: int, qkv, xb, bias, bsz: int, seq: int,
+                      cfg: BartConfig, ops):
+    """LED's self-attention of layer l: the band and global columns of every
+    row, then the global tokens' rows by their global attention."""
+    heads, g = cfg.encoder_attention_heads, cfg.global_tokens
+    o = ops.window_attn(qkv, bias, bsz, seq, heads, cfg.attention_window // 2, g)
+    d = xb.shape[1]
+    x3 = xb.view(bsz, seq, d)
+    qg = ops.gemm(x3[:, :g].reshape(bsz * g, d).contiguous(), sp.w_qg[l], sp.b_qg[l],
+                  out_dtype=xb.dtype)
+    kg, vg, _, _ = ops.cross_kv(x3, sp.w_kvg[l:l + 1], sp.b_kvg[l:l + 1], heads, False)
+    og = ops.dec_cross(qg, kg[0], vg[0], None, None, bias, heads)
+    o.view(bsz, seq, d)[:, :g] = og.view(bsz, g, d)
+    return o
 
 
 def _layers(sp: EncStackParams, x0, cross_k, cross_v, self_bias, cfg: BartConfig, ops):
@@ -65,7 +98,11 @@ def _layers(sp: EncStackParams, x0, cross_k, cross_v, self_bias, cfg: BartConfig
     xb = x.to(mm)
     for l in range(n_layers):
         qkv = ops.gemm(xb, sp.w_qkv[l], sp.b_qkv[l], out_dtype=mm)
-        o = ops.self_attn(qkv, bias, bsz, seq, heads)
+        if cfg.attention_window:
+            with annotate("encoder.window_attention"):
+                o = _window_attention(sp, l, qkv, xb, bias, bsz, seq, cfg, ops)
+        else:
+            o = ops.self_attn(qkv, bias, bsz, seq, heads)
         h = ops.gemm(o, sp.w_so[l], sp.b_so[l], residual=x)
         x1, x1b = ops.layernorm(h, sp.ln_s[l], mm)
         q2 = ops.gemm(x1b, sp.w_cq[l], sp.b_cq[l], out_dtype=mm)

@@ -29,7 +29,7 @@ import torch
 
 KERNELS = ("gemm_bf16", "layernorm", "enc_self_attention", "enc_cross_attention",
            "dec_self_attention", "dec_cross_attention", "lm_stats", "flash_attention",
-           "lm_head", "cross_kv")
+           "lm_head", "cross_kv", "enc_window_attention", "cross_kv_quant")
 # (the wrappers of lm_stats, flash_attention and lm_head live in
 # kernels/lm_stats, kernels/flash_attn and kernels/lm_head)
 LAUNCHES: dict[str, int] = {k: 0 for k in KERNELS}
@@ -48,8 +48,12 @@ ENC_CROSS_KV_LAUNCHES: dict[int, int] = {kv: 0 for kv in range(1, 65)}
 # dec_cross_attention's launches by the beams of an item (any count >= 1),
 # and by the plan's variant (DEC_CROSS_VARIANTS)
 DEC_CROSS_BEAM_LAUNCHES: collections.Counter = collections.Counter()
-DEC_CROSS_VARIANTS = ("beams", "wide", "grouped")  # the launcher's variant ids, in order
+DEC_CROSS_VARIANTS = ("beams", "wide", "grouped", "split")  # the launcher's variant ids, in order
 DEC_CROSS_VARIANT_LAUNCHES: dict[str, int] = {v: 0 for v in DEC_CROSS_VARIANTS}
+# cross_kv's product launches by the plan's variant: "cluster" (an item's row
+# tiles in one cluster, S <= 1024) or "long" (past it; then cross_kv_quant)
+CROSS_KV_VARIANTS = ("cluster", "long")
+CROSS_KV_VARIANT_LAUNCHES: dict[str, int] = {v: 0 for v in CROSS_KV_VARIANTS}
 
 GELU = "gelu"
 _COUNT_LOCK = threading.Lock()  # the counts above are bumped from one thread a card
@@ -59,7 +63,8 @@ def reset_launch_counts() -> None:
     with _COUNT_LOCK:
         for table in (LAUNCHES, GEMM_VARIANT_LAUNCHES, LAYERNORM_VARIANT_LAUNCHES,
                       DEC_SELF_VARIANT_LAUNCHES, ENC_CROSS_KV_LAUNCHES,
-                      DEC_CROSS_BEAM_LAUNCHES, DEC_CROSS_VARIANT_LAUNCHES):
+                      DEC_CROSS_BEAM_LAUNCHES, DEC_CROSS_VARIANT_LAUNCHES,
+                      CROSS_KV_VARIANT_LAUNCHES):
             for k in table:
                 table[k] = 0
 
@@ -98,8 +103,15 @@ def dec_cross_beam_counts() -> dict[int, int]:
 
 def dec_cross_variant_counts() -> dict[str, int]:
     """Launches of dec_cross_attention by the plan's variant ("beams",
-    "wide", "grouped"): they add up to LAUNCHES["dec_cross_attention"]."""
+    "wide", "grouped", "split"): they add up to
+    LAUNCHES["dec_cross_attention"]."""
     return dict(DEC_CROSS_VARIANT_LAUNCHES)
+
+
+def cross_kv_variant_counts() -> dict[str, int]:
+    """Launches of cross_kv's product by the plan's variant ("cluster",
+    "long"): they add up to LAUNCHES["cross_kv"]."""
+    return dict(CROSS_KV_VARIANT_LAUNCHES)
 
 
 # ---------------------------------------------------------------------------
@@ -367,12 +379,14 @@ def cross_kv_plain(x, w, b, heads: int, int8: bool):
 
 CROSS_KV_BM = 256        # positions a row tile of csrc/gemm_bf16.cu's cross_kv_gemm_kernel
 CROSS_KV_MAX_TILES = 4   # row tiles an item: a cluster of 2 column x 4 row tiles, 8 blocks
+CROSS_KV_MAX_S = 16384   # LED's encoder positions: the longest S the plan takes
 
 
 class CrossKvPlan(NamedTuple):
     """How csrc/gemm_bf16.cu's cross_kv_gemm_kernel covers one layer."""
-    tiles: int    # row tiles an item, ceil(S / 256): the cluster's row extent
-    cluster: int  # blocks a cluster: 2 column tiles x `tiles`
+    tiles: int    # row tiles an item, ceil(S / 256)
+    cluster: int  # blocks a cluster: 2 column tiles x `tiles` ("cluster"), 2 ("long")
+    variant: str = "cluster"  # "long": past CROSS_KV_MAX_TILES, int8 by cross_kv_quant_kernel
 
 
 @functools.lru_cache(maxsize=None)
@@ -380,18 +394,23 @@ def cross_kv_plan(batch: int, s_len: int, d: int) -> CrossKvPlan:
     """The launch of one layer's cross K/V at `batch` items of `s_len`
     positions and model width d. Pure: the CUDA launcher only follows it.
     An item's positions are whole row tiles of 256, never shared with
-    another item, so that one cluster holds all of an item's rows of a
-    column pair and takes its column maxima (the int8 scales) in
-    distributed shared memory; S <= 1024 (BART's positions). Raises
-    ValueError for batch < 1, S outside 1..1024, d not a multiple of 64 or a
-    grid past 65535 rows of blocks."""
+    another item. Up to 1024 positions (BART's) one cluster holds all of an
+    item's rows of a column pair and takes its column maxima (the int8
+    scales) in distributed shared memory ("cluster"). Past that, to
+    CROSS_KV_MAX_S (LED's 16384), the clusters are the column pair alone
+    and the product is stored in bf16; with int8, cross_kv_quant_kernel
+    then takes each (item, channel)'s maximum and quantizes ("long"), to
+    the same bits. Raises ValueError for batch < 1, S outside 1..16384, d
+    not a multiple of 64 or a grid past 65535 rows of blocks."""
     tiles = -(-s_len // CROSS_KV_BM)
-    if (batch < 1 or not 1 <= tiles <= CROSS_KV_MAX_TILES or d < 64 or d % 64
+    if (batch < 1 or not 1 <= s_len <= CROSS_KV_MAX_S or d < 64 or d % 64
             or batch * tiles > 65535):
-        raise ValueError(f"cross_kv: needs batch >= 1, 1 <= S <= "
-                         f"{CROSS_KV_BM * CROSS_KV_MAX_TILES}, d % 64 == 0 and batch x "
-                         f"ceil(S / {CROSS_KV_BM}) <= 65535 (batch={batch}, S={s_len}, d={d})")
-    return CrossKvPlan(tiles, 2 * tiles)
+        raise ValueError(f"cross_kv: needs batch >= 1, 1 <= S <= {CROSS_KV_MAX_S}, d % 64 == 0 "
+                         f"and batch x ceil(S / {CROSS_KV_BM}) <= 65535 (batch={batch}, "
+                         f"S={s_len}, d={d})")
+    if tiles <= CROSS_KV_MAX_TILES:
+        return CrossKvPlan(tiles, 2 * tiles)
+    return CrossKvPlan(tiles, 2, "long")
 
 
 def cross_kv(x, w, b, heads: int, int8: bool):
@@ -400,7 +419,10 @@ def cross_kv(x, w, b, heads: int, int8: bool):
     layer's Wk | Wv), b [L, 2d] f32 -> (k, v [L, B, H, hd, S] int8 or bf16,
     k_scale, v_scale [L, B, H, hd] f32 or None). y = x @ w + b rounded to
     bf16, then with int8 quantized over S as quantize_cross_kv (kernel:
-    csrc/gemm_bf16.cu's cross_kv_gemm_kernel, `cross_kv_plan`)."""
+    csrc/gemm_bf16.cu's cross_kv_gemm_kernel, `cross_kv_plan`). Past 1024
+    positions with int8, a second launch a layer (cross_kv_quant_kernel)
+    quantizes the product's bf16 copy. Also LED's global keys and values
+    (bf16, one layer at a time: kernels/encoder_stack)."""
     no_grad_guard("cross_kv", x, w, b)
     if _on_cpu(x):
         return cross_kv_plain(x, w, b, heads, int8)
@@ -424,10 +446,24 @@ def cross_kv(x, w, b, heads: int, int8: bool):
     if int8:
         ks = torch.empty(shape[:-1], dtype=torch.float32, device=x.device)
         vs = torch.empty_like(ks)
+    if plan.variant == "long":
+        if int8:  # the product's bf16 K and V of a layer, before cross_kv_quant_kernel
+            tmp_k = torch.empty(shape[1:], dtype=torch.bfloat16, device=x.device)
+            tmp_v = torch.empty_like(tmp_k)
+        for layer in range(n_layers):
+            yk, yv = (tmp_k, tmp_v) if int8 else (k[layer], v[layer])
+            _launch("cross_kv", "vt_cross_kv_long", x.device, _p(x), _p(w[layer]), _p(b[layer]),
+                    _p(yk), _p(yv), bsz, s_len, d, plan.tiles,
+                    variant=(CROSS_KV_VARIANT_LAUNCHES, "long"))
+            if int8:
+                _launch("cross_kv_quant", "vt_cross_kv_quant", x.device, _p(yk), _p(yv),
+                        _p(k[layer]), _p(v[layer]), _p(ks[layer]), _p(vs[layer]), bsz * d, s_len)
+        return k, v, ks, vs
     for layer in range(n_layers):
         _launch("cross_kv", "vt_cross_kv", x.device, _p(x), _p(w[layer]), _p(b[layer]),
                 _p(k[layer]), _p(v[layer]), _p(ks[layer] if int8 else None),
-                _p(vs[layer] if int8 else None), bsz, s_len, d, plan.tiles, int(int8))
+                _p(vs[layer] if int8 else None), bsz, s_len, d, plan.tiles, int(int8),
+                variant=(CROSS_KV_VARIANT_LAUNCHES, "cluster"))
     return k, v, ks, vs
 
 
@@ -518,6 +554,98 @@ def enc_self_attention(qkv, bias, batch: int, seq: int, heads: int):
     _launch("enc_self_attention", "vt_enc_self_attention", qkv.device, _p(qkv), _p(bias),
             _p(out), batch, seq, heads, ctypes.c_float(64 ** -0.5))
     return out
+
+
+def window_attention_plain(q, k, v, bias, window: int, global_tokens: int):
+    """LED's windowed self-attention, the arithmetic that the layer-by-layer
+    encoder (models/bart.led_self_attention) and enc_window_attention's twin
+    share: q [B, H, S, hd] already scaled (in the matmul dtype), k, v [B, H,
+    S, hd], bias [B, S] additive f32 (0 kept, very negative padded) -> [B, H,
+    S, hd] in v's dtype. Row i's columns are the global keys j <
+    global_tokens, then the band j >= global_tokens with |i - j| <= window,
+    as transformers' LEDEncoderSelfAttention concatenates them ([global ||
+    band]; a global key in the band counted once), each + its pad bias; an
+    f32 softmax; a padded row's probabilities 0; P rounded to v's dtype, P V
+    summed in f32. Queries go in blocks of `window` rows against their keys
+    alone, so memory grows with S x window, not S^2."""
+    bsz, heads, s_len, hd = q.shape
+    dt = v.dtype
+    g = global_tokens
+    bias = bias.float()
+    blk = max(window, 1)
+    out = torch.empty_like(v)
+    gk = torch.arange(g, device=q.device)
+    for i0 in range(0, s_len, blk):
+        i1 = min(s_len, i0 + blk)
+        k0 = max(g, i0 - window)
+        k1 = max(k0, min(s_len, i1 + window))  # empty where the global keys cover the band
+        keys = torch.cat([gk, torch.arange(k0, k1, device=q.device)])
+        rows = torch.arange(i0, i1, device=q.device)[:, None]
+        band = (keys[None, :] >= g) & ((rows - keys[None, :]).abs() <= window)
+        ok = (keys[None, :] < g) | band  # [rows, keys]
+        s = torch.einsum("bhid,bhjd->bhij", q[:, :, i0:i1].float(), k[:, :, keys].float())
+        s = s + bias[:, None, None, keys]
+        s = s.masked_fill(~ok[None, None], float("-inf"))
+        p = torch.softmax(s, dim=-1)
+        p = p.masked_fill((bias[:, i0:i1] < 0)[:, None, :, None], 0.0)
+        o = torch.einsum("bhij,bhjd->bhid", p.to(dt).float(), v[:, :, keys].float())
+        out[:, :, i0:i1] = o.to(dt)
+    return out
+
+
+def enc_window_attention_plain(qkv, bias, batch: int, seq: int, heads: int, window: int,
+                               global_tokens: int):
+    dt = qkv.dtype
+    d = qkv.shape[1] // 3
+    hd = d // heads
+    x = qkv.reshape(batch, seq, 3, heads, hd).permute(2, 0, 3, 1, 4)  # [3, B, H, S, hd]
+    q = (x[0].float() * hd ** -0.5).to(dt)
+    o = window_attention_plain(q, x[1], x[2], bias, window, global_tokens)
+    return o.permute(0, 2, 1, 3).reshape(batch * seq, d)
+
+
+ENC_WINDOW_MAX_GLOBAL = 64  # global tokens: they must lie in the first key tile
+
+
+def enc_window_attention(qkv, bias, batch: int, seq: int, heads: int, window: int,
+                         global_tokens: int):
+    """LED's windowed self-attention of the fused stack: qkv [B*S, 3d] (q |
+    k | v), additive pad bias [B, S] f32 -> [B*S, d], window_attention_plain's
+    semantics (the global tokens' own rows are computed as any other's;
+    encoder_stack overwrites them with their global attention). Kernel:
+    csrc/enc_attention.cu's enc_window_kernel."""
+    no_grad_guard("enc_window_attention", qkv, bias)
+    if _on_cpu(qkv):
+        return enc_window_attention_plain(qkv, bias, batch, seq, heads, window, global_tokens)
+    d = qkv.shape[1] // 3
+    _req(qkv, "enc_window qkv", torch.bfloat16, (batch * seq, 3 * d))
+    _req(bias, "enc_window bias", torch.float32, (batch, seq), qkv.device)
+    if (d != heads * 64 or seq % 64 or seq > 32768 or window < 0
+            or not 0 <= global_tokens <= ENC_WINDOW_MAX_GLOBAL):
+        raise ValueError(f"enc_window_attention: needs head_dim 64, S % 64 == 0, S <= 32768, "
+                         f"window >= 0 and 0 <= global tokens <= {ENC_WINDOW_MAX_GLOBAL} "
+                         f"(d={d}, heads={heads}, S={seq}, window={window}, "
+                         f"global={global_tokens})")
+    out = torch.empty(batch * seq, d, dtype=torch.bfloat16, device=qkv.device)
+    _launch("enc_window_attention", "vt_enc_window_attention", qkv.device, _p(qkv), _p(bias),
+            _p(out), batch, seq, heads, window, global_tokens, ctypes.c_float(64 ** -0.5))
+    return out
+
+
+def global_rows_plain(qg, kg, vg, bias, heads: int):
+    """LED's global rows on the layer-by-layer path: qg [B, G, d] (the global
+    tokens' query_global projections, unscaled), kg, vg [B, S, d]
+    (key_global, value_global of every token), bias [B, S] -> [B, G, d]: each
+    global token's attention over every unpadded key, as
+    dec_cross_attention_plain computes a beam's (q scaled by hd**-0.5 and
+    rounded, an f32 softmax, P rounded before the f32 value sum), which is
+    what the fused stack runs for them."""
+    bsz, g, d = qg.shape
+    s_len, hd = kg.shape[1], d // heads
+    ck = kg.reshape(bsz, s_len, heads, hd).permute(0, 2, 3, 1)
+    cv = vg.reshape(bsz, s_len, heads, hd).permute(0, 2, 3, 1)
+    o = dec_cross_attention_plain(qg.reshape(bsz * g, d), ck, cv, None, None, bias, heads)
+    return o.reshape(bsz, g, d)
 
 
 def enc_cross_attention_plain(q, ck, cv, batch: int, seq: int, heads: int):
@@ -665,8 +793,18 @@ DEC_CROSS_GROUP = 8  # beams an operand: the n8 operand of csrc/dec_cross_attent
 DEC_CROSS_WIDE_MAX = 24  # beams of the widest wide instance: three n8 operands
 
 
+DEC_CROSS_SPLITS = (2, 4, 8)  # blocks a split's cluster may have; 8 is the portable largest
+SMEM_SM = 233472  # shared memory of an H100 SM; a block reserves 1 KB of it
+
+
+def dec_cross_split_positions(s_len: int, split: int) -> int:
+    """Positions a rank of a split over `split` blocks takes: whole tiles of 64."""
+    return -(-(-(-s_len // 64)) // split) * 64
+
+
 @functools.lru_cache(maxsize=None)  # a decode step asks once a layer, for one shape
-def dec_cross_smem_bytes(beams: int, s_len: int, elem_bytes: int, variant: str = "beams") -> int:
+def dec_cross_smem_bytes(beams: int, s_len: int, elem_bytes: int, variant: str = "beams",
+                         split: int = 1) -> int:
     """Dynamic shared memory of a dec_cross_attention block, as
     csrc/dec_cross_attention.cu's smem_bytes ("beams": a block of `beams`
     beams; "grouped": of 8) and wide_smem_bytes ("wide": all `beams` in
@@ -678,9 +816,17 @@ def dec_cross_smem_bytes(beams: int, s_len: int, elem_bytes: int, variant: str =
     only the V scales and the four warps' score maxima [4][beams] f32 (its
     probabilities overlay its scores, its int8 tiles become bf16 in
     registers, its q goes straight to registers, its bias is read from
-    device memory)."""
+    device memory); "split" the "beams" block's layout for `beams` beams
+    over a rank's positions (dec_cross_split_positions), then the exchange
+    of the cluster: the row maxima and sums [8] and the partial outputs
+    [128][4], f32."""
     sp = 64 * -(-s_len // 64)
     ring = 4 * 64 * 80 if elem_bytes == 1 else 3 * 64 * 144
+    if variant == "split":
+        sp = dec_cross_split_positions(s_len, split)
+        strips = 4 * 3072 if elem_bytes == 1 else 0
+        return (ring + strips + 4 * beams * (sp + 4) + 2 * beams * (sp + 8) + 16 + 4 * 8 * 68
+                + 4 * sp + 4 * 64 + 8 * 8 + 4 * 2 * 8 + 16 * 128)
     if variant == "wide":
         return ring + 4 * beams * (sp + 4) + 16 + 4 * 64 + 4 * 4 * beams
     if variant == "grouped":
@@ -694,8 +840,9 @@ class DecCrossPlan(NamedTuple):
     """How csrc/dec_cross_attention.cu launches an item's beams."""
     variant: str      # "beams": 1-8, a block an (item, head) with room for exactly them;
     #                   "wide": 9-24, a block an (item, head) for all of them, q as
-    #                   ceil(beams / 8) n8 operands; "grouped": a block a group of 8
-    groups: int       # blocks an (item, head): ceil(beams / 8) grouped, else 1
+    #                   ceil(beams / 8) n8 operands; "grouped": a block a group of 8;
+    #                   "split": 1-8, S over a cluster of `groups` blocks an (item, head)
+    groups: int       # blocks an (item, head): ceil(beams / 8) grouped, the split's, else 1
     group_beams: int  # beams a block holds room for: all (wide) or min(beams, 8)
     last_beams: int   # beams of the last n8 operand
     smem: int         # dynamic shared memory a block, bytes
@@ -713,8 +860,10 @@ def dec_cross_plan(beams: int, s_len: int, elem_bytes: int) -> DecCrossPlan:
     block fits a SM's shared memory. Otherwise (more beams, or an S whose
     scores do not fit): groups of 8, a block a (group, head, item), each
     with the shared memory of 8 beams, so the largest S does not shrink with
-    the beam count. Raises ValueError for beams < 1, S < 1, or a block that
-    no H100 SM holds.
+    the beam count. Up to 8 beams at an S whose block no SM holds (LED's
+    16384 positions): S over a cluster of 2, 4 or 8 blocks ("split"), the
+    fewest whose block two fit an SM, else the fewest that fit one. Raises
+    ValueError for beams < 1, S < 1, or a block that no H100 SM holds.
 
     The rule follows the readings of chip_smoke.py's crossplan phase
     (PERF.md §6; H100 80GB HBM3 at 700 W): at S 512, H 16 and B 8, 16 and
@@ -728,6 +877,8 @@ def dec_cross_plan(beams: int, s_len: int, elem_bytes: int) -> DecCrossPlan:
                          f"(beams={beams}, S={s_len}, elem_bytes={elem_bytes})")
     if beams <= DEC_CROSS_GROUP:
         plan = dec_cross_variant_plan("beams", beams, s_len, elem_bytes)
+        if plan.smem > SMEM_MAX:
+            plan = _dec_cross_split_plan(beams, s_len, elem_bytes) or plan
     else:
         plan = dec_cross_variant_plan("wide", beams, s_len, elem_bytes)
         if beams > DEC_CROSS_WIDE_MAX or plan.smem > SMEM_MAX:
@@ -739,12 +890,30 @@ def dec_cross_plan(beams: int, s_len: int, elem_bytes: int) -> DecCrossPlan:
     return plan
 
 
-def dec_cross_variant_plan(variant: str, beams: int, s_len: int, elem_bytes: int) -> DecCrossPlan:
+def _dec_cross_split_plan(beams: int, s_len: int, elem_bytes: int) -> DecCrossPlan | None:
+    """The split of dec_cross_plan's rule, or None where none fits: among
+    the splits whose every rank holds positions, the fewest blocks whose
+    block two fit an SM, else the fewest that fit one."""
+    plans = [dec_cross_variant_plan("split", beams, s_len, elem_bytes, n) for n in DEC_CROSS_SPLITS
+             if (n - 1) * dec_cross_split_positions(s_len, n) < s_len]
+    for fits in (lambda p: 2 * (p.smem + 1024) <= SMEM_SM, lambda p: p.smem <= SMEM_MAX):
+        for p in plans:
+            if fits(p):
+                return p
+    return None
+
+
+def dec_cross_variant_plan(variant: str, beams: int, s_len: int, elem_bytes: int,
+                           split: int = 2) -> DecCrossPlan:
     """The plan of one variant at this shape, whether or not dec_cross_plan
     picks it and whether or not the launcher has an instance for it or a SM
-    holds its block (the launcher refuses such a plan)."""
+    holds its block (the launcher refuses such a plan); `split` the blocks
+    of a "split" plan."""
     groups = -(-beams // DEC_CROSS_GROUP)
     last = beams - DEC_CROSS_GROUP * (groups - 1)
+    if variant == "split":
+        return DecCrossPlan("split", split, beams, beams,
+                            dec_cross_smem_bytes(beams, s_len, elem_bytes, "split", split))
     smem = dec_cross_smem_bytes(beams, s_len, elem_bytes, variant)
     if variant == "grouped":
         return DecCrossPlan("grouped", groups, DEC_CROSS_GROUP, last, smem)
@@ -754,7 +923,8 @@ def dec_cross_variant_plan(variant: str, beams: int, s_len: int, elem_bytes: int
 def dec_cross_attention(q, ck, cv, ck_scale, cv_scale, enc_bias, heads: int):
     """q [BK, d] (beams of item b are rows b*K..b*K+K-1), K/V [B, H, hd, S]
     bf16 or int8 (with scales [B, H, hd] f32), pad bias [B, S] f32 -> [BK, d].
-    Any beam count K: past 8 one wide block an (item, head) or groups of 8
+    Any beam count K: past 8 one wide block an (item, head) or groups of 8,
+    and to 8 past shared memory's S a split over a cluster
     (`dec_cross_plan`); the launch counts under K (`dec_cross_beam_counts`)
     and under the plan's variant (`dec_cross_variant_counts`) as well."""
     no_grad_guard("dec_cross_attention", q, ck, cv, ck_scale, cv_scale, enc_bias)

@@ -27,12 +27,15 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from vacnic_tpu_torch.core.config import BartConfig
+from vacnic_tpu_torch.core.profiling import annotate
 from vacnic_tpu_torch.core.tensor_parallel import ModelShard, copy_to_model_parallel
+from vacnic_tpu_torch.kernels.primitives import global_rows_plain, window_attention_plain
 from vacnic_tpu_torch.models.layers import (
     ACT2FN,
     NO_DROPOUT,
     Params,
     RngStream,
+    _merge_heads,
     _split_heads,
     causal_mask,
     column_linear,
@@ -52,8 +55,6 @@ from vacnic_tpu_torch.models.layers import (
     split,
 )
 
-POS_OFFSET = 2  # BartLearnedPositionalEmbedding offset
-
 
 def _embed_scale(cfg: BartConfig) -> float:
     return float(cfg.d_model) ** 0.5 if cfg.scale_embedding else 1.0
@@ -62,10 +63,11 @@ def _embed_scale(cfg: BartConfig) -> float:
 def embed_and_norm(shared: Params, pos: Params, ln: Params, ids: torch.Tensor,
                    cfg: BartConfig, dtype, pos_offset: int = 0,
                    rngs: RngStream = NO_DROPOUT) -> torch.Tensor:
-    """token embed * scale + learned positions (+2 offset) -> LN -> dropout."""
+    """token embed * scale + learned positions (+ cfg.position_offset: 2 for
+    BART, 0 for LED) -> LN -> dropout."""
     x = embed(shared, ids, dtype) * _embed_scale(cfg)
     t = ids.shape[-1]
-    positions = torch.arange(t, device=ids.device) + POS_OFFSET + pos_offset
+    positions = torch.arange(t, device=ids.device) + cfg.position_offset + pos_offset
     x = x + embed(pos, positions, dtype)[None, :, :]
     x = layernorm(ln, x)
     return dropout(x, cfg.dropout, rngs.next())
@@ -81,12 +83,53 @@ def residual_ffn(up: Params, down: Params, ln: Params, x: torch.Tensor, act, cfg
     return layernorm(ln, x + h)
 
 
+def encoder_self_attention(p: Params, x: torch.Tensor, attn_mask, cfg: BartConfig,
+                           tp: ModelShard | None = None) -> torch.Tensor:
+    """An encoder layer's self-attention: BART's dense `mha`, or with
+    cfg.attention_window LED's window and global rows (led_self_attention;
+    `attn_mask` is then the [B, S] keep-mask)."""
+    if cfg.attention_window:
+        if tp is not None:
+            raise ValueError("encoder_self_attention: LED's windowed attention takes whole "
+                             "weights; tp= is not supported with it")
+        with annotate("encoder.window_attention"):
+            return led_self_attention(p["self_attn"], p["self_attn_global"], x, attn_mask, cfg)
+    return mha(p["self_attn"], x, mask=attn_mask, num_heads=cfg.encoder_attention_heads, tp=tp)
+
+
+def led_self_attention(p: Params, pg: Params, x: torch.Tensor, keep: torch.Tensor,
+                       cfg: BartConfig) -> torch.Tensor:
+    """LED's encoder self-attention (transformers' LEDEncoderSelfAttention
+    with its `output` projection) on the layer-by-layer path: x [B, S, d],
+    keep [B, S] {0, 1}. q, k, v from `p`'s q/k/v_proj (q scaled by
+    head_dim**-0.5) -> kernels/primitives.window_attention_plain (the band of
+    cfg.attention_window / 2 on each side, the global key of <s> as a
+    column of every row, padded rows zero); then the global token's row
+    replaced by its attention over every unpadded key through `pg`'s
+    q/k/v_proj (LED's query_global, key_global, value_global); then
+    out_proj."""
+    heads = cfg.encoder_attention_heads
+    hd = x.shape[-1] // heads
+    bias = ((1.0 - keep.float()) * torch.finfo(torch.float32).min)  # [B, S]
+    q = _split_heads(linear(p["q_proj"], x) * hd ** -0.5, heads)
+    k = _split_heads(linear(p["k_proj"], x), heads)
+    v = _split_heads(linear(p["v_proj"], x), heads)
+    o = window_attention_plain(q, k, v, bias, cfg.attention_window // 2, cfg.global_tokens)
+    o = _merge_heads(o)
+    g = cfg.global_tokens
+    qg = linear(pg["q_proj"], x[:, :g])  # unscaled: global_rows_plain scales it
+    kg = linear(pg["k_proj"], x)
+    vg = linear(pg["v_proj"], x)
+    o = torch.cat([global_rows_plain(qg, kg, vg, bias, heads).to(o.dtype), o[:, g:]], dim=1)
+    return linear(p["out_proj"], o)
+
+
 def encoder_layer_fwd(p: Params, x: torch.Tensor, attn_mask, cfg: BartConfig,
                       rngs: RngStream = NO_DROPOUT,
                       tp: ModelShard | None = None) -> torch.Tensor:
-    """Vanilla post-LN BART encoder layer."""
+    """Vanilla post-LN BART encoder layer (LED's with cfg.attention_window)."""
     act = ACT2FN[cfg.activation_function]
-    h = mha(p["self_attn"], x, mask=attn_mask, num_heads=cfg.encoder_attention_heads, tp=tp)
+    h = encoder_self_attention(p, x, attn_mask, cfg, tp)
     x = layernorm(p["self_attn_layer_norm"], x + dropout(h, cfg.dropout, rngs.next()))
     return residual_ffn(p["fc1"], p["fc2"], p["final_layer_norm"], x, act, cfg, rngs, tp)
 
@@ -173,6 +216,14 @@ def decoder_fwd(params: Params, decoder_input_ids: torch.Tensor, enc_out: torch.
     return x
 
 
+def encoder_self_mask(attention_mask: torch.Tensor, cfg: BartConfig, dtype) -> torch.Tensor:
+    """What encoder_self_attention takes as its mask: BART's additive [B, 1,
+    S, S], or with cfg.attention_window the [B, S] keep-mask itself."""
+    if cfg.attention_window:
+        return attention_mask
+    return expand_mask(attention_mask, dtype=dtype)
+
+
 def encoder_fwd(params: Params, input_ids: torch.Tensor, attention_mask: torch.Tensor,
                 cfg: BartConfig, dtype=torch.float32, *, dropout_rng: int | None = None,
                 remat: bool = False, tp: ModelShard | None = None) -> torch.Tensor:
@@ -180,7 +231,7 @@ def encoder_fwd(params: Params, input_ids: torch.Tensor, attention_mask: torch.T
     enc = params["encoder"]
     x = embed_and_norm(params["shared"], enc["embed_positions"], enc["layernorm_embedding"],
                        input_ids, cfg, dtype, rngs=RngStream(dropout_rng))
-    mask = expand_mask(attention_mask, dtype=dtype)
+    mask = encoder_self_mask(attention_mask, cfg, dtype)
     for i, p in enumerate(enc["layers"]):
         x = run_layer(_encoder_layer, remat, p, x, mask, cfg, layer_seed(dropout_rng, i), tp)
     return x
@@ -247,13 +298,17 @@ def init_cache(params: Params, batch: int, max_len: int, enc_out: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def encoder_layer_init(g: torch.Generator, cfg: BartConfig, device=None) -> Params:
-    return {
+    p = {
         "self_attn": mha_init(g, cfg.d_model, device),
         "self_attn_layer_norm": layernorm_init(cfg.d_model, device),
         "fc1": linear_init(g, cfg.d_model, cfg.encoder_ffn_dim, device),
         "fc2": linear_init(g, cfg.encoder_ffn_dim, cfg.d_model, device),
         "final_layer_norm": layernorm_init(cfg.d_model, device),
     }
+    if cfg.attention_window:  # LED's query_global, key_global, value_global
+        p["self_attn_global"] = {n: linear_init(g, cfg.d_model, cfg.d_model, device)
+                                 for n in ("q_proj", "k_proj", "v_proj")}
+    return p
 
 
 def decoder_layer_init(g: torch.Generator, cfg: BartConfig, device=None) -> Params:
@@ -269,17 +324,16 @@ def decoder_layer_init(g: torch.Generator, cfg: BartConfig, device=None) -> Para
 
 
 def bart_init(g: torch.Generator, cfg: BartConfig, device=None) -> Params:
-    n_pos = cfg.max_position_embeddings + POS_OFFSET
     return {
         "shared": embedding_init(g, cfg.vocab_size, cfg.d_model, device),
         "encoder": {
-            "embed_positions": embedding_init(g, n_pos, cfg.d_model, device),
+            "embed_positions": embedding_init(g, cfg.encoder_positions, cfg.d_model, device),
             "layernorm_embedding": layernorm_init(cfg.d_model, device),
             "layers": tuple(encoder_layer_init(g, cfg, device)
                             for _ in range(cfg.encoder_layers)),
         },
         "decoder": {
-            "embed_positions": embedding_init(g, n_pos, cfg.d_model, device),
+            "embed_positions": embedding_init(g, cfg.decoder_positions, cfg.d_model, device),
             "layernorm_embedding": layernorm_init(cfg.d_model, device),
             "layers": tuple(decoder_layer_init(g, cfg, device)
                             for _ in range(cfg.decoder_layers)),

@@ -190,7 +190,7 @@ def fusion_encoder_layer_fwd(p: Params, x: torch.Tensor, attn_mask: torch.Tensor
         kv = img
         cross_mask = masks["img_ner"]
 
-    h = mha(p["self_attn"], x, mask=attn_mask, num_heads=cfg.encoder_attention_heads, tp=tp)
+    h = B.encoder_self_attention(p, x, attn_mask, cfg, tp)
     x = layernorm(p["self_attn_layer_norm"], x + dropout(h, cfg.dropout, rngs.next()))
     h = mha(p["cross_attn_img_ner"], x, key_value=kv, mask=cross_mask,
             num_heads=cfg.encoder_attention_heads, tp=tp)
@@ -241,7 +241,7 @@ def mm_encoder_fwd(params: Params, input_ids, attention_mask, image_features,
         masks["img_ner"] = expand_mask(torch.ones(bsz, plen, dtype=dtype, device=dev),
                                        src_len, dtype)
     streams["img"] = map_image_prompt(enc, image_features, cfg, fcfg, tp).to(dtype)
-    attn_mask = expand_mask(attention_mask, dtype=dtype)
+    attn_mask = B.encoder_self_mask(attention_mask, cfg, dtype)
     fused_set = set(fcfg.fusion_layers)
     for i, p in enumerate(enc["layers"]):
         x, streams = B.run_layer(_fusion_layer, remat, p, x, attn_mask, streams, masks, cfg,
@@ -360,6 +360,15 @@ def _fused_encoder_prologue(params: Params, input_ids, attention_mask, image_fea
         return torch.stack([torch.stack([p[name]["scale"], p[name]["bias"]])
                             for p in layers]).float().contiguous()
 
+    led = {}
+    if cfg.attention_window:  # LED's global projections
+        led = dict(w_qg=w("self_attn_global", "q_proj", "kernel"),
+                   b_qg=b("self_attn_global", "q_proj", "bias"),
+                   w_kvg=torch.cat([w("self_attn_global", "k_proj", "kernel"),
+                                    w("self_attn_global", "v_proj", "kernel")], dim=-1).contiguous(),
+                   b_kvg=torch.cat([b("self_attn_global", "k_proj", "bias"),
+                                    b("self_attn_global", "v_proj", "bias")], dim=-1).contiguous())
+
     sp = EncStackParams(
         w_qkv=torch.cat([w("self_attn", "q_proj", "kernel"), w("self_attn", "k_proj", "kernel"),
                          w("self_attn", "v_proj", "kernel")], dim=-1).contiguous(),
@@ -378,6 +387,7 @@ def _fused_encoder_prologue(params: Params, input_ids, attention_mask, image_fea
         w_fc2=w("fc2", "kernel"),
         b_fc2=b("fc2", "bias"),
         ln_f=ln2("final_layer_norm"),
+        **led,
     )
     self_bias = (1.0 - attention_mask.float()) * torch.finfo(torch.float32).min  # [B, S]
     cross_bias = torch.zeros(input_ids.shape[0], cross_v.shape[2], device=x.device)

@@ -176,13 +176,39 @@ def _mha(sd: Mapping[str, Any], prefix: str) -> Params:
 
 
 def _strip_model_prefix(sd: Mapping[str, Any]) -> Mapping[str, Any]:
-    if not any(k.startswith("model.") for k in sd):
-        return sd
-    return {k[len("model."):]: v for k, v in sd.items() if k.startswith("model.")} | {
-        k: v for k, v in sd.items() if not k.startswith("model.")}
+    """The model's keys without ForConditionalGeneration's prefix: `model.`
+    (BART) or `led.` (LED)."""
+    for pre in ("model.", "led."):
+        if any(k.startswith(pre) for k in sd):
+            return {k[len(pre):]: v for k, v in sd.items() if k.startswith(pre)} | {
+                k: v for k, v in sd.items() if not k.startswith(pre)}
+    return sd
+
+
+def _led_self_attn(sd, prefix: str) -> tuple[Params, Params]:
+    """LED's encoder self-attention (`{prefix}.longformer_self_attn.{query,
+    key, value, query_global, key_global, value_global}` and
+    `{prefix}.output`) -> (self_attn, self_attn_global) of the port's tree."""
+    lf = f"{prefix}.longformer_self_attn"
+    local = {"q_proj": _linear(sd, f"{lf}.query"), "k_proj": _linear(sd, f"{lf}.key"),
+             "v_proj": _linear(sd, f"{lf}.value"), "out_proj": _linear(sd, f"{prefix}.output")}
+    glob = {"q_proj": _linear(sd, f"{lf}.query_global"),
+            "k_proj": _linear(sd, f"{lf}.key_global"),
+            "v_proj": _linear(sd, f"{lf}.value_global")}
+    return local, glob
 
 
 def _bart_encoder_layer(sd, prefix: str) -> Params:
+    if f"{prefix}.self_attn.longformer_self_attn.query.weight" in sd:  # LED
+        local, glob = _led_self_attn(sd, f"{prefix}.self_attn")
+        return {
+            "self_attn": local,
+            "self_attn_global": glob,
+            "self_attn_layer_norm": _layernorm(sd, f"{prefix}.self_attn_layer_norm"),
+            "fc1": _linear(sd, f"{prefix}.fc1"),
+            "fc2": _linear(sd, f"{prefix}.fc2"),
+            "final_layer_norm": _layernorm(sd, f"{prefix}.final_layer_norm"),
+        }
     return {
         "self_attn": _mha(sd, f"{prefix}.self_attn"),
         "self_attn_layer_norm": _layernorm(sd, f"{prefix}.self_attn_layer_norm"),
@@ -208,7 +234,11 @@ def convert_bart(sd: Mapping[str, Any], cfg: BartConfig, device="cpu") -> Params
     """HF `BartForConditionalGeneration.state_dict()` -> models/bart.py tree
     of f32 tensors on `device`. Accepts both `model.`-prefixed
     (ForConditionalGeneration) and bare (BartModel) key layouts; a missing
-    `final_logits_bias` becomes zeros."""
+    `final_logits_bias` becomes zeros. Also LED's
+    (`LEDForConditionalGeneration`, `led.`-prefixed): its encoder layers'
+    longformer_self_attn query/key/value and output become `self_attn`'s
+    q/k/v/out_proj, query/key/value_global `self_attn_global`'s; its
+    position tables carry no offset rows (cfg.position_offset 0)."""
     sd = _strip_model_prefix(sd)
     params: Params = {
         "shared": _embedding(sd, "shared.weight"),
