@@ -172,12 +172,18 @@ Phases:
            generate_captions(mesh=), `cli serve --sharded` as a subprocess;
            the data-parallel training step in torch.cuda.device_count()
            spawned NCCL ranks (run_dp_group) at full_train() widths cut to
-           2 + 2 layers, batch 32, its loss terms equal to one process's
-           within 2e-5.
+           2 + 2 layers, batch 32, with the models' products on the float32
+           recipe its loss terms equal to one process's within 2e-5; with
+           the program's bf16 products, finite, its gaps read.
   meshscale  readings only, not in the default list: generate_mm_sharded
            over the first 1, 2, 4 cards at 32 rows a card (the switch
            interval at its default and at 1e-4 s) beside one card's
            generate_mm and the shards run in turn from one thread.
+  bf16gaps readings only, not in the default list: over seeds 0, 1, 2,
+           the mesh phase's data-parallel step and the tp phase's bf16
+           witness, each with the products on the program's bf16 recipe
+           and on the float32 one: the gaps to one process and the two
+           recipes' distance in one process.
   tp       the dp x tp training step (run_tp_phase, core/tensor_parallel) at
            full_train() widths and depth, batch 32, computed in f32
            (tp_config), against one process on the
@@ -188,7 +194,10 @@ Phases:
            row-parallel and replicated leaves of BART, fusion and the teacher
            gathered after the update, shard bytes, flash_attention on the
            head shards, then gather_params and a batch-32 decode over a data
-           mesh identical to generate_mm. Readings: step ms, samples/s, peak
+           mesh identical to generate_mm. In bf16 (bf16_witness) against
+           one bf16 process, both off the f32 step: whole with the products
+           on the float32 recipe; the gradients alone with the program's
+           bf16 products, its terms read. Readings: step ms, samples/s, peak
            GB a rank against one process.
   onlyvis  VacnicConfig.onlyvis_train() (the visual-prompt-only model:
            clipcap prompt alone, KV 20) at full width, random bf16 weights
@@ -3050,7 +3059,13 @@ def run_train_phase(gpu: str) -> dict:
     # backward; the ctypes kernels are not seen)
     from torch.utils.flop_counter import FlopCounterMode
 
-    with FlopCounterMode(display=False) as fc:
+    def bmm_flop(a_shape, b_shape, *args, out_shape=None, **kwargs) -> int:
+        # the bf16 products (models/products.py) run aten::bmm.dtype, whose
+        # out_dtype argument torch's own bmm formula does not take
+        (b, m, k), n = a_shape, b_shape[-1]
+        return 2 * b * m * k * n
+
+    with FlopCounterMode(display=False, custom_mapping={torch.ops.aten.bmm: bmm_flop}) as fc:
         state, _ = step_fn(state, batch)
     flops = fc.get_total_flops()
     mm_ms = sum(ms_ for ms_, _, key in aten if key in ("aten::mm", "aten::bmm", "aten::addmm"))
@@ -4310,6 +4325,29 @@ def run_cli_phase(gpu: str) -> dict:
 # ---------------------------------------------------------------------------
 
 DP_SPEC, DP_OUT, DP_STORE = "dp_spec.pt", "dp_out.pt", "dp_store"
+PRODUCT_RECIPES = ("bf16", "f32")
+
+
+def use_products(recipe: str) -> None:
+    """The models' library products (models/products.product) from here on
+    in this process: "bf16", the program's own choice (bf16 tensor cores on
+    the card where both operands are bf16), or "f32", the float32 recipe at
+    every site (the products before models/products took bf16 operands), a
+    witness beside the program that the limits set on that recipe read."""
+    from vacnic_tpu_torch.models import products as P
+
+    if recipe not in PRODUCT_RECIPES:
+        raise ValueError(f"use_products: {recipe!r}, expected one of {PRODUCT_RECIPES}")
+    program = getattr(P._bf16_mm, "program", P._bf16_mm)
+    if recipe == "bf16":
+        P._bf16_mm = program
+        return
+
+    def f32_recipe(a, b):
+        return None
+
+    f32_recipe.program = program
+    P._bf16_mm = f32_recipe
 
 
 def _grid_worker_groups(world: int, grid, timeout_s: float, cache: dict):
@@ -4371,7 +4409,8 @@ def dp_step_worker(rank: int, world: int, work_dir: str, timeout_s: float) -> No
     case's own "batch" and "params"; or, with spec "build" = (fn, kwargs),
     fn(device, **kwargs) -> (params, teacher), whole trees every rank makes
     on its device and checks equal across the world). A case gives the
-    config, `steps` steps (their metrics), and with `grads` first one
+    config, its "products" recipe (use_products; "bf16", the program's, by
+    default), `steps` steps (their metrics), and with `grads` first one
     loss_and_grads at step 1's dropout seed (the reduced gradients, the
     cut ones gathered whole; host copies on rank 0 only), freed before the
     steps. Under a model group also: "tp" (the storage bytes of the rank's
@@ -4417,6 +4456,7 @@ def dp_step_worker(rank: int, world: int, work_dir: str, timeout_s: float) -> No
         results = []
         for case in spec["cases"]:
             cfg = case["cfg"]
+            use_products(case.get("products", "bf16"))
             batch = case.get("batch", spec["batch"])
             data_group, model_group = _grid_worker_groups(world, case.get("grid", (world, 1)),
                                                           timeout_s, groups)
@@ -4746,24 +4786,14 @@ def run_mesh_cli(cfg, params, mesh, gpu: str) -> None:
         shutil.rmtree(root, ignore_errors=True)
 
 
-def run_mesh_train(gpu: str) -> None:
-    """(4) of the mesh phase: the data-parallel training step in a group of
-    torch.cuda.device_count() NCCL ranks (run_dp_group: spawned processes,
-    one card each; on one card two ranks sharing it over gloo, so that the
-    group's collectives run there too) at full_train() widths cut to
-    DATA_FIT_LAYERS + DATA_FIT_LAYERS layers, as released otherwise (bf16
-    over f32, remat, dropout 0.1, CoLaM with the teacher's forward, SECLA,
-    CLIP frozen on pixels), batch 32, random f32 trees from seed 0, one
-    step; its loss terms equal to a one-process step on the same global
-    batch within 2e-5 (the CPU tests' tolerance; 1.1e-5 relative at most
-    over four H100s at 700 W: a rank's rows meet products of another batch
-    size), the gradient norm within 2e-3: the bf16 gradients of each rank's
-    rows round before the ranks' sum (2e-4 seen over 2 CPU ranks), and the
-    backward's atomics sum in another order from run to run."""
+def mesh_train_metrics(seed: int = 0) -> tuple:
+    """The data-parallel training step of run_mesh_train on random f32 trees
+    and a batch from `seed`, once under each product recipe (use_products,
+    PRODUCT_RECIPES; the group's cases spawned once) -> (ranks, backend,
+    the group's seconds, {recipe: (the group's metrics, one process's)})."""
     import shutil
     import tempfile
 
-    import numpy as np
     import torch
 
     from vacnic_tpu_torch.core.config import VacnicConfig
@@ -4781,38 +4811,93 @@ def run_mesh_train(gpu: str) -> None:
                                       decoder_layers=DATA_FIT_LAYERS),
         fusion=dataclasses.replace(cfg.fusion, fusion_layers=tuple(range(DATA_FIT_LAYERS))))
     bsz = cfg.train.train_batch_size
-    g = make_generator(0, "cuda")
+    g = make_generator(seed, "cuda")
     params = tree_to({"model": F.multimodal_bart_init(g, cfg.bart, cfg.fusion, device="cuda"),
                       "clip": clip_vision_init(g, cfg.clip, device="cuda")}, "cpu")
     teacher = tree_to(bart_init(g, cfg.bart, device="cuda"), "cpu")
-    batch = {k: v.numpy() for k, v in synthetic_batch(cfg, bsz, seed=0, with_pixels=True).items()}
+    batch = {k: v.numpy()
+             for k, v in synthetic_batch(cfg, bsz, seed=seed, with_pixels=True).items()}
     world = max(2, torch.cuda.device_count())
     backend = grid_backend("cuda", world)
     work = tempfile.mkdtemp(prefix="mesh_dp_")
     try:
         t0 = time.perf_counter()
-        (res,) = run_dp_group(world, dict(device="cuda", params=params, teacher=teacher,
-                                          rng=cfg.train.seed, batch=batch,
-                                          cases=[dict(cfg=cfg, steps=1)]), work, timeout_s=600)
+        res = run_dp_group(world, dict(device="cuda", params=params, teacher=teacher,
+                                       rng=cfg.train.seed, batch=batch,
+                                       cases=[dict(cfg=cfg, steps=1, products=r)
+                                              for r in PRODUCT_RECIPES]), work, timeout_s=600)
         group_s = time.perf_counter() - t0
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    init_fn, step_fn = make_train_step(cfg, 100, device="cuda")
-    state = init_fn(tree_to(params, "cuda"), tree_to(teacher, "cuda"), cfg.train.seed)
-    _, m = step_fn(state, batch)
-    want = {k: float(v) for k, v in m.items() if k != "teacher_pooled"}
-    got = res["steps"][0]
-    log(f"mesh train: {world} ranks on {torch.cuda.device_count()} card(s) over {backend}, "
-        f"full_train() widths at {DATA_FIT_LAYERS} + {DATA_FIT_LAYERS} layers, batch {bsz} "
-        f"(each rank {bsz // world} rows): the group {group_s:.2f} s (spawn, {backend}, one "
-        f"step); its metrics {got}; one process {want} ({gpu})")
-    if set(got) != set(want):
-        raise RuntimeError(f"mesh train: metrics {sorted(got)} vs {sorted(want)}")
+    out = {}
+    try:
+        for recipe, got in zip(PRODUCT_RECIPES, res):
+            use_products(recipe)
+            init_fn, step_fn = make_train_step(cfg, 100, device="cuda")
+            state = init_fn(tree_to(params, "cuda"), tree_to(teacher, "cuda"), cfg.train.seed)
+            _, m = step_fn(state, batch)
+            out[recipe] = (got["steps"][0],
+                           {k: float(v) for k, v in m.items() if k != "teacher_pooled"})
+            del state, step_fn
+    finally:
+        use_products("bf16")
+    torch.cuda.empty_cache()
+    return world, backend, group_s, out
+
+
+def relative_gaps(got: dict, want: dict) -> dict:
+    """|got - want| / (1 + |want|) for each metric of want."""
+    return {k: abs(got[k] - want[k]) / (1 + abs(want[k])) for k in want}
+
+
+def run_mesh_train(gpu: str) -> None:
+    """(4) of the mesh phase: the data-parallel training step in a group of
+    torch.cuda.device_count() NCCL ranks (run_dp_group: spawned processes,
+    one card each; on one card two ranks sharing it over gloo, so that the
+    group's collectives run there too) at full_train() widths cut to
+    DATA_FIT_LAYERS + DATA_FIT_LAYERS layers, as released otherwise (bf16
+    over f32, remat, dropout 0.1, CoLaM with the teacher's forward, SECLA,
+    CLIP frozen on pixels), batch 32, random f32 trees from seed 0, one
+    step, against a one-process step on the same global batch
+    (mesh_train_metrics), with the products on each recipe. Gated on the
+    float32 recipe (use_products("f32")), whose products a rank's rows meet
+    at another batch size in nearly the same order: the loss terms within
+    2e-5 (the CPU tests' tolerance; 1.1e-5 relative at most over four H100s
+    at 700 W), the gradient norm within 2e-3: the bf16 gradients of each
+    rank's rows round before the ranks' sum (2e-4 seen over 2 CPU ranks),
+    and the backward's atomics sum in another order from run to run. On the
+    program's bf16 products the library sums a rank's 64 face rows at K 3072
+    in another order than one process's 128 (PERF.md section 7): that case
+    is held to finite metrics of the same names, and its gaps are read
+    beside the two recipes' own distance in one process."""
+    import numpy as np
+    import torch
+
+    world, backend, group_s, by_recipe = mesh_train_metrics()
+    for recipe, (got, want) in by_recipe.items():
+        log(f"mesh train, {recipe} products: {world} ranks on {torch.cuda.device_count()} "
+            f"card(s) over {backend}, full_train() widths at {DATA_FIT_LAYERS} + "
+            f"{DATA_FIT_LAYERS} layers, batch 32 (each rank {32 // world} rows): the group "
+            f"{group_s:.2f} s (spawn, {backend}, one step a recipe); its metrics {got}; one "
+            f"process {want} ({gpu})")
+        if set(got) != set(want):
+            raise RuntimeError(f"mesh train, {recipe} products: metrics {sorted(got)} vs "
+                               f"{sorted(want)}")
+        if not all(np.isfinite(v) for v in list(got.values()) + list(want.values())):
+            raise RuntimeError(f"mesh train, {recipe} products: metrics not finite")
+    got, want = by_recipe["f32"]
     for k in want:
         tol = 2e-3 if k == "grad_norm" else 2e-5
-        if not (np.isfinite(got[k]) and abs(got[k] - want[k]) <= tol * (1 + abs(want[k]))):
+        if not abs(got[k] - want[k]) <= tol * (1 + abs(want[k])):
             raise RuntimeError(f"mesh train: {k} {got[k]!r} on {world} rank(s) against "
-                               f"{want[k]!r} in one process")
+                               f"{want[k]!r} in one process (f32 products)")
+    gaps = {r: relative_gaps(*by_recipe[r]) for r in PRODUCT_RECIPES}
+    apart = relative_gaps(by_recipe["bf16"][1], by_recipe["f32"][1])
+    log("mesh train: the group against one process, relative, bf16 products against f32 "
+        "products: " + ", ".join(f"{k} {gaps['bf16'][k]:.2e} / {gaps['f32'][k]:.2e}"
+                                 for k in want)
+        + "; one process's bf16 products against its f32 products: "
+        + ", ".join(f"{k} {v:.2e}" for k, v in apart.items()) + f" ({gpu})")
 
 
 def run_meshscale_phase(cfg, params, gpu: str) -> None:
@@ -4962,9 +5047,10 @@ def bf16_witness(paths, g32, g16, t16, m32: dict, m16: dict, mt16: dict) -> dict
     norm, over every leaf ("all") and leaf by leaf (key biases left out:
     their f32 gradient is noise around zero), each as (one bf16 process, tp
     bf16); the loss terms and the gradient norm relative to 1 + |f32|.
-    "ok": the whole gradient and every term within TP_BF16_RATIO times one
-    bf16 process's distance (a term also within 2e-5), every leaf within
-    TP_BF16_LEAF_RATIO times."""
+    "ok_gradients": the whole gradient within TP_BF16_RATIO times one bf16
+    process's distance, every leaf within TP_BF16_LEAF_RATIO times; "ok":
+    those and every term within TP_BF16_RATIO times (a term also within
+    2e-5)."""
     sq = [0.0] * 5  # |g32|^2, |g16|^2, |t16|^2, |g16 - g32|^2, |t16 - g32|^2 over every leaf
     leaves = {}
     for p, a, b, c in zip(paths, g32, g16, t16):
@@ -4981,9 +5067,11 @@ def bf16_witness(paths, g32, g16, t16, m32: dict, m16: dict, mt16: dict) -> dict
     terms["grad_norm"] = tuple(v ** 0.5 for v in sq[:3])
     out["terms"] = {k: (abs(b - a) / (1 + abs(a)), abs(c - a) / (1 + abs(a)))
                     for k, (a, b, c) in terms.items()}
-    out["ok"] = (out["all"][1] <= TP_BF16_RATIO * out["all"][0]
-                 and all(t <= TP_BF16_LEAF_RATIO * o for o, t in out["leaves"].values())
-                 and all(t <= TP_BF16_RATIO * o + 2e-5 for o, t in out["terms"].values()))
+    out["ok_gradients"] = (out["all"][1] <= TP_BF16_RATIO * out["all"][0]
+                           and all(t <= TP_BF16_LEAF_RATIO * o
+                                   for o, t in out["leaves"].values()))
+    out["ok"] = out["ok_gradients"] and all(t <= TP_BF16_RATIO * o + 2e-5
+                                            for o, t in out["terms"].values())
     return out
 
 
@@ -5011,15 +5099,15 @@ def tp_grids(cards: int) -> list[tuple[int, int]]:
     return [(1, cards)]
 
 
-def _one_process_grads(cfg, batch) -> tuple:
-    """One process's loss_and_grads at step 1's dropout seed on tp_trees(cfg),
+def _one_process_grads(cfg, batch, seed: int = 0) -> tuple:
+    """One process's loss_and_grads at step 1's dropout seed on tp_trees(cfg, seed),
     as dp_step_worker's `grads` takes it -> (the state, (paths, host
     gradients, metrics)); the caller goes on stepping the state or drops it."""
     from vacnic_tpu_torch.core.tree import leaves_with_path
     from vacnic_tpu_torch.models.layers import split
     from vacnic_tpu_torch.train.train_step import loss_and_grads, make_train_step
 
-    params, teacher = tp_trees("cuda", cfg)
+    params, teacher = tp_trees("cuda", cfg, seed)
     init_fn, step_fn = make_train_step(cfg, 100, device="cuda")
     state = init_fn(params, teacher, cfg.train.seed)
     m, grads = loss_and_grads(state.params, state.teacher, batch, cfg, split(state.rng)[1])
@@ -5039,8 +5127,8 @@ def run_tp_phase(gpu: str) -> int:
     gradients of one bf16 process; each process's memory freed after it.
     Then one group of spawned processes (run_dp_group; each rank makes the
     whole trees from the seed on its card, checked equal across ranks, and
-    keeps its shards) over every grid of tp_grids, then a bf16 case on the
-    first grid: on one card two ranks sharing it over gloo (NCCL refuses
+    keeps its shards) over every grid of tp_grids, then two bf16 cases on
+    the first grid: on one card two ranks sharing it over gloo (NCCL refuses
     two ranks a device; core/tensor_parallel stages gloo's CUDA tensors
     through host memory), on several cards NCCL. Gated for each grid: the
     loss terms of every step within 2e-5 (relative to 1 + |value|) of one
@@ -5055,8 +5143,13 @@ def run_tp_phase(gpu: str) -> int:
     of the same tree. On the first grid also its gradients: every
     replicated leaf's bit-identical across the model ranks, every leaf
     within TP_GRAD_TOL (grad_errors) and the loss terms within 2e-5 of one
-    process's. The bf16 case: bf16_witness. Readings: step ms, samples/s
-    and peak GB a rank against one process. -> flash_attention's launches
+    process's. The bf16 cases, one a product recipe (use_products), each
+    beside one bf16 process on the same recipe: bf16_witness, whole on the
+    float32 recipe, where its ratios were read; on the program's bf16
+    products its gradients (ok_gradients), its loss terms and gradient norm
+    read (a rank's narrower bf16 products sum in another order, and SECLA
+    carries a flipped rounding into the terms; PERF.md section 7).
+    Readings: step ms, samples/s and peak GB a rank against one process. -> flash_attention's launches
     in rank 0's last step of the first grid."""
     import shutil
     import tempfile
@@ -5093,9 +5186,16 @@ def run_tp_phase(gpu: str) -> int:
                   for k in TP_LEAVES}
     del state, step_fn
     torch.cuda.empty_cache()
-    state, step_fn, (_, one16_grads, one16_gm) = _one_process_grads(cfg16, batch)
-    del state, step_fn
-    torch.cuda.empty_cache()
+    one16 = {}
+    try:
+        for recipe in PRODUCT_RECIPES:
+            use_products(recipe)
+            state, step_fn, (_, g16, m16) = _one_process_grads(cfg16, batch)
+            del state, step_fn
+            torch.cuda.empty_cache()
+            one16[recipe] = (g16, m16)
+    finally:
+        use_products("bf16")
     log(f"tp: one process, full_train() widths at {TP_LAYERS} + {TP_LAYERS} layers, batch {bsz}: "
         f"step ms {[round(v, 1) for v in one_ms]}, {bsz / one_ms[-1] * 1e3:.2f} samples/s, "
         f"peak {one_peak:.2f} GB ({one_base:.2f} GB held before the steps), "
@@ -5108,7 +5208,8 @@ def run_tp_phase(gpu: str) -> int:
     decode = dict(batch=bsz, seed=1, dtype=torch.bfloat16)
     cases = [dict(cfg=cfg, steps=TP_STEPS, grid=grid, leaves=TP_LEAVES, decode=decode,
                   grads=i == 0) for i, grid in enumerate(grids)]
-    cases.append(dict(cfg=cfg16, steps=0, grid=grids[0], grads=True))
+    cases += [dict(cfg=cfg16, steps=0, grid=grids[0], grads=True, products=r)
+              for r in PRODUCT_RECIPES]
     work = tempfile.mkdtemp(prefix="tp_")
     try:
         t0 = time.perf_counter()
@@ -5118,13 +5219,13 @@ def run_tp_phase(gpu: str) -> int:
         group_s = time.perf_counter() - t0
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    res, res16 = res[:-1], res[-1]
+    res, res16 = res[:-2], dict(zip(PRODUCT_RECIPES, res[-2:]))
     backend = grid_backend("cuda", world)
     log(f"tp: {world} spawned ranks on {cards} card(s), backend {backend}"
         + (" (CUDA tensors of the model group's collectives staged through host memory)"
            if backend == "gloo" else "") + f", grids {grids}: {group_s:.1f} s wall (spawn, "
         f"every rank's trees, {TP_STEPS} steps a grid, gathers, decodes, the gradients of the "
-        f"first grid and of the bf16 case)")
+        f"first grid and of the bf16 cases)")
 
     def within(got: dict, want: dict, tag: str) -> list:
         if set(got) != set(want):
@@ -5191,29 +5292,108 @@ def run_tp_phase(gpu: str) -> int:
             f"{tuple(d['tokens'].shape)} ({gpu})")
         TOKENS[f"tp_{grid[0]}x{grid[1]}"] = d["tokens"]
 
-    w = bf16_witness(paths, one_grads, one16_grads, res16["grads"], one_gm, one16_gm,
-                     res16["grad_metrics"])
-    ratios = sorted(((t / max(o, 1e-30), "/".join(map(str, p)), o, t)
-                     for p, (o, t) in w["leaves"].items()), reverse=True)
-    worst = "; ".join(f"{name} {o:.2e} against {t:.2e} ({r:.2f}x)"
-                      for r, name, o, t in ratios[:3])
-    apart = {k: f"{abs(res16['grad_metrics'][k] - v) / (1 + abs(v)):.2e}"
-             for k, v in one16_gm.items()}
-    log(f"tp bf16 witness (grid dp {grids[0][0]} x tp {grids[0][1]}, {backend}): distance "
-        f"from the f32 one-process step, one bf16 process against the bf16 tp step: "
-        f"gradients by norm {w['all'][0]:.3e} against {w['all'][1]:.3e}; by leaf "
-        f"{sum(r > 1 for r, *_ in ratios)} of {len(ratios)} leaves further in the tp step, "
-        f"{sum(r > 2 for r, *_ in ratios)} over 2x, the three furthest {worst}; terms "
-        f"{ {k: f'{o:.2e} against {t:.2e}' for k, (o, t) in w['terms'].items()} }; the tp "
-        f"step's terms against one bf16 process, relative {apart} ({gpu})")
-    if not w["ok"]:
-        failures.append(f"tp bf16: the tp step further from the f32 step than one bf16 "
-                        f"process by more than {TP_BF16_RATIO}x (whole gradient {w['all']}, "
-                        f"terms {w['terms']}) or {TP_BF16_LEAF_RATIO}x (leaves: {worst})")
+    for recipe in PRODUCT_RECIPES:
+        (g16, m16), r16 = one16[recipe], res16[recipe]
+        w = bf16_witness(paths, one_grads, g16, r16["grads"], one_gm, m16, r16["grad_metrics"])
+        ratios = sorted(((t / max(o, 1e-30), "/".join(map(str, p)), o, t)
+                         for p, (o, t) in w["leaves"].items()), reverse=True)
+        worst = "; ".join(f"{name} {o:.2e} against {t:.2e} ({r:.2f}x)"
+                          for r, name, o, t in ratios[:3])
+        apart = {k: f"{abs(r16['grad_metrics'][k] - v) / (1 + abs(v)):.2e}"
+                 for k, v in m16.items()}
+        log(f"tp bf16 witness, {recipe} products (grid dp {grids[0][0]} x tp {grids[0][1]}, "
+            f"{backend}): distance from the f32 one-process step, one bf16 process against "
+            f"the bf16 tp step: gradients by norm {w['all'][0]:.3e} against "
+            f"{w['all'][1]:.3e}; by leaf {sum(r > 1 for r, *_ in ratios)} of {len(ratios)} "
+            f"leaves further in the tp step, {sum(r > 2 for r, *_ in ratios)} over 2x, the "
+            f"three furthest {worst}; terms "
+            f"{ {k: f'{o:.2e} against {t:.2e}' for k, (o, t) in w['terms'].items()} } (within "
+            f"{TP_BF16_RATIO}x: {w['ok']}); the tp step's terms against one bf16 process, "
+            f"relative {apart} ({gpu})")
+        if not w["ok" if recipe == "f32" else "ok_gradients"]:
+            failures.append(f"tp bf16, {recipe} products: the tp step further from the f32 "
+                            f"step than one bf16 process by more than {TP_BF16_RATIO}x (whole "
+                            f"gradient {w['all']}"
+                            + (f", terms {w['terms']}" if recipe == "f32" else "")
+                            + f") or {TP_BF16_LEAF_RATIO}x (leaves: {worst})")
     log(f"tp: phase {time.perf_counter() - t_phase:.1f} s wall")
     if failures:
         raise RuntimeError("tp: " + "; ".join(failures))
     return res[0]["ranks"][0]["flash_attention"]
+
+
+BF16GAPS_SEEDS = (0, 1, 2)  # the trees' and the batch's seeds of the bf16gaps phase
+
+
+def run_bf16gaps_phase(gpu: str) -> None:
+    """Readings, not gated (`--phases bf16gaps`, not in the default list):
+    for each seed of BF16GAPS_SEEDS (trees and batch), the mesh phase's
+    data-parallel step (mesh_train_metrics) and the tp phase's bf16 witness
+    (bf16_witness on the first grid of tp_grids), each with the products on
+    the program's bf16 recipe and on the float32 one (use_products): the
+    group's loss terms against one process's, the two recipes' distance in
+    one process, whether the group's terms lie within TP_BF16_RATIO times
+    that distance (+ 2e-5), and the witness's distances with its verdict."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from vacnic_tpu_torch.data.synthetic import synthetic_batch
+
+    def terms(d: dict) -> str:
+        return ", ".join(f"{k} {v}" for k, v in d.items())
+
+    for seed in BF16GAPS_SEEDS:
+        world, backend, _, by_recipe = mesh_train_metrics(seed)
+        gaps = {r: relative_gaps(*by_recipe[r]) for r in PRODUCT_RECIPES}
+        apart = relative_gaps(by_recipe["bf16"][1], by_recipe["f32"][1])
+        within = all(gaps["bf16"][k] <= TP_BF16_RATIO * v + 2e-5 for k, v in apart.items())
+        log(f"bf16gaps seed {seed}: dp, {world} ranks ({backend}) against one process, "
+            f"relative, bf16 products / f32 products: "
+            + terms({k: f"{gaps['bf16'][k]:.2e} / {gaps['f32'][k]:.2e}" for k in apart})
+            + "; one process's bf16 products against its f32 products: "
+            + terms({k: f"{v:.2e}" for k, v in apart.items()})
+            + f"; the bf16 group within {TP_BF16_RATIO}x that (+ 2e-5): {within} ({gpu})")
+    cfg, cfg16 = tp_config(), tp_config(dtype="bfloat16")
+    grid = tp_grids(torch.cuda.device_count())[0]
+    for seed in BF16GAPS_SEEDS:
+        batch = {k: v.numpy() for k, v in synthetic_batch(
+            cfg, cfg.train.train_batch_size, seed=seed, with_pixels=True).items()}
+        state, step_fn, (paths, g32, m32) = _one_process_grads(cfg, batch, seed)
+        del state, step_fn
+        torch.cuda.empty_cache()
+        one = {}
+        try:
+            for recipe in PRODUCT_RECIPES:
+                use_products(recipe)
+                state, step_fn, (_, g16, m16) = _one_process_grads(cfg16, batch, seed)
+                del state, step_fn
+                torch.cuda.empty_cache()
+                one[recipe] = (g16, m16)
+        finally:
+            use_products("bf16")
+        work = tempfile.mkdtemp(prefix="bf16gaps_")
+        try:
+            res = run_dp_group(grid[0] * grid[1], dict(
+                device="cuda", build=(tp_trees, {"cfg": cfg, "seed": seed}),
+                rng=cfg.train.seed, batch=batch,
+                cases=[dict(cfg=cfg16, steps=0, grid=grid, grads=True, products=r)
+                       for r in PRODUCT_RECIPES]), work, timeout_s=900)
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+        for recipe, r in zip(PRODUCT_RECIPES, res):
+            w = bf16_witness(paths, g32, one[recipe][0], r["grads"], m32, one[recipe][1],
+                             r["grad_metrics"])
+            ratios = [t / max(o, 1e-30) for o, t in w["leaves"].values()]
+            log(f"bf16gaps seed {seed}: tp bf16 witness, {recipe} products (grid dp {grid[0]} x "
+                f"tp {grid[1]}): ok {w['ok']}; whole gradient {w['all'][0]:.3e} against "
+                f"{w['all'][1]:.3e}; {sum(x > 2 for x in ratios)} of {len(ratios)} leaves over "
+                f"2x, the largest {max(ratios):.2f}x; terms, one bf16 process against the tp "
+                f"step: " + terms({k: f"{o:.2e} against {t:.2e}"
+                                   for k, (o, t) in w["terms"].items()}) + f" ({gpu})")
+        del g32, one, res
+        torch.cuda.empty_cache()
 
 
 LED_BATCH, LED_S = 32, 16384  # the LED cell's batch and article bucket
@@ -5565,6 +5745,9 @@ def main() -> int:
     if "tp" in phases:
         torch.cuda.empty_cache()
         launches["flash_attention:tp"] = run_tp_phase(gpu)
+    if "bf16gaps" in phases:
+        torch.cuda.empty_cache()
+        run_bf16gaps_phase(gpu)
     if "data" in phases:
         torch.cuda.empty_cache()
         counts = run_data_phase(gpu)

@@ -202,6 +202,9 @@ def test_service_batch_spans(tiny, tmp_path):
             for f in [svc.submit(r) for r in group]:
                 f.result(timeout=60)
         got["batches"] = svc.stats()["batches"] - before
+        # the futures resolve inside serve.respond: join the batcher before
+        # the trace stops, or its last spans are cut at the stop
+        svc.close()
 
     try:
         spans = _traced(serve, tmp_path)

@@ -54,6 +54,7 @@ from vacnic_tpu_torch.models.layers import (
     row_linear,
     split,
 )
+from vacnic_tpu_torch.models.products import product
 
 
 def _embed_scale(cfg: BartConfig) -> float:
@@ -263,7 +264,7 @@ def shift_tokens_right(input_ids: torch.Tensor, pad_token_id: int,
 def lm_logits(params: Params, hidden: torch.Tensor) -> torch.Tensor:
     """Tied LM head: hidden @ sharedᵀ + final_logits_bias, in float32."""
     w = params["shared"]["weight"].to(hidden.dtype)
-    logits = torch.matmul(hidden.float(), w.float().t())
+    logits = product(hidden, w.t(), cotangent="f32")
     return logits + params["final_logits_bias"].float()
 
 

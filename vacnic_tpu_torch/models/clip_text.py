@@ -28,6 +28,7 @@ from vacnic_tpu_torch.models.layers import (
     mha_init,
     normal_,
 )
+from vacnic_tpu_torch.models.products import product
 from vacnic_tpu_torch.models.weights_io import _layernorm, _linear, _t, tree_to
 
 
@@ -108,5 +109,4 @@ def clip_text_fwd(params: Params, token_ids, dtype=torch.float32,
     x = layernorm(params["ln_final"], x)
     eot = token_ids.argmax(dim=-1)  # the EOT token has the highest id (OpenAI's convention)
     feats = x[torch.arange(x.shape[0], device=x.device), eot]
-    return torch.matmul(feats.float(), params["text_projection"].to(dtype).float()).to(
-        dtype).float()
+    return product(feats, params["text_projection"].to(dtype), cotangent="bf16").to(dtype).float()

@@ -38,6 +38,7 @@ from vacnic_tpu_torch.models.layers import (
     mha_init,
     normal_,
 )
+from vacnic_tpu_torch.models.products import product
 
 
 def clip_vision_init(g: torch.Generator, cfg: ClipVisionConfig, device=None) -> Params:
@@ -84,7 +85,7 @@ def patch_embed(kernel: torch.Tensor, x: torch.Tensor, patch: int) -> torch.Tens
     patches = x.reshape(b, gh, patch, gw, patch, c).permute(0, 1, 3, 2, 4, 5)
     patches = patches.reshape(b, gh * gw, patch * patch * c)
     k = kernel.to(x.dtype).reshape(patch * patch * c, kernel.shape[-1])
-    return torch.matmul(patches.float(), k.float()).to(x.dtype)
+    return product(patches, k, cotangent="bf16").to(x.dtype)
 
 
 def clip_vision_fwd(params: Params, pixels, cfg: ClipVisionConfig,
@@ -111,4 +112,4 @@ def clip_image_embed(params: Params, pixels, cfg: ClipVisionConfig,
                      dtype=torch.float32, tp: ModelShard | None = None) -> torch.Tensor:
     """CLS -> the joint-embedding projection (OpenAI `visual.proj`) [B, output_dim] f32."""
     _, cls = clip_vision_fwd(params, pixels, cfg, dtype, tp)
-    return cls @ params["proj"].float()
+    return product(cls, params["proj"], cotangent="f32")

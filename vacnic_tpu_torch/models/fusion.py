@@ -60,6 +60,7 @@ from vacnic_tpu_torch.models.layers import (
     row_linear,
     split,
 )
+from vacnic_tpu_torch.models.products import product
 from vacnic_tpu_torch.models.weights_io import tree_to
 
 
@@ -275,8 +276,9 @@ def _stack(layers, *path) -> torch.Tensor:
 def linear_batched(t: torch.Tensor, kern: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
     """[L, B, N, din] @ [L, din, dout] + [L, dout] with linear()'s recipe:
     the kernel rounded to t's dtype first, float32 accumulate, cast back."""
-    y = torch.einsum("lbnd,lde->lbne", t.float(), kern.to(t.dtype).float())
-    return (y + bias.float()[:, None, None, :]).to(t.dtype)
+    lyr, b, n, _ = t.shape
+    y = product(t.reshape(lyr, b * n, -1), kern.to(t.dtype), cotangent="bf16")
+    return (y.reshape(lyr, b, n, -1) + bias.float()[:, None, None, :]).to(t.dtype)
 
 
 def _fused_encoder_prologue(params: Params, input_ids, attention_mask, image_features,

@@ -4,7 +4,8 @@ Plain functions over dict parameter trees. Linear kernels keep the JAX
 package's [in, out] layout (models/weights_io.py loads them untransposed),
 so `linear` is `x @ kernel`. Products accumulate in float32 and round once
 to the input dtype, the recipe of the JAX `preferred_element_type=float32`
-dots.
+dots, through models/products.product (bf16 tensor cores on the card where
+both operands are bf16).
 
 Training: `dropout` takes a 63-bit seed where JAX takes a key, and
 `RngStream` / `fold_in` derive one seed per call site from (base seed,
@@ -34,6 +35,7 @@ from vacnic_tpu_torch.core.tensor_parallel import (
 )
 from vacnic_tpu_torch.kernels.flash_attn import flash_attention, flash_eligible
 from vacnic_tpu_torch.kernels.primitives import differentiated
+from vacnic_tpu_torch.models.products import product
 
 Params = dict[str, Any]
 
@@ -181,7 +183,7 @@ NO_DROPOUT = RngStream(None)  # the eval path's stream: next() is always None, n
 def linear(p: Params, x: torch.Tensor) -> torch.Tensor:
     """x @ kernel (+ bias) with the kernel rounded to x.dtype first, a
     float32 accumulator, cast back to x.dtype."""
-    y = torch.matmul(x.float(), p["kernel"].to(x.dtype).float())
+    y = product(x, p["kernel"].to(x.dtype), cotangent="bf16")
     if "bias" in p:
         y = y + p["bias"].float()
     return y.to(x.dtype)
@@ -204,7 +206,7 @@ def row_linear(p: Params, x: torch.Tensor, tp: ModelShard | None = None) -> torc
     as the one-process product is."""
     if tp is None:
         return linear(p, x)
-    y = reduce_from_model_parallel(torch.matmul(x.float(), p["kernel"].to(x.dtype).float()), tp)
+    y = reduce_from_model_parallel(product(x, p["kernel"].to(x.dtype), cotangent="bf16"), tp)
     if "bias" in p:
         y = y + p["bias"].float()
     return y.to(x.dtype)
@@ -257,12 +259,11 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """The softmax-then-P·V attention of JAX attention_core (:166): scores and
     softmax in float32, probabilities cast to v.dtype before the value
     product, which accumulates in float32."""
-    scores = torch.einsum("bhtd,bhsd->bhts", q.float(), k.float())
+    scores = product(q, k.transpose(-1, -2), cotangent="f32")
     if mask is not None:
         scores = scores + mask.float()
     probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bhts,bhsd->bhtd", probs.to(v.dtype).float(), v.float())
-    return out.to(v.dtype)
+    return product(probs.to(v.dtype), v, cotangent="bf16").to(v.dtype)
 
 
 def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -21,6 +21,8 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
+from vacnic_tpu_torch.models.products import product
+
 
 # ---------------------------------------------------------------------------
 # Data parallel
@@ -157,9 +159,16 @@ def secla_loss(face_states: torch.Tensor, name_embeds: torch.Tensor,
         face_states = gather_rows(face_states, group)
         name_embeds = gather_rows(name_embeds.detach(), group)
         return secla_loss(face_states, name_embeds) / world_size(group)
-    face_ner = torch.einsum("and,bfd->abnf", name_embeds, face_states)
-    ner_face = torch.einsum("afd,bnd->abfn", face_states, name_embeds)
-    return _batch_softmax(face_ner) + _batch_softmax(ner_face)
+    return (_batch_softmax(_pair_products(name_embeds, face_states))
+            + _batch_softmax(_pair_products(face_states, name_embeds)))
+
+
+def _pair_products(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """x [A, P, d], y [B, Q, d] -> [A, B, P, Q]: every row of x against
+    every row of y, in float32."""
+    (a, p, d), (b, q, _) = x.shape, y.shape
+    xy = product(x.reshape(a * p, d), y.reshape(b * q, d).t(), cotangent="f32")
+    return xy.reshape(a, p, b, q).permute(0, 2, 1, 3)
 
 
 # ---------------------------------------------------------------------------
@@ -168,7 +177,7 @@ def secla_loss(face_states: torch.Tensor, name_embeds: torch.Tensor,
 
 def _sym_infonce(a: torch.Tensor, b: torch.Tensor, logit_scale) -> torch.Tensor:
     """0.5 CE(a b^T) + 0.5 CE(b a^T) with identity targets."""
-    logits = logit_scale * (a @ b.T)
+    logits = logit_scale * product(a, b.T, cotangent="f32")
     logp1 = torch.log_softmax(logits, dim=-1)
     logp2 = torch.log_softmax(logits.T, dim=-1)
     return -0.5 * logp1.diagonal().mean() - 0.5 * logp2.diagonal().mean()
